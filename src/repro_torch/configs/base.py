@@ -1,0 +1,105 @@
+"""Architecture configuration schema + registry (counterpart of
+``repro/configs/base.py``), with ``dtype`` as a torch dtype.
+
+Only the families the serving slice runs are registered, and only the
+fields dense decoder blocks read; the MoE, SSM, frontend, K-FAC and memory
+fields arrive with the slices that read them."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+import torch
+
+BACKENDS = ("ref", "cuda", "auto")
+
+
+def check_backend(backend: str | None) -> None:
+    """Refuse backend names the port does not have (``"pallas"`` is the JAX
+    package's TPU route; here the kernel route is ``"cuda"``)."""
+    if backend is None or backend in BACKENDS:
+        return
+    if backend == "pallas":
+        raise ValueError("backend 'pallas' is the JAX package's TPU route; "
+                         "repro_torch takes 'ref' | 'cuda' | 'auto'")
+    raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    arch_type: str               # dense (the families ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    block_type: str = "dense"    # dense (DecoderLM refuses the others)
+    act: str = "silu"
+    gated_mlp: bool = True
+    qkv_bias: bool = False
+    rope_theta: float = 5e5
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    # attention
+    sliding_window: int = 0      # 0 = full causal
+    # kernels
+    backend: str = "auto"        # "ref" | "cuda" | "auto" (kernels.dispatch)
+    # numerics
+    dtype: Any = torch.bfloat16
+    # citation
+    source: str = ""
+
+    def __post_init__(self):
+        check_backend(self.backend)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def validate(self) -> None:
+        assert self.n_heads > 0 and self.n_heads % self.n_kv_heads == 0
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """Smoke-test variant: same family, tiny dims (2 layers, d<=512),
+        f32."""
+        hd = min(self.hd, 64)
+        n_heads = max(2, min(4, self.n_heads))
+        n_kv = max(1, min(n_heads, max(1, self.n_kv_heads * n_heads
+                                       // self.n_heads)))
+        kw = dict(
+            n_layers=2,
+            d_model=min(self.d_model, hd * n_heads),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=hd,
+            d_ff=min(self.d_ff, 256),
+            vocab=min(self.vocab, 512),
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            dtype=torch.float32,
+        )
+        kw.update(overrides)
+        return dataclasses.replace(self, **kw)
+
+
+ARCHS = ["llama3_2_1b"]
+
+_ALIASES = {"llama3-2-1b": "llama3_2_1b", "llama3.2-1b": "llama3_2_1b"}
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)
+
+
+def get_config(name: str) -> ArchConfig:
+    mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod_name not in ARCHS:
+        raise KeyError(f"architecture {name!r} is not ported yet; "
+                       f"repro_torch has {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    cfg = mod.CONFIG
+    cfg.validate()
+    return cfg

@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the serving slice's kernels (counterparts of
+``repro/kernels/ref.py``). The CPU path runs them, and ``chip_smoke.py``
+holds each CUDA kernel against them on the card."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def swa_decode_slot_positions(pos: torch.Tensor, capacity: int
+                              ) -> torch.Tensor:
+    """Absolute position held by each ring slot after the token at ``pos``
+    was written (slot = position % capacity).
+
+    pos: (N,) i32; returns (N, capacity) i32 where entry s is the most recent
+    position p <= pos with p % capacity == s. Slots not yet written come out
+    NEGATIVE; the caller masks on ``>= 0``."""
+    sl = torch.arange(capacity, dtype=torch.int32, device=pos.device)[None, :]
+    posb = pos[:, None].to(torch.int32)
+    r = posb % capacity
+    base = posb - r
+    return torch.where(sl <= r, base + sl, base - capacity + sl)
+
+
+def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   pos: torch.Tensor, *, window: int = 0,
+                   k_scale: torch.Tensor | None = None,
+                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-query decode attention with materialized scores.
+
+    q (N, G, hd); k/v (N, C, hd) cache payload in its stored dtype (ring of
+    capacity ``window`` when ``window > 0``, dense full-causal when 0);
+    pos (N,) i32 query positions; k_scale/v_scale (N, C) per-row dequant
+    scales or None. Key position j is visible iff ``0 <= j <= pos`` and,
+    when window > 0, ``j > pos - window``. Returns (N, G, hd) in q's dtype.
+    """
+    n, c, hd = k.shape
+    kf = k.float()
+    vf = v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].float()
+    if v_scale is not None:
+        vf = vf * v_scale[..., None].float()
+    s = torch.einsum("ngd,ncd->ngc", q.float() * hd ** -0.5, kf)
+    posb = pos[:, None].to(torch.int32)
+    if window:
+        if c != window:
+            raise ValueError(f"ring decode needs k.shape[1] == window; got "
+                             f"{c} vs {window}")
+        p = swa_decode_slot_positions(pos, c)
+        valid = (p >= 0) & (p <= posb) & (p > posb - window)
+    else:
+        p = torch.arange(c, dtype=torch.int32, device=k.device)[None, :]
+        valid = p <= posb
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("ngc,ncd->ngd", w, vf).to(q.dtype)
+
+
+def swa_attention_fwd_res_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, window: int = 0):
+    """GQA causal(-window) forward with the logsumexp residual.
+    q (BKV, G, S, hd); k, v (BKV, S, hd), KV unexpanded.
+    Returns (out (BKV, G, S, hd) in q's dtype, lse (BKV, G, S) f32)."""
+    bkv, g, s, hd = q.shape
+    scores = torch.einsum("bgqd,bkd->bgqk", q.float(), k.float()) * hd ** -0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > (qp - window)
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    denom = p.sum(-1)
+    lse = m + torch.log(denom)
+    out = torch.einsum("bgqk,bkd->bgqd", p, v.float()) / denom[..., None]
+    return out.to(q.dtype), lse

@@ -1,0 +1,170 @@
+"""Wrappers of the two hand-written Hopper attention kernels.
+
+* :func:`swa_flash_fwd` (``csrc/swa_flash_fwd.cu``) replaces the TPU kernel
+  ``repro/kernels/swa_attention.py::swa_flash_fwd``: the GQA causal(-window)
+  prefill forward with the logsumexp residual. Bound by operations at the
+  serving path's prefill shapes.
+* :func:`swa_flash_decode` (``csrc/swa_flash_decode.cu``) replaces
+  ``repro/kernels/swa_attention.py::swa_flash_decode``: single-query flash
+  decode over a dense or ring cache in its stored dtype, fp8 dequantized on
+  read. Bound by the bytes of the visible cache rows.
+
+Each wrapper takes CUDA tensors only (the plain versions for the CPU are in
+:mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels
+.dispatch`), checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream and counts the
+launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+# kernel name -> number of launches since the last reset_launches()
+LAUNCHES: dict[str, int] = {"swa_flash_fwd": 0, "swa_flash_decode": 0}
+
+_FWD_DTYPES = (torch.float32, torch.bfloat16)
+_CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
+_HEAD_DIMS = (64, 128)
+MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        _require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
+                            f"{t.device}); CPU tensors take the plain version "
+                            "through repro_torch.kernels.dispatch")
+        _require(t.device == dev, f"{name}: tensors on different devices")
+        _require(t.is_contiguous(), f"{name}: inputs must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (BKV, G, S, hd); k, v (BKV, S, hd) -> (out (BKV, G, S, hd) in q's
+    dtype, lse (BKV, G, S) f32)."""
+    _check_cuda("swa_flash_fwd", q, k, v)
+    _require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
+             f"swa_flash_fwd: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"v{tuple(v.shape)}")
+    bkv, g, s, hd = q.shape
+    _require(k.shape == (bkv, s, hd), "swa_flash_fwd: k/v must be (BKV, S, hd)"
+             " matching q (BKV, G, S, hd)")
+    _require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             f"swa_flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    _require(hd in _HEAD_DIMS, f"swa_flash_fwd: head dim {hd} not in "
+                               f"{_HEAD_DIMS}")
+    _require(window >= 0, "swa_flash_fwd: window must be >= 0")
+    out = torch.empty_like(q)
+    lse = torch.empty((bkv, g, s), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    lib = build.load()["swa_flash_fwd"]
+    with torch.cuda.device(q.device):
+        rc = lib.swa_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), lse.data_ptr(), bkv, g, s, hd,
+                               int(window), build.DTYPE_CODES[q.dtype],
+                               hd ** -0.5, _stream(q))
+    build.check(rc, "swa_flash_fwd")
+    LAUNCHES["swa_flash_fwd"] += 1
+    return out, lse
+
+
+def _cache_strides(name: str, t: torch.Tensor, n: int, c: int, hd: int):
+    """(kvh, stride_b, stride_h, stride_c) of a cache operand: (N, C[, hd])
+    contiguous, or a (B, KV, C[, hd]) view with any strides (the serving
+    cache read in place), N = B * KV."""
+    rank = 3 if hd else 2
+    tail = (c, hd) if hd else (c,)
+    if hd:
+        _require(t.stride(-1) == 1, f"{name}: rows must be contiguous")
+    if t.dim() == rank:
+        _require(tuple(t.shape) == (n,) + tail and t.is_contiguous(),
+                 f"{name}: expected a contiguous {(n,) + tail}, got "
+                 f"{tuple(t.shape)}")
+        return 1, t.stride(0), 0, t.stride(1)
+    _require(t.dim() == rank + 1 and t.shape[0] * t.shape[1] == n
+             and tuple(t.shape[2:]) == tail,
+             f"{name}: expected (B, KV) + {tail} with B*KV == {n}, got "
+             f"{tuple(t.shape)}")
+    return t.shape[1], t.stride(0), t.stride(1), t.stride(2)
+
+
+def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *, window: int = 0,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q (N, G, hd); k/v (N, C, hd) or a (B, KV, C, hd) view of the serving
+    cache (N = B * KV), stored dtype; pos (N,) i32; optional k_scale/v_scale
+    (N, C) or (B, KV, C) f32. ``window > 0`` is the ring with C == window,
+    0 the dense cache. Returns (N, G, hd) f32."""
+    name = "swa_flash_decode"
+    scales = [t for t in (k_scale, v_scale) if t is not None]
+    for t in (q, k, v, pos, *scales):
+        _require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
+                            f"{t.device}); CPU tensors take the plain version "
+                            "through repro_torch.kernels.dispatch")
+        _require(t.device == q.device, f"{name}: tensors on different devices")
+    _require(q.dim() == 3 and q.is_contiguous() and pos.is_contiguous(),
+             f"{name}: q must be a contiguous (N, G, hd)")
+    n, g, hd = q.shape
+    _require(k.dim() in (3, 4) and v.shape == k.shape
+             and v.stride() == k.stride(),
+             f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} and "
+             "strides must match")
+    c = k.shape[-2]
+    kvh, s_b, s_h, s_c = _cache_strides(name, k, n, c, hd)
+    sc = (1, 0, 0, 0)
+    if scales:
+        _require(k_scale is not None and v_scale is not None
+                 and k_scale.shape == v_scale.shape
+                 and k_scale.stride() == v_scale.stride(),
+                 f"{name}: k_scale and v_scale come together, alike")
+        _require(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
+                 f"{name}: scales must be float32")
+        sc = _cache_strides(name, k_scale, n, c, 0)
+        _require(sc[0] == kvh, f"{name}: scales and cache differ in layout")
+    _require(pos.shape == (n,) and pos.dtype == torch.int32,
+             f"{name}: pos must be (N,) int32")
+    _require(q.dtype in _FWD_DTYPES, f"{name}: q dtype {q.dtype}")
+    _require(k.dtype in _CACHE_DTYPES and v.dtype == k.dtype,
+             f"{name}: cache dtypes {k.dtype}/{v.dtype}")
+    _require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    _require(1 <= g <= MAX_GROUP, f"{name}: group {g} not in [1, {MAX_GROUP}]")
+    _require(window >= 0, f"{name}: window must be >= 0")
+    if window:
+        _require(c == window, f"ring decode needs k.shape[-2] == window; got "
+                              f"{c} vs {window}")
+    out = torch.empty((n, g, hd), dtype=torch.float32, device=q.device)
+    if n == 0:
+        return out
+    _require(c > 0, f"{name}: empty cache")
+    lib = build.load()["swa_flash_decode"]
+    with torch.cuda.device(q.device):
+        rc = lib.swa_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            pos.data_ptr(), out.data_ptr(), n, g, c, hd, int(window),
+            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
+            hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3], _stream(q))
+    build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out

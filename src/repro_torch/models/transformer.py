@@ -1,0 +1,340 @@
+"""Config-driven decoder-only LM, dense blocks (counterpart of
+``repro/models/transformer.py``).
+
+Weights keep the JAX package's layout -- dense weights ``(d_in, d_out)``
+applied as ``x @ w``, per-layer trees ``ln1/ln2/attn/mlp`` -- held as
+parameter dicts (``blocks[i]["attn"]["wq"]`` is the JAX package's
+``params["blocks"]["attn"]["wq"][i]``). The serving cache keeps the layout
+``(L, B, C, KV, hd)`` with ``(L, B, C, KV)`` scales.
+
+Surface of this slice: ``init(generator)``, ``forward(batch)``,
+``init_cache(batch, max_len, serve=...)``, ``prefill(batch, max_len,
+serve=...)`` and ``decode_step(cache, tokens, serve=...)``. Other block
+types, the legacy ``serve=None`` decode and the SP-NGD wiring arrive with
+later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tagging
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import apply_rope, he_normal, layernorm, rmsnorm
+from repro_torch.models.mlp import init_mlp, mlp
+
+_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller asks for another device; never a silent
+    move to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: repro_torch runs on the card "
+                           "unless the caller passes device='cpu'")
+    return dev
+
+
+def _param_tree(tree: dict) -> nn.Module:
+    """Nested {name: tensor | dict} -> ParameterDict / ModuleDict (frozen:
+    the serving slice computes no gradients)."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: _param_tree(v) for k, v in tree.items()})
+
+
+def _device_generator(generator: torch.Generator,
+                      device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``generator`` (a CPU generator
+    cannot draw on the card): deterministic in the caller's seed."""
+    if generator.device.type == device.type:
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class DecoderLM(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        if cfg.block_type != "dense":
+            raise NotImplementedError(
+                f"repro_torch ports block_type='dense' only so far; got "
+                f"{cfg.block_type!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+        def empty(*shape, dtype=cfg.dtype):
+            return torch.empty(shape, dtype=dtype, device=self.device)
+
+        def ones(n):
+            return torch.ones(n, dtype=torch.float32, device=self.device)
+
+        self.embed = _param_tree({"table": empty(cfg.vocab, d)})
+        self.final_norm = _param_tree({"gamma": ones(d)})
+        self.head = _param_tree({"w": empty(d, cfg.vocab)})
+        blocks = []
+        for _ in range(cfg.n_layers):
+            attn = {"wq": empty(d, h * hd), "wk": empty(d, kv * hd),
+                    "wv": empty(d, kv * hd), "wo": empty(h * hd, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=empty(h * hd), bk=empty(kv * hd),
+                            bv=empty(kv * hd))
+            p = {"ln1": {"gamma": ones(d)}, "ln2": {"gamma": ones(d)},
+                 "attn": attn,
+                 "mlp": {"up": empty(d, cfg.d_ff), "down": empty(cfg.d_ff, d)}}
+            if cfg.gated_mlp:
+                p["mlp"]["gate"] = empty(d, cfg.d_ff)
+            if cfg.norm == "layernorm":
+                p["ln1"]["beta"] = torch.zeros(d, device=self.device)
+                p["ln2"]["beta"] = torch.zeros(d, device=self.device)
+            blocks.append(_param_tree(p))
+        self.blocks = nn.ModuleList(blocks)
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "DecoderLM":
+        """Random weights with the JAX package's distributions
+        (``transformer.py:141-202``): embedding N(0, 0.02), HeNormal dense
+        weights, unit norm scales, zero biases. Deterministic in the
+        generator's seed (its bits cannot match ``jax.random``)."""
+        cfg = self.cfg
+        g = _device_generator(generator, self.device)
+        dev = self.device
+        table = torch.randn((cfg.vocab, cfg.d_model), generator=g,
+                            device=dev) * 0.02
+        self.embed["table"].copy_(table.to(cfg.dtype))
+        del table
+        self.head["w"].copy_(he_normal(g, (cfg.d_model, cfg.vocab), cfg.dtype,
+                                       device=dev))
+        for blk in self.blocks:
+            a = blk["attn"]
+            for name in ("wq", "wk", "wv", "wo"):
+                a[name].copy_(he_normal(g, tuple(a[name].shape), cfg.dtype,
+                                        device=dev))
+            for name in ("bq", "bk", "bv"):
+                if name in a:
+                    a[name].zero_()
+            m = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.dtype,
+                         device=dev)
+            for name, w in m.items():
+                blk["mlp"][name].copy_(w)
+            for ln in ("ln1", "ln2"):
+                blk[ln]["gamma"].fill_(1.0)
+                if "beta" in blk[ln]:
+                    blk[ln]["beta"].zero_()
+        self.final_norm["gamma"].fill_(1.0)
+        return self
+
+    # ------------------------------------------------------------------
+    # norms / attention
+    # ------------------------------------------------------------------
+
+    def _norm(self, x, p):
+        if "beta" in p:
+            return layernorm(x, p["gamma"], p["beta"])
+        return rmsnorm(x, p["gamma"])
+
+    def _attn(self, x, p, *, positions, cache_kv=None, cache_len=None,
+              window=None, serve=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = tagging.dense_site(x, p["wq"])
+        k = tagging.dense_site(x, p["wk"])
+        v = tagging.dense_site(x, p["wv"])
+        if cfg.qkv_bias:
+            q = tagging.bias_site(q, p["bq"])
+            k = tagging.bias_site(k, p["bk"])
+            v = tagging.bias_site(v, p["bv"])
+        q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+        k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, s, kv, hd)
+        win = cfg.sliding_window if window is None else window
+        if cache_kv is not None:
+            if serve is None:
+                raise NotImplementedError("the legacy serve=None cache path "
+                                          "arrives with a later slice")
+            out = self._attn_serve(q, k, v, cache_kv, cache_len, serve,
+                                   serve.resolved_window(cfg))
+        else:
+            out = attn_lib.attention(q, k, v, causal=True, window=win,
+                                     backend=cfg.backend)
+        return tagging.dense_site(out.reshape(b, s, h * hd), p["wo"])
+
+    def _attn_serve(self, q, k, v, cache_kv, cache_len, serve, win):
+        """Serving cache paths: ring (fp8 or f32 payload) or the dense-f32
+        ``window=0`` fallback, both decoding through ``swa_decode``.
+
+        q (B, S, H, hd); k/v (B, S, KV, hd); ``cache_kv`` this layer's cache
+        views (B, C, KV, hd) [+ (B, C, KV) scales], written IN PLACE;
+        cache_len (B,) i32. S > 1 is prefill (windowed attention over the
+        prompt, then pack the last C post-rope positions into their slots);
+        S == 1 is one decode step (write slot ``pos % C``, then flash-decode
+        over the cache)."""
+        from repro_torch.kernels import dispatch
+        from repro_torch.serve import cache as cache_lib
+        cfg = self.cfg
+        b, s, h, hd = q.shape
+        kv = k.shape[2]
+        ck, cv = cache_kv["k"], cache_kv["v"]
+        cap = ck.shape[1]
+        ring = serve.is_ring(cfg)
+        fmt = serve.quant_fmt if ring else None
+        backend = serve.backend or cfg.backend
+        kern_win = cap if ring else 0
+        scaled = "k_scale" in cache_kv
+
+        if s > 1:
+            out = attn_lib.attention(q, k, v, causal=True, window=win,
+                                     backend=backend)
+            idx = cache_lib.prefill_gather_index(s, cap)
+            live = torch.as_tensor(idx >= 0, device=k.device)[None, :, None,
+                                                              None]
+            sel = torch.as_tensor(idx.clip(min=0), device=k.device)
+            zero = torch.zeros((), dtype=k.dtype, device=k.device)
+            gk = torch.where(live, k[:, sel], zero)
+            gv = torch.where(live, v[:, sel], zero)
+            kp, ks = cache_lib.encode_rows(gk, fmt, serve.scale_mode)
+            vp, vs = cache_lib.encode_rows(gv, fmt, serve.scale_mode)
+            ck.copy_(kp.to(ck.dtype))
+            cv.copy_(vp.to(cv.dtype))
+            if scaled:
+                cache_kv["k_scale"].copy_(ks)
+                cache_kv["v_scale"].copy_(vs)
+            return out
+
+        kp, ks = cache_lib.encode_rows(k, fmt, serve.scale_mode)
+        vp, vs = cache_lib.encode_rows(v, fmt, serve.scale_mode)
+        slot = (cache_len % cap).to(torch.int32)
+        cache_lib.write_slot(ck, kp, slot)
+        cache_lib.write_slot(cv, vp, slot)
+        ksg = vsg = None
+        if scaled:
+            cache_lib.write_slot(cache_kv["k_scale"], ks, slot)
+            cache_lib.write_slot(cache_kv["v_scale"], vs, slot)
+            ksg = cache_kv["k_scale"].permute(0, 2, 1)     # (B, KV, C) view
+            vsg = cache_kv["v_scale"].permute(0, 2, 1)
+        # GQA kernel layout: query head c*G + r under KV head c; the cache
+        # is handed over as a (B, KV, C, hd) view and read in place
+        qg = q[:, 0].reshape(b * kv, h // kv, hd).contiguous()
+        pos = cache_len.to(torch.int32).repeat_interleave(kv)
+        og = dispatch.swa_decode(qg, ck.permute(0, 2, 1, 3),
+                                 cv.permute(0, 2, 1, 3), pos, window=kern_win,
+                                 k_scale=ksg, v_scale=vsg, backend=backend)
+        return og.reshape(b, h, hd)[:, None].to(q.dtype)
+
+    # ------------------------------------------------------------------
+    # block / embedding / forward
+    # ------------------------------------------------------------------
+
+    def _block(self, x, p, *, positions, cache=None, cache_len=None,
+               serve=None):
+        h1 = self._norm(x, p["ln1"])
+        x = x + self._attn(h1, p["attn"], positions=positions, cache_kv=cache,
+                           cache_len=cache_len, serve=serve)
+        h2 = self._norm(x, p["ln2"])
+        cfg = self.cfg
+        return x + mlp(h2, p["mlp"], act=cfg.act, gated=cfg.gated_mlp)
+
+    def _embed_inputs(self, batch):
+        """Text-only: returns (h (B, S, d), positions (S,), n_front=0)."""
+        tok = batch["tokens"].to(self.device, torch.long)
+        h = tagging.embed_site(tok, self.embed["table"])
+        return h, torch.arange(h.shape[1], device=self.device), 0
+
+    def _head(self, h):
+        h = self._norm(h, self.final_norm)
+        return tagging.dense_site(h, self.head["w"])
+
+    def forward(self, batch: dict):
+        """batch {"tokens": (B, S)} -> (logits (B, S, V), aux)."""
+        h, positions, n_front = self._embed_inputs(batch)
+        for p in self.blocks:
+            h = self._block(h, p, positions=positions)
+        aux = {"aux_loss": torch.zeros((), device=self.device),
+               "n_front": n_front}
+        return self._head(h), aux
+
+    # ------------------------------------------------------------------
+    # serving: cache init / prefill / single-token decode
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch_size: int, max_len: int, dtype=None, *,
+                   serve=None) -> dict:
+        if serve is None:
+            raise NotImplementedError("the legacy serve=None cache arrives "
+                                      "with a later slice")
+        return self._init_serve_cache(batch_size, max_len, serve)
+
+    def _init_serve_cache(self, b: int, max_len: int, serve) -> dict:
+        """Ring buffer sized to the window (fp8 payload + per-row f32
+        scales, or f32), or the dense-f32 fallback when the resolved window
+        is 0. ``len`` is a per-sequence (B,) position vector."""
+        from repro_torch.quant import quant
+        from repro_torch.serve import cache as cache_lib
+        cfg = self.cfg
+        win = serve.resolved_window(cfg)
+        ring = serve.is_ring(cfg)
+        if not ring and win:
+            raise ValueError(
+                "serve kv_cache='dense' supports window == 0 only (a "
+                "windowed dense decode belongs to the legacy serve=None "
+                "path or the ring cache)")
+        cap = cache_lib.ring_capacity(win, max_len) if ring else max_len
+        shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.hd)
+        dev = self.device
+        c = {"len": torch.zeros((b,), dtype=torch.int32, device=dev)}
+        fmt = serve.quant_fmt if ring else None
+        pdt = torch.float32 if fmt is None else quant.FORMATS[fmt]
+        c["k"] = torch.zeros(shape, dtype=pdt, device=dev)
+        c["v"] = torch.zeros(shape, dtype=pdt, device=dev)
+        if fmt is not None:
+            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        return c
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, *, serve=None):
+        """tokens (B,) -> (logits (B, V), cache). One decode position; the
+        cache is updated IN PLACE (and returned), so a step never copies it.
+        """
+        if serve is None:
+            raise NotImplementedError("the legacy serve=None decode arrives "
+                                      "with a later slice")
+        tok = tokens.to(self.device, torch.long)[:, None]
+        h = tagging.embed_site(tok, self.embed["table"])
+        pos = cache["len"]
+        positions = pos[:, None]                        # (B, 1) per-seq rope
+        for layer, p in enumerate(self.blocks):
+            sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
+            h = self._block(h, p, positions=positions, cache=sub,
+                            cache_len=pos, serve=serve)
+        cache["len"] = pos + 1
+        return self._head(h)[:, 0, :], cache
+
+    def prefill(self, batch: dict, max_len: int, *, serve=None):
+        """Forward over the prompt + cache fill: (logits (B, S, V), cache)
+        with ``len`` = S for every sequence."""
+        if serve is None:
+            raise NotImplementedError("the legacy serve=None prefill arrives "
+                                      "with a later slice")
+        b = batch["tokens"].shape[0]
+        cache = self.init_cache(b, max_len, serve=serve)
+        h, positions, _ = self._embed_inputs(batch)
+        len0 = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        for layer, p in enumerate(self.blocks):
+            sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
+            h = self._block(h, p, positions=positions, cache=sub,
+                            cache_len=len0, serve=serve)
+        cache["len"] = torch.full((b,), h.shape[1], dtype=torch.int32,
+                                  device=self.device)
+        return self._head(h), cache
