@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the repro_torch serving path on one NVIDIA H100.
+"""Smoke run of the repro_torch serving and training paths on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,15 @@ Run from the root of a checkout. It builds the CUDA kernels from
 kernel against its plain PyTorch version on the card, serves
 ``llama3_2_1b`` at full width (random weights from a seed) through
 ``ContinuousBatcher`` -- once on the default dense cache, once on the fp8
-ring cache -- and times both kernels beside their bound, their plain
-version and the PyTorch library call for the same function. Every failed
-check raises, so the exit code is nonzero. Without a CUDA device, or
-outside a checkout, it exits nonzero and prints no result.
+ring cache -- then holds one SP-NGD capture step on the kernels against
+``backend="ref"`` (full width, 2 layers, f32) and trains full-width
+``llama3_2_1b`` for 4 steps of ``repro_torch.launch.train``'s loop (each a
+capture step or a fast step as the staleness controller decides), then
+for a warm-up and three timed steps of the fast-step builder. It times all
+six kernels beside their bound, their plain version and the PyTorch
+library call for the same function.
+Every failed check raises, so the exit code is nonzero. Without a CUDA
+device, or outside a checkout, it exits nonzero and prints no result.
 
 Output: one line per phase; then the card's name and power limit as
 ``nvidia-smi`` gives them, one JSON line with the kernels' numbers, and as
@@ -47,6 +53,19 @@ DEC_TOL = dict(atol=1e-4, rtol=1e-4)
 LOGIT_REL_TOL = 5e-2
 # the same in f32 (4 layers): f32 summation order only
 F32_LOGIT_REL_TOL = 1e-3
+# factor sums and block preconditioning: f32 sums in another order, relative
+# to the largest entry (the JAX package's own factor/precond tolerance)
+KFAC_REL_TOL = 1e-4
+# attention gradients: f32 arithmetic on both sides from the same bf16/f32
+# inputs, relative to the largest gradient entry
+BWD_REL_TOL = 1e-3
+# one SP-NGD capture step, kernels vs backend="ref", f32: loss, raw factor
+# families and updated params relative to their largest entry
+ROUTE_REL_TOL = 1e-4
+# the training path: 4 steps of launch.train at its default configuration
+TRAIN = dict(steps=4, batch=4, seq=1024, lr=2e-2, damping=2.5e-4)
+# make_fast_step steps timed after the loop (and one warm-up before them)
+FAST_TIMED = 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -90,21 +109,32 @@ def main(argv: list[str]) -> int:
                  f"{time.perf_counter() - t0:.1f} s")
 
     errs = {"swa_flash_fwd": check_prefill_kernel(torch),
-            "swa_flash_decode": check_decode_kernel(torch)}
+            "swa_flash_decode": check_decode_kernel(torch),
+            "factor_syrk": check_factor_kernel(torch),
+            "block_precond": check_precond_kernel(torch)}
+    errs.update(check_attention_bwd_kernels(torch))
     main_path = serve_main_path(torch)
     ring = serve_ring_path(torch, main_path["model"])
     check_f32_route(torch)
     times = time_kernels(torch, main_path, ring)
     profile_path(torch, main_path)
+    launches = dict(main_path.pop("launches"))
+    del main_path, ring
+    torch.cuda.empty_cache()
+
+    check_train_route(torch)
+    train = train_path(torch)
+    launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
+    times.update(time_train_kernels(torch))
+    profile_train(torch, train)
 
     rows = []
-    for name, replaces in (("swa_flash_fwd", "src/repro/kernels/swa_attention.py:292"),
-                           ("swa_flash_decode", "src/repro/kernels/swa_attention.py:206")):
+    for name, source, replaces in KERNEL_ROWS:
         t = times[name]
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                      "replaces": replaces,
-                     "launches": main_path["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
@@ -115,6 +145,22 @@ def main(argv: list[str]) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the six kernels: name, source stem, the TPU kernel it replaces
+KERNEL_ROWS = (
+    ("swa_flash_fwd", "swa_flash_fwd", "src/repro/kernels/swa_attention.py:292"),
+    ("swa_flash_decode", "swa_flash_decode",
+     "src/repro/kernels/swa_attention.py:206"),
+    ("factor_syrk", "kfac_factor", "src/repro/kernels/kfac_factor.py:54"),
+    ("block_precond", "kfac_precond", "src/repro/kernels/kfac_precond.py:35"),
+    ("swa_flash_bwd_dq", "swa_flash_bwd",
+     "src/repro/kernels/swa_attention.py:375"),
+    ("swa_flash_bwd_dkdv", "swa_flash_bwd",
+     "src/repro/kernels/swa_attention.py:444"),
+)
+TRAIN_KERNELS = ("factor_syrk", "block_precond", "swa_flash_bwd_dq",
+                 "swa_flash_bwd_dkdv")
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +175,9 @@ def check_prefill_kernel(torch) -> float:
     from repro_torch.kernels import ref, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
+    # serving shapes, and the training path's call (32, 4, 1024, causal)
     cases = [(bkv, 4, s, w) for bkv in (8, 64) for s in (1000, 2048)
-             for w in (0, 256)] + [(8, 1, 1000, 0)]
+             for w in (0, 256)] + [(8, 1, 1000, 0), (32, 4, 1024, 0)]
     for bkv, g, s, window in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(
@@ -576,19 +623,26 @@ def _device_us(evt) -> float:
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "swa_flash" in low:
+    if "swa_" in low:
         return "attention kernels"
+    if "factor_syrk" in low or "block_precond" in low:
+        return "K-FAC kernels"
+    if any(t in low for t in ("syevd", "syevj", "sytrd", "ormtr", "orgtr",
+                              "steqr", "stedc", "eig", "cusolver", "lansy",
+                              "larf", "potrf")):
+        return "Stage-4 eigh (cuSOLVER)"
     if any(t in low for t in ("gemm", "gemv", "xmma", "nvjet", "cutlass",
                               "matmul")):
         return "matmuls (cuBLAS)"
     return "other (elementwise, copies, reductions, memsets)"
 
 
-def _profile(torch, label, fn) -> None:
+def _profile(torch, label, fn, warm: bool = True) -> None:
     """Device time by kernel and by group over ``fn``, and the device's busy
     share of the wall time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()                                           # warm
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -635,6 +689,467 @@ def profile_path(torch, main_path) -> None:
         for _ in range(8):
             batcher.step()
     _profile(torch, "8 decode steps at 8 lanes", steps)
+
+# ---------------------------------------------------------------------------
+# the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _rel_err(torch, got, want) -> float:
+    return _max_err(torch, got, want) / max(float(want.float().abs().max()),
+                                            1e-30)
+
+
+def check_factor_kernel(torch) -> float:
+    """factor_syrk vs the plain blocked einsum at the training path's
+    shapes (n 4096 x d 2048 / 8192 / 512 with max_dim 2048), a ragged n and
+    a padded last block, bf16 and f32."""
+    from repro_torch.kernels import kfac, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    cases = [(4096, 2048, 2048), (4096, 8192, 2048), (4096, 512, 2048),
+             (4000, 2048, 2048), (1000, 2050, 1024)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, d, max_dim in cases:
+            x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+            got = kfac.factor_syrk(x, max_dim)
+            torch.cuda.synchronize()
+            want = ref.factor_sum_ref(x, max_dim)
+            check(got.shape == want.shape, f"factor_syrk shape {got.shape}")
+            err = _rel_err(torch, got, want)
+            check(err <= KFAC_REL_TOL, f"factor_syrk n={n} d={d} {dtype}: "
+                                       f"rel err {err} > {KFAC_REL_TOL}")
+            worst = max(worst, _max_err(torch, got, want))
+            say("factor-kernel", f"n={n} d={d} max_dim={max_dim} -> "
+                                 f"{tuple(got.shape)} {dtype}: max|err| / "
+                                 f"max|A| = {err:.3e} (tol {KFAC_REL_TOL})")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_precond_kernel(torch) -> float:
+    """block_precond, both modes, vs the plain blocked einsum: every shape
+    of the training path (b 2048; m 512 .. 128256; nb 1 and 4) and a
+    ragged last block."""
+    from repro_torch.kernels import dispatch, kfac
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    # (mode, nb, b, dim, other)
+    cases = [("left", 1, 2048, 2048, m) for m in (512, 2048, 8192, 128256)]
+    cases += [("left", 4, 2048, 8192, 2048), ("right", 1, 2048, 2048, 2048),
+              ("right", 1, 2048, 2048, 8192), ("right", 1, 2048, 2048, 128256),
+              ("right", 4, 2048, 8192, 2048), ("right", 1, 512, 512, 2048),
+              ("left", 3, 684, 2050, 300), ("right", 3, 684, 2050, 300)]
+    for mode, nb, b, dim, other in cases:
+        binv = torch.randn((nb, b, b), generator=gen, device="cuda") / b ** 0.5
+        shape = (dim, other) if mode == "left" else (other, dim)
+        w = torch.randn(shape, generator=gen, device="cuda")
+        right = mode == "right"
+        got = kfac.block_precond(binv, w, right=right)
+        torch.cuda.synchronize()
+        want = (dispatch.lookup("block_precond_right", "ref")(w, binv) if right
+                else dispatch.lookup("block_precond_left", "ref")(binv, w))
+        err = _rel_err(torch, got, want)
+        check(err <= KFAC_REL_TOL, f"block_precond {mode} {shape}: rel err "
+                                   f"{err} > {KFAC_REL_TOL}")
+        worst = max(worst, _max_err(torch, got, want))
+        say("precond-kernel", f"{mode} binv ({nb}, {b}, {b}) w {shape} f32: "
+                              f"max|err| / max|U| = {err:.3e} "
+                              f"(tol {KFAC_REL_TOL})")
+        del binv, w, got, want
+    # the dispatch op on an expanded identity (a fresh optimizer state's
+    # preconditioner), 3 blocks of 97 over 290 columns
+    eye = torch.eye(97, device="cuda").expand(3, 97, 97)
+    w = torch.randn((70, 290), generator=gen, device="cuda")
+    got = dispatch.block_precond_right(w, eye, backend="cuda")
+    err = _rel_err(torch, got, w)
+    check(err <= KFAC_REL_TOL, f"dispatch.block_precond_right identity: {err}")
+    say("precond-kernel", f"dispatch.block_precond_right w (70, 290) x an "
+                          f"expanded identity (3, 97, 97): {err:.3e}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_attention_bwd_kernels(torch) -> dict:
+    """dq / dk / dv vs the plain backward at the training path's call (BKV
+    32, G 4, S 1024, hd 64, bf16; window 0 and 256), plus S 1000, G 1 and
+    hd 128, each from the plain forward's (o, lse). At the training call
+    the kernel chain (the forward kernel's o and lse into the backward
+    kernels, as the training path runs them) is held against the plain
+    chain as well."""
+    from repro_torch.kernels import ref, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {"swa_flash_bwd_dq": 0.0, "swa_flash_bwd_dkdv": 0.0}
+    cases = [(32, 4, 1024, 64, 0, torch.bfloat16),
+             (32, 4, 1024, 64, 256, torch.bfloat16),
+             (8, 4, 1000, 64, 0, torch.bfloat16),
+             (8, 1, 1000, 64, 100, torch.bfloat16),
+             (8, 4, 1000, 128, 0, torch.bfloat16),
+             (4, 4, 517, 64, 0, torch.float32),
+             (4, 2, 517, 128, 64, torch.float32)]
+    for bkv, g, s, hd, window, dtype in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        q, k, v, do = rnd(bkv, g, s, hd), rnd(bkv, s, hd), rnd(bkv, s, hd), \
+            rnd(bkv, g, s, hd)
+        o, lse = ref.swa_attention_fwd_res_ref(q, k, v, window=window)
+        want = ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+        routes = [("plain (o, lse)", o, lse)]
+        if (bkv, g, s, hd) == (32, 4, 1024, 64):
+            routes.append(("kernel (o, lse)", *swa_attention.swa_flash_fwd(
+                q, k, v, window=window)))
+        for label, o_, lse_ in routes:
+            got = swa_attention.swa_flash_bwd(q, k, v, o_, lse_, do,
+                                              window=window)
+            torch.cuda.synchronize()
+            errs = [_rel_err(torch, a, b_) for a, b_ in zip(got, want)]
+            check(max(errs) <= BWD_REL_TOL,
+                  f"attention bwd BKV={bkv} G={g} S={s} hd={hd} window="
+                  f"{window} {dtype} from the {label}: rel errs {errs} > "
+                  f"{BWD_REL_TOL}")
+            worst["swa_flash_bwd_dq"] = max(worst["swa_flash_bwd_dq"],
+                                            _max_err(torch, got[0], want[0]))
+            worst["swa_flash_bwd_dkdv"] = max(
+                worst["swa_flash_bwd_dkdv"], _max_err(torch, got[1], want[1]),
+                _max_err(torch, got[2], want[2]))
+            say("attn-bwd-kernel", f"BKV={bkv} G={g} S={s} hd={hd} window="
+                                   f"{window} {dtype} from the {label}: "
+                                   f"max|err| / max|grad| dq {errs[0]:.3e} dk "
+                                   f"{errs[1]:.3e} dv {errs[2]:.3e} (tol "
+                                   f"{BWD_REL_TOL})")
+            del got
+        del q, k, v, do, o, lse, want, routes
+    torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _train_batch(torch, vocab, batch, seq, index: int = 0):
+    """Batch ``index`` of the trainer's synthetic stream (seed 0)."""
+    from repro_torch.data.synthetic import token_batches
+    data = token_batches(vocab, batch, seq, seed=0)
+    for _ in range(index):
+        next(data)
+    return {k: v.cuda() for k, v in next(data).items()}
+
+
+def check_train_route(torch) -> None:
+    """One SP-NGD capture step at full width, 2 layers, f32, through the
+    kernels and again with backend="ref" on the card: the loss, the raw
+    factor families and the updated params agree."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.fisher import flatten
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
+                              dtype=torch.float32)
+    batch = _train_batch(torch, cfg.vocab, 2, 512)
+    out = {}
+    for backend in ("auto", "ref"):
+        model, opt, params, state = train.build(cfg=cfg, backend=backend,
+                                                device="cuda")
+        loss, aux, grads, raw = opt.grads_and_raw(params, batch)
+        flags = {k: True for k in opt.stat_names()}
+        raw_flat = {k: v.clone() for k, v in flatten(raw).items()}
+        opt.apply_update(params, state, grads, raw, model.site_counts(batch),
+                         flags, TRAIN["damping"], TRAIN["lr"], 0.9, loss, aux)
+        out[backend] = (float(loss), raw_flat,
+                        {k: v.detach().clone() for k, v in
+                         flatten(params).items()})
+        del model, opt, params, state, grads, raw
+        torch.cuda.empty_cache()
+    (lk, rk, pk), (lr_, rr, pr) = out["auto"], out["ref"]
+    check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+          f"route loss {lk} vs {lr_}")
+    worst_raw = max(_rel_err(torch, rk[k], rr[k]) for k in rr)
+    worst_p = max(_rel_err(torch, pk[k], pr[k]) for k in pr)
+    check(worst_raw <= ROUTE_REL_TOL, f"route raw factors rel err {worst_raw}")
+    check(worst_p <= ROUTE_REL_TOL, f"route updated params rel err {worst_p}")
+    say("train-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512): "
+                       f"one capture step kernels vs backend='ref': loss "
+                       f"{lk:.6f} vs {lr_:.6f}; worst max|err|/max over "
+                       f"{len(rr)} raw factor families {worst_raw:.3e}, over "
+                       f"{len(pr)} updated params {worst_p:.3e} (tol "
+                       f"{ROUTE_REL_TOL})")
+
+
+class _Stage4Timer:
+    """Times every damped_inverse dispatch (the batched eigh of one factor
+    family) with a synchronized host clock, by wrapping its cuda entry."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import dispatch
+        self.torch, self.dispatch = torch, dispatch
+        self.inner = dispatch.lookup("damped_inverse", "cuda")
+        self.seconds, self.calls, self.blocks = 0.0, 0, 0
+
+    def __enter__(self):
+        def timed(f, damping, method):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.inner(f, damping, method)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            self.blocks += f.numel() // (f.shape[-1] * f.shape[-2])
+            return out
+        self.dispatch.register("damped_inverse", "cuda", timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch.register("damped_inverse", "cuda", self.inner)
+
+
+def _train_counts(cfg, kinds) -> dict:
+    """Launches reckoned from the code for a run of ``kinds``: per layer 7
+    dense sites with a full A and G factor, plus the head's A and the
+    embedding's G, give 7*2*L + 2 factor sums per capture step and as many
+    block preconditionings per step; the attention forward runs twice per
+    layer and step (the block is recomputed under remat), each backward
+    kernel once."""
+    n_cap = kinds.count("capture")
+    sites = 7 * 2 * cfg.n_layers + 2
+    return {"factor_syrk": sites * n_cap,
+            "block_precond": sites * len(kinds),
+            "swa_flash_fwd": 2 * cfg.n_layers * len(kinds),
+            "swa_flash_bwd_dq": cfg.n_layers * len(kinds),
+            "swa_flash_bwd_dkdv": cfg.n_layers * len(kinds)}
+
+
+def train_path(torch) -> dict:
+    """launch.train's step loop at its default configuration, full-width
+    llama3_2_1b, 4 steps as the IntervalController decides them; then
+    1 + FAST_TIMED steps of the fast-step builder, so both step builders
+    run on the card (at random init the controller refreshes at step 4
+    too). Every loss finite, the launches as reckoned from the steps taken,
+    no ref dispatch."""
+    import math
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, opt, params, state = train.build("llama3_2_1b", full_config=True,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    say("train-path", f"llama3_2_1b full width: {cfg.n_layers} layers, d "
+                      f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                      f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, remat "
+                      f"{cfg.remat}, kfac_max_dim {cfg.kfac_max_dim}, head_g "
+                      f"{cfg.head_g_kind}; {n_params} params, "
+                      f"{len(opt.stat_names())} statistics; init "
+                      f"{time.perf_counter() - t:.1f} s")
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    dispatch.reset_calls()
+    with _Stage4Timer(torch) as s4:
+        params, state, recs = train.run(model, opt, params, state,
+                                        log=lambda m: say("train-path", m),
+                                        **TRAIN)
+    kinds = [r["kind"] for r in recs]
+    for r in recs[1:]:
+        d = [v for v in r["sims"].values() if v[0] >= 0]
+        say("train-path", f"step {r['t']} ({r['kind']}, {r['n_refreshed']}/"
+                          f"{r['n_stats']} refreshed): Algorithm-2 distances "
+                          f"to X_-1 {min(x[0] for x in d):.3f}-"
+                          f"{max(x[0] for x in d):.3f}, to X_-2 "
+                          f"{min(x[1] for x in d):.3f}-"
+                          f"{max(x[1] for x in d):.3f} (alpha 0.1)"
+                if d else f"step {r['t']} ({r['kind']})")
+    # the fast-step builder (make_fast_step, the stale-preconditioned step
+    # the controller takes once intervals grow) on the stream's next batches
+    # at the loop's last learning rate and momentum: one warm-up step, then
+    # FAST_TIMED timed ones
+    from repro_torch.optim.schedules import polynomial_decay
+    fast = train.make_fast_step(model, opt)
+    lr = polynomial_decay(TRAIN["lr"], 0, TRAIN["steps"], 4.0)(
+        TRAIN["steps"] - 1)
+    for i in range(1 + FAST_TIMED):
+        batch = _train_batch(torch, cfg.vocab, TRAIN["batch"], TRAIN["seq"],
+                             index=len(recs))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = fast(params, state, batch, TRAIN["damping"], lr,
+                                0.9 * lr / TRAIN["lr"])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        recs.append({"t": len(recs) + 1, "kind": "fast", "loss": loss,
+                     "seconds": time.perf_counter() - t, "warm": i == 0})
+        kinds.append("fast")
+        say("train-path", f"step {len(recs)} fast (make_fast_step on the "
+                          f"stale preconditioners{', warm-up' if i == 0 else ''}"
+                          f") loss {loss:.4f} {recs[-1]['seconds']:.3f} s")
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES}
+    calls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(kinds[:3] == ["capture"] * 3 and "fast" in kinds,
+          f"step kinds {kinds}: the first three steps capture and one step "
+          "takes the fast builder")
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"losses {[r['loss'] for r in recs]}")
+    want = _train_counts(cfg, kinds)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"train launches {got} != reckoned {want}")
+    check(launches["swa_flash_decode"] == 0, "no decode kernel in training")
+    check(not any(b == "ref" for (_, b) in calls), f"ref dispatches: {calls}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    cap = [r["seconds"] for r in recs if r["kind"] == "capture"]
+    fast_s = [r["seconds"] for r in recs
+              if r["kind"] == "fast" and not r.get("warm")]
+    say("train-path", f"{len(recs)} steps of batch {TRAIN['batch']} x seq "
+                      f"{TRAIN['seq']} ({tokens} tokens/step): losses "
+                      f"{[round(r['loss'], 6) for r in recs]}; kinds {kinds}")
+    say("train-path", f"capture step wall {[round(x, 3) for x in cap]} s "
+                      f"({tokens / statistics.median(cap):.1f} tokens/s at the "
+                      f"median), fast step {[round(x, 3) for x in fast_s]} s "
+                      f"after a warm-up, median {statistics.median(fast_s):.3f}"
+                      f" s, range {min(fast_s):.3f}-{max(fast_s):.3f} s "
+                      f"({tokens / statistics.median(fast_s):.1f} tokens/s at "
+                      f"the median); "
+                      f"Stage-4 eigh {s4.seconds:.3f} s over {s4.calls} batched "
+                      f"calls ({s4.blocks} blocks) in {len(cap)} refreshes; "
+                      f"peak memory {peak / 2 ** 30:.2f} GiB "
+                      f"(torch.cuda.max_memory_allocated); {card_note(torch)}")
+    say("train-path", f"launches {got} (reckoned {want}); dispatches {calls}")
+    return {"launches": launches, "model": model, "opt": opt,
+            "params": params, "state": state, "cfg": cfg}
+
+
+def _attn_inputs(torch, gen, bkv, g, s, hd, dtype):
+    from repro_torch.kernels import ref
+    q = torch.randn((bkv, g, s, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((bkv, s, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((bkv, s, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((bkv, g, s, hd), generator=gen, device="cuda").to(dtype)
+    o, lse = ref.swa_attention_fwd_res_ref(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, delta
+
+
+def time_train_kernels(torch) -> dict:
+    """The four training kernels at the training path's commonest shapes,
+    beside their bound, plain version and one PyTorch library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch, kfac, ref, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res = {}
+
+    # factor sum: a 2048-wide site's A factor over the step's 4096 tokens
+    n, d = 4096, 2048
+    x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+    bound, by = _bound(n * d * (d + 1), n * d * 2 + d * d * 4, x.dtype)
+    res["factor_syrk"] = {
+        "ms": _time_ms(torch, lambda: kfac.factor_syrk(x, 2048)),
+        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(x, 2048)),
+        "library_ms": _time_ms(torch, lambda: torch.matmul(x.t(), x)),
+        "bound_ms": bound, "bound_by": by}
+    say("times", f"factor_syrk n={n} d={d} nb=1 bf16 -> f32: "
+                 f"{res['factor_syrk']} (library: cuBLAS bf16 x^T x, bf16 "
+                 f"output); {card_note(torch)}")
+    x8 = torch.randn((n, 8192), generator=gen, device="cuda").bfloat16()
+    ms8 = _time_ms(torch, lambda: kfac.factor_syrk(x8, 2048))
+    b8, by8 = _bound(4 * n * 2048 * 2049, n * 8192 * 2 + 4 * 2048 ** 2 * 4,
+                     x8.dtype)
+    say("times", f"factor_syrk n={n} d=8192 nb=4 bf16: ms {ms8:.4f}, "
+                 f"bound_ms {b8:.6f} ({by8}); {card_note(torch)}")
+    del x, x8
+
+    # block preconditioning: an mlp up/gate A side, (1, 2048, 2048) x
+    # (2048, 8192), f32
+    b, m = 2048, 8192
+    binv = torch.randn((1, b, b), generator=gen, device="cuda") / b ** 0.5
+    w = torch.randn((b, m), generator=gen, device="cuda")
+    bound, by = _bound(2 * b * b * m, (b * b + 2 * b * m) * 4, w.dtype)
+    left_ref = dispatch.lookup("block_precond_left", "ref")
+    res["block_precond"] = {
+        "ms": _time_ms(torch, lambda: kfac.block_precond(binv, w)),
+        "plain_ms": _time_ms(torch, lambda: left_ref(binv, w)),
+        "library_ms": _time_ms(torch, lambda: torch.matmul(binv[0], w)),
+        "bound_ms": bound, "bound_by": by}
+    say("times", f"block_precond left binv (1, {b}, {b}) w ({b}, {m}) f32: "
+                 f"{res['block_precond']} (library: cuBLAS f32 matmul, TF32 "
+                 f"off); {card_note(torch)}")
+    wh = torch.randn((128256, b), generator=gen, device="cuda")
+    msh = _time_ms(torch, lambda: kfac.block_precond(binv, wh, right=True),
+                   reps=5)
+    libh = _time_ms(torch, lambda: torch.matmul(wh, binv[0]), reps=5)
+    bh, byh = _bound(2 * b * b * 128256, (b * b + 2 * b * 128256) * 4,
+                     wh.dtype)
+    say("times", f"block_precond right w (128256, {b}) binv (1, {b}, {b}) "
+                 f"(the embedding's G side): ms {msh:.4f}, bound_ms {bh:.6f} "
+                 f"({byh}), library_ms {libh:.4f}; {card_note(torch)}")
+    del binv, w, wh
+
+    # attention backward: one layer's call, BKV 32 (4 x 8 KV heads), G 4,
+    # S 1024, hd 64, bf16, causal
+    bkv, g, s, hd = 32, 4, 1024, 64
+    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, bkv, g, s, hd,
+                                              torch.bfloat16)
+    pairs = bkv * g * s * (s + 1) // 2
+    row_bytes = bkv * g * s * 4
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
+                         + q.numel() * 4, q.dtype)
+    b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
+                         + 2 * k.numel() * 4, q.dtype)
+    plain = _time_ms(torch, lambda: ref.swa_attention_bwd_ref(q, k, v, o, lse,
+                                                              do), reps=5)
+    # SDPA's layout: (batch 4, heads 32, S, hd) with the 8 KV heads
+    qs = q.reshape(4, 8 * g, s, hd).detach().requires_grad_()
+    ks_ = k.reshape(4, 8, s, hd).detach().requires_grad_()
+    vs_ = v.reshape(4, 8, s, hd).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qs, ks_, vs_, is_causal=True,
+                                         enable_gqa=True)
+    gout = do.reshape(4, 8 * g, s, hd)
+    lib = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks_, vs_), gout, retain_graph=True))
+    res["swa_flash_bwd_dq"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
+        "bound_by": by_dq}
+    res["swa_flash_bwd_dkdv"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
+        "bound_by": by_kv}
+    say("times", f"swa_flash_bwd BKV={bkv} G={g} S={s} hd={hd} bf16 causal: "
+                 f"dq {res['swa_flash_bwd_dq']}, dkdv "
+                 f"{res['swa_flash_bwd_dkdv']} (plain and library are the "
+                 f"whole backward: the plain dq/dk/dv from materialized "
+                 f"scores, SDPA's backward with enable_gqa); "
+                 f"{card_note(torch)}")
+    return res
+
+
+def profile_train(torch, train) -> None:
+    """Device time by kernel group over one fast step and one capture step
+    (every statistic refreshed) of the trained model, and the device's busy
+    share of the wall time."""
+    from repro_torch.launch import train as train_lib
+    model, opt = train["model"], train["opt"]
+    params, state = train["params"], train["state"]
+    batch = _train_batch(torch, model.cfg.vocab, TRAIN["batch"], TRAIN["seq"])
+    fast = train_lib.make_fast_step(model, opt)
+    capture = train_lib.make_train_step(model, opt)
+    flags = {k: True for k in opt.stat_names()}
+    lr, lam = 1e-4, TRAIN["damping"]
+    box = {"state": state}
+
+    def fast_step():
+        _, box["state"], _ = fast(params, box["state"], batch, lam, lr, 0.0)
+
+    def capture_step():
+        _, box["state"], _ = capture(params, box["state"], batch, flags, lam,
+                                     lr, 0.0)
+    _profile(torch, "one fast train step (4096 tokens)", fast_step)
+    _profile(torch, "one capture train step, every statistic refreshed",
+             capture_step, warm=False)
+    del train["model"], train["opt"], train["params"], train["state"]
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Architecture configuration schema + registry (counterpart of
 ``repro/configs/base.py``), with ``dtype`` as a torch dtype.
 
-Only the families the serving slice runs are registered, and only the
-fields dense decoder blocks read; the MoE, SSM, frontend, K-FAC and memory
-fields arrive with the slices that read them."""
+Only the families the ported paths run are registered, and only the fields
+dense decoder blocks and the SP-NGD training step read; the MoE, SSM,
+frontend and wire-format fields arrive with the slices that read them."""
 
 from __future__ import annotations
 
@@ -46,10 +46,15 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     # attention
     sliding_window: int = 0      # 0 = full causal
+    aux_loss_coef: float = 0.01  # weight of the blocks' auxiliary loss
     # kernels
     backend: str = "auto"        # "ref" | "cuda" | "auto" (kernels.dispatch)
-    # numerics
+    # K-FAC
+    kfac_max_dim: int = 2048     # block-diagonal factor cap
+    head_g_kind: str = "diag"    # vocab-side factor of the LM head
+    # numerics / memory
     dtype: Any = torch.bfloat16
+    remat: bool = True           # recompute each block in the backward
     # citation
     source: str = ""
 
@@ -65,7 +70,7 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Smoke-test variant: same family, tiny dims (2 layers, d<=512),
-        f32."""
+        f32, factor blocks of at most 128, no remat."""
         hd = min(self.hd, 64)
         n_heads = max(2, min(4, self.n_heads))
         n_kv = max(1, min(n_heads, max(1, self.n_kv_heads * n_heads
@@ -79,7 +84,9 @@ class ArchConfig:
             d_ff=min(self.d_ff, 256),
             vocab=min(self.vocab, 512),
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            kfac_max_dim=128,
             dtype=torch.float32,
+            remat=False,
         )
         kw.update(overrides)
         return dataclasses.replace(self, **kw)

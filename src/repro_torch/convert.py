@@ -1,4 +1,4 @@
-"""JAX params tree (as numpy arrays) -> the port's module state.
+"""Between the JAX package's trees (as numpy arrays) and the port's state.
 
 The JAX package's ``DecoderLM.init`` returns a tree whose ``blocks`` leaves
 are stacked on a leading ``(L,)`` axis; :func:`params_from_jax` unstacks
@@ -7,6 +7,13 @@ parameter dicts, so that both packages compute the same function::
 
     np_params = jax.tree.map(np.asarray, jax_model.init(key))
     model.load_state_dict(params_from_jax(np_params, cfg, "cpu"))
+
+:func:`params_to_jax` goes back. Factor statistics keep the stacked
+``{family: {key: (L, ...)}}`` layout in both packages
+(:func:`stats_from_jax`, :func:`stats_to_jax`); the SP-NGD optimizer state
+differs only in its velocity, a stacked params tree in JAX and a flat
+``{"blocks/3/attn/wq": tensor}`` dict in the port
+(:func:`opt_state_from_jax`, :func:`opt_state_to_jax`).
 """
 
 from __future__ import annotations
@@ -52,3 +59,87 @@ def params_from_jax(np_params: dict, cfg, device=None) -> dict:
         for layer in range(cfg.n_layers):
             out[f"blocks.{layer}.{name}"] = to_torch(a[layer], device)
     return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy array, bf16 and fp8 as ml_dtypes arrays."""
+    t = t.detach().cpu()
+    names = {torch.bfloat16: ("bfloat16", torch.int16, np.int16),
+             torch.float8_e4m3fn: ("float8_e4m3fn", torch.uint8, np.uint8),
+             torch.float8_e5m2: ("float8_e5m2", torch.uint8, np.uint8)}
+    if t.dtype in names:
+        import ml_dtypes
+        name, raw, _ = names[t.dtype]
+        return t.contiguous().view(raw).numpy().view(getattr(ml_dtypes, name))
+    return t.contiguous().numpy()
+
+
+def params_to_jax(params: dict) -> dict:
+    """The port's parameter tree (``DecoderLM.params()``: ``blocks`` a list
+    of per-layer dicts) -> the JAX layout (blocks stacked on (L,)), numpy
+    leaves."""
+    def rec(node):
+        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
+                else to_numpy(node))
+    out = {k: rec(v) for k, v in params.items() if k != "blocks"}
+    layers = [rec(b) for b in params["blocks"]]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+    out["blocks"] = stack(*layers)
+    return out
+
+
+def stats_from_jax(np_stats: dict, device=None) -> dict:
+    """{family: {key: array}} (stacked (L, ...) block families) -> torch,
+    the same layout."""
+    return {fam: {k: to_torch(v, device) for k, v in st.items()}
+            for fam, st in np_stats.items()}
+
+
+def stats_to_jax(stats: dict) -> dict:
+    return {fam: {k: to_numpy(v) for k, v in st.items()}
+            for fam, st in stats.items()}
+
+
+def opt_state_from_jax(np_state: dict, cfg, device=None) -> dict:
+    """JAX ``SPNGD.init``/step state (numpy leaves; single buffer, no
+    pipeline) -> the port's state."""
+    flat = params_from_jax(np_state["velocity"], cfg, device)
+    return {"step": int(np.asarray(np_state["step"])),
+            "velocity": {k.replace(".", "/"): v for k, v in flat.items()},
+            # a family's {slot: {key: array}} nests like {family: {key}}
+            "curv": {fam: stats_from_jax(entry, device)
+                     for fam, entry in np_state["curv"].items()}}
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The port's SP-NGD state -> the JAX layout (numpy leaves)."""
+    vel: dict = {}
+    for path, t in state["velocity"].items():
+        parts = path.split("/")
+        node = vel
+        if parts[0] == "blocks":
+            layer = int(parts[1])
+            node = node.setdefault("blocks", {})
+            for p in parts[2:-1]:
+                node = node.setdefault(p, {})
+            node.setdefault(parts[-1], {})[layer] = to_numpy(t)
+            continue
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = to_numpy(t)
+
+    def stack(node):
+        if isinstance(node, dict) and node and all(
+                isinstance(k, int) for k in node):
+            return np.stack([node[i] for i in range(len(node))])
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        return node
+    return {"step": np.asarray(state["step"], np.int32),
+            "velocity": stack(vel),
+            "curv": {fam: stats_to_jax(entry)
+                     for fam, entry in state["curv"].items()}}

@@ -1,0 +1,229 @@
+"""Kronecker-factored curvature math (counterpart of ``repro/core/kfac.py``).
+
+Conventions as in the JAX package: weights are ``(d_in, d_out)`` and a dense
+site computes ``y = x @ w``; the factors are ``A = (1/n) sum_t a_t a_t^T``
+and ``G = n * sum_t (dL/ds)(dL/ds)^T``; the update is ``U = A^-1 dW G^-1``.
+Large dimensions split into diagonal blocks of at most ``max_dim`` and every
+factor array carries a block axis ``(nb, b, b)`` behind any leading
+layer axes; all ops broadcast over leading axes.
+
+The Newton-Schulz inverse and the symmetric packing arrive with the slices
+that use them (Stage 4, fp8 history).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Block partitioning
+# ---------------------------------------------------------------------------
+
+def num_blocks(d: int, max_dim: int) -> int:
+    """Number of diagonal blocks a dimension of size ``d`` is split into."""
+    return max(1, -(-d // max_dim))
+
+
+def block_size(d: int, max_dim: int) -> int:
+    """Uniform (padded) block size used for a dimension of size ``d``."""
+    nb = num_blocks(d, max_dim)
+    return -(-d // nb)
+
+
+def padded_dim(d: int, max_dim: int) -> int:
+    return num_blocks(d, max_dim) * block_size(d, max_dim)
+
+
+def block_reshape(x: torch.Tensor, d: int, max_dim: int,
+                  axis: int = -1) -> torch.Tensor:
+    """Reshape ``axis`` (size d) into (nb, b), zero-padding to nb*b (a view
+    when d divides evenly)."""
+    nb = num_blocks(d, max_dim)
+    b = block_size(d, max_dim)
+    axis = axis % x.dim()
+    pad = nb * b - d
+    if pad:
+        cfg = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+        x = F.pad(x, cfg)
+    return x.reshape(x.shape[:axis] + (nb, b) + x.shape[axis + 1:])
+
+
+def block_unreshape(x: torch.Tensor, d: int, axis: int = -2) -> torch.Tensor:
+    """Inverse of :func:`block_reshape`: merge (nb, b) at ``axis`` back to
+    d."""
+    axis = axis % x.dim()
+    nb, b = x.shape[axis], x.shape[axis + 1]
+    merged = x.reshape(x.shape[:axis] + (nb * b,) + x.shape[axis + 2:])
+    if nb * b != d:
+        merged = merged.narrow(axis, 0, d)
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# Factor statistics from token matrices
+# ---------------------------------------------------------------------------
+
+def factor_sum(x: torch.Tensor, max_dim: int, *,
+               backend: Optional[str] = None) -> torch.Tensor:
+    """Blocked ``sum_t x_t x_t^T`` for a token matrix (..., n, d); returns
+    (..., nb, b, b) f32. Inputs stay in their storage dtype, the sums are
+    f32 (``kernels.dispatch.factor_sum``)."""
+    from repro_torch.kernels import dispatch
+    return dispatch.factor_sum(x, max_dim, backend=backend)
+
+
+def diag_factor_sum(x: torch.Tensor) -> torch.Tensor:
+    """``sum_t x_t^2`` per output coordinate. (..., n, d) -> (..., d)."""
+    x = x.float()
+    return torch.sum(x * x, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Damping + inversion (Eq. 12)
+# ---------------------------------------------------------------------------
+
+def mean_eig(f: torch.Tensor, kind: str, d: int) -> torch.Tensor:
+    """Average eigenvalue of a factor over its true (unpadded) dimension d:
+    the trace of a blocked factor (..., nb, b, b) summed over its blocks,
+    or the sum of a diagonal one (..., d). Returns (...,)."""
+    if kind == "full":
+        return torch.diagonal(f, dim1=-2, dim2=-1).sum(-1).sum(-1) / d
+    return f.sum(-1) / d
+
+
+def pi_correction(a: torch.Tensor, g: torch.Tensor, d_a: int, d_g: int,
+                  eps: float = 1e-12, *, a_kind: str = "full",
+                  g_kind: str = "full") -> torch.Tensor:
+    """Martens-Grosse pi: sqrt(mean_eig(A) / mean_eig(G)); either factor
+    blocked ("full") or diagonal ("diag")."""
+    ea = mean_eig(a, a_kind, d_a)
+    eg = mean_eig(g, g_kind, d_g)
+    return torch.sqrt(torch.clamp(ea, min=eps) / torch.clamp(eg, min=eps))
+
+
+def damped_inverse(f: torch.Tensor, damping) -> torch.Tensor:
+    """Inverse of the SPD blocked factor ``f + damping*I`` through eigh,
+    negative eigenvalues clamped to 0 first; solves and returns f32.
+    f: (..., nb, b, b); damping broadcastable to (..., nb)."""
+    f = f.float()
+    f = 0.5 * (f + f.transpose(-1, -2))
+    vals, vecs = torch.linalg.eigh(f)
+    d = torch.as_tensor(damping, dtype=torch.float32,
+                        device=f.device)[..., None]
+    inv_vals = 1.0 / (torch.clamp(vals, min=0.0) + d)
+    return (vecs * inv_vals[..., None, :]) @ vecs.transpose(-1, -2)
+
+
+def cholesky_inverse(f: torch.Tensor, damping) -> torch.Tensor:
+    """Inverse of ``f + damping*I`` through Cholesky; needs it SPD after
+    damping. Solves in f32."""
+    b = f.shape[-1]
+    f = f.float()
+    f = 0.5 * (f + f.transpose(-1, -2))
+    d = torch.as_tensor(damping, dtype=torch.float32,
+                        device=f.device)[..., None, None]
+    eye = torch.eye(b, dtype=torch.float32, device=f.device)
+    chol = torch.linalg.cholesky(f + d * eye)
+    return torch.cholesky_solve(eye.expand(f.shape), chol)
+
+
+def damped_factor_inverses(a: Optional[torch.Tensor],
+                           g: Optional[torch.Tensor], lam: float, d_a: int,
+                           d_g: int, *, method: str = "eigh",
+                           backend: Optional[str] = None,
+                           a_kind: str = "full", g_kind: str = "full"):
+    """(A + pi*sqrt(lam) I)^-1 and (G + sqrt(lam)/pi I)^-1 (Eq. 12). A
+    blocked factor is inverted through ``kernels.dispatch.damped_inverse``
+    (one batched call for all its blocks and layers), a diagonal one
+    elementwise as ``1/(max(x, 0) + d)``. A site with one factor passes
+    None for the other: pi is then 1 and None comes back for it."""
+    if a is not None and g is not None:
+        pi = pi_correction(a, g, d_a, d_g, a_kind=a_kind, g_kind=g_kind)
+    else:
+        f, kind = (a, a_kind) if a is not None else (g, g_kind)
+        lead = f.shape[:-3] if kind == "full" else f.shape[:-1]
+        pi = torch.ones(lead, device=f.device)
+    sl = torch.sqrt(torch.as_tensor(lam, dtype=torch.float32,
+                                    device=pi.device))
+    return (_damped(a, a_kind, pi * sl, method, backend),
+            _damped(g, g_kind, sl / pi, method, backend))
+
+
+def _damped(f: Optional[torch.Tensor], kind: str, damp: torch.Tensor,
+            method: str, backend: Optional[str]) -> Optional[torch.Tensor]:
+    if f is None:
+        return None
+    if kind == "full":
+        from repro_torch.kernels import dispatch
+        return dispatch.damped_inverse(f, damp[..., None], method=method,
+                                       backend=backend)
+    return 1.0 / (torch.clamp(f, min=0.0) + damp[..., None])
+
+
+# ---------------------------------------------------------------------------
+# Preconditioning
+# ---------------------------------------------------------------------------
+
+def precondition(dw: torch.Tensor, a_inv: Optional[torch.Tensor],
+                 g_inv: Optional[torch.Tensor], *,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """``U = A^-1 @ dW @ G^-1`` with blocked (or diagonal) inverses.
+
+    dw: (..., d_in, d_out); a_inv: (..., nbA, bA, bA) or (..., d_in)
+    diagonal or None; g_inv likewise over d_out. The blocked sides go
+    through ``kernels.dispatch.block_precond_left/_right``, which take dw
+    unblocked (the ragged last block is masked, not padded)."""
+    from repro_torch.kernels import dispatch
+    u = dw.float()
+    if a_inv is not None:
+        if a_inv.dim() == dw.dim() - 1:          # diagonal over d_in
+            u = a_inv[..., :, None] * u
+        else:
+            u = dispatch.block_precond_left(a_inv, u, backend=backend)
+    if g_inv is not None:
+        if g_inv.dim() == dw.dim() - 1:          # diagonal over d_out
+            u = u * g_inv[..., None, :]
+        else:
+            u = dispatch.block_precond_right(u, g_inv, backend=backend)
+    return u.to(dw.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Unit-wise 2x2 inverse (Eq. 15-17) -- scale/bias parameters
+# ---------------------------------------------------------------------------
+
+def unitwise_solve(stats: torch.Tensor, g_gamma: torch.Tensor,
+                   g_beta: torch.Tensor, lam: float):
+    """Per-channel damped 2x2 solve. stats (..., C, 3) rows [E[gg], E[gb],
+    E[bb]]; g_gamma, g_beta (..., C). Returns the preconditioned grads."""
+    aa = stats[..., 0] + lam
+    ab = stats[..., 1]
+    bb = stats[..., 2] + lam
+    det = aa * bb - ab * ab
+    det = torch.where(det <= 1e-20, torch.full_like(det, 1e-20), det)
+    ug = (bb * g_gamma - ab * g_beta) / det
+    ub = (-ab * g_gamma + aa * g_beta) / det
+    return ug, ub
+
+
+def diag_solve(stats: torch.Tensor, g: torch.Tensor,
+               lam: float) -> torch.Tensor:
+    """1x1 unit-wise (diagonal Fisher) solve: g / (E[g^2] + lam)."""
+    return g / (stats + lam)
+
+
+# ---------------------------------------------------------------------------
+# Frobenius similarity (Algorithm 2's predicate)
+# ---------------------------------------------------------------------------
+
+def frob_distance(x: torch.Tensor, y: torch.Tensor,
+                  eps: float = 1e-30) -> torch.Tensor:
+    """||x - y||_F / ||y||_F over all axes (a whole factor family at
+    once)."""
+    num = torch.sqrt(torch.sum((x.float() - y.float()) ** 2))
+    den = torch.sqrt(torch.sum(y.float() ** 2))
+    return num / torch.clamp(den, min=eps)

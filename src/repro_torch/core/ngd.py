@@ -1,0 +1,333 @@
+"""SP-NGD optimizer: the paper's update rule (Eq. 6/12/23/24) end to end
+(counterpart of ``repro/core/ngd.py``, the parts its default path runs).
+
+The constructor takes
+
+    loss_fn(params, fstats, batch) -> (loss, aux)
+    site_infos: {family: SiteInfo}
+    fstats_fn() -> zero statistics {family: {"a": ..., ...}}
+    counts_fn(batch) -> {family: (n_a, n_g)}
+
+and offers two steps:
+
+* ``step``      -- full step with curvature capture; per-statistic refresh
+                   flags (host booleans) gate the inversion work with a
+                   plain ``if`` where the JAX package has ``lax.cond``.
+* ``step_fast`` -- no capture: a plain backward + the stale-preconditioned
+                   update.
+
+Parameters are updated IN PLACE (the model owns them; a functional copy of
+a 1.5 B-parameter model per step would double its memory), and so is the
+momentum. The curvature state keeps the JAX package's layout: one stacked
+``(L, ...)`` f32 array per statistic of a block family. Block-family
+gradients are per-layer tensors (``fisher.get_path`` returns the list), so
+preconditioning runs once per layer and side. The fp8 history, double
+buffer, refresh pipeline, sharded Stage 4 and Newton-Schulz inverse arrive
+with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import kfac
+from repro_torch.core.fisher import (SiteInfo, emp_fisher_grads, flatten,
+                                     get_path, mc_fisher_grads,
+                                     value_and_grad)
+
+
+@dataclasses.dataclass(frozen=True)
+class NGDConfig:
+    damping: float = 2.5e-4          # paper Table 2 lambda
+    alpha: float = 0.1               # Frobenius similarity threshold
+    estimator: str = "emp"           # "emp" | "1mc"
+    inverse_method: str = "eigh"     # "eigh" | "cholesky"
+    weight_rescale: bool = False     # Eq. 24
+    history: int = 2                 # 2 = full Algorithm 2; 1 = cheap variant
+    sgd_fallback_scale: float = 1.0  # lr scale for non-sited params
+    backend: str = "auto"            # kernel backend ("ref" | "cuda" |
+                                     # "auto"; repro_torch.kernels.dispatch)
+
+
+# Eq. 24's guard against a zero weight norm
+RESCALE_EPS = 1e-9
+
+
+def _layer_path(param: str, layer: Optional[int]) -> str:
+    """Flat path of one layer's leaf: ``blocks/attn/wq`` -> ``blocks/3/attn/wq``."""
+    if layer is None:
+        return param
+    head, rest = param.split("/", 1)
+    return f"{head}/{layer}/{rest}"
+
+
+class SPNGD:
+    def __init__(self, loss_fn: Callable, site_infos: dict[str, SiteInfo],
+                 fstats_fn: Callable, counts_fn: Callable,
+                 cfg: NGDConfig = NGDConfig()):
+        if cfg.inverse_method == "newton_schulz":
+            raise NotImplementedError(
+                "inverse_method='newton_schulz' arrives with the Stage-4 slice "
+                "of the port; use 'eigh' or 'cholesky'")
+        self.loss_fn = loss_fn
+        self.infos = site_infos
+        self.fstats_fn = fstats_fn
+        self.counts_fn = counts_fn
+        self.cfg = cfg
+
+    def sym_stat(self, fam: str, key: str) -> bool:
+        """Whether a stat is a symmetric blocked factor."""
+        if key in ("a", "g"):
+            info = self.infos[fam]
+            kind = info.spec.a_kind if key == "a" else info.spec.g_kind
+            return kind == "full"
+        return False
+
+    # ---- statistic naming for the interval controller ----
+
+    def stat_names(self) -> list[str]:
+        return sorted(f"{fam}.{key}" for fam, stats in self.fstats_fn().items()
+                      for key in stats)
+
+    def stat_bytes(self, dtype_bytes: int = 4) -> dict[str, int]:
+        """Symmetric-packed payload per statistic (f32 history)."""
+        from repro_torch.core.stale import stat_payload_bytes
+        return {f"{fam}.{key}": stat_payload_bytes(
+                    tuple(leaf.shape), dtype_bytes,
+                    symmetric=self.sym_stat(fam, key))
+                for fam, stats in self.fstats_fn().items()
+                for key, leaf in stats.items()}
+
+    # ---- state ----
+
+    def init(self, params) -> dict:
+        """Zero history, identity preconditioners, zero momentum. The
+        zero and identity entries are expanded views (no memory): the
+        first refresh replaces them."""
+        curv = {}
+        for fam, stats in self.fstats_fn().items():
+            info = self.infos[fam]
+            entry = {"prev": {}, "prev2": {}, "precond": {}}
+            for key, leaf in stats.items():
+                shape, dev = tuple(leaf.shape), leaf.device
+                z = torch.zeros((), device=dev).expand(shape)
+                entry["prev"][key] = z
+                if self.cfg.history >= 2:
+                    entry["prev2"][key] = z
+                if key in ("a", "g"):
+                    kind = info.spec.a_kind if key == "a" else info.spec.g_kind
+                    if kind == "full":
+                        entry["precond"][key] = torch.eye(
+                            shape[-1], device=dev).expand(shape)
+                    else:
+                        entry["precond"][key] = torch.ones(
+                            (), device=dev).expand(shape)
+                else:                       # "d" (bias) / "uw": store stats
+                    entry["precond"][key] = z
+            curv[fam] = entry
+        velocity = {path: torch.zeros_like(p)
+                    for path, p in flatten(params).items()}
+        return {"step": 0, "velocity": velocity, "curv": curv}
+
+    # ---- curvature refresh (Algorithm 1's on-refresh work) ----
+
+    def _shift_history(self, fam: str, raw: dict, curv: dict, flags: dict,
+                       n_a, n_g):
+        """Normalize the raw sums, measure the Algorithm-2 distances of the
+        flagged statistics against history, and shift X_-1/X_-2 for them.
+        Returns (normalized, new_prev, new_prev2, sims) with sims[name] a
+        (2,) device tensor for a flagged stat and None otherwise."""
+        cfg = self.cfg
+        new_prev, new_prev2, sims, normalized = {}, {}, {}, {}
+        for key, v in raw.items():
+            name = f"{fam}.{key}"
+            prev = curv["prev"][key]
+            if not flags[name]:
+                sims[name] = None
+                normalized[key] = prev
+                new_prev[key] = prev
+                if cfg.history >= 2:
+                    new_prev2[key] = curv["prev2"][key]
+                continue
+            norm = (v / n_a) if key == "a" else (v * n_g)
+            d1 = kfac.frob_distance(norm, prev)
+            if cfg.history >= 2:
+                prev2 = curv["prev2"][key]
+                d2 = kfac.frob_distance(norm, prev2)
+                new_prev2[key] = prev
+            else:
+                d2 = d1
+            sims[name] = torch.stack([d1, d2])
+            normalized[key] = norm
+            new_prev[key] = norm
+        if cfg.history < 2:
+            new_prev2 = curv["prev2"]
+        return normalized, new_prev, new_prev2, sims
+
+    def _refresh_family(self, fam: str, raw: dict, curv: dict, flags: dict,
+                        lam, n_a, n_g):
+        info = self.infos[fam]
+        normalized, new_prev, new_prev2, sims = self._shift_history(
+            fam, raw, curv, flags, n_a, n_g)
+        if not any(flags[f"{fam}.{k}"] for k in raw):
+            precond = curv["precond"]
+        else:
+            precond = {}
+            a, g = normalized.get("a"), normalized.get("g")
+            if a is not None or g is not None:
+                a_inv, g_inv = kfac.damped_factor_inverses(
+                    a, g, lam, info.d_in, info.d_out,
+                    method=self.cfg.inverse_method, backend=self.cfg.backend,
+                    a_kind=info.spec.a_kind, g_kind=info.spec.g_kind)
+                precond.update({k: v for k, v in (("a", a_inv),
+                                                  ("g", g_inv))
+                                if v is not None})
+            for key in ("d", "uw"):
+                if key in normalized:
+                    precond[key] = normalized[key]
+        return {"prev": new_prev, "prev2": new_prev2,
+                "precond": precond}, sims
+
+    # ---- preconditioned update for one family ----
+
+    def _apply_precond(self, fam: str, grads, curv: dict, lam) -> dict:
+        """{flat param path: update} for the family's parameters; a block
+        family is preconditioned layer by layer."""
+        info = self.infos[fam]
+        pc = curv["precond"]
+        layers = range(info.lead[0]) if info.lead else [None]
+        out = {}
+        for layer in layers:
+            pcl = pc if layer is None else {k: v[layer] for k, v in pc.items()}
+
+            def grad(path):
+                g = get_path(grads, path)
+                return g if layer is None else g[layer]
+
+            out.update(self._precond_one(info, pcl, grad, lam, layer))
+        return out
+
+    def _precond_one(self, info: SiteInfo, pc: dict, grad, lam, layer):
+        path = _layer_path(info.param, layer)
+        if info.kind in ("dense", "embed"):
+            return {path: kfac.precondition(grad(info.param), pc.get("a"),
+                                            pc.get("g"),
+                                            backend=self.cfg.backend)}
+        if info.kind == "bias":
+            return {path: kfac.diag_solve(pc["d"], grad(info.param), lam)}
+        if info.kind == "scale_bias":
+            gg = grad(info.param)
+            if info.beta_param is not None:
+                ug, ub = kfac.unitwise_solve(pc["uw"], gg,
+                                             grad(info.beta_param), lam)
+                return {path: ug, _layer_path(info.beta_param, layer): ub}
+            return {path: kfac.diag_solve(pc["uw"][..., 0], gg, lam)}
+        raise ValueError(info.kind)
+
+    # ---- full update assembly ----
+
+    @torch.no_grad()
+    def _finish(self, params, state, grads, curv, lam, lr, mom, loss, aux,
+                sims):
+        """Eq. 23 momentum update, in place: per family, precondition, then
+        ``v = mom v - lr u`` and ``w = w + v``; the parameters no site
+        covers take the plain gradient times ``sgd_fallback_scale``."""
+        cfg = self.cfg
+        flat_g = flatten(grads)
+        flat_p = flatten(params)
+        vel = state["velocity"]
+        dev = next(iter(flat_p.values())).device
+        gsq = torch.zeros((), dtype=torch.float32, device=dev)
+        usq = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def apply(path, u):
+            nonlocal gsq, usq
+            g = flat_g[path]
+            gsq = gsq + torch.sum(torch.square(g.float()))
+            usq = usq + torch.sum(torch.square(u.float()))
+            v = vel[path]
+            v.mul_(mom).sub_(lr * u.to(v.dtype))
+            flat_p[path].add_(v.to(flat_p[path].dtype))
+
+        done = set()
+        for fam, c in curv.items():
+            for path, u in self._apply_precond(fam, grads, c, lam).items():
+                apply(path, u)
+                done.add(path)
+        for path, g in flat_g.items():
+            if path not in done:
+                apply(path, g * cfg.sgd_fallback_scale)
+
+        if cfg.weight_rescale:                 # Eq. 24
+            for fam, info in self.infos.items():
+                if info.kind != "dense":
+                    continue
+                layers = range(info.lead[0]) if info.lead else [None]
+                for layer in layers:
+                    w = flat_p[_layer_path(info.param, layer)]
+                    norm = torch.sqrt(torch.sum(w.float() ** 2))
+                    target = (2.0 * info.d_out) ** 0.5
+                    w.copy_((w * (target / (norm + RESCALE_EPS))
+                             ).to(w.dtype))
+
+        state_out = {**state, "step": state["step"] + 1, "curv": curv}
+        metrics = {"loss": loss, "sims": sims, "grad_norm": torch.sqrt(gsq),
+                   "update_norm": torch.sqrt(usq)}
+        if isinstance(aux, dict):
+            metrics.update({k: v for k, v in aux.items()
+                            if isinstance(v, torch.Tensor) and v.dim() == 0})
+        return params, state_out, metrics
+
+    def grads_and_raw(self, params, batch,
+                      generator: Optional[torch.Generator] = None):
+        """One backward pass: (loss, aux, grads, raw factor sums)."""
+        fstats = self.fstats_fn()
+        if self.cfg.estimator == "1mc":
+            return mc_fisher_grads(self.loss_fn, params, fstats, batch,
+                                   generator)
+        return emp_fisher_grads(self.loss_fn, params, fstats, batch)
+
+    def apply_update(self, params, state, grads, raw, counts, flags,
+                     lam, lr, mom, loss, aux):
+        """Refresh curvature from the raw sums (per ``flags``) and apply the
+        update. The flagged statistics' similarities come to the host in
+        one transfer: metrics["sims"][name] = (d1, d2), or (-1, -1) for a
+        statistic that did not refresh."""
+        curv, dev_sims = {}, {}
+        for fam in raw:
+            n_a, n_g = counts[fam]
+            curv[fam], s = self._refresh_family(
+                fam, raw[fam], state["curv"][fam], flags, lam, n_a, n_g)
+            dev_sims.update(s)
+        del raw
+        live = [n for n, v in dev_sims.items() if v is not None]
+        host = (torch.stack([dev_sims[n] for n in live]).tolist()
+                if live else [])
+        sims = {n: (-1.0, -1.0) for n in dev_sims}
+        sims.update({n: tuple(v) for n, v in zip(live, host)})
+        return self._finish(params, state, grads, curv, lam, lr, mom, loss,
+                            aux, sims)
+
+    def fast_curv(self, state, lam):
+        """The fast path's curvature view: the stored preconditioners (the
+        double buffer and the refresh pipeline arrive with their slices)."""
+        return state, state["curv"], {}
+
+    def step(self, params, state, batch, flags: dict, lam, lr, mom,
+             generator: Optional[torch.Generator] = None):
+        """Full step with curvature capture; ``flags`` maps stat name ->
+        bool."""
+        loss, aux, grads, raw = self.grads_and_raw(params, batch, generator)
+        counts = self.counts_fn(batch)
+        return self.apply_update(params, state, grads, raw, counts, flags,
+                                 lam, lr, mom, loss, aux)
+
+    def step_fast(self, params, state, batch, lam, lr, mom):
+        """No capture, no refresh: backward + stale-preconditioned update."""
+        loss, aux, grads = value_and_grad(self.loss_fn, params, batch)
+        state, curv, _ = self.fast_curv(state, lam)
+        return self._finish(params, state, grads, curv, lam, lr, mom, loss,
+                            aux, {})

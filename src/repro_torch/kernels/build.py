@@ -48,6 +48,22 @@ SIGNATURES = {
         # stream
         "swa_flash_decode": [_P] * 7 + [_I] * 7 + [_F, _I] + [_L] * 6 + [_P],
     },
+    "swa_flash_bwd": {
+        # q, k, v, lse, delta, do, dq, bkv, G, S, hd, window, dtype, scale,
+        # stream
+        "swa_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
+        # q, k, v, lse, delta, do, dk, dv, bkv, G, S, hd, window, dtype,
+        # scale, stream
+        "swa_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+    },
+    "kfac_factor": {
+        # x, out, n, ld, d, nb, b, dtype, stream
+        "factor_syrk": [_P] * 2 + [_I] * 6 + [_P],
+    },
+    "kfac_precond": {
+        # binv, w, out, b, dim, other, ldw, ldo, nb, right, stream
+        "block_precond": [_P] * 3 + [_I] * 7 + [_P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] | None = None

@@ -1,0 +1,310 @@
+// Attention backward from the forward's residuals (FlashAttention-2 style):
+// dq, and dk/dv per KV head, of the GQA causal(-window) attention.
+//
+// Replaces the TPU kernels repro/kernels/swa_attention.py::swa_flash_bwd_dq
+// (_swa_bwd_dq_kernel) and ::swa_flash_bwd_dkdv (_swa_bwd_dkdv_kernel),
+// with their wrapper repro/kernels/ops.py swa_attention_bwd.
+//
+//   q, do  (BKV, G, S, HD)  bf16 | f32, query head h = c*G + r under KV head c
+//   k, v   (BKV, S, HD)     same dtype, KV unexpanded
+//   lse    (BKV, G, S)      f32, the forward's m + log(d)
+//   delta  (BKV, G, S)      f32, rowsum(do * o), computed by the caller
+//   dq     (BKV, G, S, HD)  f32
+//   dk, dv (BKV, S, HD)     f32, summed over the G query heads of the group
+//
+// q is scaled by HD^-0.5 as it is read; p = exp(q.k - lse) is rebuilt from
+// the residual, ds = p * (do.v - delta), dq = scale * sum_j ds k_j,
+// dk = sum_i ds q_i (q already scaled), dv = sum_i p do_i. Key j is visible
+// to query i iff i - window < j <= i (window 0: causal).
+//
+// dq: one block of 128 threads per (query tile, group head, KV head); HD/32
+// threads share a query row, each owning 32 of its dims (interleaved float4
+// groups) in registers, and a dot product is their partial sums joined by
+// shuffles. The block walks only the 32-key tiles that meet the band of its
+// query tile, staging K and V in shared memory as f32.
+// dkdv: one block per (key tile, KV head), the key rows and their dk/dv
+// sums in registers. It walks the G query heads and, for each, the 32-row
+// query tiles that can see its keys, so the sum over the group stays a
+// register sum: no atomics and no second pass. Query rows past S are
+// masked explicitly (the TPU wrapper pads S and relies on zero-padded
+// do/delta), as are key rows past S.
+//
+// Bound: about 8*HD*G*BKV*(visible (i, j) pairs) operations between the two
+// kernels against a few MB of inputs: at the training path's shapes (BKV 32,
+// G 4, S 1024, HD 64) bound by operations. These kernels run their products
+// on the f32 CUDA cores, not the tensor cores, which is what limits them.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NTHREADS = 128;
+constexpr int BKT = 32;   // keys per shared-memory tile (dq kernel)
+constexpr int BQT = 32;   // queries per shared-memory tile (dkdv kernel)
+constexpr int LCH = 8;    // loads in flight per thread while staging a tile
+
+__device__ __forceinline__ bool visible(int qp, int kp, int S, int window) {
+  return qp < S && kp < S && kp <= qp && (window <= 0 || kp > qp - window);
+}
+
+// Sum of a partial dot product over the TPR threads that share a row
+// (consecutive lanes, aligned groups of TPR).
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Stage rows [r0, r0 + ROWS) of a (S, HD) matrix into dst as f32 (rows past
+// S read 0), optionally scaled; LCH loads in flight per thread.
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, int S,
+                                      float mul) {
+  constexpr int LOADS = ROWS * HD / NTHREADS;
+  static_assert(LOADS % LCH == 0, "tile loads must batch evenly");
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int c0 = 0; c0 < LOADS; c0 += LCH) {
+    float val[LCH];
+#pragma unroll
+    for (int u = 0; u < LCH; ++u) {
+      const int e = tid + (c0 + u) * NTHREADS;
+      const int r = r0 + e / HD;
+      val[u] = r < S ? to_f32(src[(size_t)r * HD + e % HD]) * mul : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < LCH; ++u) {
+      const int e = tid + (c0 + u) * NTHREADS;
+      dst[e / HD][e % HD] = val[u];
+    }
+  }
+}
+
+// Load this thread's 32 dims of one row (dims (i*TPR + h)*4 + c).
+template <typename T, int TPR>
+__device__ __forceinline__ void load_row(float (&r)[32], const T* src, int h, float mul) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r[4 * i + c] = to_f32(src[(i * TPR + h) * 4 + c]) * mul;
+}
+
+template <int TPR>
+__device__ __forceinline__ float dot_part(const float (&r)[32], const float* row, int h) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 x = p[i * TPR + h];
+    s += r[4 * i] * x.x + r[4 * i + 1] * x.y + r[4 * i + 2] * x.z + r[4 * i + 3] * x.w;
+  }
+  return s;
+}
+
+template <int TPR>
+__device__ __forceinline__ void axpy(float (&acc)[32], float a, const float* row, int h) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 x = p[i * TPR + h];
+    acc[4 * i] += a * x.x;
+    acc[4 * i + 1] += a * x.y;
+    acc[4 * i + 2] += a * x.z;
+    acc[4 * i + 3] += a * x.w;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const T* __restrict__ dout, float* __restrict__ dq, int G, int S,
+                  int window, float scale) {
+  constexpr int TPR = HD / 32;
+  constexpr int BQ = NTHREADS / TPR;
+  __shared__ __align__(16) float ks[BKT][HD];
+  __shared__ __align__(16) float vs[BKT][HD];
+
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int h = tid % TPR;
+  const int q0 = blockIdx.x * BQ;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int qpos = q0 + row;
+  const size_t rows = (size_t)(b * G + g) * S;
+
+  float qr[32], dor[32], acc[32];
+  float l = 0.f, dl = 0.f;
+  if (qpos < S) {
+    load_row<T, TPR>(qr, q + (rows + qpos) * HD, h, scale);
+    load_row<T, TPR>(dor, dout + (rows + qpos) * HD, h, 1.f);
+    l = lse[rows + qpos];
+    dl = delta[rows + qpos];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) qr[c] = dor[c] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
+
+  const int q_hi = min(q0 + BQ - 1, S - 1);
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const T* kb = k + (size_t)b * S * HD;
+  const T* vb = v + (size_t)b * S * HD;
+  for (int kt = (k_lo / BKT) * BKT; kt <= q_hi; kt += BKT) {
+    __syncthreads();
+    stage<T, HD, BKT>(ks, kb, kt, S, 1.f);
+    stage<T, HD, BKT>(vs, vb, kt, S, 1.f);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BKT; ++j) {
+      const float s = row_sum<TPR>(dot_part<TPR>(qr, &ks[j][0], h));
+      const float dp = row_sum<TPR>(dot_part<TPR>(dor, &vs[j][0], h));
+      const float p = visible(qpos, kt + j, S, window) ? expf(s - l) : 0.f;
+      axpy<TPR>(acc, p * (dp - dl), &ks[j][0], h);
+    }
+  }
+
+  if (qpos < S) {
+    float* o = dq + (rows + qpos) * HD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[(i * TPR + h) * 4 + c] = acc[4 * i + c] * scale;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const T* __restrict__ dout,
+                    float* __restrict__ dk, float* __restrict__ dv, int G, int S,
+                    int window, float scale) {
+  constexpr int TPR = HD / 32;
+  constexpr int BKEY = NTHREADS / TPR;
+  __shared__ __align__(16) float qs[BQT][HD];
+  __shared__ __align__(16) float dos[BQT][HD];
+  __shared__ float ls[BQT];
+  __shared__ float dls[BQT];
+
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int h = tid % TPR;
+  const int k0 = blockIdx.x * BKEY;
+  const int b = blockIdx.y;
+  const int kpos = k0 + row;
+  const size_t krow = (size_t)b * S + kpos;
+
+  float kr[32], vr[32], dka[32], dva[32];
+  if (kpos < S) {
+    load_row<T, TPR>(kr, k + krow * HD, h, 1.f);
+    load_row<T, TPR>(vr, v + krow * HD, h, 1.f);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) kr[c] = vr[c] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) dka[c] = dva[c] = 0.f;
+
+  // queries that can see a key of [k0, k_hi]: k0 <= i < k_hi + window
+  const int k_hi = min(k0 + BKEY - 1, S - 1);
+  const int q_end = window > 0 ? min(S, k_hi + window) : S;
+  for (int g = 0; g < G; ++g) {
+    const size_t base = (size_t)(b * G + g) * S;
+    for (int qt = (k0 / BQT) * BQT; qt < q_end; qt += BQT) {
+      __syncthreads();
+      stage<T, HD, BQT>(qs, q + base * HD, qt, S, scale);
+      stage<T, HD, BQT>(dos, dout + base * HD, qt, S, 1.f);
+      if (tid < BQT) {
+        const int r = qt + tid;
+        ls[tid] = r < S ? lse[base + r] : 0.f;
+        dls[tid] = r < S ? delta[base + r] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int i = 0; i < BQT; ++i) {
+        const float s = row_sum<TPR>(dot_part<TPR>(kr, &qs[i][0], h));
+        const float dp = row_sum<TPR>(dot_part<TPR>(vr, &dos[i][0], h));
+        const float p = visible(qt + i, kpos, S, window) ? expf(s - ls[i]) : 0.f;
+        axpy<TPR>(dva, p, &dos[i][0], h);
+        axpy<TPR>(dka, p * (dp - dls[i]), &qs[i][0], h);
+      }
+    }
+  }
+
+  if (kpos < S) {
+    float* ok = dk + krow * HD;
+    float* ov = dv + krow * HD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        ok[(i * TPR + h) * 4 + c] = dka[4 * i + c];
+        ov[(i * TPR + h) * 4 + c] = dva[4 * i + c];
+      }
+  }
+}
+
+template <typename T, int HD>
+void launch_dq(const void* q, const void* k, const void* v, const void* lse,
+               const void* delta, const void* dout, void* dq, int bkv, int G, int S,
+               int window, float scale, cudaStream_t st) {
+  constexpr int BQ = NTHREADS / (HD / 32);
+  const dim3 grid((S + BQ - 1) / BQ, G, bkv);
+  swa_bwd_dq_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const T*>(dout), static_cast<float*>(dq), G, S, window, scale);
+}
+
+template <typename T, int HD>
+void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
+                 const void* delta, const void* dout, void* dk, void* dv, int bkv, int G,
+                 int S, int window, float scale, cudaStream_t st) {
+  constexpr int BKEY = NTHREADS / (HD / 32);
+  const dim3 grid((S + BKEY - 1) / BKEY, bkv);
+  swa_bwd_dkdv_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const T*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), G,
+      S, window, scale);
+}
+
+// dtype x head-dim switch shared by both entry points
+#define REPRO_BWD_DISPATCH(CALL)                                              \
+  switch (dtype * 1000 + hd) {                                                \
+    case DT_F32 * 1000 + 64: CALL(float, 64); break;                          \
+    case DT_F32 * 1000 + 128: CALL(float, 128); break;                        \
+    case DT_BF16 * 1000 + 64: CALL(__nv_bfloat16, 64); break;                 \
+    case DT_BF16 * 1000 + 128: CALL(__nv_bfloat16, 128); break;               \
+    default: return (int)cudaErrorInvalidValue;                               \
+  }
+
+}  // namespace
+
+extern "C" int swa_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* lse, const void* delta, const void* dout,
+                                void* dq, int bkv, int G, int S, int hd, int window,
+                                int dtype, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_DQ(T, HD) \
+  launch_dq<T, HD>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st)
+  REPRO_BWD_DISPATCH(REPRO_DQ)
+#undef REPRO_DQ
+  return (int)cudaGetLastError();
+}
+
+extern "C" int swa_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                                  const void* lse, const void* delta, const void* dout,
+                                  void* dk, void* dv, int bkv, int G, int S, int hd,
+                                  int window, int dtype, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_DKDV(T, HD) \
+  launch_dkdv<T, HD>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st)
+  REPRO_BWD_DISPATCH(REPRO_DKDV)
+#undef REPRO_DKDV
+  return (int)cudaGetLastError();
+}

@@ -123,10 +123,176 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _call("swa_decode", which, q, k, v, pos, window, k_scale, v_scale)
 
 
+# ---------------------------------------------------------------------------
+# swa_attention_bwd: the fused backward from the forward's residuals.
+#   q, o, do (BKV, G, S, hd); k, v (BKV, S, hd); lse (BKV, G, S) f32
+#   -> (dq (BKV, G, S, hd), dk (BKV, S, hd), dv (BKV, S, hd)), all f32, dk/dv
+#   summed over each KV head's query-head group
+# ---------------------------------------------------------------------------
+
+def _swa_bwd_ref(q, k, v, o, lse, do, window: int):
+    from repro_torch.kernels import ref
+    return ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+
+
+def _swa_bwd_cuda(q, k, v, o, lse, do, window: int):
+    from repro_torch.kernels import swa_attention
+    return swa_attention.swa_flash_bwd(q, k, v, o, lse, do, window=window)
+
+
+def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                      window: int = 0, backend: str | None = None):
+    """Backward from the (o, lse) residuals: returns (dq, dk, dv), f32."""
+    which = resolve(backend, q.device)
+    return _call("swa_attention_bwd", which, q, k, v, o, lse, do, window)
+
+
+# ---------------------------------------------------------------------------
+# factor_sum: blocked A = sum_t x_t x_t^T     (..., n, d) -> (..., nb, b, b)
+# f32 sums from bf16 or f32 inputs; the last block's columns past d are zero.
+# The cuda entry takes one (n, d) matrix (no leading axes).
+# ---------------------------------------------------------------------------
+
+def _factor_sum_ref(x, max_dim: int):
+    from repro_torch.kernels import ref
+    return ref.factor_sum_ref(x, max_dim)
+
+
+def _factor_sum_cuda(x, max_dim: int):
+    from repro_torch.kernels import kfac as kern
+    _one_matrix("factor_sum", x)
+    return kern.factor_syrk(x, max_dim)
+
+
+def _one_matrix(op: str, *ts) -> None:
+    """The kernels take one matrix per call: the training path sums and
+    preconditions layer by layer. A leading axis raises rather than loop."""
+    for t in ts:
+        if t.dim() != 2:
+            raise ValueError(f"{op}[cuda] takes one matrix per call, got a "
+                             f"{t.dim()}-D tensor {tuple(t.shape)}; call it "
+                             "once per leading index or use backend='ref'")
+
+
+def factor_sum(x: torch.Tensor, max_dim: int, *,
+               backend: str | None = None) -> torch.Tensor:
+    """Blocked raw factor sum (the statistics-construction hot spot)."""
+    which = resolve(backend, x.device)
+    return _call("factor_sum", which, x, max_dim)
+
+
+# ---------------------------------------------------------------------------
+# block_precond_left:  rows of w in blocks of b:  U[k] = Binv[k] @ W[k]
+#   binv (..., nb, b, b), w (..., d, m) with d <= nb*b -> (..., d, m) f32
+# block_precond_right: columns of w in blocks of b:  U[:, k] = W[:, k] @ Binv[k]
+#   w (..., m, d), binv (..., nb, b, b) -> (..., m, d) f32
+# w is taken unblocked: the kernel masks the ragged last block where the JAX
+# package pads w to nb*b (block_reshape) and slices the result back. The cuda
+# entries take one w matrix (no leading axes).
+# ---------------------------------------------------------------------------
+
+def _precond_left_ref(binv, w):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import ref
+    d = w.shape[-2]
+    wb = kfac.block_reshape(w, d, binv.shape[-1], axis=-2)
+    return kfac.block_unreshape(ref.block_precond_left_ref(binv, wb), d,
+                                axis=-3)
+
+
+def _precond_right_ref(w, binv):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import ref
+    d = w.shape[-1]
+    wb = kfac.block_reshape(w, d, binv.shape[-1], axis=-1)
+    return kfac.block_unreshape(ref.block_precond_right_ref(wb, binv), d,
+                                axis=-2)
+
+
+def _precond_left_cuda(binv, w):
+    return _precond_cuda(binv, w, right=False)
+
+
+def _precond_right_cuda(w, binv):
+    return _precond_cuda(binv, w, right=True)
+
+
+def _precond_cuda(binv, w, right: bool):
+    from repro_torch.kernels import kfac as kern
+    _one_matrix(f"block_precond_{'right' if right else 'left'}", w)
+    # the identity preconditioners of a fresh state are expanded views
+    return kern.block_precond(binv.contiguous(), w, right=right)
+
+
+def block_precond_left(binv: torch.Tensor, w: torch.Tensor, *,
+                       backend: str | None = None) -> torch.Tensor:
+    """Apply a blocked inverse from the left (the ``A^-1 dW`` half)."""
+    which = resolve(backend, w.device)
+    return _call("block_precond_left", which, binv, w)
+
+
+def block_precond_right(w: torch.Tensor, binv: torch.Tensor, *,
+                        backend: str | None = None) -> torch.Tensor:
+    """Apply a blocked inverse from the right (the ``dW G^-1`` half)."""
+    which = resolve(backend, w.device)
+    return _call("block_precond_right", which, w, binv)
+
+
+# ---------------------------------------------------------------------------
+# damped_inverse: (F + damping I)^-1 per block -- the Stage-4 inversion.
+# "eigh" and "cholesky" are library factorizations in the JAX package too
+# (jnp.linalg.eigh on every backend); their "cuda" entry is the same
+# torch.linalg call, registered for CUDA tensors. "newton_schulz" is a
+# matmul-only kernel of its own slice and raises here.
+# ---------------------------------------------------------------------------
+
+INVERSE_METHODS = ("eigh", "cholesky")
+
+
+def _damped_inverse_impl(f, damping, method: str):
+    from repro_torch.core import kfac
+    if method == "newton_schulz":
+        raise NotImplementedError(
+            "inverse_method='newton_schulz' arrives with the Stage-4 slice "
+            "of the port (its Newton-Schulz kernels); use 'eigh' or "
+            "'cholesky'")
+    if method not in INVERSE_METHODS:
+        raise ValueError(f"unknown inverse method {method!r}; expected "
+                         f"{INVERSE_METHODS}")
+    inv = kfac.damped_inverse if method == "eigh" else kfac.cholesky_inverse
+    return inv(f, damping)
+
+
+def _damped_inverse_cuda(f, damping, method: str):
+    if not f.is_cuda:
+        raise ValueError("damped_inverse[cuda] needs a CUDA tensor")
+    return _damped_inverse_impl(f, damping, method)
+
+
+def damped_inverse(f: torch.Tensor, damping, *, method: str = "eigh",
+                   backend: str | None = None) -> torch.Tensor:
+    """Stage-4 blocked damped inverse, f32."""
+    which = resolve(backend, f.device)
+    return _call("damped_inverse", which, f, damping, method)
+
+
+register("factor_sum", "ref", _factor_sum_ref)
+register("factor_sum", "cuda", _factor_sum_cuda)
+register("block_precond_left", "ref", _precond_left_ref)
+register("block_precond_left", "cuda", _precond_left_cuda)
+register("block_precond_right", "ref", _precond_right_ref)
+register("block_precond_right", "cuda", _precond_right_cuda)
+register("damped_inverse", "ref", _damped_inverse_impl)
+register("damped_inverse", "cuda", _damped_inverse_cuda)
+register("swa_attention_bwd", "ref", _swa_bwd_ref)
+register("swa_attention_bwd", "cuda", _swa_bwd_cuda)
 register("swa_attention_fwd_res", "ref", _swa_fwd_res_ref)
 register("swa_attention_fwd_res", "cuda", _swa_fwd_res_cuda)
 register("swa_decode", "ref", _swa_decode_ref)
 register("swa_decode", "cuda", _swa_decode_cuda)
 
 __all__ = ["BACKENDS", "CALLS", "register", "lookup", "resolve",
-           "reset_calls", "swa_attention_fwd_res", "swa_decode"]
+           "reset_calls", "swa_attention_fwd_res", "swa_attention_bwd",
+           "swa_decode", "factor_sum", "block_precond_left",
+           "block_precond_right", "damped_inverse"]

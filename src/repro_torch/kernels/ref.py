@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the serving slice's kernels (counterparts of
-``repro/kernels/ref.py``). The CPU path runs them, and ``chip_smoke.py``
-holds each CUDA kernel against them on the card."""
+"""Plain PyTorch versions of the ported kernels (counterparts of
+``repro/kernels/ref.py`` and of the ``ref`` implementations in
+``repro/kernels/dispatch.py``). The CPU path runs them, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card."""
 
 from __future__ import annotations
 
@@ -79,3 +80,55 @@ def swa_attention_fwd_res_ref(q: torch.Tensor, k: torch.Tensor,
     lse = m + torch.log(denom)
     out = torch.einsum("bgqk,bkd->bgqd", p, v.float()) / denom[..., None]
     return out.to(q.dtype), lse
+
+
+def swa_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, lse: torch.Tensor,
+                          do: torch.Tensor, *, window: int = 0):
+    """Backward of :func:`swa_attention_fwd_res_ref` from its residuals,
+    with materialized scores: p is rebuilt from ``lse``, ``delta =
+    rowsum(do * o)``, ``ds = p * (do v^T - delta)``. Layouts as the forward;
+    returns (dq (BKV, G, S, hd), dk (BKV, S, hd), dv (BKV, S, hd)), all f32,
+    dk/dv summed over the query-head group."""
+    bkv, g, s, hd = q.shape
+    scale = hd ** -0.5
+    qs = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)
+    scores = torch.einsum("bgqd,bkd->bgqk", qs, kf)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > (qp - window)
+    p = torch.where(mask[None, None], torch.exp(scores - lse[..., None]),
+                    torch.zeros_like(scores))
+    dp = torch.einsum("bgqd,bkd->bgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bgqk,bkd->bgqd", ds, kf) * scale
+    dk = torch.einsum("bgqk,bgqd->bkd", ds, qs)
+    dv = torch.einsum("bgqk,bgqd->bkd", p, dof)
+    return dq, dk, dv
+
+
+def factor_sum_ref(x: torch.Tensor, max_dim: int) -> torch.Tensor:
+    """Blocked raw factor sum: x (..., n, d) -> (..., nb, b, b) f32, the
+    einsum over ``block_reshape`` of the JAX package's ``_factor_sum_ref``
+    (inputs in their storage dtype, products and sums in f32)."""
+    from repro_torch.core import kfac
+    xb = kfac.block_reshape(x, x.shape[-1], max_dim, axis=-1).float()
+    return torch.einsum("...nka,...nkb->...kab", xb, xb)
+
+
+def block_precond_left_ref(binv: torch.Tensor, w: torch.Tensor
+                           ) -> torch.Tensor:
+    """U[k] = Binv[k] @ W[k]: binv (..., nb, b, b), w (..., nb, b, m) ->
+    (..., nb, b, m) f32."""
+    return torch.einsum("...kab,...kbo->...kao", binv.float(), w.float())
+
+
+def block_precond_right_ref(w: torch.Tensor, binv: torch.Tensor
+                            ) -> torch.Tensor:
+    """U[:, k] = W[:, k] @ Binv[k]: w (..., m, nb, b), binv (..., nb, b, b)
+    -> (..., m, nb, b) f32."""
+    return torch.einsum("...iko,...kop->...ikp", w.float(), binv.float())

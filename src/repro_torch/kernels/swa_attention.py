@@ -8,6 +8,11 @@
   ``repro/kernels/swa_attention.py::swa_flash_decode``: single-query flash
   decode over a dense or ring cache in its stored dtype, fp8 dequantized on
   read. Bound by the bytes of the visible cache rows.
+* :func:`swa_flash_bwd` (``csrc/swa_flash_bwd.cu``) replaces
+  ``repro/kernels/swa_attention.py::swa_flash_bwd_dq`` and
+  ``::swa_flash_bwd_dkdv``: the training backward from the forward's
+  (o, lse), two kernels, dk/dv summed per KV head in registers. Bound by
+  operations at the training path's shapes.
 
 Each wrapper takes CUDA tensors only (the plain versions for the CPU are in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels
@@ -23,7 +28,8 @@ import torch
 from repro_torch.kernels import build
 
 # kernel name -> number of launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"swa_flash_fwd": 0, "swa_flash_decode": 0}
+LAUNCHES: dict[str, int] = {"swa_flash_fwd": 0, "swa_flash_decode": 0,
+                            "swa_flash_bwd_dq": 0, "swa_flash_bwd_dkdv": 0}
 
 _FWD_DTYPES = (torch.float32, torch.bfloat16)
 _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -168,3 +174,73 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  window: int = 0):
+    """Backward of :func:`swa_flash_fwd` from its residuals: q, o, do
+    (BKV, G, S, hd); k, v (BKV, S, hd); lse (BKV, G, S) f32. Returns (dq
+    (BKV, G, S, hd), dk (BKV, S, hd), dv (BKV, S, hd)), all f32. ``delta =
+    rowsum(do * o)`` is taken here in f32, outside the kernels."""
+    name = "swa_flash_bwd"
+    _check_cuda(name, q, k, v, o, lse, do)
+    _require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
+             f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"v{tuple(v.shape)}")
+    bkv, g, s, hd = q.shape
+    _require(k.shape == (bkv, s, hd) and o.shape == q.shape
+             and do.shape == q.shape and lse.shape == (bkv, g, s),
+             f"{name}: shapes do not match q (BKV, G, S, hd)")
+    _require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype and do.dtype == q.dtype,
+             f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    _require(lse.dtype == torch.float32, f"{name}: lse must be float32")
+    _require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    _require(window >= 0, f"{name}: window must be >= 0")
+    delta = (do.float() * o.float()).sum(-1)
+    return (swa_flash_bwd_dq(q, k, v, lse, delta, do, window=window),
+            *swa_flash_bwd_dkdv(q, k, v, lse, delta, do, window=window))
+
+
+def _bwd_args(q, k, v, lse, delta, do, window):
+    bkv, g, s, hd = q.shape
+    _require(delta.shape == lse.shape and delta.dtype == torch.float32
+             and delta.is_cuda and delta.is_contiguous(),
+             "swa_flash_bwd: delta must be a contiguous f32 (BKV, G, S)")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), do.data_ptr())
+    tail = (bkv, g, s, hd, int(window), build.DTYPE_CODES[q.dtype],
+            hd ** -0.5, _stream(q))
+    return head, tail
+
+
+def swa_flash_bwd_dq(q, k, v, lse, delta, do, *, window: int = 0):
+    """dq (BKV, G, S, hd) f32 from the residuals and ``delta`` (the dq
+    kernel alone; :func:`swa_flash_bwd` checks the operands)."""
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq
+    head, tail = _bwd_args(q, k, v, lse, delta, do, window)
+    with torch.cuda.device(q.device):
+        rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dq(
+            *head, dq.data_ptr(), *tail)
+    build.check(rc, "swa_flash_bwd_dq")
+    LAUNCHES["swa_flash_bwd_dq"] += 1
+    return dq
+
+
+def swa_flash_bwd_dkdv(q, k, v, lse, delta, do, *, window: int = 0):
+    """(dk, dv) (BKV, S, hd) f32, summed over each KV head's query group
+    (the dkdv kernel alone)."""
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dk, dv
+    head, tail = _bwd_args(q, k, v, lse, delta, do, window)
+    with torch.cuda.device(q.device):
+        rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dkdv(
+            *head, dk.data_ptr(), dv.data_ptr(), *tail)
+    build.check(rc, "swa_flash_bwd_dkdv")
+    LAUNCHES["swa_flash_bwd_dkdv"] += 1
+    return dk, dv

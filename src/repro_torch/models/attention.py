@@ -6,9 +6,12 @@ op, which launches the hand-written CUDA prefill kernel -- when the
 ``backend`` knob resolves to ``"cuda"`` for the tensors' device, and raises
 there for a call the kernel does not cover (it covers causal
 self-attention over the whole sequence); CPU tensors and ``backend="ref"``
-take the chunked plain path below. The kernel route is forward only: a call
-that needs a gradient raises until the training slice brings the backward
-kernels.
+take the chunked plain path below. The kernel route trains through
+:class:`_KernelAttention`, a ``torch.autograd.Function`` (counterpart of
+the JAX package's ``_pallas_attention`` custom VJP): its forward is the
+residual-saving ``swa_attention_fwd_res`` and its backward the fused
+``swa_attention_bwd`` from ``(o, lse)``, with KV unexpanded, so dk/dv come
+back per KV head already summed over the query-head group.
 """
 
 from __future__ import annotations
@@ -39,17 +42,44 @@ def _to_kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return qg, kf, vf
 
 
-def _kernel_attention(q, k, v, window: int) -> torch.Tensor:
-    from repro_torch.kernels import dispatch
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA attention route is forward only; the backward kernels "
-            "arrive with the training slice")
-    b, s, h, hd = q.shape
-    qg, kf, vf = _to_kernel_layout(q, k, v)
-    out, _ = dispatch.swa_attention_fwd_res(qg, kf, vf, window=window,
-                                            backend="cuda")
-    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+class _KernelAttention(torch.autograd.Function):
+    """(B, S, H, hd) q, (B, S, KV, hd) k/v -> (B, S, H, hd) through the
+    kernel ops; saves (q, k, v, out, lse) for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, backend):
+        from repro_torch.kernels import dispatch
+        b, s, h, hd = q.shape
+        qg, kf, vf = _to_kernel_layout(q, k, v)
+        out, lse = dispatch.swa_attention_fwd_res(qg, kf, vf, window=window,
+                                                  backend=backend)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.backend = window, backend
+        return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import dispatch
+        q, k, v, out, lse = ctx.saved_tensors
+        b, s, h, hd = q.shape
+        kv = k.shape[2]
+        qg, kf, vf = _to_kernel_layout(q, k, v)
+        # the cotangent shares q's (B, S, H, hd) layout; out is already in
+        # the kernel's (B*KV, G, S, hd) layout
+        dog = g.permute(0, 2, 1, 3).reshape(b * kv, h // kv, s,
+                                             hd).contiguous()
+        dq, dk, dv = dispatch.swa_attention_bwd(qg, kf, vf, out, lse, dog,
+                                                window=ctx.window,
+                                                backend=ctx.backend)
+        dq = dq.reshape(b, h, s, hd).permute(0, 2, 1, 3).to(q.dtype)
+        dk = dk.reshape(b, kv, s, hd).permute(0, 2, 1, 3).to(k.dtype)
+        dv = dv.reshape(b, kv, s, hd).permute(0, 2, 1, 3).to(v.dtype)
+        return dq, dk, dv, None, None
+
+
+def _kernel_attention(q, k, v, window: int,
+                      backend: str = "cuda") -> torch.Tensor:
+    return _KernelAttention.apply(q, k, v, window, backend)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:

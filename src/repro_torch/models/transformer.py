@@ -7,20 +7,30 @@ parameter dicts (``blocks[i]["attn"]["wq"]`` is the JAX package's
 ``params["blocks"]["attn"]["wq"][i]``). The serving cache keeps the layout
 ``(L, B, C, KV, hd)`` with ``(L, B, C, KV)`` scales.
 
-Surface of this slice: ``init(generator)``, ``forward(batch)``,
-``init_cache(batch, max_len, serve=...)``, ``prefill(batch, max_len,
-serve=...)`` and ``decode_step(cache, tokens, serve=...)``. Other block
-types, the legacy ``serve=None`` decode and the SP-NGD wiring arrive with
-later slices.
+Surface: ``init(generator)``, ``forward(batch, fstats)``, the training
+objective ``loss(params, fstats, batch)``, the SP-NGD wiring
+``params()`` / ``site_infos()`` / ``fstats()`` / ``site_counts(batch)``,
+and serving: ``init_cache(batch, max_len, serve=...)``, ``prefill(batch,
+max_len, serve=...)``, ``decode_step(cache, tokens, serve=...)``. The
+parameter tree of ``params()`` is the JAX package's, with ``blocks`` a list
+of the L per-layer dicts instead of leaves stacked on a leading axis;
+factor-statistic families keep the stacked ``(L, ...)`` layout. With
+``cfg.remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant). Other block types and the
+legacy ``serve=None`` decode arrive with later slices.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tagging
+from repro_torch.core.fisher import SiteInfo
+from repro_torch.core.tagging import FactorSpec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import apply_rope, he_normal, layernorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp
@@ -67,6 +77,16 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        # factor specs (transformer.py:48-57 of the JAX package); its
+        # per-site specs differ only under tensor-parallel alignment, which
+        # one device does not use
+        self.spec = FactorSpec(max_dim=cfg.kfac_max_dim, backend=cfg.backend)
+        self.head_spec = FactorSpec(g_kind=cfg.head_g_kind,
+                                    max_dim=cfg.kfac_max_dim,
+                                    backend=cfg.backend)
+        self.embed_spec = FactorSpec(a_kind="diag", g_kind="full",
+                                     max_dim=cfg.kfac_max_dim,
+                                     backend=cfg.backend)
 
         def empty(*shape, dtype=cfg.dtype):
             return torch.empty(shape, dtype=dtype, device=self.device)
@@ -137,23 +157,29 @@ class DecoderLM(nn.Module):
     # norms / attention
     # ------------------------------------------------------------------
 
-    def _norm(self, x, p):
+    def _norm(self, x, p, fs_key=None, fs=None):
+        stats = fs.get(fs_key) if fs else None
         if "beta" in p:
-            return layernorm(x, p["gamma"], p["beta"])
-        return rmsnorm(x, p["gamma"])
+            return layernorm(x, p["gamma"], p["beta"], stats)
+        return rmsnorm(x, p["gamma"], stats)
 
-    def _attn(self, x, p, *, positions, cache_kv=None, cache_len=None,
-              window=None, serve=None):
+    def _attn(self, x, p, fs=None, *, positions, cache_kv=None,
+              cache_len=None, window=None, serve=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = tagging.dense_site(x, p["wq"])
-        k = tagging.dense_site(x, p["wk"])
-        v = tagging.dense_site(x, p["wv"])
+
+        def g(n):
+            return fs.get(f"attn_{n}") if fs else None
+
+        sp = self.spec
+        q = tagging.dense_site(x, p["wq"], g("wq"), sp)
+        k = tagging.dense_site(x, p["wk"], g("wk"), sp)
+        v = tagging.dense_site(x, p["wv"], g("wv"), sp)
         if cfg.qkv_bias:
-            q = tagging.bias_site(q, p["bq"])
-            k = tagging.bias_site(k, p["bk"])
-            v = tagging.bias_site(v, p["bv"])
+            q = tagging.bias_site(q, p["bq"], g("bq"))
+            k = tagging.bias_site(k, p["bk"], g("bk"))
+            v = tagging.bias_site(v, p["bv"], g("bv"))
         q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
         k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
         v = v.reshape(b, s, kv, hd)
@@ -167,7 +193,8 @@ class DecoderLM(nn.Module):
         else:
             out = attn_lib.attention(q, k, v, causal=True, window=win,
                                      backend=cfg.backend)
-        return tagging.dense_site(out.reshape(b, s, h * hd), p["wo"])
+        return tagging.dense_site(out.reshape(b, s, h * hd), p["wo"], g("wo"),
+                                  sp)
 
     def _attn_serve(self, q, k, v, cache_kv, cache_len, serve, win):
         """Serving cache paths: ring (fp8 or f32 payload) or the dense-f32
@@ -235,33 +262,153 @@ class DecoderLM(nn.Module):
     # block / embedding / forward
     # ------------------------------------------------------------------
 
-    def _block(self, x, p, *, positions, cache=None, cache_len=None,
-               serve=None):
-        h1 = self._norm(x, p["ln1"])
-        x = x + self._attn(h1, p["attn"], positions=positions, cache_kv=cache,
-                           cache_len=cache_len, serve=serve)
-        h2 = self._norm(x, p["ln2"])
+    def _block(self, x, p, fs=None, *, positions, cache=None,
+               cache_len=None, serve=None):
+        h1 = self._norm(x, p["ln1"], "ln1", fs)
+        x = x + self._attn(h1, p["attn"], fs, positions=positions,
+                           cache_kv=cache, cache_len=cache_len, serve=serve)
+        h2 = self._norm(x, p["ln2"], "ln2", fs)
         cfg = self.cfg
-        return x + mlp(h2, p["mlp"], act=cfg.act, gated=cfg.gated_mlp)
+        return x + mlp(h2, p["mlp"], _sub(fs, "mlp_"), act=cfg.act,
+                       gated=cfg.gated_mlp, spec=self.spec)
 
-    def _embed_inputs(self, batch):
+    def _embed_inputs(self, batch, params=None, fs=None):
         """Text-only: returns (h (B, S, d), positions (S,), n_front=0)."""
+        table = (params or {"embed": self.embed})["embed"]["table"]
         tok = batch["tokens"].to(self.device, torch.long)
-        h = tagging.embed_site(tok, self.embed["table"])
+        h = tagging.embed_site(tok, table,
+                               fs.get("embed") if fs else None,
+                               self.embed_spec)
         return h, torch.arange(h.shape[1], device=self.device), 0
 
-    def _head(self, h):
-        h = self._norm(h, self.final_norm)
-        return tagging.dense_site(h, self.head["w"])
+    def _head(self, h, params=None, fs=None):
+        params = params or {"final_norm": self.final_norm, "head": self.head}
+        h = self._norm(h, params["final_norm"], "final_norm", fs)
+        return tagging.dense_site(h, params["head"]["w"],
+                                  fs.get("head") if fs else None,
+                                  self.head_spec)
 
-    def forward(self, batch: dict):
-        """batch {"tokens": (B, S)} -> (logits (B, S, V), aux)."""
-        h, positions, n_front = self._embed_inputs(batch)
-        for p in self.blocks:
-            h = self._block(h, p, positions=positions)
+    def forward(self, batch: dict, fstats: dict | None = None,
+                params: dict | None = None):
+        """batch {"tokens": (B, S)} -> (logits (B, S, V), aux). With
+        ``fstats`` (the accumulators of :meth:`fstats`) every site is tagged;
+        ``params`` defaults to the model's own tree (:meth:`params`)."""
+        params = params if params is not None else self.params()
+        h, positions, n_front = self._embed_inputs(batch, params, fstats)
+        per_layer = _blk_stats(fstats, self.cfg.n_layers)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for p, fs_l in zip(params["blocks"], per_layer):
+            if remat:
+                h = checkpoint(self._block, h, p, fs_l, positions=positions,
+                               use_reentrant=False)
+            else:
+                h = self._block(h, p, fs_l, positions=positions)
         aux = {"aux_loss": torch.zeros((), device=self.device),
                "n_front": n_front}
-        return self._head(h), aux
+        return self._head(h, params, fstats), aux
+
+    def loss(self, params: dict, fstats: dict | None, batch: dict):
+        """Mean next-token NLL (+ ``aux_loss_coef`` x the blocks' auxiliary
+        loss): (loss, {"logits", "nll", "aux_loss"})."""
+        cfg = self.cfg
+        logits, aux = self.forward(batch, fstats, params)
+        n_front = aux["n_front"]
+        logits_text = logits[:, n_front:, :] if n_front else logits
+        labels = batch["labels"].to(self.device, torch.long)
+        logp = F.log_softmax(logits_text.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask.to(self.device, torch.float32)
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            loss = nll.mean()
+        total = loss + cfg.aux_loss_coef * aux["aux_loss"]
+        return total, {"logits": logits_text, "nll": loss,
+                       "aux_loss": aux["aux_loss"]}
+
+    # ------------------------------------------------------------------
+    # SP-NGD wiring: parameter tree, site registry, factor templates,
+    # token counts (transformer.py:635-745 of the JAX package)
+    # ------------------------------------------------------------------
+
+    def params(self) -> dict:
+        """The parameter tree: plain dicts of the model's own tensors, with
+        ``blocks`` the list of per-layer dicts."""
+        def tree(m):
+            if isinstance(m, nn.ParameterDict):
+                return {k: v for k, v in m.items()}
+            return {k: tree(v) for k, v in m.items()}
+        return {"embed": tree(self.embed), "final_norm": tree(self.final_norm),
+                "head": tree(self.head),
+                "blocks": [tree(b) for b in self.blocks]}
+
+    def site_infos(self) -> dict[str, SiteInfo]:
+        cfg = self.cfg
+        lead = (cfg.n_layers,)
+        d, h, kv, hd, ff, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd, cfg.d_ff, cfg.vocab)
+        infos = {
+            "embed": SiteInfo("embed", "embed/table", v, d, self.embed_spec),
+            "head": SiteInfo("dense", "head/w", d, v, self.head_spec),
+            "final_norm": SiteInfo("scale_bias", "final_norm/gamma", d, d),
+        }
+
+        def blk(name, kind, path, d_in, d_out, beta=None):
+            infos[f"blk/{name}"] = SiteInfo(
+                kind, f"blocks/{path}", d_in, d_out, self.spec, lead=lead,
+                beta_param=beta)
+
+        layernorm_ = cfg.norm == "layernorm"
+        blk("ln1", "scale_bias", "ln1/gamma", d, d,
+            beta="blocks/ln1/beta" if layernorm_ else None)
+        blk("ln2", "scale_bias", "ln2/gamma", d, d,
+            beta="blocks/ln2/beta" if layernorm_ else None)
+        blk("attn_wq", "dense", "attn/wq", d, h * hd)
+        blk("attn_wk", "dense", "attn/wk", d, kv * hd)
+        blk("attn_wv", "dense", "attn/wv", d, kv * hd)
+        blk("attn_wo", "dense", "attn/wo", h * hd, d)
+        if cfg.qkv_bias:
+            blk("attn_bq", "bias", "attn/bq", 0, h * hd)
+            blk("attn_bk", "bias", "attn/bk", 0, kv * hd)
+            blk("attn_bv", "bias", "attn/bv", 0, kv * hd)
+        blk("mlp_up", "dense", "mlp/up", d, ff)
+        if cfg.gated_mlp:
+            blk("mlp_gate", "dense", "mlp/gate", d, ff)
+        blk("mlp_down", "dense", "mlp/down", ff, d)
+        return infos
+
+    def fstats(self) -> dict:
+        """Zero factor-statistic accumulators, flat {family: stats}, block
+        families stacked (L, ...); views of one zero scalar each."""
+        out = {}
+        dev = self.device
+        for fam, info in self.site_infos().items():
+            if info.kind == "dense":
+                out[fam] = tagging.make_stats(info.spec, info.d_in,
+                                              info.d_out, lead=info.lead,
+                                              device=dev)
+            elif info.kind == "embed":
+                out[fam] = tagging.make_embed_stats(info.d_in, info.d_out,
+                                                    info.spec, lead=info.lead,
+                                                    device=dev)
+            elif info.kind == "bias":
+                out[fam] = tagging.make_bias_stats(info.d_out, lead=info.lead,
+                                                   device=dev)
+            elif info.kind == "scale_bias":
+                out[fam] = tagging.make_scale_bias_stats(
+                    info.d_out, lead=info.lead, device=dev)
+        return out
+
+    def site_counts(self, batch) -> dict:
+        """{family: (n_a, n_g)}: tokens through each site, and the samples
+        the loss averages over."""
+        tok = batch["tokens"]
+        b = tok.shape[0]
+        s_text = tok.shape[1] if tok.dim() > 1 else 1
+        mask = batch.get("mask")
+        n_loss = float(mask.sum()) if mask is not None else float(b * s_text)
+        return {fam: (b * s_text, n_loss) for fam in self.site_infos()}
 
     # ------------------------------------------------------------------
     # serving: cache init / prefill / single-token decode
@@ -338,3 +485,27 @@ class DecoderLM(nn.Module):
         cache["len"] = torch.full((b,), h.shape[1], dtype=torch.int32,
                                   device=self.device)
         return self._head(h), cache
+
+
+def _sub(fs, prefix: str):
+    """Sub-view of a block's stats dict by key prefix."""
+    if fs is None:
+        return None
+    return {k[len(prefix):]: v for k, v in fs.items() if k.startswith(prefix)}
+
+
+def _blk_stats(fstats, n_layers: int) -> list:
+    """Block families ("blk/<name>", stacked (L, ...)) -> one
+    {"<name>": {key: (...)}} dict per layer. ``unbind`` hands the layers
+    views of each accumulator, and its backward stacks the per-layer raw
+    sums back into the (L, ...) family in one copy."""
+    if fstats is None:
+        return [None] * n_layers
+    out = [{} for _ in range(n_layers)]
+    for fam, stats in fstats.items():
+        if not fam.startswith("blk/"):
+            continue
+        for key, t in stats.items():
+            for layer, t_l in enumerate(t.unbind(0)):
+                out[layer].setdefault(fam[4:], {})[key] = t_l
+    return out

@@ -240,17 +240,26 @@ def test_kernel_wrappers_and_build_refuse_without_card():
 
 
 def test_kernel_sources_and_build_flags():
-    """Both kernels are built from sources in the package for sm_90a, with a
-    plain C interface (no PyTorch headers) and no library kernels."""
+    """Every kernel is built from sources in the package for sm_90a, with a
+    plain C interface (no PyTorch headers) and no library kernels: the two
+    attention kernels of the serving path and the factor-sum,
+    block-preconditioning and attention-backward kernels of the training
+    path, each entry point of ``build.SIGNATURES`` defined in its source."""
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    for stem in ("swa_flash_fwd", "swa_flash_decode"):
+    assert set(build.SIGNATURES) == {"swa_flash_fwd", "swa_flash_decode",
+                                     "swa_flash_bwd", "kfac_factor",
+                                     "kfac_precond"}
+    for stem, entries in build.SIGNATURES.items():
         src = (build.CSRC / f"{stem}.cu").read_text()
-        assert f'extern "C" int {stem}(' in src
+        for fn in entries:
+            assert f'extern "C" int {fn}(' in src
         assert "cudaGetLastError()" in src
         for banned in ("torch/extension.h", "cublas", "cudnn", "cutlass"):
             assert banned not in src.lower()
         assert "Replaces the TPU kernel" in src and "Bound:" in src
+    for header in build.CSRC.glob("*.cuh"):
+        assert "torch/extension.h" not in header.read_text()
     assert len(build.source_hash()) == 16
 
 

@@ -85,7 +85,8 @@ def test_reduced_config_matches_jax():
     t = get_config("llama3_2_1b").reduced()
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
               "d_ff", "vocab", "rope_theta", "sliding_window", "act",
-              "gated_mlp", "norm"):
+              "gated_mlp", "norm", "kfac_max_dim", "head_g_kind", "remat",
+              "aux_loss_coef"):
         assert getattr(j, f) == getattr(t, f), f
     with pytest.raises(ValueError, match="pallas"):
         dataclasses.replace(t, backend="pallas")
