@@ -13,9 +13,12 @@ ring cache -- then holds one SP-NGD capture step on the kernels against
 ``backend="ref"`` (full width, 2 layers, f32) and trains full-width
 ``llama3_2_1b`` for 4 steps of ``repro_torch.launch.train``'s loop (each a
 capture step or a fast step as the staleness controller decides), then
-for a warm-up and three timed steps of the fast-step builder. It times all
-six kernels beside their bound, their plain version and the PyTorch
-library call for the same function.
+for a warm-up and three timed steps of the fast-step builder. Then the same
+for Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): a
+capture step on the kernels against ``backend="ref"`` (2 layers, f32) and
+full-width training for 2 loop steps and the fast-step builder's warm-up
+and three timed steps. It times all nine kernels beside their bound, their
+plain version and the PyTorch library call for the same function.
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -66,6 +69,21 @@ ROUTE_REL_TOL = 1e-4
 TRAIN = dict(steps=4, batch=4, seq=1024, lr=2e-2, damping=2.5e-4)
 # make_fast_step steps timed after the loop (and one warm-up before them)
 FAST_TIMED = 3
+# the Newton-Schulz training path: 2 loop steps (both capture at random init)
+TRAIN_NS = dict(TRAIN, steps=2)
+# Newton-Schulz, the whole inverse against the plain iteration on the same
+# damped blocks, relative to the largest entry of the plain X: the same f32
+# products in another summation order (the initial iterate's norms), which
+# measured below 1e-6 on the path's shapes; against eigh, the JAX package's
+# NS-vs-eigh tolerance (tests/test_inverse_numerics.py:141). The converged
+# flags and the trip counts must agree wherever the plain residual is not
+# within NS_FLAG_BAND of the tolerance.
+NS_REL_TOL = 1e-5
+NS_EIGH_REL_TOL = 5e-3
+NS_FLAG_BAND = 0.01
+# one residual or update launch: f32 sums in another order, relative to the
+# largest entry (the factor and preconditioning kernels' tolerance)
+NS_PRODUCT_REL_TOL = 1e-4
 
 
 def say(phase: str, msg: str) -> None:
@@ -123,10 +141,16 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     check_train_route(torch)
+    check_ns_route(torch)
     train = train_path(torch)
     launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
     times.update(time_train_kernels(torch))
     profile_train(torch, train)
+
+    errs.update(check_ns_kernels(torch))
+    ns_path = train_path_ns(torch, train)
+    launches.update({k: ns_path["launches"][k] for k in NS_KERNELS})
+    times.update(time_ns_kernels(torch))
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -147,7 +171,7 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-# the six kernels: name, source stem, the TPU kernel it replaces
+# the nine kernels: name, source stem, the TPU kernel it replaces
 KERNEL_ROWS = (
     ("swa_flash_fwd", "swa_flash_fwd", "src/repro/kernels/swa_attention.py:292"),
     ("swa_flash_decode", "swa_flash_decode",
@@ -158,9 +182,16 @@ KERNEL_ROWS = (
      "src/repro/kernels/swa_attention.py:375"),
     ("swa_flash_bwd_dkdv", "swa_flash_bwd",
      "src/repro/kernels/swa_attention.py:444"),
+    ("ns_inverse_blocks", "newton_schulz",
+     "src/repro/kernels/newton_schulz.py:91"),
+    ("ns_tiled_residual", "newton_schulz",
+     "src/repro/kernels/newton_schulz.py:165"),
+    ("ns_tiled_update", "newton_schulz",
+     "src/repro/kernels/newton_schulz.py:207"),
 )
 TRAIN_KERNELS = ("factor_syrk", "block_precond", "swa_flash_bwd_dq",
                  "swa_flash_bwd_dkdv")
+NS_KERNELS = ("ns_inverse_blocks", "ns_tiled_residual", "ns_tiled_update")
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +658,8 @@ def _group(name: str) -> str:
         return "attention kernels"
     if "factor_syrk" in low or "block_precond" in low:
         return "K-FAC kernels"
+    if "ns_inverse_blocks" in low or "ns_tiled" in low:
+        return "Stage-4 Newton-Schulz kernels"
     if any(t in low for t in ("syevd", "syevj", "sytrd", "ormtr", "orgtr",
                               "steqr", "stedc", "eig", "cusolver", "lansy",
                               "larf", "potrf")):
@@ -835,49 +868,106 @@ def _train_batch(torch, vocab, batch, seq, index: int = 0):
     return {k: v.cuda() for k, v in next(data).items()}
 
 
+def _route_cfg(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
+                               dtype=torch.float32)
+
+
+def _route_step(torch, cfg, batch, backend: str, **build_kw) -> dict:
+    """One SP-NGD capture step, every statistic refreshed, from the seed-0
+    model: its loss, raw factor families, updated params, preconditioners
+    and (with Newton-Schulz) the per-block Stage-4 info, all copied out."""
+    from repro_torch.core.fisher import flatten
+    from repro_torch.launch import train
+    model, opt, params, state = train.build(cfg=cfg, backend=backend,
+                                            device="cuda", **build_kw)
+    loss, aux, grads, raw = opt.grads_and_raw(params, batch)
+    flags = {k: True for k in opt.stat_names()}
+    raw_flat = {k: v.clone() for k, v in flatten(raw).items()}
+    _, state, m = opt.apply_update(params, state, grads, raw,
+                                   model.site_counts(batch), flags,
+                                   TRAIN["damping"], TRAIN["lr"], 0.9, loss,
+                                   aux)
+    out = {"loss": float(loss), "raw": raw_flat,
+           "params": {k: v.detach().clone()
+                      for k, v in flatten(params).items()},
+           "precond": {f"{fam}.{k}": v.clone()
+                       for fam, c in state["curv"].items()
+                       for k, v in c["precond"].items()},
+           "info": m.get("inverse_info", {})}
+    del model, opt, params, state, grads, raw, m
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_train_route(torch) -> None:
     """One SP-NGD capture step at full width, 2 layers, f32, through the
     kernels and again with backend="ref" on the card: the loss, the raw
     factor families and the updated params agree."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.core.fisher import flatten
-    from repro_torch.launch import train
-    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
-                              dtype=torch.float32)
+    cfg = _route_cfg(torch)
     batch = _train_batch(torch, cfg.vocab, 2, 512)
-    out = {}
-    for backend in ("auto", "ref"):
-        model, opt, params, state = train.build(cfg=cfg, backend=backend,
-                                                device="cuda")
-        loss, aux, grads, raw = opt.grads_and_raw(params, batch)
-        flags = {k: True for k in opt.stat_names()}
-        raw_flat = {k: v.clone() for k, v in flatten(raw).items()}
-        opt.apply_update(params, state, grads, raw, model.site_counts(batch),
-                         flags, TRAIN["damping"], TRAIN["lr"], 0.9, loss, aux)
-        out[backend] = (float(loss), raw_flat,
-                        {k: v.detach().clone() for k, v in
-                         flatten(params).items()})
-        del model, opt, params, state, grads, raw
-        torch.cuda.empty_cache()
-    (lk, rk, pk), (lr_, rr, pr) = out["auto"], out["ref"]
+    k, r = (_route_step(torch, cfg, batch, b) for b in ("auto", "ref"))
+    lk, lr_ = k["loss"], r["loss"]
     check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
           f"route loss {lk} vs {lr_}")
-    worst_raw = max(_rel_err(torch, rk[k], rr[k]) for k in rr)
-    worst_p = max(_rel_err(torch, pk[k], pr[k]) for k in pr)
+    worst_raw = max(_rel_err(torch, k["raw"][n], r["raw"][n])
+                    for n in r["raw"])
+    worst_p = max(_rel_err(torch, k["params"][n], r["params"][n])
+                  for n in r["params"])
     check(worst_raw <= ROUTE_REL_TOL, f"route raw factors rel err {worst_raw}")
     check(worst_p <= ROUTE_REL_TOL, f"route updated params rel err {worst_p}")
     say("train-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512): "
                        f"one capture step kernels vs backend='ref': loss "
                        f"{lk:.6f} vs {lr_:.6f}; worst max|err|/max over "
-                       f"{len(rr)} raw factor families {worst_raw:.3e}, over "
-                       f"{len(pr)} updated params {worst_p:.3e} (tol "
-                       f"{ROUTE_REL_TOL})")
+                       f"{len(r['raw'])} raw factor families {worst_raw:.3e}, "
+                       f"over {len(r['params'])} updated params {worst_p:.3e} "
+                       f"(tol {ROUTE_REL_TOL})")
+
+
+def check_ns_route(torch) -> None:
+    """One capture step at full width, 2 layers, f32, with Stage 4 by
+    Newton-Schulz, on the kernels and with backend="ref" (the plain
+    iteration): the loss, every preconditioner within ROUTE_REL_TOL of its
+    largest entry (the raw factors already differ by the factor kernel's
+    summation order), and identical per-block converged flags."""
+    from repro_torch.core.kfac import NS_TOL
+    cfg = _route_cfg(torch)
+    batch = _train_batch(torch, cfg.vocab, 2, 512)
+    k, r = (_route_step(torch, cfg, batch, b, inverse_method="newton_schulz")
+            for b in ("auto", "ref"))
+    check(abs(k["loss"] - r["loss"]) <= ROUTE_REL_TOL * abs(r["loss"]),
+          f"NS route loss {k['loss']} vs {r['loss']}")
+    worst = max(_rel_err(torch, k["precond"][n], r["precond"][n])
+                for n in r["precond"])
+    check(worst <= ROUTE_REL_TOL, f"NS route preconditioners rel err {worst}")
+    check(set(k["info"]) == set(r["info"]) and r["info"],
+          f"NS route info keys {sorted(k['info'])} vs {sorted(r['info'])}")
+    blocks = near = fell = 0
+    for n, ri in r["info"].items():
+        check(torch.equal(k["info"][n]["ns_converged"], ri["ns_converged"]),
+              f"NS route {n}: converged flags "
+              f"{k['info'][n]['ns_converged'].tolist()} vs "
+              f"{ri['ns_converged'].tolist()}")
+        blocks += ri["ns_res"].numel()
+        near += int(((ri["ns_res"] - NS_TOL).abs()
+                     <= NS_FLAG_BAND * NS_TOL).sum())
+        fell += int((~ri["ns_converged"]).sum())
+    say("ns-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512): one "
+                    f"capture step, inverse_method=newton_schulz, kernels vs "
+                    f"backend='ref': loss {k['loss']:.6f} vs {r['loss']:.6f}; "
+                    f"worst max|err|/max over {len(r['precond'])} "
+                    f"preconditioners {worst:.3e} (tol {ROUTE_REL_TOL}); "
+                    f"converged flags equal over {blocks} blocks ({near} "
+                    f"within {NS_FLAG_BAND:.0%} of tol, {fell} fell back to "
+                    f"eigh in the plain run)")
 
 
 class _Stage4Timer:
-    """Times every damped_inverse dispatch (the batched eigh of one factor
-    family) with a synchronized host clock, by wrapping its cuda entry."""
+    """Times every damped_inverse dispatch (the batched inverse of one
+    factor family: eigh, or Newton-Schulz with its eigh fallback) with a
+    synchronized host clock, by wrapping its cuda entry."""
 
     def __init__(self, torch):
         from repro_torch.kernels import dispatch
@@ -918,6 +1008,33 @@ def _train_counts(cfg, kinds) -> dict:
             "swa_flash_bwd_dkdv": cfg.n_layers * len(kinds)}
 
 
+def _fast_steps(torch, model, opt, params, state, recs, spec, phase):
+    """The fast-step builder (make_fast_step, the stale-preconditioned step
+    the controller takes once intervals grow) on the stream's next batches
+    at the loop's last learning rate and momentum: one warm-up step, then
+    FAST_TIMED timed ones, appended to ``recs``. Returns (params, state)."""
+    from repro_torch.launch import train
+    from repro_torch.optim.schedules import polynomial_decay
+    fast = train.make_fast_step(model, opt)
+    lr = polynomial_decay(spec["lr"], 0, spec["steps"], 4.0)(
+        spec["steps"] - 1)
+    for i in range(1 + FAST_TIMED):
+        batch = _train_batch(torch, model.cfg.vocab, spec["batch"],
+                             spec["seq"], index=len(recs))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = fast(params, state, batch, spec["damping"], lr,
+                                0.9 * lr / spec["lr"])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        recs.append({"t": len(recs) + 1, "kind": "fast", "loss": loss,
+                     "seconds": time.perf_counter() - t, "warm": i == 0})
+        say(phase, f"step {len(recs)} fast (make_fast_step on the stale "
+                   f"preconditioners{', warm-up' if i == 0 else ''}) loss "
+                   f"{loss:.4f} {recs[-1]['seconds']:.3f} s")
+    return params, state
+
+
 def train_path(torch) -> dict:
     """launch.train's step loop at its default configuration, full-width
     llama3_2_1b, 4 steps as the IntervalController decides them; then
@@ -949,7 +1066,6 @@ def train_path(torch) -> dict:
         params, state, recs = train.run(model, opt, params, state,
                                         log=lambda m: say("train-path", m),
                                         **TRAIN)
-    kinds = [r["kind"] for r in recs]
     for r in recs[1:]:
         d = [v for v in r["sims"].values() if v[0] >= 0]
         say("train-path", f"step {r['t']} ({r['kind']}, {r['n_refreshed']}/"
@@ -959,29 +1075,9 @@ def train_path(torch) -> dict:
                           f"{min(x[1] for x in d):.3f}-"
                           f"{max(x[1] for x in d):.3f} (alpha 0.1)"
                 if d else f"step {r['t']} ({r['kind']})")
-    # the fast-step builder (make_fast_step, the stale-preconditioned step
-    # the controller takes once intervals grow) on the stream's next batches
-    # at the loop's last learning rate and momentum: one warm-up step, then
-    # FAST_TIMED timed ones
-    from repro_torch.optim.schedules import polynomial_decay
-    fast = train.make_fast_step(model, opt)
-    lr = polynomial_decay(TRAIN["lr"], 0, TRAIN["steps"], 4.0)(
-        TRAIN["steps"] - 1)
-    for i in range(1 + FAST_TIMED):
-        batch = _train_batch(torch, cfg.vocab, TRAIN["batch"], TRAIN["seq"],
-                             index=len(recs))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        params, state, m = fast(params, state, batch, TRAIN["damping"], lr,
-                                0.9 * lr / TRAIN["lr"])
-        loss = float(m["loss"])
-        torch.cuda.synchronize()
-        recs.append({"t": len(recs) + 1, "kind": "fast", "loss": loss,
-                     "seconds": time.perf_counter() - t, "warm": i == 0})
-        kinds.append("fast")
-        say("train-path", f"step {len(recs)} fast (make_fast_step on the "
-                          f"stale preconditioners{', warm-up' if i == 0 else ''}"
-                          f") loss {loss:.4f} {recs[-1]['seconds']:.3f} s")
+    params, state = _fast_steps(torch, model, opt, params, state, recs,
+                                TRAIN, "train-path")
+    kinds = [r["kind"] for r in recs]
     launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES}
     calls = dict(dispatch.CALLS)
     peak = torch.cuda.max_memory_allocated()
@@ -1015,7 +1111,9 @@ def train_path(torch) -> dict:
                       f"(torch.cuda.max_memory_allocated); {card_note(torch)}")
     say("train-path", f"launches {got} (reckoned {want}); dispatches {calls}")
     return {"launches": launches, "model": model, "opt": opt,
-            "params": params, "state": state, "cfg": cfg}
+            "params": params, "state": state, "cfg": cfg,
+            "first_loss": recs[0]["loss"], "stage4_s": s4.seconds,
+            "refreshes": len(cap)}
 
 
 def _attn_inputs(torch, gen, bkv, g, s, hd, dtype):
@@ -1150,6 +1248,360 @@ def profile_train(torch, train) -> None:
              capture_step, warm=False)
     del train["model"], train["opt"], train["params"], train["state"]
     torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# Stage 4 by Newton-Schulz
+# ---------------------------------------------------------------------------
+
+def _ns_factors(torch, gen, g, b, spread: float, damping: float):
+    """Damped symmetric blocks as the training path builds them: Gram
+    matrices of bf16 tokens summed in f32 (n = 2b tokens, column scales
+    log-spread over ``spread`` decades), plus ``damping`` times their mean
+    eigenvalue. Returns (f, d, m): the factors, the damping (g,) and
+    M = sym(f) + d I."""
+    from repro_torch.core import kfac
+    n = 2 * b
+    scale = torch.logspace(0, -spread, b, device="cuda")
+    x = (torch.randn((g, n, b), generator=gen, device="cuda") * scale).to(
+        torch.bfloat16).float()
+    f = x.transpose(-1, -2) @ x / n
+    del x
+    d = damping * torch.diagonal(f, dim1=-2, dim2=-1).mean(-1)
+    return f, d, kfac.damped_sym(f, d)
+
+
+def check_ns_kernels(torch) -> dict:
+    """The three Newton-Schulz kernels against their plain versions at the
+    training path's shapes: the resident kernel at (16, 512, 512) on blocks
+    that converge and on ill-conditioned ones that must fall back to eigh;
+    one residual and one update launch at (64, 2048, 2048), with frozen
+    blocks; the whole tiled inverse at (16, 2048, 2048); ragged b 1000
+    (resident) and 1100 (tiled)."""
+    from repro_torch.core import kfac
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import newton_schulz as ns
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = {k: 0.0 for k in NS_KERNELS}
+    iters, tol = kfac.NS_ITERS, kfac.NS_TOL
+
+    def whole(label, g, b, spread, damping, expect_conv: bool):
+        f, d, m = _ns_factors(torch, gen, g, b, spread, damping)
+        x, res, trips = ns.ns_inverse(m, iters, tol)
+        torch.cuda.synchronize()
+        want, wres, wtrips = ref.ns_inverse_blocks_ref(m, iters, tol)
+        conv, wconv = res <= tol, wres <= tol
+        # flags and trips equal wherever the plain residual is not within
+        # NS_FLAG_BAND of tol
+        borderline = (wres - tol).abs() <= NS_FLAG_BAND * tol
+        near = int(borderline.sum())
+        check(bool(((conv == wconv) | borderline).all()),
+              f"NS {label}: converged {conv.tolist()} vs plain "
+              f"{wconv.tolist()} (plain res {wres.tolist()})")
+        check(bool(((trips == wtrips) | borderline).all()),
+              f"NS {label}: trips {trips.tolist()} vs plain "
+              f"{wtrips.tolist()}")
+        check(bool((wconv == expect_conv).all()),
+              f"NS {label}: expected every block to "
+              f"{'converge' if expect_conv else 'fail'}; plain res "
+              f"{wres.tolist()}")
+        kern = "ns_inverse_blocks" if ns.route(b) == "resident" else \
+            "ns_tiled_update"
+        msg = f"NS {label} ({g}, {b}, {b}) via {ns.route(b)}: trips " \
+              f"{int(trips.min())}-{int(trips.max())} (equal to the plain " \
+              f"iteration's), res " \
+              f"{float(res.min()):.2e}-{float(res.max()):.2e} (plain " \
+              f"{float(wres.min()):.2e}-{float(wres.max()):.2e})"
+        if expect_conv:
+            err = _rel_err(torch, x, want)
+            check(err <= NS_REL_TOL, f"NS {label}: rel err {err} > "
+                                     f"{NS_REL_TOL}")
+            eigh = kfac.damped_inverse(f, d)
+            e_err = max(_rel_err(torch, x[i], eigh[i]) for i in range(g))
+            check(e_err <= NS_EIGH_REL_TOL, f"NS {label}: vs eigh {e_err}")
+            worst[kern] = max(worst[kern], _max_err(torch, x, want))
+            msg += (f"; max|err|/max vs plain {err:.3e} (tol {NS_REL_TOL}), "
+                    f"vs eigh {e_err:.3e} (tol {NS_EIGH_REL_TOL})")
+        else:
+            # through the dispatch op: every block re-solved by eigh
+            inv, info = dispatch.damped_inverse(
+                f, d, method="newton_schulz", backend="cuda",
+                return_info=True)
+            eigh = kfac.damped_inverse(f, d)
+            check(not bool(info["ns_converged"].any()),
+                  f"NS {label}: dispatch kept a block {info['ns_res']}")
+            e_err = _rel_err(torch, inv, eigh)
+            check(e_err <= NS_EIGH_REL_TOL, f"NS {label} fallback vs eigh "
+                                            f"{e_err}")
+            msg += f"; dispatch fell back on all {g}, vs eigh {e_err:.3e}"
+        say("ns-kernel", msg + f" ({near} flags within {NS_FLAG_BAND:.0%} of "
+                               f"tol)")
+        del f, d, m, x, want
+
+    whole("converging", 16, 512, 1.0, 1e-3, True)
+    whole("ill-conditioned", 16, 512, 4.0, 1e-9, False)
+    whole("converging", 16, 2048, 1.0, 1e-3, True)
+    whole("ragged", 4, 1000, 1.0, 1e-3, True)
+    whole("ragged", 4, 1100, 1.0, 1e-3, True)
+
+    # one residual and one update launch at the w1/w3 G family's shape, with
+    # every fourth block frozen
+    _, _, m = _ns_factors(torch, gen, 64, 2048, 1.0, 1e-3)
+    x = ref.ns_x0(m) + 1e-6 * torch.randn(m.shape, generator=gen,
+                                          device="cuda")
+    active = (torch.arange(64, device="cuda") % 4 != 3).to(torch.int32)
+    live = active.bool()
+    for label, act in (("all active", None), ("every 4th frozen", active)):
+        r, ss = ns.ns_tiled_residual(m, x, act)
+        xn = ns.ns_tiled_update(x, r, act)
+        torch.cuda.synchronize()
+        wr, wss = ref.ns_tiled_residual_ref(m, x)
+        wx = ref.ns_tiled_update_ref(x, wr)
+        sel = live if act is not None else torch.ones_like(live)
+        e_r = _rel_err(torch, r[sel], wr[sel])
+        e_ss = _rel_err(torch, ss[sel], wss[sel])
+        e_x = _rel_err(torch, xn[sel], wx[sel])
+        check(max(e_r, e_ss, e_x) <= NS_PRODUCT_REL_TOL,
+              f"NS tiled pair ({label}): rel errs r {e_r} ss {e_ss} x' {e_x}")
+        if act is not None:
+            check(bool((ss[~live] == 0).all())
+                  and torch.equal(xn[~live], x[~live]),
+                  "NS tiled pair: a frozen block changed")
+        worst["ns_tiled_residual"] = max(worst["ns_tiled_residual"],
+                                         _max_err(torch, r[sel], wr[sel]))
+        worst["ns_tiled_update"] = max(worst["ns_tiled_update"],
+                                       _max_err(torch, xn[sel], wx[sel]))
+        say("ns-kernel", f"tiled residual + update (64, 2048, 2048), {label}: "
+                         f"max|err|/max r {e_r:.3e}, ss {e_ss:.3e}, x' "
+                         f"{e_x:.3e} (tol {NS_PRODUCT_REL_TOL})"
+            + ("; frozen blocks: ss 0 and x' == x bit for bit"
+               if act is not None else ""))
+        del r, ss, xn, wr, wss, wx
+    del m, x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_path_ns(torch, eigh_train) -> dict:
+    """launch.train with Stage 4 by Newton-Schulz at full width: 2 loop
+    steps (both capture at random init), then a warm-up and
+    FAST_TIMED timed steps of the fast-step builder. Prints the step walls,
+    Stage-4 seconds a refresh, trips, eigh fallbacks and residuals per
+    statistic and the peak memory. Checks: the first loss equals the eigh
+    path's (same seed and batch), every loss finite, the launches as
+    reckoned from the code and the recorded trips, no ref dispatch, and the
+    plain iteration never called."""
+    import math
+    from repro_torch.core import kfac as kfac_core
+    from repro_torch.kernels import dispatch, kfac, ref, swa_attention
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, params, state = train.build(
+        "llama3_2_1b", full_config=True, device="cuda",
+        inverse_method="newton_schulz")
+    cfg = model.cfg
+    calls = []                 # (b, trips) of every Newton-Schulz call
+    plain = []                 # calls of the plain iteration (must stay [])
+    inner = ns.ns_inverse
+
+    def spy_ns(m, iters, tol):
+        out = inner(m, iters, tol)
+        calls.append((m.shape[-1], out[2].cpu()))
+        return out
+
+    def plain_spy(fn):
+        def run(*a, **kw):
+            plain.append(fn.__name__)
+            return fn(*a, **kw)
+        return run
+    patched = [(ns, "ns_inverse", spy_ns)] + [
+        (mod, name, plain_spy(getattr(mod, name)))
+        for mod, name in ((kfac_core, "newton_schulz_inverse"),
+                          (ref, "ns_inverse_blocks_ref"),
+                          (ref, "ns_tiled_residual_ref"),
+                          (ref, "ns_tiled_update_ref"))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    ns.reset_launches()
+    dispatch.reset_calls()
+    try:
+        with _Stage4Timer(torch) as s4:
+            params, state, recs = train.run(
+                model, opt, params, state,
+                log=lambda m: say("ns-train-path", m), **TRAIN_NS)
+        params, state = _fast_steps(torch, model, opt, params, state, recs,
+                                    TRAIN_NS, "ns-train-path")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    kinds = [r["kind"] for r in recs]
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES, **ns.LAUNCHES}
+    dcalls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(kinds == ["capture"] * TRAIN_NS["steps"] + ["fast"] * (
+        1 + FAST_TIMED), f"NS step kinds {kinds}")
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"NS losses {[r['loss'] for r in recs]}")
+    d_loss = abs(recs[0]["loss"] - eigh_train["first_loss"])
+    check(d_loss <= 1e-6 * abs(eigh_train["first_loss"]),
+          f"NS first loss {recs[0]['loss']} != eigh path's "
+          f"{eigh_train['first_loss']}")
+    check(not plain, f"the plain Newton-Schulz iteration ran: {plain}")
+    check(not any(b == "ref" for (_, b) in dcalls),
+          f"ref dispatches: {dcalls}")
+    # the i-th Newton-Schulz call of a capture step is the i-th blocked
+    # factor of its inverse info (both go family by family, a then g)
+    cap = [r for r in recs if r["kind"] == "capture"]
+    names = [n for r in cap for n in r["inverse"]]
+    infos = [i for r in cap for i in r["inverse"].values()]
+    check(len(calls) == len(names) and all(
+        t.numel() == i["ns_res"].numel() for (_, t), i in zip(calls, infos)),
+          f"NS calls {len(calls)} vs blocked statistics {len(names)}")
+    want = _train_counts(cfg, kinds)
+    want["ns_inverse_blocks"] = sum(1 for b, _ in calls
+                                    if ns.route(b) == "resident")
+    tiled = [int(t.max()) for b, t in calls if ns.route(b) == "tiled"]
+    want["ns_tiled_residual"] = sum(n + 1 for n in tiled)
+    want["ns_tiled_update"] = sum(tiled)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"NS train launches {got} != reckoned {want}")
+    check(want["ns_inverse_blocks"] > 0 and want["ns_tiled_update"] > 0,
+          "the NS path must run both the resident kernel and the tiled pair")
+    per_stat: dict = {}
+    for (b, t), n, i in zip(calls, names, infos):
+        e = per_stat.setdefault(n, {"b": b, "trips": [], "fell": 0,
+                                    "res": []})
+        e["trips"] += t.tolist()
+        e["fell"] += int((~i["ns_converged"]).sum())
+        e["res"] += i["ns_res"].flatten().tolist()
+    for n, e in per_stat.items():
+        tr = e["trips"]
+        say("ns-train-path", f"{n}: {len(tr)} blocks of {e['b']} over "
+                             f"{len(cap)} refreshes ({ns.route(e['b'])}): "
+                             f"trips min {min(tr)} median "
+                             f"{statistics.median(tr)} max {max(tr)}; eigh "
+                             f"fallback {e['fell']}; res {min(e['res']):.2e}-"
+                             f"{max(e['res']):.2e}")
+    all_trips = [x for e in per_stat.values() for x in e["trips"]]
+    fell = sum(e["fell"] for e in per_stat.values())
+    tokens = TRAIN_NS["batch"] * TRAIN_NS["seq"]
+    cap_s = [r["seconds"] for r in cap]
+    fast_s = [r["seconds"] for r in recs
+              if r["kind"] == "fast" and not r.get("warm")]
+    say("ns-train-path", f"{len(recs)} steps: losses "
+                         f"{[round(r['loss'], 6) for r in recs]}; first loss "
+                         f"{recs[0]['loss']:.6f} vs eigh path "
+                         f"{eigh_train['first_loss']:.6f}")
+    say("ns-train-path", f"capture step wall {[round(x, 3) for x in cap_s]} s,"
+                         f" fast step {[round(x, 3) for x in fast_s]} s after "
+                         f"a warm-up, median {statistics.median(fast_s):.3f} s "
+                         f"({tokens / statistics.median(fast_s):.1f} tokens/s);"
+                         f" Stage-4 Newton-Schulz {s4.seconds:.3f} s over "
+                         f"{s4.calls} batched calls ({s4.blocks} blocks) in "
+                         f"{len(cap)} refreshes, {s4.seconds / len(cap):.3f} s "
+                         f"a refresh (eigh path: "
+                         f"{eigh_train['stage4_s'] / eigh_train['refreshes']:.3f}"
+                         f" s); trips min {min(all_trips)} median "
+                         f"{statistics.median(all_trips)} max {max(all_trips)};"
+                         f" eigh fallback {fell} of {len(all_trips)} blocks; "
+                         f"peak memory {peak / 2 ** 30:.2f} GiB; "
+                         f"{card_note(torch)}")
+    say("ns-train-path", f"launches {got} (reckoned {want}); dispatches "
+                         f"{dcalls}")
+    capture = train.make_train_step(model, opt)
+    flags = {k: True for k in opt.stat_names()}
+    batch = _train_batch(torch, cfg.vocab, TRAIN_NS["batch"], TRAIN_NS["seq"])
+    _profile(torch, "one capture train step, Newton-Schulz Stage 4, every "
+                    "statistic refreshed",
+             lambda: capture(params, state, batch, flags, TRAIN_NS["damping"],
+                             1e-4, 0.0), warm=False)
+    del model, opt, params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def time_ns_kernels(torch) -> dict:
+    """The three Newton-Schulz kernels at the training path's shapes beside
+    their bound, plain version and library call: the resident kernel at
+    (16, 512, 512) with tol 0 (exactly NS_ITERS trips), and beside it the
+    tiled pair's whole inverse on the same blocks (the route b > 1024
+    takes), both again at g 15; one residual and one update launch at
+    (64, 2048, 2048)."""
+    from repro_torch.core import kfac
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import newton_schulz as ns
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    iters = kfac.NS_ITERS
+    g, b = 16, 512
+    f, d, m = _ns_factors(torch, gen, g, b, 1.0, 1e-3)
+    _, _, trips = ns.ns_inverse_blocks(m, iters, 0.0)
+    check(bool((trips == iters).all()), f"tol 0: trips {trips.tolist()}")
+    bound, by = _bound(4 * b ** 3 * g * iters, 2 * g * b * b * 4 + 8 * g,
+                       m.dtype)
+    eigh_ms = _time_ms(torch, lambda: kfac.damped_inverse(f, d), reps=5)
+    res["ns_inverse_blocks"] = {
+        "ms": _time_ms(torch, lambda: ns.ns_inverse_blocks(m, iters, 0.0)),
+        "plain_ms": _time_ms(torch, lambda: ref.ns_inverse_blocks_ref(
+            m, iters, 0.0), reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.linalg.inv(m)),
+        "bound_ms": bound, "bound_by": by}
+    _, _, trips = ns.ns_inverse_tiled(m, iters, 0.0)
+    check(bool((trips == iters).all()), f"tiled, tol 0: {trips.tolist()}")
+    tiled_ms = _time_ms(torch, lambda: ns.ns_inverse_tiled(m, iters, 0.0),
+                        reps=5)
+    # one block fewer: the resident kernel's cluster size follows g
+    m15 = m[:g - 1].contiguous()
+    ms15 = _time_ms(torch, lambda: ns.ns_inverse_blocks(m15, iters, 0.0),
+                    reps=5)
+    tiled15 = _time_ms(torch, lambda: ns.ns_inverse_tiled(m15, iters, 0.0),
+                       reps=5)
+    say("times", f"ns_inverse_blocks ({g}, {b}, {b}) f32, tol 0 ({iters} "
+                 f"trips): {res['ns_inverse_blocks']}, "
+                 f"{res['ns_inverse_blocks']['ms'] / iters:.4f} ms a trip "
+                 f"(library: torch.linalg.inv on the damped blocks; eigh "
+                 f"(kfac.damped_inverse) {eigh_ms:.4f} ms); clusters of "
+                 f"{ns.resident_cluster(g, b)} blocks; the tiled pair "
+                 f"on the same blocks (ns_inverse_tiled, {iters} trips) "
+                 f"{tiled_ms:.4f} ms, {tiled_ms / iters:.4f} ms a trip. "
+                 f"At g {g - 1}: resident {ms15:.4f} ms (clusters of "
+                 f"{ns.resident_cluster(g - 1, b)}), tiled {tiled15:.4f} ms; "
+                 f"{card_note(torch)}")
+    del f, d, m, m15
+
+    g, b = 64, 2048
+    _, _, m = _ns_factors(torch, gen, g, b, 1.0, 1e-3)
+    x = ref.ns_x0(m)
+    eye = torch.eye(b, device="cuda")
+    r, _ = ns.ns_tiled_residual(m, x)
+    nbytes = 3 * g * b * b * 4
+    bound, by = _bound(2 * b ** 3 * g, nbytes + 4 * g, m.dtype)
+    res["ns_tiled_residual"] = {
+        "ms": _time_ms(torch, lambda: ns.ns_tiled_residual(m, x)),
+        "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_residual_ref(m, x),
+                             reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.baddbmm(eye, m, x,
+                                                            alpha=-1.0)),
+        "bound_ms": bound, "bound_by": by}
+    bound, by = _bound(2 * b ** 3 * g, nbytes, m.dtype)
+    res["ns_tiled_update"] = {
+        "ms": _time_ms(torch, lambda: ns.ns_tiled_update(x, r)),
+        "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_update_ref(x, r),
+                             reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.baddbmm(x, x, r)),
+        "bound_ms": bound, "bound_by": by}
+    say("times", f"ns_tiled_residual ({g}, {b}, {b}) f32: "
+                 f"{res['ns_tiled_residual']}; ns_tiled_update: "
+                 f"{res['ns_tiled_update']} (library: torch.baddbmm f32, TF32 "
+                 f"off); {card_note(torch)}")
+    del m, x, r
+    torch.cuda.empty_cache()
+    return res
+
 
 
 if __name__ == "__main__":

@@ -7,8 +7,7 @@ Large dimensions split into diagonal blocks of at most ``max_dim`` and every
 factor array carries a block axis ``(nb, b, b)`` behind any leading
 layer axes; all ops broadcast over leading axes.
 
-The Newton-Schulz inverse and the symmetric packing arrive with the slices
-that use them (Stage 4, fp8 history).
+The symmetric packing arrives with the fp8-history slice.
 """
 
 from __future__ import annotations
@@ -131,6 +130,44 @@ def cholesky_inverse(f: torch.Tensor, damping) -> torch.Tensor:
     return torch.cholesky_solve(eye.expand(f.shape), chol)
 
 
+# Newton-Schulz iteration cap and tolerance, defined once here (the
+# algorithm's home); the training path always runs with these.
+NS_ITERS = 40   # iteration cap: covers damped condition numbers ~1e4 in f32
+NS_TOL = 1e-4   # relative fixed-point residual for early exit / fallback
+
+
+def newton_schulz_inverse(f: torch.Tensor, damping, *, iters: int = NS_ITERS,
+                          tol: float = NS_TOL):
+    """Matmul-only blocked inverse of ``f + damping*I`` (Newton-Schulz), the
+    plain version of the whole method.
+
+    ``X_{k+1} = X_k + X_k (I - M X_k)`` from ``X_0 = M^T / (||M||_1
+    ||M||_inf)`` converges quadratically for SPD ``M = f + damping*I``
+    (every eigenvalue of ``M X_0`` lies in (0, 1]). Per block the iterate
+    freezes once the relative residual ``||I - M X_k||_F / ||I||_F`` drops
+    to ``tol``; ``iters`` caps the trips.
+
+    f: (..., nb, b, b); damping broadcastable to (..., nb) like
+    :func:`damped_inverse`. Returns ``(x, res)`` with ``res`` (..., nb) the
+    residual of the returned iterate: ``res > tol`` is the failed-to-
+    contract predicate of ``kernels.dispatch``'s eigh fallback."""
+    from repro_torch.kernels import ref
+    x, res, _ = ref.ns_inverse_blocks_ref(damped_sym(f, damping), iters, tol)
+    return x, res
+
+
+def damped_sym(f: torch.Tensor, damping) -> torch.Tensor:
+    """``M = (f + f^T)/2 + damping*I`` in f32, damping broadcast over the
+    leading axes (..., nb): the input the Newton-Schulz iteration takes."""
+    b = f.shape[-1]
+    f = f.float()
+    f = 0.5 * (f + f.transpose(-1, -2))
+    d = torch.broadcast_to(torch.as_tensor(damping, dtype=torch.float32,
+                                           device=f.device), f.shape[:-2])
+    eye = torch.eye(b, dtype=torch.float32, device=f.device)
+    return f + d[..., None, None] * eye
+
+
 def damped_factor_inverses(a: Optional[torch.Tensor],
                            g: Optional[torch.Tensor], lam: float, d_a: int,
                            d_g: int, *, method: str = "eigh",
@@ -140,7 +177,9 @@ def damped_factor_inverses(a: Optional[torch.Tensor],
     blocked factor is inverted through ``kernels.dispatch.damped_inverse``
     (one batched call for all its blocks and layers), a diagonal one
     elementwise as ``1/(max(x, 0) + d)``. A site with one factor passes
-    None for the other: pi is then 1 and None comes back for it."""
+    None for the other: pi is then 1 and None comes back for it. Returns
+    ``(a_inv, g_inv, info)``: info maps "a"/"g" of each blocked factor to
+    the dispatch's per-block ``{"ns_res", "ns_converged"}``."""
     if a is not None and g is not None:
         pi = pi_correction(a, g, d_a, d_g, a_kind=a_kind, g_kind=g_kind)
     else:
@@ -149,19 +188,21 @@ def damped_factor_inverses(a: Optional[torch.Tensor],
         pi = torch.ones(lead, device=f.device)
     sl = torch.sqrt(torch.as_tensor(lam, dtype=torch.float32,
                                     device=pi.device))
-    return (_damped(a, a_kind, pi * sl, method, backend),
-            _damped(g, g_kind, sl / pi, method, backend))
-
-
-def _damped(f: Optional[torch.Tensor], kind: str, damp: torch.Tensor,
-            method: str, backend: Optional[str]) -> Optional[torch.Tensor]:
-    if f is None:
-        return None
-    if kind == "full":
-        from repro_torch.kernels import dispatch
-        return dispatch.damped_inverse(f, damp[..., None], method=method,
-                                       backend=backend)
-    return 1.0 / (torch.clamp(f, min=0.0) + damp[..., None])
+    info = {}
+    out = []
+    for key, f, kind, damp in (("a", a, a_kind, pi * sl),
+                               ("g", g, g_kind, sl / pi)):
+        if f is None:
+            out.append(None)
+        elif kind == "full":
+            from repro_torch.kernels import dispatch
+            inv, info[key] = dispatch.damped_inverse(
+                f, damp[..., None], method=method, backend=backend,
+                return_info=True)
+            out.append(inv)
+        else:
+            out.append(1.0 / (torch.clamp(f, min=0.0) + damp[..., None]))
+    return (*out, info)
 
 
 # ---------------------------------------------------------------------------

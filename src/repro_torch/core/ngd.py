@@ -22,8 +22,7 @@ momentum. The curvature state keeps the JAX package's layout: one stacked
 ``(L, ...)`` f32 array per statistic of a block family. Block-family
 gradients are per-layer tensors (``fisher.get_path`` returns the list), so
 preconditioning runs once per layer and side. The fp8 history, double
-buffer, refresh pipeline, sharded Stage 4 and Newton-Schulz inverse arrive
-with their slices.
+buffer, refresh pipeline and sharded Stage 4 arrive with their slices.
 """
 
 from __future__ import annotations
@@ -44,7 +43,9 @@ class NGDConfig:
     damping: float = 2.5e-4          # paper Table 2 lambda
     alpha: float = 0.1               # Frobenius similarity threshold
     estimator: str = "emp"           # "emp" | "1mc"
-    inverse_method: str = "eigh"     # "eigh" | "cholesky"
+    inverse_method: str = "eigh"     # "eigh" | "cholesky" | "newton_schulz"
+                                     # (newton_schulz: per-block diagnostics
+                                     # in metrics["inverse_info"])
     weight_rescale: bool = False     # Eq. 24
     history: int = 2                 # 2 = full Algorithm 2; 1 = cheap variant
     sgd_fallback_scale: float = 1.0  # lr scale for non-sited params
@@ -68,10 +69,6 @@ class SPNGD:
     def __init__(self, loss_fn: Callable, site_infos: dict[str, SiteInfo],
                  fstats_fn: Callable, counts_fn: Callable,
                  cfg: NGDConfig = NGDConfig()):
-        if cfg.inverse_method == "newton_schulz":
-            raise NotImplementedError(
-                "inverse_method='newton_schulz' arrives with the Stage-4 slice "
-                "of the port; use 'eigh' or 'cholesky'")
         self.loss_fn = loss_fn
         self.infos = site_infos
         self.fstats_fn = fstats_fn
@@ -169,27 +166,44 @@ class SPNGD:
 
     def _refresh_family(self, fam: str, raw: dict, curv: dict, flags: dict,
                         lam, n_a, n_g):
+        """Returns (entry, sims, info): with Stage 4 by Newton-Schulz, info
+        maps each blocked a/g factor to its per-block {"ns_res",
+        "ns_converged"}, the sentinels -1 and True when the family did not
+        refresh; else it is empty."""
         info = self.infos[fam]
+        cfg = self.cfg
         normalized, new_prev, new_prev2, sims = self._shift_history(
             fam, raw, curv, flags, n_a, n_g)
+        info_keys = [k for k in ("a", "g") if k in normalized and
+                     (info.spec.a_kind if k == "a" else
+                      info.spec.g_kind) == "full"] \
+            if cfg.inverse_method == "newton_schulz" else []
         if not any(flags[f"{fam}.{k}"] for k in raw):
             precond = curv["precond"]
+            inv_info = {k: {"ns_res": torch.full(
+                                normalized[k].shape[:-2], -1.0,
+                                device=normalized[k].device),
+                            "ns_converged": torch.ones(
+                                normalized[k].shape[:-2], dtype=torch.bool,
+                                device=normalized[k].device)}
+                        for k in info_keys}
         else:
-            precond = {}
+            precond, inv_info = {}, {}
             a, g = normalized.get("a"), normalized.get("g")
             if a is not None or g is not None:
-                a_inv, g_inv = kfac.damped_factor_inverses(
+                a_inv, g_inv, blk = kfac.damped_factor_inverses(
                     a, g, lam, info.d_in, info.d_out,
-                    method=self.cfg.inverse_method, backend=self.cfg.backend,
+                    method=cfg.inverse_method, backend=cfg.backend,
                     a_kind=info.spec.a_kind, g_kind=info.spec.g_kind)
                 precond.update({k: v for k, v in (("a", a_inv),
                                                   ("g", g_inv))
                                 if v is not None})
+                inv_info = {k: blk[k] for k in info_keys}
             for key in ("d", "uw"):
                 if key in normalized:
                     precond[key] = normalized[key]
-        return {"prev": new_prev, "prev2": new_prev2,
-                "precond": precond}, sims
+        return ({"prev": new_prev, "prev2": new_prev2, "precond": precond},
+                sims, inv_info)
 
     # ---- preconditioned update for one family ----
 
@@ -231,7 +245,7 @@ class SPNGD:
 
     @torch.no_grad()
     def _finish(self, params, state, grads, curv, lam, lr, mom, loss, aux,
-                sims):
+                sims, inverse_info: Optional[dict] = None):
         """Eq. 23 momentum update, in place: per family, precondition, then
         ``v = mom v - lr u`` and ``w = w + v``; the parameters no site
         covers take the plain gradient times ``sgd_fallback_scale``."""
@@ -276,6 +290,8 @@ class SPNGD:
         state_out = {**state, "step": state["step"] + 1, "curv": curv}
         metrics = {"loss": loss, "sims": sims, "grad_norm": torch.sqrt(gsq),
                    "update_norm": torch.sqrt(usq)}
+        if inverse_info:
+            metrics["inverse_info"] = inverse_info
         if isinstance(aux, dict):
             metrics.update({k: v for k, v in aux.items()
                             if isinstance(v, torch.Tensor) and v.dim() == 0})
@@ -295,13 +311,16 @@ class SPNGD:
         """Refresh curvature from the raw sums (per ``flags``) and apply the
         update. The flagged statistics' similarities come to the host in
         one transfer: metrics["sims"][name] = (d1, d2), or (-1, -1) for a
-        statistic that did not refresh."""
-        curv, dev_sims = {}, {}
+        statistic that did not refresh. With Stage 4 by Newton-Schulz,
+        metrics["inverse_info"]["{fam}.{key}"] holds the per-block Stage-4
+        diagnostics of each blocked factor."""
+        curv, dev_sims, inv_info = {}, {}, {}
         for fam in raw:
             n_a, n_g = counts[fam]
-            curv[fam], s = self._refresh_family(
+            curv[fam], s, fi = self._refresh_family(
                 fam, raw[fam], state["curv"][fam], flags, lam, n_a, n_g)
             dev_sims.update(s)
+            inv_info.update({f"{fam}.{k}": v for k, v in fi.items()})
         del raw
         live = [n for n, v in dev_sims.items() if v is not None]
         host = (torch.stack([dev_sims[n] for n in live]).tolist()
@@ -309,7 +328,7 @@ class SPNGD:
         sims = {n: (-1.0, -1.0) for n in dev_sims}
         sims.update({n: tuple(v) for n, v in zip(live, host)})
         return self._finish(params, state, grads, curv, lam, lr, mom, loss,
-                            aux, sims)
+                            aux, sims, inverse_info=inv_info)
 
     def fast_curv(self, state, lam):
         """The fast path's curvature view: the stored preconditioners (the

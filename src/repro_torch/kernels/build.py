@@ -64,6 +64,16 @@ SIGNATURES = {
         # binv, w, out, b, dim, other, ldw, ldo, nb, right, stream
         "block_precond": [_P] * 3 + [_I] * 7 + [_P],
     },
+    "newton_schulz": {
+        # m, x, alt, r, res, trips, g, b, iters, tol, stream
+        "ns_inverse_blocks": [_P] * 6 + [_I] * 3 + [_F, _P],
+        # g, b -> the cluster size ns_inverse_blocks launches with
+        "ns_resident_cluster": [_I] * 2,
+        # m, x, active, r, partials, counter, ss, g, b, stream
+        "ns_tiled_residual": [_P] * 7 + [_I] * 2 + [_P],
+        # x, r, active, out, g, b, stream
+        "ns_tiled_update": [_P] * 4 + [_I] * 2 + [_P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] | None = None

@@ -12,11 +12,15 @@ raises. ``"cuda"`` with a CPU tensor raises.
 
 from __future__ import annotations
 
+import logging
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import BACKENDS, check_backend
+# the iteration cap and tolerance live beside the algorithm (core.kfac
+# imports this module only inside functions)
+from repro_torch.core.kfac import NS_ITERS, NS_TOL
 
 _TABLE: dict[str, dict[str, Callable]] = {}
 
@@ -241,40 +245,98 @@ def block_precond_right(w: torch.Tensor, binv: torch.Tensor, *,
 
 # ---------------------------------------------------------------------------
 # damped_inverse: (F + damping I)^-1 per block -- the Stage-4 inversion.
+#   f (..., b, b), damping broadcastable to f's leading axes -> f32 inverse
 # "eigh" and "cholesky" are library factorizations in the JAX package too
 # (jnp.linalg.eigh on every backend); their "cuda" entry is the same
-# torch.linalg call, registered for CUDA tensors. "newton_schulz" is a
-# matmul-only kernel of its own slice and raises here.
+# torch.linalg call, registered for CUDA tensors. "newton_schulz" is
+# matmul-only: ref = the plain iteration (kfac.newton_schulz_inverse), cuda
+# = the kernels of kernels/newton_schulz.py (the resident kernel for
+# b <= 1024, the tiled pair above). Both share one failure contract: a block
+# whose relative residual ||I - M X||_F / ||I||_F is still above NS_TOL
+# after NS_ITERS trips, or whose inverse lost a positive diagonal, is
+# re-solved with eigh and the count logged. Impl signature:
+# fn(f, damping, method) -> (inv, res), res (...,) per block (zeros for the
+# direct methods).
 # ---------------------------------------------------------------------------
 
-INVERSE_METHODS = ("eigh", "cholesky")
+INVERSE_METHODS = ("eigh", "cholesky", "newton_schulz")
+
+_log = logging.getLogger(__name__)
 
 
-def _damped_inverse_impl(f, damping, method: str):
+def _ns_eigh_fallback(f, damping, x, res):
+    """Replace the blocks the iteration cannot be trusted on with the eigh
+    inverse. Two triggers, both folded into the returned residual:
+
+    * res > NS_TOL -- the capped iteration failed to contract;
+    * min diag(X) <= 0 -- an SPD inverse has a positive diagonal, so the
+      damped factor was indefinite (bf16-accumulation noise); Newton-Schulz
+      would converge to the inverse of the indefinite matrix, while the
+      contract is eigh's clamped semantics. Their residual becomes +inf.
+
+    Only the bad blocks are re-solved, in place in x (the caller's fresh
+    output), after one host read of their count. Returns (x, res)."""
     from repro_torch.core import kfac
-    if method == "newton_schulz":
-        raise NotImplementedError(
-            "inverse_method='newton_schulz' arrives with the Stage-4 slice "
-            "of the port (its Newton-Schulz kernels); use 'eigh' or "
-            "'cholesky'")
+    diag = torch.diagonal(x, dim1=-2, dim2=-1)
+    res = torch.where(diag.amin(-1) > 0, res,
+                      torch.full_like(res, float("inf")))
+    bad = res > NS_TOL
+    n_bad = int(bad.sum())
+    if n_bad:
+        _log.warning("damped_inverse[newton_schulz]: %d of %d block(s) "
+                     "failed to contract below tol=%g (or lost SPD); "
+                     "re-solved via eigh", n_bad, bad.numel(), NS_TOL)
+        d = torch.broadcast_to(torch.as_tensor(damping, dtype=torch.float32,
+                                               device=f.device),
+                               f.shape[:-2])
+        x[bad] = kfac.damped_inverse(f[bad], d[bad])
+    return x, res
+
+
+def _direct_inverse(f, damping, method: str):
+    from repro_torch.core import kfac
     if method not in INVERSE_METHODS:
         raise ValueError(f"unknown inverse method {method!r}; expected "
                          f"{INVERSE_METHODS}")
     inv = kfac.damped_inverse if method == "eigh" else kfac.cholesky_inverse
-    return inv(f, damping)
+    return inv(f, damping), torch.zeros(f.shape[:-2], device=f.device)
+
+
+def _damped_inverse_ref(f, damping, method: str):
+    from repro_torch.core import kfac
+    if method != "newton_schulz":
+        return _direct_inverse(f, damping, method)
+    x, res = kfac.newton_schulz_inverse(f, damping)
+    return _ns_eigh_fallback(f, damping, x, res)
 
 
 def _damped_inverse_cuda(f, damping, method: str):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import newton_schulz as ns
     if not f.is_cuda:
         raise ValueError("damped_inverse[cuda] needs a CUDA tensor")
-    return _damped_inverse_impl(f, damping, method)
+    if method != "newton_schulz":
+        return _direct_inverse(f, damping, method)
+    # symmetrize and damp in plain tensor code (the JAX side's XLA prep);
+    # the kernels take the damped blocks
+    m = kfac.damped_sym(f, damping)
+    lead, b = m.shape[:-2], m.shape[-1]
+    x, res, _ = ns.ns_inverse(m.reshape(-1, b, b), NS_ITERS, NS_TOL)
+    del m
+    return _ns_eigh_fallback(f, damping, x.reshape(f.shape),
+                             res.reshape(lead))
 
 
 def damped_inverse(f: torch.Tensor, damping, *, method: str = "eigh",
-                   backend: str | None = None) -> torch.Tensor:
-    """Stage-4 blocked damped inverse, f32."""
+                   backend: str | None = None, return_info: bool = False):
+    """Stage-4 blocked damped inverse, f32. With ``return_info=True`` also
+    returns ``{"ns_res", "ns_converged"}`` per block: which blocks took the
+    eigh fallback (for the direct methods the residual is zero)."""
     which = resolve(backend, f.device)
-    return _call("damped_inverse", which, f, damping, method)
+    inv, res = _call("damped_inverse", which, f, damping, method)
+    if return_info:
+        return inv, {"ns_res": res, "ns_converged": res <= NS_TOL}
+    return inv
 
 
 register("factor_sum", "ref", _factor_sum_ref)
@@ -283,7 +345,7 @@ register("block_precond_left", "ref", _precond_left_ref)
 register("block_precond_left", "cuda", _precond_left_cuda)
 register("block_precond_right", "ref", _precond_right_ref)
 register("block_precond_right", "cuda", _precond_right_cuda)
-register("damped_inverse", "ref", _damped_inverse_impl)
+register("damped_inverse", "ref", _damped_inverse_ref)
 register("damped_inverse", "cuda", _damped_inverse_cuda)
 register("swa_attention_bwd", "ref", _swa_bwd_ref)
 register("swa_attention_bwd", "cuda", _swa_bwd_cuda)

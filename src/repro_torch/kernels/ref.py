@@ -5,6 +5,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30
@@ -132,3 +134,52 @@ def block_precond_right_ref(w: torch.Tensor, binv: torch.Tensor
     """U[:, k] = W[:, k] @ Binv[k]: w (..., m, nb, b), binv (..., nb, b, b)
     -> (..., m, nb, b) f32."""
     return torch.einsum("...iko,...kop->...ikp", w.float(), binv.float())
+
+
+# ---------------------------------------------------------------------------
+# Newton-Schulz (Stage 4), over already-damped symmetric blocks M
+# ---------------------------------------------------------------------------
+
+def ns_tiled_residual_ref(m: torch.Tensor, x: torch.Tensor):
+    """R = I - M X and ss = ||R||_F^2 per block: m, x (..., b, b) f32 ->
+    (r (..., b, b), ss (...,))."""
+    eye = torch.eye(m.shape[-1], dtype=torch.float32, device=m.device)
+    r = eye - m @ x
+    return r, torch.sum(r * r, dim=(-1, -2))
+
+
+def ns_tiled_update_ref(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """X' = X + X R: x, r (..., b, b) f32 -> (..., b, b)."""
+    return x + x @ r
+
+
+def ns_x0(m: torch.Tensor) -> torch.Tensor:
+    """The initial iterate X0 = M^T / (||M||_1 ||M||_inf) of symmetric
+    blocks (..., b, b) (M^T = M): every eigenvalue of M X0 lies in (0, 1]."""
+    am = m.abs()
+    n1 = am.sum(-2).amax(-1)
+    ninf = am.sum(-1).amax(-1)
+    return m * (1.0 / (n1 * ninf))[..., None, None]
+
+
+def ns_inverse_blocks_ref(m: torch.Tensor, iters: int, tol: float):
+    """The whole Newton-Schulz inverse of damped symmetric blocks m
+    (..., b, b) f32: X0 = M / (||M||_1 ||M||_inf), then per trip
+    ``R = I - M X``, ``res = ||R||_F / sqrt(b)`` and, while ``res > tol``,
+    ``X <- X + X R``; a block freezes for good once ``res <= tol``. Returns
+    (x (..., b, b), res (...,), trips (...,) int32): res the residual of
+    the returned iterate, trips the updates applied -- the kernels'
+    contract. Stops once every block is frozen (a frozen iterate never
+    changes, so the output is that of running all ``iters`` trips)."""
+    x = ns_x0(m)
+    rnorm = 1.0 / math.sqrt(m.shape[-1])
+    trips = torch.zeros(m.shape[:-2], dtype=torch.int32, device=m.device)
+    for _ in range(iters):
+        r, ss = ns_tiled_residual_ref(m, x)
+        live = torch.sqrt(ss) * rnorm > tol
+        if not bool(live.any()):
+            break
+        x = torch.where(live[..., None, None], ns_tiled_update_ref(x, r), x)
+        trips += live
+    _, ss = ns_tiled_residual_ref(m, x)
+    return x, torch.sqrt(ss) * rnorm, trips

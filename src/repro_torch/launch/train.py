@@ -96,10 +96,6 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
     from repro_torch.configs import get_config
     from repro_torch.core.ngd import NGDConfig
     from repro_torch.models.transformer import DecoderLM
-    if inverse_method == "newton_schulz":
-        raise NotImplementedError(
-            "--inverse-method newton_schulz arrives with the Stage-4 slice of "
-            "the port (its Newton-Schulz kernels); use eigh or cholesky")
     if cfg is None:
         cfg = get_config(arch)
         if not full_config:
@@ -126,7 +122,10 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     records) with one record per step: {"t", "kind" ("capture" | "fast"),
     "loss", "seconds" (synchronized wall time), "n_refreshed", "n_stats",
     "sims" (the Algorithm-2 distances the step measured, {} on a fast
-    step)}."""
+    step)}; with Stage 4 by Newton-Schulz, a capture step's record also
+    holds "inverse" ({"{fam}.{key}": {"ns_res", "ns_converged"}}
+    of the refreshed blocked factors, on the host) and "fallbacks" (how many
+    of their blocks the Newton-Schulz inverse left to eigh)."""
     from repro_torch.core.stale import IntervalController
     from repro_torch.data.synthetic import token_batches
     from repro_torch.optim.schedules import polynomial_decay
@@ -158,12 +157,24 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
         loss = float(m["loss"])
         _sync(dev)
         dt = time.perf_counter() - t0
-        records.append({"t": t, "kind": kind, "loss": loss, "seconds": dt,
-                        "n_refreshed": sum(flags.values()),
-                        "n_stats": len(flags), "sims": m["sims"]})
+        rec = {"t": t, "kind": kind, "loss": loss, "seconds": dt,
+               "n_refreshed": sum(flags.values()), "n_stats": len(flags),
+               "sims": m["sims"]}
+        note = ""
+        if "inverse_info" in m:
+            rec["inverse"] = {
+                n: {k: v.cpu() for k, v in i.items()}
+                for n, i in m["inverse_info"].items()
+                if bool((i["ns_res"] >= 0).all())}
+            rec["fallbacks"] = sum(int((~i["ns_converged"]).sum())
+                                   for i in rec["inverse"].values())
+            blocks = sum(i["ns_res"].numel() for i in rec["inverse"].values())
+            note = f" eigh fallback {rec['fallbacks']}/{blocks} blocks"
+        records.append(rec)
         if t % 10 == 0 or t == 1 or t == steps:
             log(f"step {t:4d} {kind:7s} loss {loss:.4f} lr {lr_t:.4f} "
-                f"refresh {sum(flags.values())}/{len(flags)} {dt:.3f} s")
+                f"refresh {sum(flags.values())}/{len(flags)} {dt:.3f} s"
+                + note)
     s = ctrl.summary()
     log(f"statistic traffic: {100 * s['reduction_rate']:.1f}% of dense")
     return params, state, records
@@ -193,8 +204,9 @@ def main(argv=None):
                          "CUDA kernels for tensors on the card")
     ap.add_argument("--inverse-method", default="eigh",
                     choices=["eigh", "cholesky", "newton_schulz"],
-                    help="Stage-4 factor inversion; newton_schulz arrives "
-                         "with the Stage-4 slice of the port")
+                    help="Stage-4 factor inversion; newton_schulz runs the "
+                         "matmul-only iteration (Newton-Schulz kernels on "
+                         "the card) and logs its eigh fallbacks")
     ap.add_argument("--estimator", default="emp", choices=["emp", "1mc"],
                     help="Fisher estimator: empirical (true labels) or one "
                          "Monte-Carlo sample of the model's own labels")

@@ -143,11 +143,18 @@ def test_damped_inverses_match_jax(method):
     np.testing.assert_allclose(
         kfac.pi_correction(ta, tg, 22, 12).numpy(),
         np.asarray(jkfac.pi_correction(ja, jg, 22, 12)), rtol=1e-5)
-    got = kfac.damped_factor_inverses(ta, tg, 1e-3, 22, 12, method=method)
+    *got, info = kfac.damped_factor_inverses(ta, tg, 1e-3, 22, 12,
+                                             method=method)
     want = jkfac.damped_factor_inverses(ja, jg, 1e-3, 22, 12, method=method,
                                         backend="ref")
+    assert len(got) == len(want) == 2
     for x, y in zip(got, want):
         assert _rel(x.numpy(), np.asarray(y)) <= TOL
+    # the direct methods' per-block info: residual 0, converged
+    assert set(info) == {"a", "g"}
+    for k, f in (("a", a), ("g", g)):
+        assert torch.equal(info[k]["ns_res"], torch.zeros(f.shape[:-2]))
+        assert info[k]["ns_converged"].all()
 
 
 @pytest.mark.parametrize("a_kind,g_kind,sides", [
@@ -168,10 +175,14 @@ def test_damped_factor_inverses_match_the_jax_refresh(a_kind, g_kind, sides):
         return np.abs(_rand(rng, (2, d)))
     a = stat(a_kind, d_a) if "a" in sides else None
     g = stat(g_kind, d_g) if "g" in sides else None
-    got = kfac.damped_factor_inverses(
+    *got, info = kfac.damped_factor_inverses(
         None if a is None else torch.from_numpy(a),
         None if g is None else torch.from_numpy(g), lam, d_a, d_g,
         a_kind=a_kind, g_kind=g_kind)
+    # per-block info only for the blocked factors
+    assert set(info) == {k for k, f, kind in (("a", a, a_kind),
+                                              ("g", g, g_kind))
+                         if f is not None and kind == "full"}
     if a is not None and g is not None:
         ea = jngd._mean_eig(jnp.asarray(a), a_kind, d_a)
         eg = jngd._mean_eig(jnp.asarray(g), g_kind, d_g)
@@ -202,11 +213,26 @@ def test_eigh_inverse_clamps_negative_eigenvalues_like_jax():
 
 
 def test_newton_schulz_waits_for_its_slice():
-    f = torch.eye(4)[None]
-    with pytest.raises(NotImplementedError, match="Stage-4 slice"):
-        dispatch.damped_inverse(f, 1e-3, method="newton_schulz")
+    """The Stage-4 slice is in: dispatch inverts with Newton-Schulz on the
+    CPU (the plain iteration), every block converged, within 5e-3 of the
+    largest entry of eigh's inverse (the JAX package's NS-vs-eigh
+    tolerance, tests/test_inverse_numerics.py:141) and within TOL of
+    repro's own Newton-Schulz; an unknown method still raises."""
+    rng = np.random.default_rng(15)
+    f = _spd(rng, (2, 3), 12)
+    d = np.full((2, 1), 1e-3, np.float32)
+    got, info = dispatch.damped_inverse(torch.from_numpy(f),
+                                        torch.from_numpy(d),
+                                        method="newton_schulz",
+                                        return_info=True)
+    assert info["ns_converged"].shape == (2, 3) and info["ns_converged"].all()
+    eigh = dispatch.damped_inverse(torch.from_numpy(f), torch.from_numpy(d))
+    assert _rel(got.numpy(), eigh.numpy()) <= 5e-3
+    want = jdispatch.damped_inverse(jnp.asarray(f), jnp.asarray(d),
+                                    method="newton_schulz", backend="ref")
+    assert _rel(got.numpy(), np.asarray(want)) <= TOL
     with pytest.raises(ValueError, match="unknown inverse method"):
-        dispatch.damped_inverse(f, 1e-3, method="lu")
+        dispatch.damped_inverse(torch.from_numpy(f), 1e-3, method="lu")
 
 
 @pytest.mark.parametrize("a_kind,g_kind", [("full", "full"), ("diag", "full"),
