@@ -17,8 +17,15 @@ for a warm-up and three timed steps of the fast-step builder. Then the same
 for Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): a
 capture step on the kernels against ``backend="ref"`` (2 layers, f32) and
 full-width training for 2 loop steps and the fast-step builder's warm-up
-and three timed steps. It times all nine kernels beside their bound, their
-plain version and the PyTorch library call for the same function.
+and three timed steps. Then the fp8 factor slice: the quant_rows,
+dequant_rows and factor_syrk_wire kernels against their plain versions, a
+capture step with the fp8 history and fused e4m3 capture on the kernels
+against ``backend="ref"`` (2 layers, f32), and full-width training with
+``factor_dtype="fp8_e4m3"`` and ``factor_wire="e4m3"`` for 3 loop steps and
+the fast-step builder's warm-up and two timed steps, its history bytes and
+peak memory beside the f32 path's. It times all twelve kernels beside
+their bound, their plain version and the PyTorch library call for the same
+function.
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -84,6 +91,18 @@ NS_FLAG_BAND = 0.01
 # one residual or update launch: f32 sums in another order, relative to the
 # largest entry (the factor and preconditioning kernels' tolerance)
 NS_PRODUCT_REL_TOL = 1e-4
+# the fp8 training path: 3 loop steps (all capture at random init, so X_-2
+# holds a real refresh), then a warm-up and FP8_FAST_TIMED fast steps
+TRAIN_FP8 = dict(TRAIN, steps=3)
+FP8_FAST_TIMED = 2
+# fp8 history bytes against the f32 history's (tests/test_quant.py's bound)
+FP8_HIST_RATIO = 0.27
+# factor_syrk_wire vs the plain composition: the f32 sums differ in order, so
+# a scale (the largest |A| times 1/448) differs by the rounding of that one
+# sum (4.23e-6 at worst on an H100 at n 4096, bf16, b 512; 1.62e-6 on the
+# route check), and a payload byte may differ by one fp8 step where a sum
+# lies on a rounding boundary
+WIRE_SCALE_REL_TOL = 2e-5
 
 
 def say(phase: str, msg: str) -> None:
@@ -120,7 +139,7 @@ def main(argv: list[str]) -> int:
                   f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     build.build(verbose=True)
     build.load()
     say("build", f"nvcc sm_90a, {len(build.SIGNATURES)} libraries in "
@@ -151,6 +170,24 @@ def main(argv: list[str]) -> int:
     ns_path = train_path_ns(torch, train)
     launches.update({k: ns_path["launches"][k] for k in NS_KERNELS})
     times.update(time_ns_kernels(torch))
+    t_fp8 = time.perf_counter()
+
+    clock = {}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        clock[fn.__name__] = time.perf_counter() - t
+        return out
+    errs.update(timed(check_fp8_kernels, torch))
+    timed(check_fp8_route, torch)
+    fp8_path = timed(train_path_fp8, torch, train)
+    launches.update({k: fp8_path["launches"][k] for k in FP8_KERNELS})
+    times.update(timed(time_fp8_kernels, torch))
+    t_end = time.perf_counter()
+    say("clock", f"{t_end - t_start:.1f} s from the build on, the fp8 "
+                 f"phases {t_end - t_fp8:.1f} s of it ("
+                 + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:
@@ -171,7 +208,7 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-# the nine kernels: name, source stem, the TPU kernel it replaces
+# the twelve kernels: name, source stem, the TPU kernel it replaces
 KERNEL_ROWS = (
     ("swa_flash_fwd", "swa_flash_fwd", "src/repro/kernels/swa_attention.py:292"),
     ("swa_flash_decode", "swa_flash_decode",
@@ -188,10 +225,15 @@ KERNEL_ROWS = (
      "src/repro/kernels/newton_schulz.py:165"),
     ("ns_tiled_update", "newton_schulz",
      "src/repro/kernels/newton_schulz.py:207"),
+    ("factor_syrk_wire", "kfac_factor",
+     "src/repro/kernels/kfac_factor.py:113"),
+    ("quant_rows", "quant_pack", "src/repro/kernels/quant_pack.py:48"),
+    ("dequant_rows", "quant_pack", "src/repro/kernels/quant_pack.py:75"),
 )
 TRAIN_KERNELS = ("factor_syrk", "block_precond", "swa_flash_bwd_dq",
                  "swa_flash_bwd_dkdv")
 NS_KERNELS = ("ns_inverse_blocks", "ns_tiled_residual", "ns_tiled_update")
+FP8_KERNELS = ("factor_syrk_wire", "quant_rows", "dequant_rows")
 
 
 # ---------------------------------------------------------------------------
@@ -875,15 +917,34 @@ def _route_cfg(torch):
                                dtype=torch.float32)
 
 
-def _route_step(torch, cfg, batch, backend: str, **build_kw) -> dict:
+def _route_step(torch, cfg, batch, backend: str, capture=None,
+                **build_kw) -> dict:
     """One SP-NGD capture step, every statistic refreshed, from the seed-0
-    model: its loss, raw factor families, updated params, preconditioners
-    and (with Newton-Schulz) the per-block Stage-4 info, all copied out."""
-    from repro_torch.core.fisher import flatten
+    model: its loss, raw factor families, updated params, preconditioners,
+    encoded history and (with Newton-Schulz) the per-block Stage-4 info,
+    all copied out, and under "capture" a copy of the backward's (loss,
+    aux, grads, raw). With ``capture`` the step takes that backward's
+    output instead, after running its own only to return its loss and
+    raw factor families under "own_loss" and "own_raw"."""
+    from repro_torch.core.fisher import flatten, unflatten
     from repro_torch.launch import train
     model, opt, params, state = train.build(cfg=cfg, backend=backend,
                                             device="cuda", **build_kw)
-    loss, aux, grads, raw = opt.grads_and_raw(params, batch)
+
+    def copy(tree):
+        return unflatten({k: v.clone() for k, v in flatten(tree).items()},
+                         tree)
+    own = (None, None)
+    if capture is None:
+        loss, aux, grads, raw = opt.grads_and_raw(params, batch)
+    else:
+        o_loss, _, _, o_raw = opt.grads_and_raw(params, batch)
+        own = (float(o_loss), {k: v.clone() for k, v in
+                               flatten(o_raw).items()})
+        del o_raw
+        loss, aux, grads, raw = capture[0], capture[1], copy(capture[2]), \
+            copy(capture[3])
+    kept = (loss, aux, copy(grads), copy(raw))
     flags = {k: True for k in opt.stat_names()}
     raw_flat = {k: v.clone() for k, v in flatten(raw).items()}
     _, state, m = opt.apply_update(params, state, grads, raw,
@@ -896,7 +957,10 @@ def _route_step(torch, cfg, batch, backend: str, **build_kw) -> dict:
            "precond": {f"{fam}.{k}": v.clone()
                        for fam, c in state["curv"].items()
                        for k, v in c["precond"].items()},
-           "info": m.get("inverse_info", {})}
+           "prev": {k: v.clone() for k, v in flatten(
+               {fam: c["prev"] for fam, c in state["curv"].items()}).items()},
+           "info": m.get("inverse_info", {}), "capture": kept,
+           "own_loss": own[0], "own_raw": own[1]}
     del model, opt, params, state, grads, raw, m
     torch.cuda.empty_cache()
     return out
@@ -992,6 +1056,39 @@ class _Stage4Timer:
         self.dispatch.register("damped_inverse", "cuda", self.inner)
 
 
+# the dispatch ops of the fp8 slice: capture, history encode, decode
+FP8_OPS = ("factor_sum_wire", "fp8_pack", "fp8_unpack")
+
+
+class _OpTimer:
+    """Times every call of the given dispatch ops' cuda entries with a
+    synchronized host clock, by wrapping them."""
+
+    def __init__(self, torch, ops):
+        from repro_torch.kernels import dispatch
+        self.torch, self.dispatch = torch, dispatch
+        self.inner = {op: dispatch.lookup(op, "cuda") for op in ops}
+        self.seconds = {op: 0.0 for op in ops}
+        self.calls = {op: 0 for op in ops}
+
+    def __enter__(self):
+        for op, fn in self.inner.items():
+            def timed(*a, _op=op, _fn=fn):
+                self.torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a)
+                self.torch.cuda.synchronize()
+                self.seconds[_op] += time.perf_counter() - t
+                self.calls[_op] += 1
+                return out
+            self.dispatch.register(op, "cuda", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for op, fn in self.inner.items():
+            self.dispatch.register(op, "cuda", fn)
+
+
 def _train_counts(cfg, kinds) -> dict:
     """Launches reckoned from the code for a run of ``kinds``: per layer 7
     dense sites with a full A and G factor, plus the head's A and the
@@ -1008,17 +1105,18 @@ def _train_counts(cfg, kinds) -> dict:
             "swa_flash_bwd_dkdv": cfg.n_layers * len(kinds)}
 
 
-def _fast_steps(torch, model, opt, params, state, recs, spec, phase):
+def _fast_steps(torch, model, opt, params, state, recs, spec, phase,
+                timed: int = FAST_TIMED):
     """The fast-step builder (make_fast_step, the stale-preconditioned step
     the controller takes once intervals grow) on the stream's next batches
     at the loop's last learning rate and momentum: one warm-up step, then
-    FAST_TIMED timed ones, appended to ``recs``. Returns (params, state)."""
+    ``timed`` timed ones, appended to ``recs``. Returns (params, state)."""
     from repro_torch.launch import train
     from repro_torch.optim.schedules import polynomial_decay
     fast = train.make_fast_step(model, opt)
     lr = polynomial_decay(spec["lr"], 0, spec["steps"], 4.0)(
         spec["steps"] - 1)
-    for i in range(1 + FAST_TIMED):
+    for i in range(1 + timed):
         batch = _train_batch(torch, model.cfg.vocab, spec["batch"],
                              spec["seq"], index=len(recs))
         torch.cuda.synchronize()
@@ -1113,7 +1211,7 @@ def train_path(torch) -> dict:
     return {"launches": launches, "model": model, "opt": opt,
             "params": params, "state": state, "cfg": cfg,
             "first_loss": recs[0]["loss"], "stage4_s": s4.seconds,
-            "refreshes": len(cap)}
+            "refreshes": len(cap), "peak": peak}
 
 
 def _attn_inputs(torch, gen, bkv, g, s, hd, dtype):
@@ -1599,6 +1697,418 @@ def time_ns_kernels(torch) -> dict:
                  f"{res['ns_tiled_update']} (library: torch.baddbmm f32, TF32 "
                  f"off); {card_note(torch)}")
     del m, x, r
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# fp8 factor history and fused fp8 capture
+# ---------------------------------------------------------------------------
+
+def _fp8_ordinal(torch, payload):
+    """fp8 codes as signed ordinals: neighbouring representable values
+    differ by one; +0 and -0 are both 0."""
+    u = payload.view(torch.uint8).to(torch.int32)
+    mag = u & 0x7F
+    return torch.where(u >= 0x80, -mag, mag)
+
+
+def _fp8_steps(torch, a, b) -> int:
+    """Largest distance, in fp8 steps, between two payloads of one format."""
+    return int((_fp8_ordinal(torch, a) - _fp8_ordinal(torch, b)).abs().max())
+
+
+def _raw_bytes(torch, t):
+    """The bytes of a tensor of any dtype and rank."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _fp8_rows(torch, gen, g, t, zero_rows=(), offset=0):
+    """(g, t) f32 rows with magnitudes spread over six decades across the
+    rows; ``offset`` elements into a fresh buffer (an offset of 1 leaves the
+    rows 4 bytes off 16-byte alignment)."""
+    buf = torch.randn((g * t + offset,), generator=gen, device="cuda")
+    x = buf[offset:].view(g, t)
+    x *= torch.logspace(-3, 3, g, device="cuda")[:, None]
+    for r in zero_rows:
+        x[r] = 0.0
+    return x
+
+
+def check_fp8_kernels(torch) -> dict:
+    """quant_rows and dequant_rows against their plain versions, bit for
+    bit: the history rows of the path (64 x 2,098,176 at b 2048, 32 x
+    131,328 at b 512), a ragged b 1000 (t 500,500), zero rows, e5m2, pow2
+    scales, a clipped outlier and rows off 16-byte alignment (the element
+    path). factor_syrk_wire at n 4096, b 512 / 1000 / 1024, bf16 and f32,
+    against the plain composition (f32 sum, sym_pack, quantize): scales
+    within WIRE_SCALE_REL_TOL, payload within one fp8 step, the decode
+    within the e4m3 bound of the f32 sum; and the dispatch op's b > 1024
+    route (factor_syrk, sym_pack, quant_rows) the same way."""
+    from repro_torch.core import kfac
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import quant as qk
+    from repro_torch.quant import quant
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = {"quant_rows": 0.0, "dequant_rows": 0.0, "factor_syrk_wire": 0.0}
+    cases = [(64, 2098176, "e4m3", "fp32", (), 0),
+             (32, 131328, "e4m3", "fp32", (), 0),
+             (4, 500500, "e4m3", "fp32", (1,), 0),
+             (16, 131328, "e5m2", "fp32", (3,), 0),
+             (16, 131328, "e4m3", "pow2", (0,), 0),
+             (4, 500500, "e5m2", "pow2", (), 0),
+             (3, 561, "e4m3", "fp32", (2,), 1)]
+    for g, t, fmt, mode, zero, off in cases:
+        x = _fp8_rows(torch, gen, g, t, zero, off)
+        if g == 3:
+            x[0, 5] = 1e30                # clipped, never NaN
+        p, sc = qk.quant_rows(x, fmt, mode)
+        d = qk.dequant_rows(p, sc)
+        torch.cuda.synchronize()
+        rp, rs = ref.quant_rows_ref(x, fmt, mode)
+        rd = ref.dequant_rows_ref(rp, rs)
+        bad_p = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
+        bad_s = int((sc.view(torch.int32) != rs.view(torch.int32)).sum())
+        check(bad_p == 0 and bad_s == 0,
+              f"quant_rows ({g}, {t}) {fmt} {mode}: {bad_p} payload bytes "
+              f"and {bad_s} scales differ from the plain version")
+        check(torch.equal(d, rd), f"dequant_rows ({g}, {t}) {fmt}: differs "
+                                  f"from the plain version")
+        check(bool((sc[list(zero)] == 1.0).all()), "zero rows get scale 1")
+        if mode == "pow2":
+            check(bool((sc.view(torch.int32) & 0x7FFFFF == 0).all()),
+                  "pow2 scales are powers of two")
+        # quant_rows' own outputs: payload values (in fp8 units) and scales
+        worst["quant_rows"] = max(
+            worst["quant_rows"], _max_err(torch, p.float(), rp.float()),
+            _max_err(torch, sc, rs))
+        worst["dequant_rows"] = max(worst["dequant_rows"],
+                                    _max_err(torch, d, rd))
+        say("fp8-kernel", f"quant_rows + dequant_rows ({g}, {t}) {fmt} {mode}"
+                          f"{', zero rows ' + str(list(zero)) if zero else ''}"
+                          f"{', 16-byte misaligned' if off else ''}: payload, "
+                          f"scales and decode bit-identical to the plain "
+                          f"versions")
+        del x, p, sc, d, rp, rs, rd
+    torch.cuda.empty_cache()
+
+    def wire_case(label, x, max_dim, fmt, mode, route):
+        if route == "fused":
+            p, sc = qk.factor_syrk_wire(x, max_dim, fmt, mode)
+        else:
+            p, sc = dispatch.factor_sum_wire(x, max_dim, fmt=fmt,
+                                             scale_mode=mode, backend="cuda")
+        torch.cuda.synchronize()
+        f = ref.factor_sum_ref(x, max_dim)
+        rp, rs = ref.quant_rows_ref(kfac.sym_pack(f), fmt, mode)
+        a = kfac.sym_pack(f)
+        s_err = float(((sc - rs).abs() / rs).max())
+        steps = _fp8_steps(torch, p, rp)
+        dk, dr = ref.dequant_rows_ref(p, sc), ref.dequant_rows_ref(rp, rs)
+        amax = float(a.abs().max())
+        # e4m3 (e5m2): half a step is 2^-4 (2^-3) of the value, 2^-10
+        # (2^-17) of the scale below the normal range; plus the f32 sums'
+        # order
+        rel, sub = (2.0 ** -4, 2.0 ** -10) if fmt == "e4m3" else \
+            (2.0 ** -3, 2.0 ** -17)
+        bound = rel * a.abs() + sub * sc[..., None] + 1e-5 * amax
+        over = int(((dk - a).abs() > bound).sum())
+        check(s_err <= WIRE_SCALE_REL_TOL, f"factor_syrk_wire {label}: scale "
+                                           f"rel err {s_err}")
+        check(steps <= 1, f"factor_syrk_wire {label}: payload {steps} fp8 "
+                          f"steps from the plain composition")
+        check(over == 0, f"factor_syrk_wire {label}: {over} decoded entries "
+                         f"outside the {fmt} bound")
+        err = _max_err(torch, dk, dr)
+        worst["factor_syrk_wire"] = max(worst["factor_syrk_wire"], err)
+        flips = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
+        say("fp8-kernel", f"factor_sum_wire {label} ({route}) -> "
+                          f"{tuple(p.shape)} {fmt} {mode}: scale rel err "
+                          f"{s_err:.2e} (tol {WIRE_SCALE_REL_TOL}), {flips} of "
+                          f"{p.numel()} payload bytes one fp8 step off, max "
+                          f"|decode err| {err:.3e} (max|A| {amax:.3e}); "
+                          f"decode within the {fmt} bound of the f32 sum")
+        del p, sc, f, rp, rs, a, dk, dr
+
+    for b in (512, 1000, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((4096, b), generator=gen, device="cuda").to(dtype)
+            wire_case(f"n=4096 b={b} {dtype}", x, 2048, "e4m3", "fp32",
+                      "fused")
+    x = torch.randn((4000, 2050), generator=gen, device="cuda")
+    wire_case("n=4000 d=2050 max_dim=1024 (3 blocks of 684)", x, 1024,
+              "e5m2", "fp32", "fused")
+    x = torch.randn((4096, 512), generator=gen, device="cuda").bfloat16()
+    wire_case("n=4096 b=512 bf16", x, 2048, "e4m3", "pow2", "fused")
+    x = torch.randn((4096, 8192), generator=gen, device="cuda").bfloat16()
+    wire_case("n=4096 d=8192 bf16 (4 blocks of 2048)", x, 2048, "e4m3",
+              "fp32", "dispatch")
+    del x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _flat_fp8_state(torch, tree) -> dict:
+    from repro_torch.core.fisher import flatten
+    return {k: v.clone() for k, v in flatten(tree).items()}
+
+
+def check_fp8_route(torch) -> None:
+    """One capture step at full width, 2 layers, f32, with the fp8 history
+    and fused e4m3 capture on, through the kernels and with backend="ref".
+    The two backwards agree: the loss, the wire payloads within one fp8
+    step (the f32 sums in another order), the scales and the other raw
+    stats within the factor sums' tolerance. Then the ref optimizer step
+    takes the kernel run's own backward, so the rest of the step is held
+    tightly: the encoded history bit for bit (the fp8 kernels are
+    bit-identical to their plain versions) and the updated params within
+    ROUTE_REL_TOL."""
+    import dataclasses
+    cfg = dataclasses.replace(_route_cfg(torch), factor_wire="e4m3")
+    batch = _train_batch(torch, cfg.vocab, 2, 512)
+    kw = dict(factor_dtype="fp8_e4m3")
+    k = _route_step(torch, cfg, batch, "auto", **kw)
+    r = _route_step(torch, cfg, batch, "ref", capture=k["capture"], **kw)
+    steps = flips = total = 0
+    s_err = other = 0.0
+    for n, want in r["own_raw"].items():
+        got = k["raw"][n]
+        if want.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            steps = max(steps, _fp8_steps(torch, got, want))
+            flips += int((got.view(torch.uint8)
+                          != want.view(torch.uint8)).sum())
+            total += want.numel()
+        elif n.endswith("/scale"):
+            s_err = max(s_err, float(((got - want).abs()
+                                      / want.abs()).max()))
+        else:
+            other = max(other, _rel_err(torch, got, want))
+    lk, lr_ = k["loss"], r["own_loss"]
+    check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+          f"fp8 route loss {lk} vs {lr_}")
+    hist_bad = sum(int((_raw_bytes(torch, got)
+                        != _raw_bytes(torch, r["prev"][n])).sum())
+                   for n, got in k["prev"].items())
+    worst_p = max(_rel_err(torch, k["params"][n], r["params"][n])
+                  for n in r["params"])
+    say("fp8-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512), "
+                     f"factor_dtype fp8_e4m3, factor_wire e4m3, kernels vs "
+                     f"backend='ref': loss {lk:.6f} vs {lr_:.6f}; wire "
+                     f"payloads {flips} of {total} "
+                     f"bytes differ, by at most {steps} fp8 step(s); scales "
+                     f"rel err {s_err:.2e}, other raw stats {other:.3e} (tol "
+                     f"{WIRE_SCALE_REL_TOL}); from the same backward: "
+                     f"{hist_bad} history bytes differ, updated params "
+                     f"max|err|/max {worst_p:.3e} (tol {ROUTE_REL_TOL})")
+    check(steps <= 1, f"fp8 route payloads {steps} fp8 steps apart")
+    check(s_err <= WIRE_SCALE_REL_TOL, f"fp8 route scales rel err {s_err}")
+    check(other <= ROUTE_REL_TOL, f"fp8 route raw stats rel err {other}")
+    check(hist_bad == 0, f"fp8 route: {hist_bad} bytes of the encoded "
+                         f"history differ from the same backward's ref step")
+    check(worst_p <= ROUTE_REL_TOL, f"fp8 route updated params rel err "
+                                    f"{worst_p} > {ROUTE_REL_TOL}")
+
+
+def _fp8_counts(opt, cfg, recs) -> dict:
+    """Launches of the fp8 kernels reckoned from the code for the steps of
+    ``recs``. A capture step captures every full-kind statistic through
+    factor_sum_wire, one call per layer: factor_syrk_wire where b <= 1024,
+    else factor_syrk + quant_rows. Each refreshed blocked statistic then
+    decodes its wire sums, X_-1 and X_-2 (3 dequant_rows) and encodes the
+    new X_-1 (1 quant_rows); one that does not refresh, in a family that
+    does, decodes X_-1 for the family's inverse (1 dequant_rows)."""
+    import math
+    from repro_torch.kernels.dispatch import FACTOR_WIRE_MAX_DIM
+    from repro_torch.quant import quant
+    n = {"factor_syrk_wire": 0, "factor_syrk": 0, "quant_rows": 0,
+         "dequant_rows": 0}
+    fams = opt.fstats_fn()
+    for r in recs:
+        if r["kind"] != "capture":
+            continue
+        done = {name for name, d in r["sims"].items() if d[0] >= 0}
+        for fam, stats in fams.items():
+            recompute = any(f"{fam}.{k}" in done for k in stats)
+            for key, leaf in stats.items():
+                if not opt.sym_stat(fam, key):
+                    continue
+                check(quant.is_wire(leaf), f"{fam}.{key} is not wire-captured")
+                calls = math.prod(leaf["payload"].shape[:-2])
+                if quant.tri_rows(leaf["payload"].shape[-1]) <= \
+                        FACTOR_WIRE_MAX_DIM:
+                    n["factor_syrk_wire"] += calls
+                else:
+                    n["factor_syrk"] += calls
+                    n["quant_rows"] += calls
+                if f"{fam}.{key}" in done:
+                    n["dequant_rows"] += 3
+                    n["quant_rows"] += 1
+                elif recompute:
+                    n["dequant_rows"] += 1
+    return n
+
+
+def _history_bytes(torch, opt, state) -> tuple[int, int]:
+    """(bytes of the X_-1/X_-2 entries in ``state``, bytes of the same
+    history held dense in f32 as the f32 path holds it)."""
+    import math
+    from repro_torch.core.fisher import flatten
+    from repro_torch.core.ngd import _dense_leaf_shape
+    held = sum(v.numel() * v.element_size()
+               for c in state["curv"].values() for part in ("prev", "prev2")
+               for v in flatten(c[part]).values())
+    f32 = sum(2 * 4 * math.prod(_dense_leaf_shape(leaf))
+              for stats in opt.fstats_fn().values()
+              for leaf in stats.values())
+    return held, f32
+
+
+def train_path_fp8(torch, eigh_train) -> dict:
+    """launch.train at full width with the fp8 factor history
+    (factor_dtype "fp8_e4m3") and fused e4m3 capture (factor_wire), eigh
+    Stage 4: TRAIN_FP8 loop steps (all capture at random init, so X_-2
+    holds a real refresh), then a warm-up and FP8_FAST_TIMED timed steps of
+    the fast-step builder. Checks: every loss finite, the first equal to
+    the eigh path's, the launches as reckoned from the steps, no ref
+    dispatch, the history at most FP8_HIST_RATIO of the f32 history's
+    bytes. Prints the step walls, the seconds spent in the fp8 dispatch
+    ops, the history bytes and the peak memory beside the f32 path's."""
+    import math
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.kernels import quant as qk
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, params, state = train.build(
+        "llama3_2_1b", full_config=True, device="cuda",
+        factor_dtype="fp8_e4m3", factor_wire="e4m3")
+    cfg = model.cfg
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    qk.reset_launches()
+    dispatch.reset_calls()
+    with _Stage4Timer(torch) as s4, _OpTimer(torch, FP8_OPS) as ops:
+        params, state, recs = train.run(
+            model, opt, params, state,
+            log=lambda m: say("fp8-train-path", m), **TRAIN_FP8)
+    hist, hist_f32 = _history_bytes(torch, opt, state)
+    params, state = _fast_steps(torch, model, opt, params, state, recs,
+                                TRAIN_FP8, "fp8-train-path",
+                                timed=FP8_FAST_TIMED)
+    kinds = [r["kind"] for r in recs]
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES, **qk.LAUNCHES}
+    calls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(kinds == ["capture"] * TRAIN_FP8["steps"] + ["fast"] * (
+        1 + FP8_FAST_TIMED), f"fp8 step kinds {kinds}")
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"fp8 losses {[r['loss'] for r in recs]}")
+    d_loss = abs(recs[0]["loss"] - eigh_train["first_loss"])
+    check(d_loss <= 1e-6 * abs(eigh_train["first_loss"]),
+          f"fp8 first loss {recs[0]['loss']} != the eigh path's "
+          f"{eigh_train['first_loss']}")
+    check(not any(b == "ref" for (_, b) in calls), f"ref dispatches: {calls}")
+    want = _train_counts(cfg, kinds)
+    want.update(_fp8_counts(opt, cfg, recs))
+    got = {k: launches[k] for k in want}
+    check(got == want, f"fp8 train launches {got} != reckoned {want}")
+    check(all(want[k] > 0 for k in FP8_KERNELS),
+          f"the fp8 path must run every fp8 kernel: {want}")
+    check(hist <= FP8_HIST_RATIO * hist_f32,
+          f"fp8 history {hist} B > {FP8_HIST_RATIO} x f32 {hist_f32} B")
+    tokens = TRAIN_FP8["batch"] * TRAIN_FP8["seq"]
+    cap = [r["seconds"] for r in recs if r["kind"] == "capture"]
+    fast_s = [r["seconds"] for r in recs
+              if r["kind"] == "fast" and not r.get("warm")]
+    say("fp8-train-path", f"{len(recs)} steps: losses "
+                          f"{[round(r['loss'], 6) for r in recs]}; first loss "
+                          f"{recs[0]['loss']:.6f} vs eigh path "
+                          f"{eigh_train['first_loss']:.6f}")
+    say("fp8-train-path", f"capture step wall {[round(x, 3) for x in cap]} s,"
+                          f" fast step {[round(x, 3) for x in fast_s]} s after "
+                          f"a warm-up, median {statistics.median(fast_s):.3f} s "
+                          f"({tokens / statistics.median(fast_s):.1f} "
+                          f"tokens/s); Stage-4 eigh {s4.seconds:.3f} s over "
+                          f"{s4.calls} batched calls in {len(cap)} refreshes, "
+                          f"{s4.seconds / len(cap):.3f} s a refresh (f32 path: "
+                          f"{eigh_train['stage4_s'] / eigh_train['refreshes']:.3f}"
+                          f" s); {card_note(torch)}")
+    say("fp8-train-path", "synchronized seconds in the fp8 ops over the "
+                          f"{len(cap)} capture steps: "
+                          + ", ".join(f"{op} {ops.seconds[op]:.3f} s in "
+                                      f"{ops.calls[op]} calls"
+                                      for op in FP8_OPS)
+                          + " (factor_sum_wire includes the factor sums)")
+    say("fp8-train-path", f"history X_-1 + X_-2: {hist} B ({hist / 2 ** 30:.3f}"
+                          f" GiB) = {hist / hist_f32:.4f} of the f32 "
+                          f"history's {hist_f32} B ({hist_f32 / 2 ** 30:.3f} "
+                          f"GiB; bound {FP8_HIST_RATIO}); peak memory "
+                          f"{peak / 2 ** 30:.2f} GiB against the f32 path's "
+                          f"{eigh_train['peak'] / 2 ** 30:.2f} GiB "
+                          f"(torch.cuda.max_memory_allocated, same call)")
+    say("fp8-train-path", f"launches {got} (reckoned {want}); dispatches "
+                          f"{calls}")
+    del model, opt, params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def time_fp8_kernels(torch) -> dict:
+    """The three fp8 kernels at the training path's shapes beside their
+    bound, plain version and library call: quant_rows and dequant_rows on
+    the largest history family (64 rows of 2,098,176: mlp up/gate G, 16
+    layers x 4 blocks of 2048), and on the b 512 family (16 x 131,328);
+    factor_syrk_wire on a wk/wv G capture (n 4096, b 512, bf16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import quant as qk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {}
+    g, t = 64, 2098176
+    x = _fp8_rows(torch, gen, g, t)
+    p, sc = qk.quant_rows(x, "e4m3")
+    nbytes = g * t * (4 + 1) + 4 * g
+    bound, by = _bound(0, nbytes, x.dtype)
+    res["quant_rows"] = {
+        "ms": _time_ms(torch, lambda: qk.quant_rows(x, "e4m3")),
+        "plain_ms": _time_ms(torch, lambda: ref.quant_rows_ref(x, "e4m3"),
+                             reps=5),
+        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    res["dequant_rows"] = {
+        "ms": _time_ms(torch, lambda: qk.dequant_rows(p, sc)),
+        "plain_ms": _time_ms(torch, lambda: ref.dequant_rows_ref(p, sc),
+                             reps=5),
+        "library_ms": None, "bound_ms": bound, "bound_by": by}
+    say("times", f"quant_rows ({g}, {t}) f32 -> e4m3: {res['quant_rows']}; "
+                 f"dequant_rows: {res['dequant_rows']} (no single PyTorch "
+                 f"call computes either); {card_note(torch)}")
+    del x, p, sc
+    g, t = 16, 131328
+    x = _fp8_rows(torch, gen, g, t)
+    p, sc = qk.quant_rows(x, "e4m3")
+    b_s, _ = _bound(0, g * t * 5 + 4 * g, x.dtype)
+    q_s = _time_ms(torch, lambda: qk.quant_rows(x, "e4m3"))
+    d_s = _time_ms(torch, lambda: qk.dequant_rows(p, sc))
+    say("times", f"quant_rows ({g}, {t}): ms {q_s:.4f}; dequant_rows ms "
+                 f"{d_s:.4f}; bound_ms {b_s:.6f} (bytes); {card_note(torch)}")
+    del x, p, sc
+
+    n, b = 4096, 512
+    x = torch.randn((n, b), generator=gen, device="cuda").bfloat16()
+    tri = b * (b + 1) // 2
+    bound, by = _bound(n * b * (b + 1), n * b * 2 + tri + 4, x.dtype)
+    xt = x.t()
+    res["factor_syrk_wire"] = {
+        "ms": _time_ms(torch, lambda: qk.factor_syrk_wire(x, 2048, "e4m3")),
+        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_wire_ref(
+            x, 2048, "e4m3")),
+        "library_ms": _time_ms(torch, lambda: torch.mm(
+            xt, x, out_dtype=torch.float32)),
+        "bound_ms": bound, "bound_by": by}
+    say("times", f"factor_syrk_wire n={n} b={b} bf16 -> e4m3 sym-packed: "
+                 f"{res['factor_syrk_wire']} (library: cuBLAS bf16 x^T x with "
+                 f"f32 output, torch.mm out_dtype; the floor of the SYRK "
+                 f"part); {card_note(torch)}")
+    del x, xt
     torch.cuda.empty_cache()
     return res
 

@@ -2,8 +2,9 @@
 ``repro/configs/base.py``), with ``dtype`` as a torch dtype.
 
 Only the families the ported paths run are registered, and only the fields
-dense decoder blocks and the SP-NGD training step read; the MoE, SSM,
-frontend and wire-format fields arrive with the slices that read them."""
+dense decoder blocks, the SP-NGD training step and its fp8 factor capture
+read; the MoE, SSM and frontend fields arrive with the slices that read
+them."""
 
 from __future__ import annotations
 
@@ -51,6 +52,11 @@ class ArchConfig:
     backend: str = "auto"        # "ref" | "cuda" | "auto" (kernels.dispatch)
     # K-FAC
     kfac_max_dim: int = 2048     # block-diagonal factor cap
+    factor_wire: str = ""        # "" = dense f32 factor capture; "e4m3" /
+                                 # "e5m2" = the fused capture emits
+                                 # wire-format (sym-packed fp8 payload +
+                                 # per-block scale) sums for full-kind
+                                 # factors (kernels.dispatch.factor_sum_wire)
     head_g_kind: str = "diag"    # vocab-side factor of the LM head
     # numerics / memory
     dtype: Any = torch.bfloat16

@@ -94,14 +94,19 @@ def params_to_jax(params: dict) -> dict:
 
 def stats_from_jax(np_stats: dict, device=None) -> dict:
     """{family: {key: array}} (stacked (L, ...) block families) -> torch,
-    the same layout."""
-    return {fam: {k: to_torch(v, device) for k, v in st.items()}
-            for fam, st in np_stats.items()}
+    the same layout; an encoded entry ({"payload", "scale"}: fp8 history or
+    a wire-format capture) keeps its dict, fp8 payload bits included."""
+    def rec(node):
+        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
+                else to_torch(node, device))
+    return rec(np_stats)
 
 
 def stats_to_jax(stats: dict) -> dict:
-    return {fam: {k: to_numpy(v) for k, v in st.items()}
-            for fam, st in stats.items()}
+    def rec(node):
+        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
+                else to_numpy(node))
+    return rec(stats)
 
 
 def opt_state_from_jax(np_state: dict, cfg, device=None) -> dict:

@@ -135,11 +135,12 @@ def _tracking(leaves: list):
 
 def _accumulators(fstats: dict) -> tuple[dict, list]:
     """Fresh zero accumulators (expanded views of a zero scalar that takes
-    a gradient) in the structure of ``fstats``, and their flat list."""
+    a gradient) in the structure and dtypes of ``fstats`` (fp8 for the
+    payload of a wire-format accumulator), and their flat list."""
     flat = flatten(fstats)
     accs = {}
     for path, t in flat.items():
-        z = torch.zeros((), dtype=torch.float32, device=t.device,
+        z = torch.zeros((), dtype=t.dtype, device=t.device,
                         requires_grad=True)
         accs[path] = z.expand(t.shape)
     return unflatten(accs, fstats), list(accs.values())

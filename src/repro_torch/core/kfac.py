@@ -6,12 +6,11 @@ and ``G = n * sum_t (dL/ds)(dL/ds)^T``; the update is ``U = A^-1 dW G^-1``.
 Large dimensions split into diagonal blocks of at most ``max_dim`` and every
 factor array carries a block axis ``(nb, b, b)`` behind any leading
 layer axes; all ops broadcast over leading axes.
-
-The symmetric packing arrives with the fp8-history slice.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -73,6 +72,15 @@ def factor_sum(x: torch.Tensor, max_dim: int, *,
     f32 (``kernels.dispatch.factor_sum``)."""
     from repro_torch.kernels import dispatch
     return dispatch.factor_sum(x, max_dim, backend=backend)
+
+
+def factor_sum_wire(x: torch.Tensor, max_dim: int, *, fmt: str = "e4m3",
+                    backend: Optional[str] = None):
+    """Fused :func:`factor_sum` + wire-format epilogue: returns
+    ``(payload fp8 (..., nb, t), scale f32 (..., nb))``, the sym-packed
+    per-block-quantized tile (``kernels.dispatch.factor_sum_wire``)."""
+    from repro_torch.kernels import dispatch
+    return dispatch.factor_sum_wire(x, max_dim, fmt=fmt, backend=backend)
 
 
 def diag_factor_sum(x: torch.Tensor) -> torch.Tensor:
@@ -268,3 +276,44 @@ def frob_distance(x: torch.Tensor, y: torch.Tensor,
     num = torch.sqrt(torch.sum((x.float() - y.float()) ** 2))
     den = torch.sqrt(torch.sum(y.float() ** 2))
     return num / torch.clamp(den, min=eps)
+
+
+# ---------------------------------------------------------------------------
+# Symmetric packing (paper section 5.2): the lower triangle, row by row
+# ---------------------------------------------------------------------------
+
+def tril_indices(b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row and column of each packed position, in ``numpy.tril_indices``
+    order (row-major over the lower triangle)."""
+    return tuple(torch.tril_indices(b, b))
+
+
+@functools.cache
+def _pack_index(b: int, device: str, unpack: bool) -> torch.Tensor:
+    """Flat gather indices, cached per (b, device, direction): packing
+    reads position ``r*b + c`` of each (r >= c); unpacking reads packed
+    position ``tri(max(r, c)) + min(r, c)`` for every (r, c) (33.5 MB of
+    int64 at b 2048)."""
+    if unpack:
+        r = torch.arange(b, device=device)
+        hi = torch.maximum(r[:, None], r[None, :])
+        lo = torch.minimum(r[:, None], r[None, :])
+        return ((hi * (hi + 1)) // 2 + lo).reshape(-1)
+    i, j = torch.tril_indices(b, b, device=device)
+    return i * b + j
+
+
+def sym_pack(f: torch.Tensor) -> torch.Tensor:
+    """Pack symmetric (..., b, b) into (..., b(b+1)/2): a gather of the
+    lower triangle, any dtype, no arithmetic."""
+    b = f.shape[-1]
+    flat = f.reshape(f.shape[:-2] + (b * b,))
+    return flat[..., _pack_index(b, str(f.device), False)]
+
+
+def sym_unpack(p: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of :func:`sym_pack`. A GATHER, not a scatter: entry (r, c)
+    reads packed position tri(max(r, c)) + min(r, c); exact for any dtype
+    (fp8 payloads included)."""
+    out = p[..., _pack_index(b, str(p.device), True)]
+    return out.reshape(p.shape[:-1] + (b, b))

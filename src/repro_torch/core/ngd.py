@@ -21,14 +21,18 @@ a 1.5 B-parameter model per step would double its memory), and so is the
 momentum. The curvature state keeps the JAX package's layout: one stacked
 ``(L, ...)`` f32 array per statistic of a block family. Block-family
 gradients are per-layer tensors (``fisher.get_path`` returns the list), so
-preconditioning runs once per layer and side. The fp8 history, double
-buffer, refresh pipeline and sharded Stage 4 arrive with their slices.
+preconditioning runs once per layer and side. With
+``factor_dtype="fp8_e4m3"`` (or e5m2) the X_-1/X_-2 history is stored
+encoded (``{"payload", "scale"}``, sym-packed for the blocked factors) and
+decoded on read; wire-format capture (``FactorSpec.wire_fmt``) is decoded
+once per refreshed statistic. The double buffer, refresh pipeline and
+sharded Stage 4 arrive with their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -46,6 +50,10 @@ class NGDConfig:
     inverse_method: str = "eigh"     # "eigh" | "cholesky" | "newton_schulz"
                                      # (newton_schulz: per-block diagnostics
                                      # in metrics["inverse_info"])
+    factor_dtype: Any = torch.float32  # storage of the X_-1/X_-2 history:
+                                     # a torch dtype (dense), or "fp8_e4m3"
+                                     # / "fp8_e5m2" (sym-packed payload +
+                                     # per-block scales; repro_torch.quant)
     weight_rescale: bool = False     # Eq. 24
     history: int = 2                 # 2 = full Algorithm 2; 1 = cheap variant
     sgd_fallback_scale: float = 1.0  # lr scale for non-sited params
@@ -55,6 +63,16 @@ class NGDConfig:
 
 # Eq. 24's guard against a zero weight norm
 RESCALE_EPS = 1e-9
+
+
+def _dense_leaf_shape(leaf) -> tuple:
+    """Template-leaf shape in dense f32 terms: a wire-format accumulator
+    reports the shape its payload decodes to, so the history and
+    preconditioner state do not depend on the capture format."""
+    from repro_torch.quant import quant
+    if quant.is_wire(leaf):
+        return quant.wire_dense_shape(leaf)
+    return tuple(leaf.shape)
 
 
 def _layer_path(param: str, layer: Optional[int]) -> str:
@@ -74,6 +92,8 @@ class SPNGD:
         self.fstats_fn = fstats_fn
         self.counts_fn = counts_fn
         self.cfg = cfg
+        from repro_torch.quant.quant import parse_factor_dtype
+        self._fp8 = parse_factor_dtype(cfg.factor_dtype)  # fmt key or None
 
     def sym_stat(self, fam: str, key: str) -> bool:
         """Whether a stat is a symmetric blocked factor."""
@@ -83,17 +103,54 @@ class SPNGD:
             return kind == "full"
         return False
 
+    # ---- fp8 history codec (dequantize-on-read; repro_torch.quant) ----
+
+    def _encode_hist(self, fam: str, key: str, x: torch.Tensor):
+        if self._fp8 is None:
+            return x.to(self.cfg.factor_dtype)
+        from repro_torch.quant import quant
+        return quant.encode_stat(x, self._fp8,
+                                 symmetric=self.sym_stat(fam, key),
+                                 backend=self.cfg.backend)
+
+    def _decode_hist(self, fam: str, key: str, stored, shape
+                     ) -> torch.Tensor:
+        if self._fp8 is None:
+            return stored.float()
+        from repro_torch.quant import quant
+        return quant.decode_stat(stored, shape,
+                                 symmetric=self.sym_stat(fam, key),
+                                 backend=self.cfg.backend)
+
+    def _zero_hist(self, fam: str, key: str, shape: tuple, device):
+        """Encoded zero history without a kernel launch: expanded views of
+        a zero payload and of scale 1 (what encoding zeros gives)."""
+        if self._fp8 is None:
+            return torch.zeros((), dtype=self.cfg.factor_dtype,
+                               device=device).expand(shape)
+        from repro_torch.quant import quant
+        if self.sym_stat(fam, key):
+            b = shape[-1]
+            p_shape, s_shape = shape[:-2] + (b * (b + 1) // 2,), shape[:-2]
+        else:
+            p_shape, s_shape = shape, shape[:-1]
+        return {"payload": torch.zeros((), dtype=quant.FORMATS[self._fp8],
+                                       device=device).expand(p_shape),
+                "scale": torch.ones((), device=device).expand(s_shape)}
+
     # ---- statistic naming for the interval controller ----
 
     def stat_names(self) -> list[str]:
         return sorted(f"{fam}.{key}" for fam, stats in self.fstats_fn().items()
                       for key in stats)
 
-    def stat_bytes(self, dtype_bytes: int = 4) -> dict[str, int]:
-        """Symmetric-packed payload per statistic (f32 history)."""
+    def stat_bytes(self) -> dict[str, int]:
+        """Symmetric-packed payload per statistic (section 5.2), in the
+        storage format of ``cfg.factor_dtype`` (f32 / bf16 elements, or the
+        fp8 payload + per-block f32 scales)."""
         from repro_torch.core.stale import stat_payload_bytes
         return {f"{fam}.{key}": stat_payload_bytes(
-                    tuple(leaf.shape), dtype_bytes,
+                    _dense_leaf_shape(leaf), self.cfg.factor_dtype,
                     symmetric=self.sym_stat(fam, key))
                 for fam, stats in self.fstats_fn().items()
                 for key, leaf in stats.items()}
@@ -101,19 +158,21 @@ class SPNGD:
     # ---- state ----
 
     def init(self, params) -> dict:
-        """Zero history, identity preconditioners, zero momentum. The
-        zero and identity entries are expanded views (no memory): the
-        first refresh replaces them."""
+        """Zero history (encoded under fp8), identity preconditioners, zero
+        momentum. The zero and identity entries are expanded views (no
+        memory): the first refresh replaces them."""
         curv = {}
         for fam, stats in self.fstats_fn().items():
             info = self.infos[fam]
             entry = {"prev": {}, "prev2": {}, "precond": {}}
             for key, leaf in stats.items():
-                shape, dev = tuple(leaf.shape), leaf.device
+                shape = _dense_leaf_shape(leaf)
+                dev = (leaf["payload"] if isinstance(leaf, dict)
+                       else leaf).device
                 z = torch.zeros((), device=dev).expand(shape)
-                entry["prev"][key] = z
+                entry["prev"][key] = self._zero_hist(fam, key, shape, dev)
                 if self.cfg.history >= 2:
-                    entry["prev2"][key] = z
+                    entry["prev2"][key] = entry["prev"][key]
                 if key in ("a", "g"):
                     kind = info.spec.a_kind if key == "a" else info.spec.g_kind
                     if kind == "full":
@@ -134,32 +193,48 @@ class SPNGD:
     def _shift_history(self, fam: str, raw: dict, curv: dict, flags: dict,
                        n_a, n_g):
         """Normalize the raw sums, measure the Algorithm-2 distances of the
-        flagged statistics against history, and shift X_-1/X_-2 for them.
-        Returns (normalized, new_prev, new_prev2, sims) with sims[name] a
-        (2,) device tensor for a flagged stat and None otherwise."""
+        flagged statistics against the decoded history, and shift X_-1/X_-2
+        for them. A statistic that does not refresh keeps its stored entry
+        as it is (under fp8, payload and scale bit for bit: the select is
+        at the encoded level); its decoded X_-1 stands in for it when its
+        family recomputes. Returns (normalized, new_prev, new_prev2, sims)
+        with sims[name] a (2,) device tensor for a flagged stat and None
+        otherwise; normalized holds only what the family's refresh reads."""
+        from repro_torch.quant import quant
         cfg = self.cfg
         new_prev, new_prev2, sims, normalized = {}, {}, {}, {}
+        recompute = any(flags[f"{fam}.{k}"] for k in raw)
         for key, v in raw.items():
             name = f"{fam}.{key}"
-            prev = curv["prev"][key]
+            stored = curv["prev"][key]
+            shape = tuple(curv["precond"][key].shape)
             if not flags[name]:
                 sims[name] = None
-                normalized[key] = prev
-                new_prev[key] = prev
+                if recompute:
+                    normalized[key] = self._decode_hist(fam, key, stored,
+                                                        shape)
+                new_prev[key] = stored
                 if cfg.history >= 2:
                     new_prev2[key] = curv["prev2"][key]
                 continue
+            if quant.is_wire(v):
+                # fused wire capture: ONE decode here, then the refresh
+                # math is that of the dense capture
+                v = quant.decode_wire_stat(v, backend=cfg.backend)
             norm = (v / n_a) if key == "a" else (v * n_g)
+            prev = self._decode_hist(fam, key, stored, shape)
             d1 = kfac.frob_distance(norm, prev)
             if cfg.history >= 2:
-                prev2 = curv["prev2"][key]
+                prev2 = self._decode_hist(fam, key, curv["prev2"][key], shape)
                 d2 = kfac.frob_distance(norm, prev2)
-                new_prev2[key] = prev
+                new_prev2[key] = stored
+                del prev2
             else:
                 d2 = d1
+            del prev
             sims[name] = torch.stack([d1, d2])
             normalized[key] = norm
-            new_prev[key] = norm
+            new_prev[key] = self._encode_hist(fam, key, norm)
         if cfg.history < 2:
             new_prev2 = curv["prev2"]
         return normalized, new_prev, new_prev2, sims
@@ -174,18 +249,18 @@ class SPNGD:
         cfg = self.cfg
         normalized, new_prev, new_prev2, sims = self._shift_history(
             fam, raw, curv, flags, n_a, n_g)
-        info_keys = [k for k in ("a", "g") if k in normalized and
+        info_keys = [k for k in ("a", "g") if k in raw and
                      (info.spec.a_kind if k == "a" else
                       info.spec.g_kind) == "full"] \
             if cfg.inverse_method == "newton_schulz" else []
         if not any(flags[f"{fam}.{k}"] for k in raw):
             precond = curv["precond"]
             inv_info = {k: {"ns_res": torch.full(
-                                normalized[k].shape[:-2], -1.0,
-                                device=normalized[k].device),
+                                precond[k].shape[:-2], -1.0,
+                                device=precond[k].device),
                             "ns_converged": torch.ones(
-                                normalized[k].shape[:-2], dtype=torch.bool,
-                                device=normalized[k].device)}
+                                precond[k].shape[:-2], dtype=torch.bool,
+                                device=precond[k].device)}
                         for k in info_keys}
         else:
             precond, inv_info = {}, {}

@@ -37,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 
 @dataclasses.dataclass
 class StatState:
@@ -310,14 +312,20 @@ def sym_packed_bytes(shape: tuple, dtype_bytes: int = 4) -> int:
     return n * dtype_bytes
 
 
-def stat_payload_bytes(shape: tuple, dtype_bytes: int = 4,
+def stat_payload_bytes(shape: tuple, factor_dtype=torch.float32,
                        symmetric: Optional[bool] = None) -> int:
-    """Sym-packed payload bytes for one statistic stored with elements of
-    ``dtype_bytes`` (f32 or bf16 history; the fp8 payload accounting
-    arrives with the fp8 slice). ``symmetric=False`` forces the dense
-    accounting for square-shaped stats that are not symmetric factors."""
+    """Sym-packed payload bytes for one statistic under its storage dtype:
+    dense f32 / bf16 elements, or the fp8 payload + per-block f32 scales
+    (``factor_dtype`` "fp8_e4m3" | "fp8_e5m2"; :mod:`repro_torch.quant`).
+    ``symmetric=False`` forces the non-packed (row-quantized) accounting for
+    square-shaped stats that are not symmetric factors."""
+    from repro_torch.quant import quant
+    fmt = quant.parse_factor_dtype(factor_dtype)
     if symmetric is None:
         symmetric = len(shape) >= 2 and shape[-1] == shape[-2]
+    if fmt is not None:
+        return quant.encoded_nbytes(shape, symmetric=symmetric)
+    dtype_bytes = torch.empty((), dtype=factor_dtype).element_size()
     if not symmetric:
         n = 1
         for s in shape:

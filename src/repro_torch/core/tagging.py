@@ -17,8 +17,12 @@ families. Normalization is not done here: ``core/fisher.py`` scales the
 raw sums with the global counts.
 
 A site called with ``stats=None`` runs the plain op (the fast path).
-``grouped_dense_site`` and ``conv_site`` arrive with the MoE and ResNet
-slices; the fp8 wire-format capture with the fp8 slice.
+With ``FactorSpec.wire_fmt`` set, a full-kind factor's accumulator is a
+``{"payload": fp8 (..., nb, t), "scale": f32 (..., nb)}`` pair and the
+backward returns the fused capture's sym-packed fp8 payload and per-block
+scales as their gradients (``kfac.factor_sum_wire``); the optimizer
+decodes them once. ``grouped_dense_site`` and ``conv_site`` arrive with
+the MoE and ResNet slices.
 """
 
 from __future__ import annotations
@@ -39,12 +43,15 @@ from repro_torch.core import kfac
 class FactorSpec:
     """Static description of what curvature a site collects; ``backend``
     selects the factor-sum kernel ("ref" | "cuda" | "auto";
-    ``kernels.dispatch``). The per-side caps that align blocks to
-    tensor-parallel shards arrive with the multi-GPU slice."""
+    ``kernels.dispatch``); ``wire_fmt`` ("" | "e4m3" | "e5m2") switches
+    full-kind factor capture to the fused wire format. The per-side caps
+    that align blocks to tensor-parallel shards arrive with the multi-GPU
+    slice."""
     a_kind: str = "full"        # "full" | "diag" | "none"
     g_kind: str = "full"        # "full" | "diag" | "none"
     max_dim: int = 2048         # block-diagonal factor cap
     backend: str = "auto"
+    wire_fmt: str = ""          # "" (dense f32) | "e4m3" | "e5m2"
 
     def a_shape(self, d_in: int) -> Optional[tuple[int, ...]]:
         return _kind_shape(self.a_kind, d_in, self.max_dim)
@@ -62,10 +69,31 @@ def _kind_shape(kind: str, d: int, max_dim: int):
     return None
 
 
-def zeros(shape: tuple, device=None) -> torch.Tensor:
+def zeros(shape: tuple, device=None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A zero accumulator of ``shape``: an expanded view of one zero scalar,
     so a template of every factor family costs no memory."""
-    return torch.zeros((), dtype=torch.float32, device=device).expand(shape)
+    return torch.zeros((), dtype=dtype, device=device).expand(shape)
+
+
+def _wire_zeros(spec: FactorSpec, shape: tuple, lead: tuple,
+                device=None) -> dict:
+    """Zero wire-format accumulator for one full-kind factor of dense shape
+    ``(nb, b, b)``: fp8 payload rows + per-block f32 scales."""
+    from repro_torch.quant import quant
+    if spec.wire_fmt not in quant.FORMATS:
+        raise ValueError(f"unknown wire_fmt {spec.wire_fmt!r}; expected "
+                         f"{sorted(quant.FORMATS)}")
+    nb, b = shape[0], shape[-1]
+    return {"payload": zeros(lead + (nb, b * (b + 1) // 2), device,
+                             quant.FORMATS[spec.wire_fmt]),
+            "scale": zeros(lead + (nb,), device)}
+
+
+def _factor_zeros(spec: FactorSpec, kind: str, shape, lead, device):
+    if spec.wire_fmt and kind == "full":
+        return _wire_zeros(spec, shape, lead, device)
+    return zeros(lead + shape, device)
 
 
 def make_stats(spec: FactorSpec, d_in: int, d_out: int,
@@ -74,25 +102,47 @@ def make_stats(spec: FactorSpec, d_in: int, d_out: int,
     out = {}
     sa, sg = spec.a_shape(d_in), spec.g_shape(d_out)
     if sa is not None:
-        out["a"] = zeros(lead + sa, device)
+        out["a"] = _factor_zeros(spec, spec.a_kind, sa, lead, device)
     if sg is not None:
-        out["g"] = zeros(lead + sg, device)
+        out["g"] = _factor_zeros(spec, spec.g_kind, sg, lead, device)
     return out
 
 
-def _stat_sum(x2d: torch.Tensor, kind: str, max_dim: int, want_shape,
-              backend: str) -> torch.Tensor:
-    """Raw factor sum of a token matrix (n, d) in the accumulator's shape."""
+def _stat_sum(x2d: torch.Tensor, kind: str, spec: FactorSpec, want_shape):
+    """Raw factor sum of a token matrix (n, d) in the accumulator's shape;
+    a dict ``want_shape`` asks for the wire format (kind "full"): the
+    (payload, scale) pair."""
+    if isinstance(want_shape, dict):
+        payload, scale = kfac.factor_sum_wire(
+            x2d, spec.max_dim, fmt=spec.wire_fmt, backend=spec.backend)
+        return (payload.reshape(want_shape["payload"]),
+                scale.reshape(want_shape["scale"]))
     if kind == "full":
-        return kfac.factor_sum(x2d, max_dim,
-                               backend=backend).reshape(want_shape)
+        return kfac.factor_sum(x2d, spec.max_dim,
+                               backend=spec.backend).reshape(want_shape), None
     if kind == "diag":
-        return kfac.diag_factor_sum(x2d).reshape(want_shape)
+        return kfac.diag_factor_sum(x2d).reshape(want_shape), None
     raise ValueError(kind)
 
 
-def _shape(acc) -> Optional[torch.Size]:
-    return None if acc is None else acc.shape
+def _acc_parts(acc) -> tuple:
+    """An accumulator as the site Function's two tensor inputs: (acc, None),
+    or (payload, scale) for wire capture; (None, None) when absent."""
+    if acc is None:
+        return None, None
+    if isinstance(acc, dict):
+        return acc["payload"], acc["scale"]
+    return acc, None
+
+
+def _shape(acc, scale=None):
+    """What the backward needs to shape an accumulator's gradient: its
+    shape, or {"payload", "scale"} shapes for wire capture."""
+    if acc is None:
+        return None
+    if scale is not None:
+        return {"payload": acc.shape, "scale": scale.shape}
+    return acc.shape
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +151,10 @@ def _shape(acc) -> Optional[torch.Size]:
 
 class _DenseSite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, a_acc, g_acc, spec):
+    def forward(ctx, x, w, a_acc, a_scale, g_acc, g_scale, spec):
         ctx.save_for_backward(x, w)
         ctx.spec = spec
-        ctx.shapes = (_shape(a_acc), _shape(g_acc))
+        ctx.shapes = (_shape(a_acc, a_scale), _shape(g_acc, g_scale))
         return torch.matmul(x, w)
 
     @staticmethod
@@ -114,18 +164,17 @@ class _DenseSite(torch.autograd.Function):
         d_in, d_out = w.shape
         x2d = x.reshape(-1, d_in)
         g2d = gy.reshape(-1, d_out)
-        dx = dw = da = dg = None
+        dx = dw = None
+        da = dg = (None, None)
         if ctx.needs_input_grad[0]:
             dx = torch.matmul(gy, w.t()).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(x2d.t(), g2d.to(x2d.dtype)).to(w.dtype)
         if a_shape is not None and ctx.needs_input_grad[2]:
-            da = _stat_sum(x2d, spec.a_kind, spec.max_dim, a_shape,
-                           spec.backend)
-        if g_shape is not None and ctx.needs_input_grad[3]:
-            dg = _stat_sum(g2d, spec.g_kind, spec.max_dim, g_shape,
-                           spec.backend)
-        return dx, dw, da, dg, None
+            da = _stat_sum(x2d, spec.a_kind, spec, a_shape)
+        if g_shape is not None and ctx.needs_input_grad[4]:
+            dg = _stat_sum(g2d, spec.g_kind, spec, g_shape)
+        return (dx, dw) + da + dg + (None,)
 
 
 def dense_site(x: torch.Tensor, w: torch.Tensor, stats: Optional[dict] = None,
@@ -134,7 +183,8 @@ def dense_site(x: torch.Tensor, w: torch.Tensor, stats: Optional[dict] = None,
     :func:`make_stats` (None: the plain matmul)."""
     if stats is None:
         return torch.matmul(x, w)
-    return _DenseSite.apply(x, w, stats.get("a"), stats.get("g"), spec)
+    return _DenseSite.apply(x, w, *_acc_parts(stats.get("a")),
+                            *_acc_parts(stats.get("g")), spec)
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +279,10 @@ def make_scale_bias_stats(c: int, lead: tuple[int, ...] = (),
 
 class _EmbedSite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ids, table, a_acc, g_acc, spec):
+    def forward(ctx, ids, table, a_acc, g_acc, g_scale, spec):
         ctx.save_for_backward(ids)
         ctx.meta = (table.shape, table.dtype, spec, _shape(a_acc),
-                    _shape(g_acc))
+                    _shape(g_acc, g_scale))
         return table[ids]
 
     @staticmethod
@@ -245,13 +295,12 @@ class _EmbedSite(torch.autograd.Function):
         # scatter-add in f32 (the JAX package adds in gy's dtype)
         dtable = torch.zeros(tshape, dtype=torch.float32, device=gy.device)
         dtable.index_add_(0, flat, g2d.float())
-        da = dg = None
+        da, dg = None, (None, None)
         if a_shape is not None and ctx.needs_input_grad[2]:
             da = torch.bincount(flat, minlength=v).float().reshape(a_shape)
         if g_shape is not None and ctx.needs_input_grad[3]:
-            dg = _stat_sum(g2d, spec.g_kind, spec.max_dim, g_shape,
-                           spec.backend)
-        return None, dtable.to(tdtype), da, dg, None
+            dg = _stat_sum(g2d, spec.g_kind, spec, g_shape)
+        return (None, dtable.to(tdtype), da) + dg + (None,)
 
 
 def embed_site(ids: torch.Tensor, table: torch.Tensor,
@@ -259,7 +308,8 @@ def embed_site(ids: torch.Tensor, table: torch.Tensor,
                spec: FactorSpec = FactorSpec(a_kind="diag")) -> torch.Tensor:
     if stats is None:
         return table[ids]
-    return _EmbedSite.apply(ids, table, stats.get("a"), stats.get("g"), spec)
+    return _EmbedSite.apply(ids, table, stats.get("a"),
+                            *_acc_parts(stats.get("g")), spec)
 
 
 def make_embed_stats(vocab: int, d: int, spec: FactorSpec,
@@ -267,5 +317,5 @@ def make_embed_stats(vocab: int, d: int, spec: FactorSpec,
     out = {"a": zeros(lead + (vocab,), device)}
     sg = spec.g_shape(d)
     if sg is not None:
-        out["g"] = zeros(lead + sg, device)
+        out["g"] = _factor_zeros(spec, spec.g_kind, sg, lead, device)
     return out

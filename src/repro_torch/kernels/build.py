@@ -59,6 +59,15 @@ SIGNATURES = {
     "kfac_factor": {
         # x, out, n, ld, d, nb, b, dtype, stream
         "factor_syrk": [_P] * 2 + [_I] * 6 + [_P],
+        # x, scratch, amax, payload, scale, n, ld, d, nb, b, dtype, fmt,
+        # pow2, inv_max, stream
+        "factor_syrk_wire": [_P] * 5 + [_I] * 8 + [_F, _P],
+    },
+    "quant_pack": {
+        # x, payload, scale, amax, g, t, fmt, pow2, inv_max, stream
+        "quant_rows": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_F, _P],
+        # payload, scale, out, g, t, fmt, stream
+        "dequant_rows": [_P] * 3 + [_L] * 2 + [_I, _P],
     },
     "kfac_precond": {
         # binv, w, out, b, dim, other, ldw, ldo, nb, right, stream

@@ -187,6 +187,97 @@ def factor_sum(x: torch.Tensor, max_dim: int, *,
 
 
 # ---------------------------------------------------------------------------
+# factor_sum_wire: fused factor sum + wire-format epilogue
+#   (..., n, d) -> (payload fp8 (..., nb, t=b(b+1)/2), scale f32 (..., nb))
+# ref: the unfused composition factor_sum -> sym_pack -> quantize_rows.
+# cuda, one (n, d) matrix: b <= FACTOR_WIRE_MAX_DIM takes the fused kernel
+# (factor_syrk_wire); a larger b takes the factor_syrk kernel, the sym_pack
+# gather and the quant_rows kernel. That split is the JAX package's
+# (ops.FACTOR_WIRE_MAX_DIM; its larger blocks run the unfused XLA
+# composition), so the same blocks take the fused kernel in both.
+# ---------------------------------------------------------------------------
+
+FACTOR_WIRE_MAX_DIM = 1024
+
+
+def _factor_sum_wire_ref(x, max_dim: int, fmt: str, scale_mode: str):
+    from repro_torch.kernels import ref
+    return ref.factor_sum_wire_ref(x, max_dim, fmt, scale_mode)
+
+
+def _factor_sum_wire_cuda(x, max_dim: int, fmt: str, scale_mode: str):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    _one_matrix("factor_sum_wire", x)
+    if kfac.block_size(x.shape[-1], max_dim) <= FACTOR_WIRE_MAX_DIM:
+        return qk.factor_syrk_wire(x, max_dim, fmt, scale_mode)
+    return qk.quant_rows(kfac.sym_pack(kern.factor_syrk(x, max_dim)), fmt,
+                         scale_mode)
+
+
+def factor_sum_wire(x: torch.Tensor, max_dim: int, *, fmt: str = "e4m3",
+                    scale_mode: str = "fp32", backend: str | None = None):
+    """Blocked factor sum emitted in the sym-packed fp8 wire format
+    (payload, per-block scale)."""
+    which = resolve(backend, x.device)
+    return _call("factor_sum_wire", which, x, max_dim, fmt, scale_mode)
+
+
+# ---------------------------------------------------------------------------
+# fp8_pack / fp8_unpack: symmetric blocked factor <-> sym-packed fp8 payload
+#   f (..., b, b) -> (payload fp8 (..., t=b(b+1)/2), scale f32 (...,))
+# One scale per block. The tril gather is byte movement in torch (the JAX
+# package keeps it in XLA too); the kernels own the numeric passes.
+# ---------------------------------------------------------------------------
+
+def _fp8_pack_ref(f, fmt: str, scale_mode: str):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import ref
+    return ref.quant_rows_ref(kfac.sym_pack(f.float()), fmt, scale_mode)
+
+
+def _fp8_pack_cuda(f, fmt: str, scale_mode: str):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import quant as qk
+    rows = kfac.sym_pack(f.float())
+    lead, t = rows.shape[:-1], rows.shape[-1]
+    payload, scale = qk.quant_rows(rows.reshape(-1, t), fmt, scale_mode)
+    return payload.reshape(lead + (t,)), scale.reshape(lead)
+
+
+def fp8_pack(f: torch.Tensor, *, fmt: str = "e4m3", scale_mode: str = "fp32",
+             backend: str | None = None):
+    """Quantize + sym-pack a symmetric blocked factor."""
+    which = resolve(backend, f.device)
+    return _call("fp8_pack", which, f, fmt, scale_mode)
+
+
+def _fp8_unpack_ref(payload, scale, b: int):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import ref
+    return kfac.sym_unpack(ref.dequant_rows_ref(payload, scale), b)
+
+
+def _fp8_unpack_cuda(payload, scale, b: int):
+    from repro_torch.core import kfac
+    from repro_torch.kernels import quant as qk
+    lead, t = payload.shape[:-1], payload.shape[-1]
+    # a fresh state's zero history is an expanded view: materialized here
+    rows = qk.dequant_rows(payload.reshape(-1, t).contiguous(),
+                           scale.reshape(-1).contiguous())
+    return kfac.sym_unpack(rows, b).reshape(lead + (b, b))
+
+
+def fp8_unpack(payload: torch.Tensor, scale: torch.Tensor, b: int, *,
+               backend: str | None = None) -> torch.Tensor:
+    """Dequantize-on-read: packed fp8 payload -> dense symmetric f32
+    (..., b, b) blocks."""
+    which = resolve(backend, payload.device)
+    return _call("fp8_unpack", which, payload, scale, b)
+
+
+# ---------------------------------------------------------------------------
 # block_precond_left:  rows of w in blocks of b:  U[k] = Binv[k] @ W[k]
 #   binv (..., nb, b, b), w (..., d, m) with d <= nb*b -> (..., d, m) f32
 # block_precond_right: columns of w in blocks of b:  U[:, k] = W[:, k] @ Binv[k]
@@ -341,6 +432,12 @@ def damped_inverse(f: torch.Tensor, damping, *, method: str = "eigh",
 
 register("factor_sum", "ref", _factor_sum_ref)
 register("factor_sum", "cuda", _factor_sum_cuda)
+register("factor_sum_wire", "ref", _factor_sum_wire_ref)
+register("factor_sum_wire", "cuda", _factor_sum_wire_cuda)
+register("fp8_pack", "ref", _fp8_pack_ref)
+register("fp8_pack", "cuda", _fp8_pack_cuda)
+register("fp8_unpack", "ref", _fp8_unpack_ref)
+register("fp8_unpack", "cuda", _fp8_unpack_cuda)
 register("block_precond_left", "ref", _precond_left_ref)
 register("block_precond_left", "cuda", _precond_left_cuda)
 register("block_precond_right", "ref", _precond_right_ref)
@@ -356,5 +453,6 @@ register("swa_decode", "cuda", _swa_decode_cuda)
 
 __all__ = ["BACKENDS", "CALLS", "register", "lookup", "resolve",
            "reset_calls", "swa_attention_fwd_res", "swa_attention_bwd",
-           "swa_decode", "factor_sum", "block_precond_left",
+           "swa_decode", "factor_sum", "factor_sum_wire", "fp8_pack",
+           "fp8_unpack", "block_precond_left",
            "block_precond_right", "damped_inverse"]

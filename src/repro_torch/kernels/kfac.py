@@ -22,12 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.swa_attention import _require, _stream
+from repro_torch.kernels.common import on_card, require, stream
 
 # kernel name -> number of launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"factor_syrk": 0, "block_precond": 0}
 
-_SYRK_DTYPES = (torch.float32, torch.bfloat16)
+SYRK_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -35,26 +35,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_card(name: str, *ts: torch.Tensor) -> None:
-    for t in ts:
-        _require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
-                            f"{t.device}); CPU tensors take the plain version "
-                            "through repro_torch.kernels.dispatch")
-        _require(t.device == ts[0].device,
-                 f"{name}: tensors on different devices")
-
-
 def factor_syrk(x: torch.Tensor, max_dim: int) -> torch.Tensor:
     """x (n, d) bf16 | f32, rows contiguous -> (nb, b, b) f32 with
     nb, b = num_blocks(d, max_dim), block_size(d, max_dim)."""
     from repro_torch.core import kfac
     name = "factor_syrk"
-    _on_card(name, x)
-    _require(x.dim() == 2, f"{name}: x must be (n, d), got {tuple(x.shape)}")
-    _require(x.dtype in _SYRK_DTYPES, f"{name}: dtype {x.dtype} not in "
-                                      f"{_SYRK_DTYPES}")
-    _require(x.stride(1) == 1 or x.shape[1] == 1,
-             f"{name}: rows must be contiguous")
+    on_card(name, x)
+    require(x.dim() == 2, f"{name}: x must be (n, d), got {tuple(x.shape)}")
+    require(x.dtype in SYRK_DTYPES, f"{name}: dtype {x.dtype} not in "
+                                     f"{SYRK_DTYPES}")
+    require(x.stride(1) == 1 or x.shape[1] == 1,
+            f"{name}: rows must be contiguous")
     n, d = x.shape
     nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
     out = torch.empty((nb, b, b), dtype=torch.float32, device=x.device)
@@ -62,7 +53,7 @@ def factor_syrk(x: torch.Tensor, max_dim: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.factor_syrk(x.data_ptr(), out.data_ptr(), n,
                              max(x.stride(0), d), d, nb, b,
-                             build.DTYPE_CODES[x.dtype], _stream(x))
+                             build.DTYPE_CODES[x.dtype], stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -75,19 +66,19 @@ def block_precond(binv: torch.Tensor, w: torch.Tensor, *,
     times Binv. dim <= nb*b (the last block may be ragged); w f32 with
     contiguous rows. Returns f32 of w's shape."""
     name = "block_precond"
-    _on_card(name, binv, w)
-    _require(binv.dim() == 3 and binv.shape[1] == binv.shape[2]
-             and binv.is_contiguous(),
-             f"{name}: binv must be a contiguous (nb, b, b), got "
-             f"{tuple(binv.shape)}")
-    _require(w.dim() == 2 and w.stride(1) == 1,
-             f"{name}: w must be 2-D with contiguous rows")
-    _require(binv.dtype == torch.float32 and w.dtype == torch.float32,
-             f"{name}: f32 only (got {binv.dtype}, {w.dtype})")
+    on_card(name, binv, w)
+    require(binv.dim() == 3 and binv.shape[1] == binv.shape[2]
+            and binv.is_contiguous(),
+            f"{name}: binv must be a contiguous (nb, b, b), got "
+            f"{tuple(binv.shape)}")
+    require(w.dim() == 2 and w.stride(1) == 1,
+            f"{name}: w must be 2-D with contiguous rows")
+    require(binv.dtype == torch.float32 and w.dtype == torch.float32,
+            f"{name}: f32 only (got {binv.dtype}, {w.dtype})")
     nb, b = binv.shape[0], binv.shape[-1]
     dim, other = (w.shape[1], w.shape[0]) if right else w.shape
-    _require((nb - 1) * b < dim <= nb * b,
-             f"{name}: {nb} blocks of {b} do not cover dim {dim}")
+    require((nb - 1) * b < dim <= nb * b,
+            f"{name}: {nb} blocks of {b} do not cover dim {dim}")
     out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     if w.numel() == 0:
         return out
@@ -95,7 +86,7 @@ def block_precond(binv: torch.Tensor, w: torch.Tensor, *,
     with torch.cuda.device(w.device):
         rc = lib.block_precond(binv.data_ptr(), w.data_ptr(), out.data_ptr(),
                                b, dim, other, w.stride(0), out.stride(0), nb,
-                               int(right), _stream(w))
+                               int(right), stream(w))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out

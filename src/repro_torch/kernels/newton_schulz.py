@@ -30,9 +30,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kfac import _on_card
+from repro_torch.kernels.common import on_card, require, stream
 from repro_torch.kernels.ref import ns_x0
-from repro_torch.kernels.swa_attention import _require, _stream
 
 # kernel name -> number of launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"ns_inverse_blocks": 0, "ns_tiled_residual": 0,
@@ -65,25 +64,25 @@ def route(b: int) -> str:
 
 
 def _blocks(name: str, *ts: torch.Tensor) -> tuple[int, int]:
-    _on_card(name, *ts)
+    on_card(name, *ts)
     for t in ts:
-        _require(t.dim() == 3 and t.shape[1] == t.shape[2]
-                 and t.shape == ts[0].shape,
-                 f"{name}: blocks must be (g, b, b) of one shape, got "
-                 f"{[tuple(x.shape) for x in ts]}")
-        _require(t.dtype == torch.float32, f"{name}: f32 only, got {t.dtype}")
-        _require(t.is_contiguous(), f"{name}: blocks must be contiguous")
+        require(t.dim() == 3 and t.shape[1] == t.shape[2]
+                and t.shape == ts[0].shape,
+                f"{name}: blocks must be (g, b, b) of one shape, got "
+                f"{[tuple(x.shape) for x in ts]}")
+        require(t.dtype == torch.float32, f"{name}: f32 only, got {t.dtype}")
+        require(t.is_contiguous(), f"{name}: blocks must be contiguous")
     g, b = ts[0].shape[0], ts[0].shape[-1]
-    _require(g >= 1 and b >= 1, f"{name}: empty blocks {tuple(ts[0].shape)}")
+    require(g >= 1 and b >= 1, f"{name}: empty blocks {tuple(ts[0].shape)}")
     return g, b
 
 
 def _active_ptr(active: torch.Tensor | None, g: int, dev) -> int:
     if active is None:
         return 0
-    _require(active.shape == (g,) and active.dtype == torch.int32
-             and active.device == dev and active.is_contiguous(),
-             f"active must be a contiguous (g,) int32 tensor on {dev}")
+    require(active.shape == (g,) and active.dtype == torch.int32
+            and active.device == dev and active.is_contiguous(),
+            f"active must be a contiguous (g,) int32 tensor on {dev}")
     return active.data_ptr()
 
 
@@ -93,7 +92,7 @@ def ns_inverse_blocks(m: torch.Tensor, iters: int, tol: float):
     updates applied), one launch."""
     name = "ns_inverse_blocks"
     g, b = _blocks(name, m)
-    _require(iters >= 0, f"{name}: iters must be >= 0")
+    require(iters >= 0, f"{name}: iters must be >= 0")
     x = torch.empty_like(m)
     alt, r = torch.empty_like(m), torch.empty_like(m)     # scratch
     res = torch.empty(g, dtype=torch.float32, device=m.device)
@@ -103,7 +102,7 @@ def ns_inverse_blocks(m: torch.Tensor, iters: int, tol: float):
         rc = lib.ns_inverse_blocks(m.data_ptr(), x.data_ptr(), alt.data_ptr(),
                                    r.data_ptr(), res.data_ptr(),
                                    trips.data_ptr(), g, b, int(iters),
-                                   float(tol), _stream(m))
+                                   float(tol), stream(m))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return x, res, trips
@@ -137,7 +136,7 @@ def ns_tiled_residual(m: torch.Tensor, x: torch.Tensor,
         rc = lib.ns_tiled_residual(m.data_ptr(), x.data_ptr(), act,
                                    r.data_ptr(), partials.data_ptr(),
                                    counter.data_ptr(), ss.data_ptr(), g, b,
-                                   _stream(m))
+                                   stream(m))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return r, ss
@@ -154,7 +153,7 @@ def ns_tiled_update(x: torch.Tensor, r: torch.Tensor,
     lib = build.load()["newton_schulz"]
     with torch.cuda.device(x.device):
         rc = lib.ns_tiled_update(x.data_ptr(), r.data_ptr(), act,
-                                 out.data_ptr(), g, b, _stream(x))
+                                 out.data_ptr(), g, b, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out

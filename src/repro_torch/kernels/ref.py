@@ -183,3 +183,33 @@ def ns_inverse_blocks_ref(m: torch.Tensor, iters: int, tol: float):
         trips += live
     _, ss = ns_tiled_residual_ref(m, x)
     return x, torch.sqrt(ss) * rnorm, trips
+
+
+# ---------------------------------------------------------------------------
+# fp8 rows codec and the factor sum with its wire epilogue
+# ---------------------------------------------------------------------------
+
+def quant_rows_ref(x: torch.Tensor, fmt: str = "e4m3",
+                   scale_mode: str = "fp32"):
+    """Per row of x (..., t): amax, ``scale = amax * FMT_INV_MAX`` (pow2
+    optional, zero rows 1), ``x / scale`` clipped to +-FMT_MAX, the fp8
+    cast. Returns (payload (..., t), scale (...,) f32)."""
+    from repro_torch.quant import quant
+    return quant.quantize_rows(x, fmt, scale_mode)
+
+
+def dequant_rows_ref(payload: torch.Tensor, scale: torch.Tensor
+                     ) -> torch.Tensor:
+    """``payload.f32 * scale`` per row: (..., t), (...,) -> (..., t) f32."""
+    from repro_torch.quant import quant
+    return quant.dequantize_rows(payload, scale)
+
+
+def factor_sum_wire_ref(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",
+                        scale_mode: str = "fp32"):
+    """The JAX package's ``_factor_sum_wire_ref``: the blocked f32 factor
+    sum, sym-packed, then quantized with one scale per block. x (..., n, d)
+    -> (payload (..., nb, t), scale (..., nb))."""
+    from repro_torch.core import kfac
+    return quant_rows_ref(kfac.sym_pack(factor_sum_ref(x, max_dim)), fmt,
+                          scale_mode)

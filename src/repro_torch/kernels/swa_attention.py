@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import on_card, require, stream
 
 # kernel name -> number of launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"swa_flash_fwd": 0, "swa_flash_decode": 0,
@@ -42,23 +43,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:
-    dev = ts[0].device
+    on_card(name, *ts)
     for t in ts:
-        _require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
-                            f"{t.device}); CPU tensors take the plain version "
-                            "through repro_torch.kernels.dispatch")
-        _require(t.device == dev, f"{name}: tensors on different devices")
-        _require(t.is_contiguous(), f"{name}: inputs must be contiguous")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+        require(t.is_contiguous(), f"{name}: inputs must be contiguous")
 
 
 def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,18 +54,18 @@ def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BKV, G, S, hd); k, v (BKV, S, hd) -> (out (BKV, G, S, hd) in q's
     dtype, lse (BKV, G, S) f32)."""
     _check_cuda("swa_flash_fwd", q, k, v)
-    _require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
-             f"swa_flash_fwd: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-             f"v{tuple(v.shape)}")
+    require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
+            f"swa_flash_fwd: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)}")
     bkv, g, s, hd = q.shape
-    _require(k.shape == (bkv, s, hd), "swa_flash_fwd: k/v must be (BKV, S, hd)"
-             " matching q (BKV, G, S, hd)")
-    _require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
-             and v.dtype == q.dtype,
-             f"swa_flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    _require(hd in _HEAD_DIMS, f"swa_flash_fwd: head dim {hd} not in "
-                               f"{_HEAD_DIMS}")
-    _require(window >= 0, "swa_flash_fwd: window must be >= 0")
+    require(k.shape == (bkv, s, hd), "swa_flash_fwd: k/v must be (BKV, S, hd)"
+            " matching q (BKV, G, S, hd)")
+    require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
+            and v.dtype == q.dtype,
+            f"swa_flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    require(hd in _HEAD_DIMS, f"swa_flash_fwd: head dim {hd} not in "
+                              f"{_HEAD_DIMS}")
+    require(window >= 0, "swa_flash_fwd: window must be >= 0")
     out = torch.empty_like(q)
     lse = torch.empty((bkv, g, s), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -87,7 +75,7 @@ def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.swa_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), lse.data_ptr(), bkv, g, s, hd,
                                int(window), build.DTYPE_CODES[q.dtype],
-                               hd ** -0.5, _stream(q))
+                               hd ** -0.5, stream(q))
     build.check(rc, "swa_flash_fwd")
     LAUNCHES["swa_flash_fwd"] += 1
     return out, lse
@@ -100,16 +88,16 @@ def _cache_strides(name: str, t: torch.Tensor, n: int, c: int, hd: int):
     rank = 3 if hd else 2
     tail = (c, hd) if hd else (c,)
     if hd:
-        _require(t.stride(-1) == 1, f"{name}: rows must be contiguous")
+        require(t.stride(-1) == 1, f"{name}: rows must be contiguous")
     if t.dim() == rank:
-        _require(tuple(t.shape) == (n,) + tail and t.is_contiguous(),
-                 f"{name}: expected a contiguous {(n,) + tail}, got "
-                 f"{tuple(t.shape)}")
+        require(tuple(t.shape) == (n,) + tail and t.is_contiguous(),
+                f"{name}: expected a contiguous {(n,) + tail}, got "
+                f"{tuple(t.shape)}")
         return 1, t.stride(0), 0, t.stride(1)
-    _require(t.dim() == rank + 1 and t.shape[0] * t.shape[1] == n
-             and tuple(t.shape[2:]) == tail,
-             f"{name}: expected (B, KV) + {tail} with B*KV == {n}, got "
-             f"{tuple(t.shape)}")
+    require(t.dim() == rank + 1 and t.shape[0] * t.shape[1] == n
+            and tuple(t.shape[2:]) == tail,
+            f"{name}: expected (B, KV) + {tail} with B*KV == {n}, got "
+            f"{tuple(t.shape)}")
     return t.shape[1], t.stride(0), t.stride(1), t.stride(2)
 
 
@@ -124,44 +112,44 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "swa_flash_decode"
     scales = [t for t in (k_scale, v_scale) if t is not None]
     for t in (q, k, v, pos, *scales):
-        _require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
-                            f"{t.device}); CPU tensors take the plain version "
-                            "through repro_torch.kernels.dispatch")
-        _require(t.device == q.device, f"{name}: tensors on different devices")
-    _require(q.dim() == 3 and q.is_contiguous() and pos.is_contiguous(),
-             f"{name}: q must be a contiguous (N, G, hd)")
+        require(t.is_cuda, f"{name} runs on CUDA tensors only (got one on "
+                           f"{t.device}); CPU tensors take the plain version "
+                           "through repro_torch.kernels.dispatch")
+        require(t.device == q.device, f"{name}: tensors on different devices")
+    require(q.dim() == 3 and q.is_contiguous() and pos.is_contiguous(),
+            f"{name}: q must be a contiguous (N, G, hd)")
     n, g, hd = q.shape
-    _require(k.dim() in (3, 4) and v.shape == k.shape
-             and v.stride() == k.stride(),
-             f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} and "
-             "strides must match")
+    require(k.dim() in (3, 4) and v.shape == k.shape
+            and v.stride() == k.stride(),
+            f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} and "
+            "strides must match")
     c = k.shape[-2]
     kvh, s_b, s_h, s_c = _cache_strides(name, k, n, c, hd)
     sc = (1, 0, 0, 0)
     if scales:
-        _require(k_scale is not None and v_scale is not None
-                 and k_scale.shape == v_scale.shape
-                 and k_scale.stride() == v_scale.stride(),
-                 f"{name}: k_scale and v_scale come together, alike")
-        _require(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
-                 f"{name}: scales must be float32")
+        require(k_scale is not None and v_scale is not None
+                and k_scale.shape == v_scale.shape
+                and k_scale.stride() == v_scale.stride(),
+                f"{name}: k_scale and v_scale come together, alike")
+        require(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
+                f"{name}: scales must be float32")
         sc = _cache_strides(name, k_scale, n, c, 0)
-        _require(sc[0] == kvh, f"{name}: scales and cache differ in layout")
-    _require(pos.shape == (n,) and pos.dtype == torch.int32,
-             f"{name}: pos must be (N,) int32")
-    _require(q.dtype in _FWD_DTYPES, f"{name}: q dtype {q.dtype}")
-    _require(k.dtype in _CACHE_DTYPES and v.dtype == k.dtype,
-             f"{name}: cache dtypes {k.dtype}/{v.dtype}")
-    _require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
-    _require(1 <= g <= MAX_GROUP, f"{name}: group {g} not in [1, {MAX_GROUP}]")
-    _require(window >= 0, f"{name}: window must be >= 0")
+        require(sc[0] == kvh, f"{name}: scales and cache differ in layout")
+    require(pos.shape == (n,) and pos.dtype == torch.int32,
+            f"{name}: pos must be (N,) int32")
+    require(q.dtype in _FWD_DTYPES, f"{name}: q dtype {q.dtype}")
+    require(k.dtype in _CACHE_DTYPES and v.dtype == k.dtype,
+            f"{name}: cache dtypes {k.dtype}/{v.dtype}")
+    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    require(1 <= g <= MAX_GROUP, f"{name}: group {g} not in [1, {MAX_GROUP}]")
+    require(window >= 0, f"{name}: window must be >= 0")
     if window:
-        _require(c == window, f"ring decode needs k.shape[-2] == window; got "
-                              f"{c} vs {window}")
+        require(c == window, f"ring decode needs k.shape[-2] == window; got "
+                             f"{c} vs {window}")
     out = torch.empty((n, g, hd), dtype=torch.float32, device=q.device)
     if n == 0:
         return out
-    _require(c > 0, f"{name}: empty cache")
+    require(c > 0, f"{name}: empty cache")
     lib = build.load()["swa_flash_decode"]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash_decode(
@@ -170,7 +158,7 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v_scale.data_ptr() if v_scale is not None else None,
             pos.data_ptr(), out.data_ptr(), n, g, c, hd, int(window),
             build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
-            hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3], _stream(q))
+            hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3], stream(q))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -185,19 +173,19 @@ def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rowsum(do * o)`` is taken here in f32, outside the kernels."""
     name = "swa_flash_bwd"
     _check_cuda(name, q, k, v, o, lse, do)
-    _require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
-             f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-             f"v{tuple(v.shape)}")
+    require(q.dim() == 4 and k.dim() == 3 and v.shape == k.shape,
+            f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)}")
     bkv, g, s, hd = q.shape
-    _require(k.shape == (bkv, s, hd) and o.shape == q.shape
-             and do.shape == q.shape and lse.shape == (bkv, g, s),
-             f"{name}: shapes do not match q (BKV, G, S, hd)")
-    _require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
-             and v.dtype == q.dtype and do.dtype == q.dtype,
-             f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
-    _require(lse.dtype == torch.float32, f"{name}: lse must be float32")
-    _require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
-    _require(window >= 0, f"{name}: window must be >= 0")
+    require(k.shape == (bkv, s, hd) and o.shape == q.shape
+            and do.shape == q.shape and lse.shape == (bkv, g, s),
+            f"{name}: shapes do not match q (BKV, G, S, hd)")
+    require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
+            and v.dtype == q.dtype and do.dtype == q.dtype,
+            f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    require(lse.dtype == torch.float32, f"{name}: lse must be float32")
+    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    require(window >= 0, f"{name}: window must be >= 0")
     delta = (do.float() * o.float()).sum(-1)
     return (swa_flash_bwd_dq(q, k, v, lse, delta, do, window=window),
             *swa_flash_bwd_dkdv(q, k, v, lse, delta, do, window=window))
@@ -205,13 +193,13 @@ def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd_args(q, k, v, lse, delta, do, window):
     bkv, g, s, hd = q.shape
-    _require(delta.shape == lse.shape and delta.dtype == torch.float32
-             and delta.is_cuda and delta.is_contiguous(),
-             "swa_flash_bwd: delta must be a contiguous f32 (BKV, G, S)")
+    require(delta.shape == lse.shape and delta.dtype == torch.float32
+            and delta.is_cuda and delta.is_contiguous(),
+            "swa_flash_bwd: delta must be a contiguous f32 (BKV, G, S)")
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), do.data_ptr())
     tail = (bkv, g, s, hd, int(window), build.DTYPE_CODES[q.dtype],
-            hd ** -0.5, _stream(q))
+            hd ** -0.5, stream(q))
     return head, tail
 
 

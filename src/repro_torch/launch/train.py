@@ -9,10 +9,13 @@
 With ``accum > 1`` the batch is split into microbatches run one after the
 other: gradients average and raw factor sums add, the G-type sums rescaled
 by 1/accum^2 (each microbatch's dL/ds carries 1/n_micro, not 1/n_total).
+Fused fp8 wire capture (``ArchConfig.factor_wire``) cannot accumulate and
+is refused with ``accum > 1``.
 
     python -m repro_torch.launch.train --arch llama3_2_1b --steps 4 \\
         --batch 4 --seq 1024 --full-config          # on the card
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
+    python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
 """
 
 from __future__ import annotations
@@ -37,7 +40,26 @@ def _tree_add(a, b):
     return unflatten({k: v + fb[k] for k, v in flatten(a).items()}, a)
 
 
+def _check_accum_capture(opt: SPNGD, accum: int) -> None:
+    """Fused wire-format capture emits fp8 payloads whose microbatch sums
+    are not representable (fp8 has no add): refuse accumulation up front
+    instead of adding quantized payloads."""
+    if accum <= 1:
+        return
+    from repro_torch.quant import quant
+    wired = [f"{fam}.{k}" for fam, stats in opt.fstats_fn().items()
+             for k, leaf in stats.items() if quant.is_wire(leaf)]
+    if wired:
+        raise ValueError(
+            f"accum={accum} cannot accumulate wire-format statistics "
+            f"({', '.join(sorted(wired))}): fp8 payloads do not add across "
+            "microbatches. Use accum=1 with fused capture, or dense "
+            "capture (factor_wire='') with accumulation.")
+
+
 def make_train_step(model, opt: SPNGD, accum: int = 1) -> Callable:
+    _check_accum_capture(opt, accum)
+
     def train_step(params, opt_state, batch, flags, lam, lr, mom):
         counts = model.site_counts(batch)          # full-batch counts
         if accum == 1:
@@ -86,11 +108,13 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
           backend: str = "auto", damping: float = 2.5e-4,
           inverse_method: str = "eigh", estimator: str = "emp",
           weight_rescale: bool = False, history: int = 2,
-          sgd_fallback_scale: float = 1.0, device=None, seed: int = 0,
+          sgd_fallback_scale: float = 1.0, factor_dtype=torch.float32,
+          factor_wire: str | None = None, device=None, seed: int = 0,
           cfg=None):
     """The model (random weights from ``seed``), its optimizer (the
     ``NGDConfig`` fields of the same names) and the initial state:
-    (model, opt, params, state)."""
+    (model, opt, params, state). ``factor_wire`` sets
+    ``ArchConfig.factor_wire`` (None keeps the config's)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -101,6 +125,8 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
         if not full_config:
             cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, backend=backend)
+    if factor_wire is not None:
+        cfg = dataclasses.replace(cfg, factor_wire=factor_wire)
     model = DecoderLM(cfg, device=device).init(
         torch.Generator().manual_seed(seed))
     params = model.params()
@@ -109,7 +135,8 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
                 NGDConfig(damping=damping, backend=backend,
                           inverse_method=inverse_method, estimator=estimator,
                           weight_rescale=weight_rescale, history=history,
-                          sgd_fallback_scale=sgd_fallback_scale))
+                          sgd_fallback_scale=sgd_fallback_scale,
+                          factor_dtype=factor_dtype))
     return model, opt, params, opt.init(params)
 
 
@@ -207,6 +234,17 @@ def main(argv=None):
                     help="Stage-4 factor inversion; newton_schulz runs the "
                          "matmul-only iteration (Newton-Schulz kernels on "
                          "the card) and logs its eigh fallbacks")
+    from repro_torch.quant.quant import FACTOR_DTYPES
+    ap.add_argument("--factor-dtype", default="f32",
+                    choices=sorted(FACTOR_DTYPES),
+                    help="storage dtype of the X_-1/X_-2 factor history and "
+                         "of the statistics payload ledger; the fp8 variants "
+                         "store sym-packed payloads + per-block scales and "
+                         "dequantize on read (fp8 kernels on the card)")
+    ap.add_argument("--factor-wire", default="", choices=["", "e4m3", "e5m2"],
+                    help="fused fp8 capture: full-kind factor sums leave the "
+                         "backward as sym-packed fp8 payloads + per-block "
+                         "scales (ArchConfig.factor_wire; needs --accum 1)")
     ap.add_argument("--estimator", default="emp", choices=["emp", "1mc"],
                     help="Fisher estimator: empirical (true labels) or one "
                          "Monte-Carlo sample of the model's own labels")
@@ -232,10 +270,13 @@ def main(argv=None):
         damping=args.damping, inverse_method=args.inverse_method,
         estimator=args.estimator, weight_rescale=args.weight_rescale,
         history=args.history, sgd_fallback_scale=args.sgd_fallback_scale,
-        device=device)
+        factor_dtype=FACTOR_DTYPES[args.factor_dtype],
+        factor_wire=args.factor_wire, device=device)
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} ({'full' if args.full_config else 'reduced'}), "
-          f"{n / 1e6:.1f}M params, device {device}", flush=True)
+          f"{n / 1e6:.1f}M params, device {device}, factor history "
+          f"{args.factor_dtype}, capture {args.factor_wire or 'f32'}",
+          flush=True)
     run(model, opt, params, state, steps=args.steps, batch=args.batch,
         seq=args.seq, accum=args.accum, lr=args.lr, damping=args.damping,
         log=lambda s: print(s, flush=True))

@@ -80,13 +80,16 @@ class DecoderLM(nn.Module):
         # factor specs (transformer.py:48-57 of the JAX package); its
         # per-site specs differ only under tensor-parallel alignment, which
         # one device does not use
-        self.spec = FactorSpec(max_dim=cfg.kfac_max_dim, backend=cfg.backend)
+        self.spec = FactorSpec(max_dim=cfg.kfac_max_dim, backend=cfg.backend,
+                               wire_fmt=cfg.factor_wire)
         self.head_spec = FactorSpec(g_kind=cfg.head_g_kind,
                                     max_dim=cfg.kfac_max_dim,
-                                    backend=cfg.backend)
+                                    backend=cfg.backend,
+                                    wire_fmt=cfg.factor_wire)
         self.embed_spec = FactorSpec(a_kind="diag", g_kind="full",
                                      max_dim=cfg.kfac_max_dim,
-                                     backend=cfg.backend)
+                                     backend=cfg.backend,
+                                     wire_fmt=cfg.factor_wire)
 
         def empty(*shape, dtype=cfg.dtype):
             return torch.empty(shape, dtype=dtype, device=self.device)
@@ -498,7 +501,8 @@ def _blk_stats(fstats, n_layers: int) -> list:
     """Block families ("blk/<name>", stacked (L, ...)) -> one
     {"<name>": {key: (...)}} dict per layer. ``unbind`` hands the layers
     views of each accumulator, and its backward stacks the per-layer raw
-    sums back into the (L, ...) family in one copy."""
+    sums back into the (L, ...) family in one copy; a wire-format
+    accumulator ({"payload", "scale"}) is split part by part."""
     if fstats is None:
         return [None] * n_layers
     out = [{} for _ in range(n_layers)]
@@ -506,6 +510,12 @@ def _blk_stats(fstats, n_layers: int) -> list:
         if not fam.startswith("blk/"):
             continue
         for key, t in stats.items():
-            for layer, t_l in enumerate(t.unbind(0)):
+            if isinstance(t, dict):
+                parts = {k: v.unbind(0) for k, v in t.items()}
+                per_layer = [{k: v[layer] for k, v in parts.items()}
+                             for layer in range(n_layers)]
+            else:
+                per_layer = t.unbind(0)
+            for layer, t_l in enumerate(per_layer):
                 out[layer].setdefault(fam[4:], {})[key] = t_l
     return out

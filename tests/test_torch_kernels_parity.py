@@ -244,13 +244,15 @@ def test_kernel_sources_and_build_flags():
     plain C interface (no PyTorch headers) and no library kernels: the two
     attention kernels of the serving path, the factor-sum,
     block-preconditioning and attention-backward kernels of the training
-    path and the three Newton-Schulz kernels of Stage 4, each entry point
-    of ``build.SIGNATURES`` defined in its source."""
+    path, the three Newton-Schulz kernels of Stage 4 and the fp8 rows and
+    wire-capture kernels, each entry point of ``build.SIGNATURES`` defined
+    in its source."""
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert set(build.SIGNATURES) == {"swa_flash_fwd", "swa_flash_decode",
                                      "swa_flash_bwd", "kfac_factor",
-                                     "kfac_precond", "newton_schulz"}
+                                     "kfac_precond", "newton_schulz",
+                                     "quant_pack"}
     for stem, entries in build.SIGNATURES.items():
         src = (build.CSRC / f"{stem}.cu").read_text()
         for fn in entries:
