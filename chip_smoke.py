@@ -23,9 +23,14 @@ capture step with the fp8 history and fused e4m3 capture on the kernels
 against ``backend="ref"`` (2 layers, f32), and full-width training with
 ``factor_dtype="fp8_e4m3"`` and ``factor_wire="e4m3"`` for 3 loop steps and
 the fast-step builder's warm-up and two timed steps, its history bytes and
-peak memory beside the f32 path's. It times all twelve kernels beside
-their bound, their plain version and the PyTorch library call for the same
-function.
+peak memory beside the f32 path's. Then the ``swa_attention`` op: its
+kernel against the plain version, then one call at llama3_2_1b's heads
+(32 over 8 KV heads, repeated, hd 64, bf16) at S 32768 with the 8192
+window of ``repro``'s long-context variant, held against the plain version
+on every head and, for its layout, against the model layer's GQA kernel
+route. It
+times all thirteen kernels beside their bound, their plain version and the
+PyTorch library call for the same function.
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -103,6 +108,22 @@ FP8_HIST_RATIO = 0.27
 # route check), and a payload byte may differ by one fp8 step where a sum
 # lies on a rounding boundary
 WIRE_SCALE_REL_TOL = 2e-5
+# swa_flash against its plain version in f32: the attention forward's
+# tolerance in the JAX package's ref-vs-Pallas checks
+SWA_F32_TOL = dict(atol=2e-4, rtol=2e-4)
+# swa_flash's bf16 output against the plain version on the same inputs
+# upcast to f32 (its output left in f32): the output's own rounding, at most
+# bf16's unit roundoff 2^-8 of |out|, plus f32 sums in another order. At the
+# path's window a typical |out| is 0.015, so an element may be off by about
+# 8e-5 there, while a key dropped or added at the window's edge moves most
+# rows by about 1e-4 (FWD_TOL would let through 1e-2).
+SWA_BF16_TOL = dict(atol=2e-5, rtol=2 ** -8)
+# two bf16 outputs, each within SWA_BF16_TOL of the same f32 value
+SWA_ROUTE_TOL = dict(atol=4e-5, rtol=2 ** -7)
+# the swa_attention op's path: the long-context sliding window repro
+# documents for llama3_2_1b (SWA_FOR_LONG, src/repro/launch/dryrun.py:48)
+# at the prefill_32k length (src/repro/configs/base.py:114)
+SWA_PATH = dict(seq=32768, window=8192)
 
 
 def say(phase: str, msg: str) -> None:
@@ -184,9 +205,15 @@ def main(argv: list[str]) -> int:
     fp8_path = timed(train_path_fp8, torch, train)
     launches.update({k: fp8_path["launches"][k] for k in FP8_KERNELS})
     times.update(timed(time_fp8_kernels, torch))
+    del train, ns_path, fp8_path
+    t_swa = time.perf_counter()
+    errs.update(timed(check_swa_kernel, torch))
+    launches["swa_flash"] = timed(swa_path, torch)["launches"]["swa_flash"]
+    times.update(timed(time_swa_kernel, torch))
     t_end = time.perf_counter()
     say("clock", f"{t_end - t_start:.1f} s from the build on, the fp8 "
-                 f"phases {t_end - t_fp8:.1f} s of it ("
+                 f"phases {t_swa - t_fp8:.1f} s and the swa_attention phases "
+                 f"{t_end - t_swa:.1f} s of it ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
     rows = []
@@ -208,8 +235,9 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-# the twelve kernels: name, source stem, the TPU kernel it replaces
+# the thirteen kernels: name, source stem, the TPU kernel it replaces
 KERNEL_ROWS = (
+    ("swa_flash", "swa_flash", "src/repro/kernels/swa_attention.py:104"),
     ("swa_flash_fwd", "swa_flash_fwd", "src/repro/kernels/swa_attention.py:292"),
     ("swa_flash_decode", "swa_flash_decode",
      "src/repro/kernels/swa_attention.py:206"),
@@ -2112,6 +2140,225 @@ def time_fp8_kernels(torch) -> dict:
     torch.cuda.empty_cache()
     return res
 
+
+# ---------------------------------------------------------------------------
+# the swa_attention op: (BH, S, hd) causal(-window) attention
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of one head: query i sees
+    min(i + 1, window) keys (window 0: i + 1)."""
+    w = window if 0 < window < s else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _swa_bound(bh, s, hd, window, dtype) -> tuple[float, str]:
+    """Two products of 2 * hd operations per visible pair; q, k, v and out
+    each moved once."""
+    return _bound(4 * hd * bh * _visible_pairs(s, window),
+                  4 * bh * s * hd * dtype.itemsize, dtype)
+
+
+def check_swa_kernel(torch) -> dict:
+    """swa_flash against its plain version: BH 4 over S {64, 50, 1000} x
+    window {0, 1, 7, 13, 32, S + 5} x hd {64, 128}, f32 at SWA_F32_TOL and
+    bf16 at FWD_TOL; then bf16 at (32, 1024, 64) causal and (32, 4096, 64)
+    at window 1024. Every bf16 case is also held at SWA_BF16_TOL against the
+    plain version on its inputs upcast to f32."""
+    from repro_torch.kernels import ref, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    grid = [(4, s, hd, w, dt) for s in (64, 50, 1000)
+            for w in (0, 1, 7, 13, 32, s + 5) for hd in (64, 128)
+            for dt in (f32, bf16)]
+    cases = grid + [(32, 1024, 64, 0, bf16), (32, 4096, 64, 1024, bf16)]
+    worst = {f32: 0.0, bf16: 0.0}
+    worst_f32_ref = 0.0
+    for bh, s, hd, window, dt in cases:
+        q, k, v = (torch.randn((bh, s, hd), generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        out = swa_attention.swa_flash(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = ref.swa_attention_ref(q, k, v, window=window)
+        check(out.dtype == dt and out.shape == q.shape,
+              f"swa_flash output {out.dtype} {tuple(out.shape)}")
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **(SWA_F32_TOL if dt == f32 else FWD_TOL))
+        err = _max_err(torch, out, want)
+        worst[dt] = max(worst[dt], err)
+        if dt == bf16:
+            want = ref.swa_attention_ref(q.float(), k.float(), v.float(),
+                                         window=window)
+            torch.testing.assert_close(out.float(), want, **SWA_BF16_TOL)
+            worst_f32_ref = max(worst_f32_ref, _max_err(torch, out, want))
+        if bh == 32:
+            say("swa-kernel", f"BH={bh} S={s} hd={hd} window={window} bf16: "
+                              f"max|err|={err:.3e} (tol {FWD_TOL}); against "
+                              f"the f32 plain version "
+                              f"{_max_err(torch, out, want):.3e} (tol "
+                              f"{SWA_BF16_TOL})")
+        del q, k, v, out, want
+    say("swa-kernel", f"{len(grid)} cases BH=4, S 64/50/1000, window 0/1/7/"
+                      f"13/32/S+5, hd 64/128: max|err| f32 {worst[f32]:.3e} "
+                      f"(tol {SWA_F32_TOL}), bf16 {worst[bf16]:.3e} (tol "
+                      f"{FWD_TOL}); every bf16 case against the f32 plain "
+                      f"version {worst_f32_ref:.3e} (tol {SWA_BF16_TOL})")
+    torch.cuda.empty_cache()
+    return {"swa_flash": max(worst.values())}
+
+
+def swa_path(torch) -> dict:
+    """One dispatch.swa_attention call at llama3_2_1b's heads: q (1, S, 32,
+    64) and k, v (1, S, 8, 64) bf16 from a seed, KV repeated by the model
+    layer's _repeat_kv and the heads flattened to (32, S, 64), S and the
+    window from SWA_PATH, default backend. Checks: one cuda dispatch and no
+    ref, one swa_flash launch, every head against the plain version on the
+    inputs upcast to f32 at SWA_BF16_TOL (one head at a time: a
+    whole-tensor plain call would hold 32 heads' f32 scores), and, as a
+    check of the layout and the KV repeat only, the whole result against
+    attention(q, k, v, window) on its kernel route (swa_flash_fwd on the
+    unexpanded KV, which runs the same tile body). Prints the synchronized
+    wall time and the peak memory of the call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch, ref, swa_attention
+    from repro_torch.models import attention
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_2_1b")
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s, window = SWA_PATH["seq"], SWA_PATH["window"]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn((1, s, h, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, s, kvh, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, s, kvh, hd), generator=gen, device="cuda").bfloat16()
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3).reshape(h, s, hd).contiguous()
+    qf = flat(q)
+    kf = flat(attention._repeat_kv(k, h // kvh))
+    vf = flat(attention._repeat_kv(v, h // kvh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    swa_attention.reset_launches()
+    dispatch.reset_calls()
+    t = time.perf_counter()
+    out = dispatch.swa_attention(qf, kf, vf, window=window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(swa_attention.LAUNCHES)
+    calls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(calls == {("swa_attention", "cuda"): 1},
+          f"swa_attention dispatches {calls}")
+    check(launches["swa_flash"] == 1 and sum(launches.values()) == 1,
+          f"swa_flash launches {launches}")
+    check(out.shape == qf.shape and out.dtype == torch.bfloat16
+          and bool(torch.isfinite(out).all()),
+          f"swa_attention output {out.dtype} {tuple(out.shape)}")
+    say("swa-path", f"llama3_2_1b heads {h}/{kvh} (KV repeated), hd {hd}, "
+                    f"bf16, S {s}, window {window}: dispatch.swa_attention "
+                    f"{wall * 1e3:.3f} ms synchronized wall, peak memory "
+                    f"{peak / 2 ** 30:.3f} GiB; launches {launches}; "
+                    f"dispatches {calls}; {card_note(torch)}")
+    errs, used, typical = [], 0.0, 0.0
+    for i in range(h):
+        want = ref.swa_attention_ref(qf[i:i + 1].float(), kf[i:i + 1].float(),
+                                     vf[i:i + 1].float(), window=window)
+        got = out[i:i + 1].float()
+        torch.testing.assert_close(got, want, **SWA_BF16_TOL)
+        errs.append(_max_err(torch, got, want))
+        limit = SWA_BF16_TOL["atol"] + SWA_BF16_TOL["rtol"] * want.abs()
+        used = max(used, float(((got - want).abs() / limit).max()))
+        typical = max(typical, float(want.abs().median()))
+        del want, got, limit
+    say("swa-path", f"every head against the plain version on the inputs "
+                    f"upcast to f32, one head at a time: max|err| "
+                    f"{max(errs):.3e} (head {errs.index(max(errs))}; heads 0 "
+                    f"and {h - 1}: {errs[0]:.3e}, {errs[-1]:.3e}), at most "
+                    f"{used:.3f} of the limit (tol {SWA_BF16_TOL}); median "
+                    f"|out| per head at most {typical:.3e}")
+    with torch.no_grad():
+        route = attention.attention(q, k, v, window=window)
+    route = route.permute(0, 2, 1, 3).reshape(h, s, hd)
+    torch.testing.assert_close(out.float(), route.float(), **SWA_ROUTE_TOL)
+    say("swa-path", f"layout and KV repeat: all {h} heads against attention("
+                    f"q, k, v, window={window}) on its kernel route "
+                    f"(swa_flash_fwd on the unexpanded KV, the same tile "
+                    f"body): max|err|={_max_err(torch, out, route):.3e} (tol "
+                    f"{SWA_ROUTE_TOL})")
+    del q, k, v, qf, kf, vf, out, route
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def time_swa_kernel(torch) -> dict:
+    """swa_flash beside its bound, its plain version and one SDPA call at
+    (a) BH 32, S 1024, hd 64, bf16, causal and (b) the path's BH 32,
+    S 32768, hd 64, bf16, window 8192; (b) is the row's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ref, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bh, hd = 32, 64
+
+    def rnd(s):
+        return [torch.randn((bh, s, hd), generator=gen,
+                            device="cuda").bfloat16() for _ in range(3)]
+
+    s = 1024
+    q, k, v = rnd(s)
+    bound, by = _swa_bound(bh, s, hd, 0, q.dtype)
+    q4, k4, v4 = (x.view(1, bh, s, hd) for x in (q, k, v))
+    a = {"ms": _time_ms(torch, lambda: swa_attention.swa_flash(q, k, v)),
+         "plain_ms": _time_ms(torch, lambda: ref.swa_attention_ref(q, k, v),
+                              reps=5),
+         "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, is_causal=True)),
+         "bound_ms": bound, "bound_by": by}
+    say("times", f"swa_flash BH={bh} S={s} hd={hd} bf16 causal: {a} "
+                 f"(library: SDPA, is_causal); {card_note(torch)}")
+    del q, k, v, q4, k4, v4
+
+    s, window = SWA_PATH["seq"], SWA_PATH["window"]
+    q, k, v = rnd(s)
+    bound, by = _swa_bound(bh, s, hd, window, q.dtype)
+    ms = _time_ms(torch, lambda: swa_attention.swa_flash(q, k, v,
+                                                         window=window),
+                  reps=10, warmup=2)
+    out = swa_attention.swa_flash(q, k, v, window=window)
+    one = _time_ms(torch, lambda: ref.swa_attention_ref(
+        q[:1], k[:1], v[:1], window=window), reps=5, warmup=1)
+    plain = _time_ms(torch, lambda: [ref.swa_attention_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], window=window)
+        for i in range(bh)], reps=2, warmup=1)
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    q4, k4, v4 = (x.view(1, bh, s, hd) for x in (q, k, v))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)
+    lib, why = None, "SDPA (memory-efficient backend, boolean band mask)"
+    try:
+        lib_out = sdpa().view(bh, s, hd)
+    except RuntimeError as e:
+        why += f" raised: {str(e).splitlines()[0]}"
+    else:
+        err = _max_err(torch, lib_out, out)
+        why += f", max|err| against the kernel {err:.3e}"
+        if torch.allclose(lib_out.float(), out.float(), **FWD_TOL):
+            lib = _time_ms(torch, sdpa, reps=5, warmup=1)
+        else:
+            why += f": beyond {FWD_TOL}, so not timed"
+        del lib_out
+    b = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+         "bound_by": by}
+    say("times", f"swa_flash BH={bh} S={s} hd={hd} bf16 window={window}: {b}"
+                 f" (plain: {bh} calls of one head each; one head alone "
+                 f"{one:.4f} ms); library: {why}; {card_note(torch)}")
+    del q, k, v, q4, k4, v4, out, band
+    torch.cuda.empty_cache()
+    return {"swa_flash": b}
 
 
 if __name__ == "__main__":

@@ -42,6 +42,10 @@ SIGNATURES = {
         # q, k, v, out, lse, bkv, G, S, hd, window, dtype, scale, stream
         "swa_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
     },
+    "swa_flash": {
+        # q, k, v, out, BH, S, hd, window, dtype, scale, stream
+        "swa_flash": [_P] * 4 + [_I] * 5 + [_F, _P],
+    },
     "swa_flash_decode": {
         # q, k, v, k_scale, v_scale, pos, out, N, G, C, hd, window,
         # q_dtype, kv_dtype, scale, kvh, s_b, s_h, s_c, sc_b, sc_h, sc_c,
@@ -146,9 +150,15 @@ def build(verbose: bool = False) -> dict[str, Path]:
             failed.append(f"{src.name}:\n{log}")
             continue
         if verbose:
+            entry = ""
             for line in log.splitlines():
+                for mark in ("Compiling entry function '",
+                             "Function properties for "):
+                    if mark in line:
+                        entry = line.split(mark)[1].split("'")[0].strip()
                 if "Used" in line or "spill" in line or "warning" in line:
-                    print(f"[nvcc {src.name}] {line.strip()}", flush=True)
+                    print(f"[nvcc {src.name}] {entry}: {line.strip()}",
+                          flush=True)
         os.replace(tmp, dst)
     if failed:
         raise RuntimeError("nvcc failed to build the repro_torch kernels:\n"

@@ -68,6 +68,31 @@ def reset_calls() -> None:
 
 
 # ---------------------------------------------------------------------------
+# swa_attention: causal(-window) attention in the (BH, S, hd) layout, heads
+# flattened into the batch axis (a GQA caller repeats KV first). Inference
+# callers only: the model layer's kernel route is swa_attention_fwd_res.
+# ---------------------------------------------------------------------------
+
+def _swa_ref(q, k, v, window: int):
+    from repro_torch.kernels import ref
+    return ref.swa_attention_ref(q, k, v, window=window)
+
+
+def _swa_cuda(q, k, v, window: int):
+    from repro_torch.kernels import swa_attention
+    return swa_attention.swa_flash(q, k, v, window=window)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0, backend: str | None = None) -> torch.Tensor:
+    """Returns (BH, S, hd) in q's dtype. Resolves by device like every op
+    here: ``repro``'s gate of ``auto`` on the sequence length is not
+    ported, so a short sequence on the card takes the kernel too."""
+    which = resolve(backend, q.device)
+    return _call("swa_attention", which, q, k, v, window)
+
+
+# ---------------------------------------------------------------------------
 # swa_attention_fwd_res: GQA causal(-window) forward + logsumexp residual.
 #   q (BKV, G, S, hd) with query head h = c*G + r under KV head c;
 #   k, v (BKV, S, hd) unexpanded -> (out (BKV, G, S, hd), lse (BKV, G, S))
@@ -444,6 +469,8 @@ register("block_precond_right", "ref", _precond_right_ref)
 register("block_precond_right", "cuda", _precond_right_cuda)
 register("damped_inverse", "ref", _damped_inverse_ref)
 register("damped_inverse", "cuda", _damped_inverse_cuda)
+register("swa_attention", "ref", _swa_ref)
+register("swa_attention", "cuda", _swa_cuda)
 register("swa_attention_bwd", "ref", _swa_bwd_ref)
 register("swa_attention_bwd", "cuda", _swa_bwd_cuda)
 register("swa_attention_fwd_res", "ref", _swa_fwd_res_ref)
@@ -452,7 +479,8 @@ register("swa_decode", "ref", _swa_decode_ref)
 register("swa_decode", "cuda", _swa_decode_cuda)
 
 __all__ = ["BACKENDS", "CALLS", "register", "lookup", "resolve",
-           "reset_calls", "swa_attention_fwd_res", "swa_attention_bwd",
-           "swa_decode", "factor_sum", "factor_sum_wire", "fp8_pack",
+           "reset_calls", "swa_attention", "swa_attention_fwd_res",
+           "swa_attention_bwd", "swa_decode", "factor_sum",
+           "factor_sum_wire", "fp8_pack",
            "fp8_unpack", "block_precond_left",
            "block_precond_right", "damped_inverse"]

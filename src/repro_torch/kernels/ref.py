@@ -12,6 +12,24 @@ import torch
 NEG_INF = -1e30
 
 
+def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int = 0) -> torch.Tensor:
+    """Causal (+ sliding window) attention with materialized scores.
+    q, k, v (BH, S, hd), heads flattened into the batch axis. Key j is
+    visible to query i iff ``j <= i`` and, when window > 0,
+    ``j > i - window``. Returns (BH, S, hd) in q's dtype."""
+    bh, s, hd = q.shape
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > (qp - window)
+    scores = torch.where(mask[None], scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
 def swa_decode_slot_positions(pos: torch.Tensor, capacity: int
                               ) -> torch.Tensor:
     """Absolute position held by each ring slot after the token at ``pos``

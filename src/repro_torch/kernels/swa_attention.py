@@ -1,5 +1,10 @@
-"""Wrappers of the two hand-written Hopper attention kernels.
+"""Wrappers of the hand-written Hopper attention kernels.
 
+* :func:`swa_flash` (``csrc/swa_flash.cu``) replaces the TPU kernel
+  ``repro/kernels/swa_attention.py::swa_flash``: the causal(-window)
+  forward in the ``(BH, S, hd)`` layout, heads flattened into the batch
+  axis, no logsumexp. Bound by bytes causal at S 1024, by operations at a
+  long window.
 * :func:`swa_flash_fwd` (``csrc/swa_flash_fwd.cu``) replaces the TPU kernel
   ``repro/kernels/swa_attention.py::swa_flash_fwd``: the GQA causal(-window)
   prefill forward with the logsumexp residual. Bound by operations at the
@@ -29,13 +34,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import on_card, require, stream
 
 # kernel name -> number of launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"swa_flash_fwd": 0, "swa_flash_decode": 0,
-                            "swa_flash_bwd_dq": 0, "swa_flash_bwd_dkdv": 0}
+LAUNCHES: dict[str, int] = {"swa_flash": 0, "swa_flash_fwd": 0,
+                            "swa_flash_decode": 0, "swa_flash_bwd_dq": 0,
+                            "swa_flash_bwd_dkdv": 0}
 
 _FWD_DTYPES = (torch.float32, torch.bfloat16)
 _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
 _HEAD_DIMS = (64, 128)
 MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
+MAX_HEADS = 65535   # csrc/swa_flash.cu MAX_GRID_Y
 
 
 def reset_launches() -> None:
@@ -47,6 +54,35 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
     on_card(name, *ts)
     for t in ts:
         require(t.is_contiguous(), f"{name}: inputs must be contiguous")
+
+
+def swa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: int = 0) -> torch.Tensor:
+    """q, k, v (BH, S, hd) -> out (BH, S, hd) in q's dtype: key j is
+    visible to query i iff ``i - window < j <= i`` (window 0: causal)."""
+    name = "swa_flash"
+    _check_cuda(name, q, k, v)
+    require(q.dim() == 3 and k.shape == q.shape and v.shape == q.shape,
+            f"{name}: q, k, v must share one (BH, S, hd) shape, got "
+            f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    bh, s, hd = q.shape
+    require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
+            and v.dtype == q.dtype,
+            f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    require(window >= 0, f"{name}: window must be >= 0")
+    require(bh <= MAX_HEADS, f"{name}: BH {bh} > {MAX_HEADS}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = build.load()[name]
+    with torch.cuda.device(q.device):
+        rc = lib.swa_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), bh, s, hd, int(window),
+                           build.DTYPE_CODES[q.dtype], hd ** -0.5, stream(q))
+    build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

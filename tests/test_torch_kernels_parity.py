@@ -241,15 +241,16 @@ def test_kernel_wrappers_and_build_refuse_without_card():
 
 def test_kernel_sources_and_build_flags():
     """Every kernel is built from sources in the package for sm_90a, with a
-    plain C interface (no PyTorch headers) and no library kernels: the two
-    attention kernels of the serving path, the factor-sum,
-    block-preconditioning and attention-backward kernels of the training
-    path, the three Newton-Schulz kernels of Stage 4 and the fp8 rows and
+    plain C interface (no PyTorch headers) and no library kernels: the
+    (BH, S, hd) attention forward, the two attention kernels of the serving
+    path, the factor-sum, block-preconditioning and attention-backward
+    kernels of the training path, the three Newton-Schulz kernels of Stage 4 and the fp8 rows and
     wire-capture kernels, each entry point of ``build.SIGNATURES`` defined
     in its source."""
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    assert set(build.SIGNATURES) == {"swa_flash_fwd", "swa_flash_decode",
+    assert set(build.SIGNATURES) == {"swa_flash", "swa_flash_fwd",
+                                     "swa_flash_decode",
                                      "swa_flash_bwd", "kfac_factor",
                                      "kfac_precond", "newton_schulz",
                                      "quant_pack"}
