@@ -102,11 +102,10 @@ TRAIN_FP8 = dict(TRAIN, steps=3)
 FP8_FAST_TIMED = 2
 # fp8 history bytes against the f32 history's (tests/test_quant.py's bound)
 FP8_HIST_RATIO = 0.27
-# factor_syrk_wire vs the plain composition: the f32 sums differ in order, so
-# a scale (the largest |A| times 1/448) differs by the rounding of that one
-# sum (4.23e-6 at worst on an H100 at n 4096, bf16, b 512; 1.62e-6 on the
-# route check), and a payload byte may differ by one fp8 step where a sum
-# lies on a rounding boundary
+# factor_syrk_wire's payload and scales are quant_rows' of its own f32 sums
+# bit for bit; those sums differ from the plain version's in summation order
+# only, relative to the largest |A| (the route check's scales, one per
+# block, are held to the same bound)
 WIRE_SCALE_REL_TOL = 2e-5
 # swa_flash against its plain version in f32: the attention forward's
 # tolerance in the JAX package's ref-vs-Pallas checks
@@ -185,6 +184,7 @@ def main(argv: list[str]) -> int:
     train = train_path(torch)
     launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
     times.update(time_train_kernels(torch))
+    times.update(time_factor_sums(torch))
     profile_train(torch, train)
 
     errs.update(check_ns_kernels(torch))
@@ -726,8 +726,10 @@ def _group(name: str) -> str:
     low = name.lower()
     if "swa_" in low:
         return "attention kernels"
-    if "factor_syrk" in low or "block_precond" in low:
-        return "K-FAC kernels"
+    if "factor_syrk" in low or "pack_quant" in low:
+        return "factor sums"
+    if "block_precond" in low:
+        return "block_precond"
     if "ns_inverse_blocks" in low or "ns_tiled" in low:
         return "Stage-4 Newton-Schulz kernels"
     if any(t in low for t in ("syevd", "syevj", "sytrd", "ormtr", "orgtr",
@@ -805,7 +807,8 @@ def _rel_err(torch, got, want) -> float:
 def check_factor_kernel(torch) -> float:
     """factor_syrk vs the plain blocked einsum at the training path's
     shapes (n 4096 x d 2048 / 8192 / 512 with max_dim 2048), a ragged n and
-    a padded last block, bf16 and f32."""
+    a padded last block, bf16 and f32; each case launched twice, the two
+    outputs identical."""
     from repro_torch.kernels import kfac, ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
@@ -815,16 +818,21 @@ def check_factor_kernel(torch) -> float:
         for n, d, max_dim in cases:
             x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
             got = kfac.factor_syrk(x, max_dim)
+            again = kfac.factor_syrk(x, max_dim)
             torch.cuda.synchronize()
             want = ref.factor_sum_ref(x, max_dim)
             check(got.shape == want.shape, f"factor_syrk shape {got.shape}")
+            # shared tiles are summed in a fixed order: no run-to-run change
+            check(torch.equal(got, again), f"factor_syrk n={n} d={d} "
+                                           f"{dtype}: two launches differ")
             err = _rel_err(torch, got, want)
             check(err <= KFAC_REL_TOL, f"factor_syrk n={n} d={d} {dtype}: "
                                        f"rel err {err} > {KFAC_REL_TOL}")
             worst = max(worst, _max_err(torch, got, want))
             say("factor-kernel", f"n={n} d={d} max_dim={max_dim} -> "
                                  f"{tuple(got.shape)} {dtype}: max|err| / "
-                                 f"max|A| = {err:.3e} (tol {KFAC_REL_TOL})")
+                                 f"max|A| = {err:.3e} (tol {KFAC_REL_TOL}), "
+                                 f"a second launch identical")
     torch.cuda.empty_cache()
     return worst
 
@@ -1254,32 +1262,13 @@ def _attn_inputs(torch, gen, bkv, g, s, hd, dtype):
 
 
 def time_train_kernels(torch) -> dict:
-    """The four training kernels at the training path's commonest shapes,
-    beside their bound, plain version and one PyTorch library call."""
+    """block_precond and the attention backward pair at the training path's
+    commonest shapes, beside their bound, plain version and one PyTorch
+    library call (the factor sums: time_factor_sums)."""
     import torch.nn.functional as F
     from repro_torch.kernels import dispatch, kfac, ref, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(7)
     res = {}
-
-    # factor sum: a 2048-wide site's A factor over the step's 4096 tokens
-    n, d = 4096, 2048
-    x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
-    bound, by = _bound(n * d * (d + 1), n * d * 2 + d * d * 4, x.dtype)
-    res["factor_syrk"] = {
-        "ms": _time_ms(torch, lambda: kfac.factor_syrk(x, 2048)),
-        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(x, 2048)),
-        "library_ms": _time_ms(torch, lambda: torch.matmul(x.t(), x)),
-        "bound_ms": bound, "bound_by": by}
-    say("times", f"factor_syrk n={n} d={d} nb=1 bf16 -> f32: "
-                 f"{res['factor_syrk']} (library: cuBLAS bf16 x^T x, bf16 "
-                 f"output); {card_note(torch)}")
-    x8 = torch.randn((n, 8192), generator=gen, device="cuda").bfloat16()
-    ms8 = _time_ms(torch, lambda: kfac.factor_syrk(x8, 2048))
-    b8, by8 = _bound(4 * n * 2048 * 2049, n * 8192 * 2 + 4 * 2048 ** 2 * 4,
-                     x8.dtype)
-    say("times", f"factor_syrk n={n} d=8192 nb=4 bf16: ms {ms8:.4f}, "
-                 f"bound_ms {b8:.6f} ({by8}); {card_note(torch)}")
-    del x, x8
 
     # block preconditioning: an mlp up/gate A side, (1, 2048, 2048) x
     # (2048, 8192), f32
@@ -1768,13 +1757,17 @@ def check_fp8_kernels(torch) -> dict:
     bit: the history rows of the path (64 x 2,098,176 at b 2048, 32 x
     131,328 at b 512), a ragged b 1000 (t 500,500), zero rows, e5m2, pow2
     scales, a clipped outlier and rows off 16-byte alignment (the element
-    path). factor_syrk_wire at n 4096, b 512 / 1000 / 1024, bf16 and f32,
-    against the plain composition (f32 sum, sym_pack, quantize): scales
-    within WIRE_SCALE_REL_TOL, payload within one fp8 step, the decode
-    within the e4m3 bound of the f32 sum; and the dispatch op's b > 1024
-    route (factor_syrk, sym_pack, quant_rows) the same way."""
+    path). factor_syrk_wire at n 4096, b 512 / 1000 / 1024, bf16 and f32:
+    payload and scales bit-identical to quant_rows' plain version on the
+    kernel's own f32 sums (its scratch), those sums within
+    WIRE_SCALE_REL_TOL of the plain sums, and against the plain composition
+    (f32 sum, sym_pack, quantize) the payload within one fp8 step and the
+    decode within the e4m3 bound of the f32 sum; and the dispatch op's
+    b > 1024 route (factor_syrk, sym_pack, quant_rows) the same way, on
+    factor_syrk's sums."""
     from repro_torch.core import kfac
     from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import kfac as kern
     from repro_torch.kernels import quant as qk
     from repro_torch.quant import quant
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1821,13 +1814,27 @@ def check_fp8_kernels(torch) -> dict:
     torch.cuda.empty_cache()
 
     def wire_case(label, x, max_dim, fmt, mode, route):
+        nb = kfac.num_blocks(x.shape[-1], max_dim)
+        b = kfac.block_size(x.shape[-1], max_dim)
         if route == "fused":
-            p, sc = qk.factor_syrk_wire(x, max_dim, fmt, mode)
+            own = torch.empty((nb, b, b), dtype=torch.float32, device="cuda")
+            p, sc = qk._factor_syrk_wire(x, max_dim, fmt, mode, own)
         else:
             p, sc = dispatch.factor_sum_wire(x, max_dim, fmt=fmt,
                                              scale_mode=mode, backend="cuda")
+            # the route's own sums: factor_syrk reduces in a fixed order
+            own = kern.factor_syrk(x, max_dim)
         torch.cuda.synchronize()
+        op, osc = ref.quant_rows_ref(kfac.sym_pack(own), fmt, mode)
+        bad_p = int((p.view(torch.uint8) != op.view(torch.uint8)).sum())
+        bad_s = int((sc.view(torch.int32) != osc.view(torch.int32)).sum())
+        check(bad_p == 0 and bad_s == 0,
+              f"factor_syrk_wire {label}: {bad_p} payload bytes and {bad_s} "
+              f"scales differ from quant_rows on the kernel's own f32 sums")
         f = ref.factor_sum_ref(x, max_dim)
+        sum_err = _rel_err(torch, own, f)
+        check(sum_err <= WIRE_SCALE_REL_TOL, f"factor_syrk_wire {label}: f32 "
+                                             f"sums rel err {sum_err}")
         rp, rs = ref.quant_rows_ref(kfac.sym_pack(f), fmt, mode)
         a = kfac.sym_pack(f)
         s_err = float(((sc - rs).abs() / rs).max())
@@ -1841,8 +1848,6 @@ def check_fp8_kernels(torch) -> dict:
             (2.0 ** -3, 2.0 ** -17)
         bound = rel * a.abs() + sub * sc[..., None] + 1e-5 * amax
         over = int(((dk - a).abs() > bound).sum())
-        check(s_err <= WIRE_SCALE_REL_TOL, f"factor_syrk_wire {label}: scale "
-                                           f"rel err {s_err}")
         check(steps <= 1, f"factor_syrk_wire {label}: payload {steps} fp8 "
                           f"steps from the plain composition")
         check(over == 0, f"factor_syrk_wire {label}: {over} decoded entries "
@@ -1851,12 +1856,16 @@ def check_fp8_kernels(torch) -> dict:
         worst["factor_syrk_wire"] = max(worst["factor_syrk_wire"], err)
         flips = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
         say("fp8-kernel", f"factor_sum_wire {label} ({route}) -> "
-                          f"{tuple(p.shape)} {fmt} {mode}: scale rel err "
-                          f"{s_err:.2e} (tol {WIRE_SCALE_REL_TOL}), {flips} of "
-                          f"{p.numel()} payload bytes one fp8 step off, max "
-                          f"|decode err| {err:.3e} (max|A| {amax:.3e}); "
-                          f"decode within the {fmt} bound of the f32 sum")
-        del p, sc, f, rp, rs, a, dk, dr
+                          f"{tuple(p.shape)} {fmt} {mode}: payload and scales "
+                          f"bit-identical to quant_rows on the kernel's own "
+                          f"f32 sums, which are within {sum_err:.2e} of the "
+                          f"plain sums (tol {WIRE_SCALE_REL_TOL}); against the "
+                          f"plain composition: scale rel err {s_err:.2e}, "
+                          f"{flips} of {p.numel()} payload bytes one fp8 step "
+                          f"off, max |decode err| {err:.3e} (max|A| "
+                          f"{amax:.3e}); decode within the {fmt} bound of the "
+                          f"f32 sum")
+        del p, sc, f, rp, rs, a, dk, dr, own, op, osc
 
     for b in (512, 1000, 1024):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2085,8 +2094,8 @@ def time_fp8_kernels(torch) -> dict:
     """The three fp8 kernels at the training path's shapes beside their
     bound, plain version and library call: quant_rows and dequant_rows on
     the largest history family (64 rows of 2,098,176: mlp up/gate G, 16
-    layers x 4 blocks of 2048), and on the b 512 family (16 x 131,328);
-    factor_syrk_wire on a wk/wv G capture (n 4096, b 512, bf16)."""
+    layers x 4 blocks of 2048), and on the b 512 family (16 x 131,328)
+    (factor_syrk_wire: time_factor_sums)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import quant as qk
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2119,24 +2128,88 @@ def time_fp8_kernels(torch) -> dict:
     say("times", f"quant_rows ({g}, {t}): ms {q_s:.4f}; dequant_rows ms "
                  f"{d_s:.4f}; bound_ms {b_s:.6f} (bytes); {card_note(torch)}")
     del x, p, sc
+    torch.cuda.empty_cache()
+    return res
 
-    n, b = 4096, 512
-    x = torch.randn((n, b), generator=gen, device="cuda").bfloat16()
-    tri = b * (b + 1) // 2
-    bound, by = _bound(n * b * (b + 1), n * b * 2 + tri + 4, x.dtype)
-    xt = x.t()
-    res["factor_syrk_wire"] = {
-        "ms": _time_ms(torch, lambda: qk.factor_syrk_wire(x, 2048, "e4m3")),
-        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_wire_ref(
-            x, 2048, "e4m3")),
-        "library_ms": _time_ms(torch, lambda: torch.mm(
-            xt, x, out_dtype=torch.float32)),
-        "bound_ms": bound, "bound_by": by}
-    say("times", f"factor_syrk_wire n={n} b={b} bf16 -> e4m3 sym-packed: "
-                 f"{res['factor_syrk_wire']} (library: cuBLAS bf16 x^T x with "
-                 f"f32 output, torch.mm out_dtype; the floor of the SYRK "
-                 f"part); {card_note(torch)}")
-    del x, xt
+
+def _syrk_ops_bytes(n, nb, b, out_bytes):
+    """Operations and bytes of one blocked factor sum: every block's b(b+1)/2
+    distinct sums of n products, x read once, the output written once."""
+    return nb * n * b * (b + 1), n * nb * b * 2 + out_bytes
+
+
+def time_factor_sums(torch) -> dict:
+    """factor_syrk and factor_syrk_wire at the training path's shapes,
+    beside their bound, plain version and the library call for the same
+    function (cuBLAS bf16 x^T x with f32 output: torch.mm, torch.bmm over
+    blocks, out_dtype); factor_syrk at n 4096 x d 2048 (nb 1, its row), 512
+    and 8192 (nb 4); factor_syrk_wire at b 512 (its row) and both wire
+    routes at b 2048, where dispatch caps the fused kernel
+    (FACTOR_WIRE_MAX_DIM 1024)."""
+    from repro_torch.core import kfac
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f32 = torch.float32
+    res = {}
+    n = 4096
+    for d, max_dim in ((2048, 2048), (512, 2048), (8192, 2048)):
+        x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+        nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+        xb = x.view(n, nb, b).transpose(0, 1)
+        ops, nbytes = _syrk_ops_bytes(n, nb, b, nb * b * b * 4)
+        bound, by = _bound(ops, nbytes, x.dtype)
+        if nb == 1:
+            def lib(x=x):
+                return torch.mm(x.t(), x, out_dtype=f32)
+        else:
+            def lib(xb=xb):
+                return torch.bmm(xb.transpose(1, 2), xb, out_dtype=f32)
+        try:
+            lib_ms = _time_ms(torch, lib)
+        except RuntimeError as e:            # no bf16 -> f32 bmm here
+            say("times", f"library call for nb={nb} not timed: {e}")
+            lib_ms = None
+        row = {"ms": _time_ms(torch, lambda: kern.factor_syrk(x, max_dim)),
+               "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(
+                   x, max_dim)),
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+        if d == 2048:
+            res["factor_syrk"] = row
+        say("times", f"factor_syrk n={n} d={d} nb={nb} bf16 -> f32: {row} "
+                     f"(library: cuBLAS bf16 x^T x, f32 output, "
+                     f"{'torch.mm' if nb == 1 else 'torch.bmm over blocks'});"
+                     f" {card_note(torch)}")
+        del x, xb
+
+    for b in (512, 2048):
+        x = torch.randn((n, b), generator=gen, device="cuda").bfloat16()
+        tri = b * (b + 1) // 2
+        ops, nbytes = _syrk_ops_bytes(n, 1, b, tri + 4)
+        bound, by = _bound(ops, nbytes, x.dtype)
+        fused = _time_ms(torch, lambda: qk.factor_syrk_wire(x, 2048, "e4m3"))
+        lib = _time_ms(torch, lambda: torch.mm(x.t(), x, out_dtype=f32))
+        if b == 512:
+            res["factor_syrk_wire"] = {
+                "ms": fused,
+                "plain_ms": _time_ms(torch, lambda: ref.factor_sum_wire_ref(
+                    x, 2048, "e4m3")),
+                "library_ms": lib, "bound_ms": bound, "bound_by": by}
+            say("times", f"factor_syrk_wire n={n} b={b} bf16 -> e4m3 "
+                         f"sym-packed: {res['factor_syrk_wire']} (library: "
+                         f"cuBLAS bf16 x^T x with f32 output, torch.mm "
+                         f"out_dtype; the floor of the SYRK part); "
+                         f"{card_note(torch)}")
+        else:
+            unfused = _time_ms(torch, lambda: qk.quant_rows(kfac.sym_pack(
+                kern.factor_syrk(x, 2048)), "e4m3"))
+            say("times", f"wire routes at n={n} b={b} bf16 -> e4m3: fused "
+                         f"factor_syrk_wire ms {fused:.6f}, factor_syrk + "
+                         f"sym_pack + quant_rows (dispatch's route above "
+                         f"b 1024) ms {unfused:.6f}; bound_ms {bound:.6f} "
+                         f"({by}), library_ms {lib:.6f}; {card_note(torch)}")
+        del x
     torch.cuda.empty_cache()
     return res
 

@@ -61,11 +61,11 @@ SIGNATURES = {
         "swa_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
     "kfac_factor": {
-        # x, out, n, ld, d, nb, b, dtype, stream
-        "factor_syrk": [_P] * 2 + [_I] * 6 + [_P],
-        # x, scratch, amax, payload, scale, n, ld, d, nb, b, dtype, fmt,
-        # pow2, inv_max, stream
-        "factor_syrk_wire": [_P] * 5 + [_I] * 8 + [_F, _P],
+        # x, out, ws, arrived, n, ld, d, nb, b, dtype, ctas, stream
+        "factor_syrk": [_P] * 4 + [_I] * 7 + [_P],
+        # x, scratch, amax, ws, arrived, payload, scale, n, ld, d, nb, b,
+        # dtype, ctas, fmt, pow2, inv_max, stream
+        "factor_syrk_wire": [_P] * 7 + [_I] * 9 + [_F, _P],
     },
     "quant_pack": {
         # x, payload, scale, amax, g, t, fmt, pow2, inv_max, stream

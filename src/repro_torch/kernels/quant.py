@@ -9,7 +9,9 @@
 * :func:`factor_syrk_wire` (``csrc/kfac_factor.cu``) replaces
   ``repro/kernels/kfac_factor.py::factor_syrk_wire``: the blocked factor
   sum with the fp8 wire epilogue, emitting the sym-packed payload
-  ``(nb, b(b+1)/2)`` and one scale per block. Bound by operations.
+  ``(nb, b(b+1)/2)`` and one scale per block: quant_rows' payload and
+  scale of the sym-packed f32 sums the kernel leaves in its scratch, bit
+  for bit. Bound by operations.
 
 The scale arithmetic is the JAX package's (``quant.compute_scale``): the
 f32 value of ``FMT_INV_MAX`` is passed to the kernels, the pow2 mode rounds
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import on_card, require, stream
-from repro_torch.kernels.kfac import SYRK_DTYPES
+from repro_torch.kernels.kfac import SYRK_DTYPES, syrk_buffers
 from repro_torch.quant import quant as q
 
 # kernel name -> number of launches since the last reset_launches()
@@ -108,8 +110,23 @@ def factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",
     fp8, scale (nb,) f32) with nb, b = num_blocks(d, max_dim),
     block_size(d, max_dim)."""
     from repro_torch.core import kfac
+    on_card("factor_syrk_wire", x)
+    d = x.shape[-1]
+    b = kfac.block_size(d, max_dim)
+    scratch = torch.empty((kfac.num_blocks(d, max_dim), b, b),
+                          dtype=torch.float32, device=x.device)
+    return _factor_syrk_wire(x, max_dim, fmt, scale_mode, scratch)
+
+
+def _factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str,
+                      scale_mode: str, scratch: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`factor_syrk_wire` with the caller's (nb, b, b) f32 scratch,
+    which holds the kernel's own f32 sums after the call (the payload and
+    scale are quant_rows' of its sym-pack, bit for bit)."""
+    from repro_torch.core import kfac
     name = "factor_syrk_wire"
-    on_card(name, x)
+    on_card(name, x, scratch)
     require(x.dim() == 2, f"{name}: x must be (n, d), got {tuple(x.shape)}")
     require(x.dtype in SYRK_DTYPES, f"{name}: dtype {x.dtype} not in "
                                      f"{SYRK_DTYPES}")
@@ -118,18 +135,22 @@ def factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",
     code, pow2, inv_max = _fmt_args(name, fmt, scale_mode)
     n, d = x.shape
     nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+    require(scratch.shape == (nb, b, b) and scratch.dtype == torch.float32
+            and scratch.is_contiguous(),
+            f"{name}: scratch must be a contiguous ({nb}, {b}, {b}) f32, got "
+            f"{tuple(scratch.shape)} {scratch.dtype}")
     t = b * (b + 1) // 2
-    scratch = torch.empty((nb, b, b), dtype=torch.float32, device=x.device)
-    amax = torch.empty((nb,), dtype=torch.int32, device=x.device)
     payload = torch.empty((nb, t), dtype=q.FORMATS[fmt], device=x.device)
     scale = torch.empty((nb,), dtype=torch.float32, device=x.device)
     lib = build.load()["kfac_factor"]
     with torch.cuda.device(x.device):
+        ctas, ws, flags = syrk_buffers(x, b, nb, zeroed=nb)
         rc = lib.factor_syrk_wire(x.data_ptr(), scratch.data_ptr(),
-                                  amax.data_ptr(), payload.data_ptr(),
+                                  flags.data_ptr(), ws.data_ptr(),
+                                  flags[nb:].data_ptr(), payload.data_ptr(),
                                   scale.data_ptr(), n, max(x.stride(0), d), d,
-                                  nb, b, build.DTYPE_CODES[x.dtype], code,
-                                  pow2, inv_max, stream(x))
+                                  nb, b, build.DTYPE_CODES[x.dtype], ctas,
+                                  code, pow2, inv_max, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return payload, scale

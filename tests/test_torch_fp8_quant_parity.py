@@ -179,6 +179,20 @@ def test_fp8_kernel_wrappers_refuse_cpu_tensors():
     assert dispatch.CALLS == {("fp8_pack", "ref"): 1}
 
 
+def test_wire_kernel_with_callers_scratch_refuses_cpu_tensors():
+    """The internal entry that leaves the kernel's f32 sums in the caller's
+    scratch (chip_smoke.py's exact wire check reads them) takes CUDA
+    tensors only, scratch included, and counts no launch when it refuses."""
+    x = torch.zeros(16, 8)
+    before = dict(qk.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        qk._factor_syrk_wire(x, 8, "e4m3", "fp32", torch.zeros(1, 8, 8))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        qk._factor_syrk_wire(x.bfloat16(), 4, "e5m2", "pow2",
+                             torch.zeros(2, 4, 4))
+    assert qk.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # stat encode/decode and the byte accounting (tests/test_quant.py's cases)
 # ---------------------------------------------------------------------------

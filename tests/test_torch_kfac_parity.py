@@ -320,3 +320,140 @@ def test_kfac_cuda_entries_take_one_matrix_per_call():
         dispatch.lookup("block_precond_right", "cuda")(
             torch.zeros(2, 3, 4), torch.eye(4).expand(2, 1, 4, 4))
     assert kern.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# factor_syrk's launch geometry (kernels/kfac.py syrk_geometry,
+# syrk_sharers): the CUDA kernel runs only on the card, its partition of the
+# work is checked here
+# ---------------------------------------------------------------------------
+
+def _tile_pair(bx, tiles):
+    """The upper-triangle tile pair (ti <= tj) of pair index bx: the
+    kernel's decode (csrc/kfac_factor.cu tile_pair), step for step."""
+    ti = 0
+    while bx >= tiles - ti:
+        bx -= tiles - ti
+        ti += 1
+    return ti, ti + bx
+
+
+def _segments(n, b, nb, sms):
+    """Each block of threads' segments (tile q, first slice, end slice), in
+    the kernel's order, and the geometry."""
+    tiles, slices, ctas, per = kern.syrk_geometry(n, b, nb, sms)
+    total = nb * tiles * (tiles + 1) // 2 * slices
+    segs = []
+    for w in range(ctas):
+        g, g1, mine = w * per, min(total, (w + 1) * per), []
+        while g < g1:
+            q = g // slices
+            end = min(g1, (q + 1) * slices)
+            mine.append((q, g % slices, g % slices + end - g))
+            g = end
+        segs.append(mine)
+    return segs, (tiles, slices, ctas, per, total)
+
+
+@pytest.mark.parametrize("n,d,max_dim", [
+    (4096, 512, 2048),     # wk/wv G, every wire call
+    (4096, 2048, 2048),    # b 2048, nb 1
+    (4096, 8192, 2048),    # d 8192, nb 4
+    (4000, 2050, 1024),    # 3 blocks of 684, ragged n
+    (4096, 1000, 2048),    # b 1000
+    (1000, 2050, 1024),    # the unaligned check case
+    (0, 512, 2048),        # no tokens: one all-zero slice per tile
+])
+def test_syrk_geometry_covers_every_tile_and_slice_once(n, d, max_dim):
+    nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+    segs, (tiles, slices, ctas, per, total) = _segments(n, b, nb, 132)
+    assert (tiles - 1) * kern.TC_TILE < b <= tiles * kern.TC_TILE
+    assert slices * kern.TC_SLICE >= n > (slices - 1) * kern.TC_SLICE or n == 0
+    pairs = [_tile_pair(bx, tiles)
+             for bx in range(tiles * (tiles + 1) // 2)]
+    assert sorted(pairs) == [(i, j) for i in range(tiles)
+                             for j in range(i, tiles)]
+    # no block idle, every (tile, slice) summed once; blocks that share
+    # tiles wait for each other, so they must all be resident: one wave
+    ntiles = total // slices
+    assert (ctas - 1) * per < total <= ctas * per
+    if per % slices:
+        assert 1 <= ctas <= 132
+    else:
+        assert ctas == ntiles
+    done = [(q, s) for mine in segs for q, s0, s1 in mine
+            for s in range(s0, s1)]
+    assert sorted(done) == [(q, s) for q in range(total // slices)
+                            for s in range(slices)]
+    # the blocks that share a tile, and their workspace slots (the kernel's
+    # Work::slot: 2w for the tile a block starts in, 2w + 1 for the one it
+    # ends in) are distinct
+    slots = set()
+    for q in range(total // slices):
+        who = [w for w, mine in enumerate(segs) if any(t == q for t, _, _ in
+                                                        mine)]
+        assert list(kern.syrk_sharers(q, slices, per)) == who
+        if len(who) > 1:
+            for w in who:
+                slot = 2 * w + (q != w * per // slices)
+                assert slot not in slots and slot < 2 * ctas
+                slots.add(slot)
+    # tiles that would leave SMs idle are shared out; more fill the card
+    if n:
+        assert ctas > ntiles if ntiles < 132 else ctas >= 132
+
+
+def _emulate_syrk(x, max_dim, sms):
+    """factor_syrk's bf16 partition in numpy: each block's segments summed
+    over their slices; a shared tile's partials summed in block order; each
+    tile written with its mirror (a diagonal tile: its lower half,
+    mirrored)."""
+    n, d = x.shape
+    nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+    segs, (tiles, slices, ctas, per, total) = _segments(n, b, nb, sms)
+    e, pairs = kern.TC_TILE, tiles * (tiles + 1) // 2
+    xp = np.zeros((n + slices * kern.TC_SLICE, nb * b + e * tiles),
+                  np.float32)
+    xp[:n, :d] = x
+    parts = {}
+    for w, mine in enumerate(segs):
+        for q, s0, s1 in mine:
+            blk, (ti, tj) = q // pairs, _tile_pair(q % pairs, tiles)
+            i0, j0 = blk * b + ti * e, blk * b + tj * e
+            t0, t1 = s0 * kern.TC_SLICE, s1 * kern.TC_SLICE
+            acc = np.zeros((e, e), np.float32)
+            for t in range(t0, t1, kern.TC_SLICE):
+                rows = xp[t:t + kern.TC_SLICE]
+                acc += rows[:, i0:i0 + e].T @ rows[:, j0:j0 + e]
+            parts[(q, w)] = acc
+    out = np.full((nb, b, b), np.nan, np.float32)
+    for q in range(total // slices):
+        who = kern.syrk_sharers(q, slices, per)
+        acc = parts[(q, who[0])].copy()
+        for w in who[1:]:
+            acc += parts[(q, w)]
+        blk, (ti, tj) = q // pairs, _tile_pair(q % pairs, tiles)
+        gi = ti * e + np.arange(e)[:, None] + 0 * np.arange(e)[None, :]
+        gj = tj * e + np.arange(e)[None, :] + 0 * np.arange(e)[:, None]
+        keep = (gi < b) & (gj < b) & ((ti != tj) | (gi >= gj))
+        out[blk, gi[keep], gj[keep]] = acc[keep]
+        out[blk, gj[keep], gi[keep]] = acc[keep]
+    return out, max(len(kern.syrk_sharers(q, slices, per))
+                    for q in range(total // slices))
+
+
+@pytest.mark.parametrize("n,d,max_dim,sms", [
+    (1000, 200, 256, 132),   # 2 tiles of a ragged b, shared tiles
+    (1100, 300, 128, 132),   # 3 blocks of 100, ragged n
+    (700, 260, 1024, 132),   # 3 tiles of one ragged block
+    (700, 260, 1024, 1),     # one block of threads does everything
+])
+def test_syrk_partition_matches_jax_factor_sum(n, d, max_dim, sms):
+    x = _rand(np.random.default_rng(n + d), (n, d))
+    got, most = _emulate_syrk(x, max_dim, sms)
+    want = np.asarray(jkfac.factor_sum(jnp.asarray(x), max_dim,
+                                       backend="ref"))
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert _rel(got, want) <= TOL
+    np.testing.assert_array_equal(got, np.swapaxes(got, -1, -2))
+    assert (most > 1) == (sms == 132)
