@@ -273,6 +273,9 @@ def _max_err(torch, got, want) -> float:
 
 
 def check_prefill_kernel(torch) -> float:
+    """swa_flash_fwd (bf16, the tensor-core walk) against its plain version
+    at the serving shapes and the training path's call, output at FWD_TOL
+    and lse at LSE_TOL; each case launched twice, the two identical."""
     from repro_torch.kernels import ref, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
@@ -285,7 +288,11 @@ def check_prefill_kernel(torch) -> float:
                 torch.bfloat16)
         q, k, v = rnd(bkv, g, s, 64), rnd(bkv, s, 64), rnd(bkv, s, 64)
         out, lse = swa_attention.swa_flash_fwd(q, k, v, window=window)
+        out2, lse2 = swa_attention.swa_flash_fwd(q, k, v, window=window)
         torch.cuda.synchronize()
+        check(torch.equal(out, out2) and torch.equal(lse, lse2),
+              f"swa_flash_fwd BKV={bkv} G={g} S={s} window={window}: two "
+              f"launches on the same inputs differ")
         ro, rl = ref.swa_attention_fwd_res_ref(q, k, v, window=window)
         torch.testing.assert_close(out.float(), ro.float(), **FWD_TOL)
         torch.testing.assert_close(lse, rl, **LSE_TOL)
@@ -294,8 +301,8 @@ def check_prefill_kernel(torch) -> float:
         say("prefill-kernel", f"BKV={bkv} G={g} S={s} window={window} bf16: "
                               f"max|out err|={err:.3e} max|lse err|="
                               f"{_max_err(torch, lse, rl):.3e} (tol {FWD_TOL}, "
-                              f"lse {LSE_TOL})")
-        del q, k, v, out, lse, ro, rl
+                              f"lse {LSE_TOL}); a second launch identical")
+        del q, k, v, out, lse, ro, rl, out2, lse2
     torch.cuda.empty_cache()
     return worst
 
@@ -724,8 +731,10 @@ def _device_us(evt) -> float:
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "swa_bwd" in low:
+        return "attention backward"
     if "swa_" in low:
-        return "attention kernels"
+        return "attention forward"
     if "factor_syrk" in low or "pack_quant" in low:
         return "factor sums"
     if "block_precond" in low:
@@ -1335,6 +1344,23 @@ def time_train_kernels(torch) -> dict:
                  f"whole backward: the plain dq/dk/dv from materialized "
                  f"scores, SDPA's backward with enable_gqa); "
                  f"{card_note(torch)}")
+
+    # the attention forward at the same call: the training path's 32
+    # launches a step (16 layers, the forward run again under remat)
+    del qs, ks_, vs_, out, gout
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + row_bytes
+    b_fwd, by_fwd = _bound(4 * hd * pairs, nbytes, q.dtype)
+    q4, k4, v4 = (q.reshape(4, 8 * g, s, hd), k.reshape(4, 8, s, hd),
+                  v.reshape(4, 8, s, hd))
+    fwd = {"ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v)),
+           "plain_ms": _time_ms(torch, lambda: ref.swa_attention_fwd_res_ref(
+               q, k, v), reps=5),
+           "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True, enable_gqa=True)),
+           "bound_ms": b_fwd, "bound_by": by_fwd}
+    say("times", f"swa_flash_fwd BKV={bkv} G={g} S={s} hd={hd} bf16 causal "
+                 f"(the training call): {fwd} (library: SDPA, is_causal, "
+                 f"enable_gqa); {card_note(torch)}")
     return res
 
 
@@ -2237,7 +2263,8 @@ def check_swa_kernel(torch) -> dict:
     window {0, 1, 7, 13, 32, S + 5} x hd {64, 128}, f32 at SWA_F32_TOL and
     bf16 at FWD_TOL; then bf16 at (32, 1024, 64) causal and (32, 4096, 64)
     at window 1024. Every bf16 case is also held at SWA_BF16_TOL against the
-    plain version on its inputs upcast to f32."""
+    plain version on its inputs upcast to f32, and launched twice: the
+    tensor-core walk gives the same bits on the same inputs."""
     from repro_torch.kernels import ref, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(13)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2251,6 +2278,11 @@ def check_swa_kernel(torch) -> dict:
         q, k, v = (torch.randn((bh, s, hd), generator=gen,
                                device="cuda").to(dt) for _ in range(3))
         out = swa_attention.swa_flash(q, k, v, window=window)
+        if dt == bf16:
+            check(torch.equal(out, swa_attention.swa_flash(q, k, v,
+                                                           window=window)),
+                  f"swa_flash BH={bh} S={s} hd={hd} window={window} bf16: "
+                  f"two launches on the same inputs differ")
         torch.cuda.synchronize()
         want = ref.swa_attention_ref(q, k, v, window=window)
         check(out.dtype == dt and out.shape == q.shape,
@@ -2275,7 +2307,8 @@ def check_swa_kernel(torch) -> dict:
                       f"13/32/S+5, hd 64/128: max|err| f32 {worst[f32]:.3e} "
                       f"(tol {SWA_F32_TOL}), bf16 {worst[bf16]:.3e} (tol "
                       f"{FWD_TOL}); every bf16 case against the f32 plain "
-                      f"version {worst_f32_ref:.3e} (tol {SWA_BF16_TOL})")
+                      f"version {worst_f32_ref:.3e} (tol {SWA_BF16_TOL}); "
+                      f"every bf16 case launched twice, identical")
     torch.cuda.empty_cache()
     return {"swa_flash": max(worst.values())}
 

@@ -39,12 +39,14 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # library (= source stem) -> {entry point: argtypes}
 SIGNATURES = {
     "swa_flash_fwd": {
-        # q, k, v, out, lse, bkv, G, S, hd, window, dtype, scale, stream
-        "swa_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+        # q, k, v, out, lse, bkv, G, S, hd, window, bq, bk, blocks, dtype,
+        # scale, stream
+        "swa_flash_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
     },
     "swa_flash": {
-        # q, k, v, out, BH, S, hd, window, dtype, scale, stream
-        "swa_flash": [_P] * 4 + [_I] * 5 + [_F, _P],
+        # q, k, v, out, BH, S, hd, window, bq, bk, blocks, dtype, scale,
+        # stream
+        "swa_flash": [_P] * 4 + [_I] * 8 + [_F, _P],
     },
     "swa_flash_decode": {
         # q, k, v, k_scale, v_scale, pos, out, N, G, C, hd, window,

@@ -41,7 +41,9 @@
 // d 2050 in blocks of 684), which TMA cannot address, take the same
 // pipeline with the producer's 128 threads loading elements into the same
 // swizzled layout. The products are exact in f32 and summed in f32, so
-// only the summation order differs from the plain version.
+// only the summation order differs from the plain version. The Hopper
+// helpers (shared-memory descriptor, mbarriers, TMA loads, the tensor-map
+// encoder) are hopper.cuh's, shared with the attention walk.
 //
 // Filling the card: the work is the upper tiles times their 64-token
 // slices, tile-major, and block w of the grid takes an equal contiguous
@@ -77,10 +79,10 @@
 // quant_rows), so payload and scale are those of quant_rows on the
 // scratch's sym-pack, bit for bit. A ragged b is masked.
 
-#include <cuda.h>
 #include <string.h>
 
 #include "fp8_quant.cuh"
+#include "hopper.cuh"
 #include "simt_tile.cuh"
 
 namespace {
@@ -175,6 +177,8 @@ factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* _
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int TILE = 128;            // output tile edge
 constexpr int BK = 64;               // tokens per stage
 constexpr int STAGES = 6;            // ring depth
@@ -185,22 +189,12 @@ constexpr int OPND = 2 * HALF;       // one operand's 128 features: 16 KB
 constexpr int STAGE = 2 * OPND;      // both operands: 32 KB
 constexpr int SMEM = STAGES * STAGE + 1024;   // + room to align to 1 KB
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // byte offset of the 16-byte chunk c (features 8c..8c+7 of the operand's
 // 128) of token k in a slice: half c/8, row k of 128 bytes, the chunk's
 // place XOR-ed with k mod 8 (the 128-byte swizzle, on 1 KB-aligned rows;
 // what TMA writes for a 64 x 64 box in CU_TENSOR_MAP_SWIZZLE_128B)
 __device__ __forceinline__ uint32_t swizzled(int k, int c) {
   return (c >> 3) * HALF + k * 128 + (((c & 7) ^ (k & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128], A and B MN-major in shared memory
@@ -222,46 +216,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[FRAG], uint64_t da, 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void fence_operands(float (&d)[FRAG]) {
-#pragma unroll
-  for (int r = 0; r < FRAG; ++r) asm volatile("" : "+f"(d[r])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// spin until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one 64-feature x 64-token box of x (features c0.., tokens c1..) into
-// shared memory at dst, completing `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
 }
 
 // the element loader (rows or blocks off 16-byte alignment): BK tokens
@@ -487,35 +441,13 @@ factor_syrk_tc_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
-// build links no libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 int encode_map(CUtensorMap* map, const void* x, int n, int ld, int d) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-    if (e != cudaSuccess) return (int)e;
-    if (q != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   // features (contiguous) by tokens; a box is 64 x 64, read in the
   // 128-byte swizzle; out of range reads as zero
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)max(n, 1)};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, BK};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                            strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return hopper::encode_bf16(map, x, 2, dims, strides, box);
 }
 
 int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int n, int ld,

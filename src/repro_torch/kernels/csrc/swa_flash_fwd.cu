@@ -1,5 +1,5 @@
-// Prefill attention forward: GQA causal(-window) flash attention with the
-// logsumexp residual.
+// Prefill and training attention forward: GQA causal(-window) flash
+// attention with the logsumexp residual.
 //
 // Replaces the TPU kernel repro/kernels/swa_attention.py::swa_flash_fwd
 // (_swa_fwd_res_kernel) and its wrapper repro/kernels/ops.py
@@ -10,73 +10,77 @@
 //   out (BKV, G, S, HD)  q's dtype
 //   lse (BKV, G, S)      f32, lse = m + log(d)
 //
-// One block of 128 threads per (64-row query tile, group head, KV head),
-// walking the band of its query tile as swa_flash_tile.cuh sets out (the
-// tile walk swa_flash.cu shares) and writing lse beside the output.
+// Bound: 4*HD*G*BKV*sum_q|visible keys| operations against q, k, v, out and
+// lse each moved once. At the serving prefill (BKV 8, G 4, S 1024, hd 64,
+// causal) that is 4.30e9 operations (0.0043 ms at 989 TFLOP/s) against
+// 10.6 MB (0.0032 ms at 3.35 TB/s): bound by operations, which for bf16
+// means the tensor cores.
 //
-// Bound: 4*HD*G*BKV*sum_q|visible keys| operations. At the prefill shapes
-// of the serving path that is far above the H100's bytes/operation ratio,
-// so the ideal kernel is bound by operations; this one runs its products
-// on the f32 CUDA cores (no tensor cores yet), which is what limits it.
-// Moving the two products to wgmma is later work.
+// bf16 (every serving and training call) runs the tensor-core walk of
+// swa_flash_wgmma.cuh: persistent blocks of a TMA producer and two wgmma
+// consumer warpgroups, taking (128-row query tile, query head) items
+// longest first; the G query heads of a KV head are neighbouring items,
+// so their shared K/V tiles come from L2. Its f32 products and P split in
+// two bf16 terms keep the output within one bf16 rounding of the f32
+// attention; the split's third product and the softmax's instructions are
+// what it spends beyond the bound. On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py, CUDA-event medians, L2 flushed): 0.0275 ms at the
+// serving prefill (SDPA 0.0282; the CUDA-core walk 0.376) and 0.0808 ms at
+// the training call, BKV 32 (SDPA 0.0637).
+// f32 (the 2-layer f32 route checks) keeps the CUDA-core walk of
+// swa_flash_tile.cuh: one block of 128 threads per (64-row query tile,
+// group head, KV head), f32 FMAs.
 
 #include "swa_flash_tile.cuh"
+#include "swa_flash_wgmma.cuh"
 
 namespace {
 
-using swa_tile::BQ;
-using swa_tile::NTHREADS;
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
-swa_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int G, int S, int window,
-                     float scale) {
+template <int HD>
+__global__ void __launch_bounds__(swa_tile::NTHREADS)
+swa_flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int G, int S, int window, float scale) {
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const size_t rows = (size_t)(b * G + g) * S;
   const size_t kv = (size_t)b * S;
-  swa_tile::forward<T, HD, true>(q + rows * HD, k + kv * HD, v + kv * HD, out + rows * HD,
-                                 lse + rows, S, window, scale);
+  swa_tile::forward<float, HD, true>(q + rows * HD, k + kv * HD, v + kv * HD, out + rows * HD,
+                                     lse + rows, S, window, scale);
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* out, void* lse,
-            int bkv, int G, int S, int window, float scale, cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, G, bkv);
-  swa_flash_fwd_kernel<T, HD><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), G, S, window, scale);
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, void* lse,
-              int bkv, int G, int S, int hd, int window, float scale,
-              cudaStream_t stream) {
-  if (hd == 64) {
-    launch<T, 64>(q, k, v, out, lse, bkv, G, S, window, scale, stream);
-  } else if (hd == 128) {
-    launch<T, 128>(q, k, v, out, lse, bkv, G, S, window, scale, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
+template <int HD>
+void launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bkv,
+                int G, int S, int window, float scale, cudaStream_t stream) {
+  const dim3 grid((S + swa_tile::BQ - 1) / swa_tile::BQ, G, bkv);
+  swa_flash_fwd_kernel<HD><<<grid, swa_tile::NTHREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), G, S, window, scale);
 }
 
 }  // namespace
 
+// (bq, bk): the caller's walk geometry (kernels/swa_attention.py
+// walk_geometry), refused unless it is the dtype's kernel's
 extern "C" int swa_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                             void* lse, int bkv, int G, int S, int hd, int window,
-                             int dtype, float scale, void* stream) {
+                             void* lse, int bkv, int G, int S, int hd, int window, int bq,
+                             int bk, int blocks, int dtype, float scale, void* stream) {
+  if (bkv < 1 || G < 1 || S < 1 || window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (dtype) {
     case DT_F32:
-      rc = launch_hd<float>(q, k, v, out, lse, bkv, G, S, hd, window, scale, st);
+      if (bq != swa_tile::BQ || bk != swa_tile::BK || (hd != 64 && hd != 128)) {
+        rc = (int)cudaErrorInvalidValue;
+      } else {
+        if (hd == 64) launch_f32<64>(q, k, v, out, lse, bkv, G, S, window, scale, st);
+        else launch_f32<128>(q, k, v, out, lse, bkv, G, S, window, scale, st);
+        rc = 0;
+      }
       break;
     case DT_BF16:
-      rc = launch_hd<__nv_bfloat16>(q, k, v, out, lse, bkv, G, S, hd, window, scale, st);
+      rc = swa_tc::launch_hd<true>(q, k, v, out, static_cast<float*>(lse), bkv * G, bkv, S, hd,
+                                   window, scale, bq, bk, blocks, st);
       break;
     default:
       rc = (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-// The tile walk of the two causal(-window) attention forwards: one query
-// head's online-softmax sweep over the key tiles of its band.
+// The CUDA-core tile walk of the two causal(-window) attention forwards,
+// their f32 body (bf16 takes the tensor cores, swa_flash_wgmma.cuh): one
+// query head's online-softmax sweep over the key tiles of its band.
 // swa_flash_fwd.cu (GQA layout, with the logsumexp residual) and
 // swa_flash.cu ((BH, S, hd) layout, output only) each wrap it in their own
 // kernel, which points it at the head's rows.

@@ -9,6 +9,12 @@
   ``repro/kernels/swa_attention.py::swa_flash_fwd``: the GQA causal(-window)
   prefill forward with the logsumexp residual. Bound by operations at the
   serving path's prefill shapes.
+* Both run bf16 on the tensor cores (``csrc/swa_flash_wgmma.cuh``:
+  persistent blocks taking 128-row query tiles, ``wgmma`` fed by TMA) and
+  f32 on the CUDA cores (``csrc/swa_flash_tile.cuh``). :func:`walk_geometry`,
+  :func:`key_tiles`, :func:`tile_masked`, :func:`walk_blocks` and
+  :func:`block_items` mirror the walk; the launch passes its geometry to
+  the kernel, which refuses any other.
 * :func:`swa_flash_decode` (``csrc/swa_flash_decode.cu``) replaces
   ``repro/kernels/swa_attention.py::swa_flash_decode``: single-query flash
   decode over a dense or ring cache in its stored dtype, fp8 dequantized on
@@ -28,6 +34,8 @@ launch in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
@@ -43,6 +51,83 @@ _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
 _HEAD_DIMS = (64, 128)
 MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
 MAX_HEADS = 65535   # csrc/swa_flash.cu MAX_GRID_Y
+
+# the forward walks' query rows per block and keys per tile: bf16 on the
+# tensor cores (csrc/swa_flash_wgmma.cuh BQ and Geo<hd>::BK), f32 on the
+# CUDA cores (csrc/swa_flash_tile.cuh BQ, BK)
+TC_BQ, TC_BK = 128, {64: 128, 128: 64}
+SIMT_BQ, SIMT_BK = 64, 32
+
+
+@functools.lru_cache(maxsize=None)
+def walk_geometry(s: int, hd: int, dtype: torch.dtype
+                  ) -> tuple[int, int, tuple[int, ...]]:
+    """(query rows per block, keys per tile, query tiles in launch order)
+    of one forward launch over S rows of head dim ``hd``. The tensor-core
+    walk (bf16) launches its query tiles longest first, the last tile
+    first; the CUDA-core walk (f32) in order."""
+    if dtype == torch.bfloat16:
+        bq, bk = TC_BQ, TC_BK[hd]
+        return bq, bk, tuple(reversed(range(-(-s // bq))))
+    return SIMT_BQ, SIMT_BK, tuple(range(-(-s // SIMT_BQ)))
+
+
+def key_tiles(qt: int, s: int, window: int, bq: int, bk: int
+              ) -> tuple[int, int]:
+    """First and last key tile that query tile ``qt`` visits: from the
+    tile holding its first row's first visible key to the tile holding its
+    last row (the kernels' ``key_tiles``)."""
+    q0 = qt * bq
+    k_lo = max(0, q0 - window + 1) if window > 0 else 0
+    return k_lo // bk, min(q0 + bq - 1, s - 1) // bk
+
+
+def tile_masked(qt: int, kt: int, window: int, bq: int, bk: int) -> bool:
+    """Whether key tile ``kt`` of query tile ``qt`` evaluates the mask: not
+    every key of it is visible to every row of the query tile (the
+    tensor-core walk's ``interior``, negated)."""
+    q0, k0 = qt * bq, kt * bk
+    return not (k0 + bk - 1 <= q0
+                and (window <= 0 or k0 > q0 + bq - 1 - window))
+
+
+def walk_blocks(items: int, sms: int) -> int:
+    """Persistent blocks of one tensor-core launch over ``items`` work
+    items (query tile, query head): one per SM, at most one per item."""
+    return max(1, min(items, sms))
+
+
+def block_items(b: int, blocks: int, items: int) -> list[int]:
+    """The work items block ``b`` of ``blocks`` takes, in its order: b,
+    2 blocks - 1 - b, 2 blocks + b, ... below ``items`` (the kernel's
+    ``item_of``). Item i is query tile ``order[i // heads]`` of
+    :func:`walk_geometry` (longest first) and query head ``i % heads``."""
+    out, r = [], 0
+    while (i := r * blocks + (blocks - 1 - b if r & 1 else b)) < items:
+        out.append(i)
+        r += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _blocks(q: torch.Tensor, heads: int, qtiles: int) -> int:
+    """Persistent blocks of a bf16 launch (0 for f32, whose walk launches a
+    block per query tile and head)."""
+    if q.dtype != torch.bfloat16:
+        return 0
+    return walk_blocks(heads * qtiles, _sm_count(q.device.index))
+
+
+def _check_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The tensor-core walk's TMA loads read bf16 data from 16-byte
+    boundaries (every fresh allocation starts on one)."""
+    if ts[0].dtype == torch.bfloat16:
+        require(all(t.data_ptr() % 16 == 0 for t in ts),
+                f"{name}: bf16 inputs must start on 16-byte boundaries")
 
 
 def reset_launches() -> None:
@@ -75,11 +160,15 @@ def swa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    _check_aligned(name, q, k, v)
+    bq, bk, order = walk_geometry(s, hd, q.dtype)
+    blocks = _blocks(q, bh, len(order))
     lib = build.load()[name]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), bh, s, hd, int(window),
-                           build.DTYPE_CODES[q.dtype], hd ** -0.5, stream(q))
+                           out.data_ptr(), bh, s, hd, int(window), bq, bk,
+                           blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
+                           stream(q))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -106,12 +195,16 @@ def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((bkv, g, s), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
+    _check_aligned("swa_flash_fwd", q, k, v)
+    bq, bk, order = walk_geometry(s, hd, q.dtype)
+    blocks = _blocks(q, bkv * g, len(order))
     lib = build.load()["swa_flash_fwd"]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), lse.data_ptr(), bkv, g, s, hd,
-                               int(window), build.DTYPE_CODES[q.dtype],
-                               hd ** -0.5, stream(q))
+                               int(window), bq, bk, blocks,
+                               build.DTYPE_CODES[q.dtype], hd ** -0.5,
+                               stream(q))
     build.check(rc, "swa_flash_fwd")
     LAUNCHES["swa_flash_fwd"] += 1
     return out, lse
