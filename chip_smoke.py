@@ -892,10 +892,12 @@ def check_precond_kernel(torch) -> float:
 def check_attention_bwd_kernels(torch) -> dict:
     """dq / dk / dv vs the plain backward at the training path's call (BKV
     32, G 4, S 1024, hd 64, bf16; window 0 and 256), plus S 1000, G 1 and
-    hd 128, each from the plain forward's (o, lse). At the training call
-    the kernel chain (the forward kernel's o and lse into the backward
-    kernels, as the training path runs them) is held against the plain
-    chain as well."""
+    hd 128, and S 517 (its f32 lse/delta rows are 2,068 bytes apart, a
+    stride TMA cannot take) in bf16 and f32, each from the plain forward's
+    (o, lse). At the training call the kernel chain (the forward kernel's o
+    and lse into the backward kernels, as the training path runs them) is
+    held against the plain chain as well. Each bf16 call is launched twice
+    and the two must agree bit for bit."""
     from repro_torch.kernels import ref, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = {"swa_flash_bwd_dq": 0.0, "swa_flash_bwd_dkdv": 0.0}
@@ -904,6 +906,8 @@ def check_attention_bwd_kernels(torch) -> dict:
              (8, 4, 1000, 64, 0, torch.bfloat16),
              (8, 1, 1000, 64, 100, torch.bfloat16),
              (8, 4, 1000, 128, 0, torch.bfloat16),
+             (4, 4, 517, 64, 0, torch.bfloat16),
+             (4, 2, 517, 128, 64, torch.bfloat16),
              (4, 4, 517, 64, 0, torch.float32),
              (4, 2, 517, 128, 64, torch.float32)]
     for bkv, g, s, hd, window, dtype in cases:
@@ -920,6 +924,17 @@ def check_attention_bwd_kernels(torch) -> dict:
         for label, o_, lse_ in routes:
             got = swa_attention.swa_flash_bwd(q, k, v, o_, lse_, do,
                                               window=window)
+            same = ""
+            if dtype == torch.bfloat16:
+                again = swa_attention.swa_flash_bwd(q, k, v, o_, lse_, do,
+                                                    window=window)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                      f"attention bwd BKV={bkv} G={g} S={s} hd={hd} window="
+                      f"{window} from the {label}: two launches on the same "
+                      f"inputs differ")
+                same = "; a second launch identical"
+                del again
             torch.cuda.synchronize()
             errs = [_rel_err(torch, a, b_) for a, b_ in zip(got, want)]
             check(max(errs) <= BWD_REL_TOL,
@@ -935,7 +950,7 @@ def check_attention_bwd_kernels(torch) -> dict:
                                    f"{window} {dtype} from the {label}: "
                                    f"max|err| / max|grad| dq {errs[0]:.3e} dk "
                                    f"{errs[1]:.3e} dv {errs[2]:.3e} (tol "
-                                   f"{BWD_REL_TOL})")
+                                   f"{BWD_REL_TOL}){same}")
             del got
         del q, k, v, do, o, lse, want, routes
     torch.cuda.empty_cache()
@@ -1338,12 +1353,14 @@ def time_train_kernels(torch) -> dict:
             q, k, v, lse, delta, do)),
         "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
         "bound_by": by_kv}
+    # the wrapper's delta = rowsum(do * o) pass, outside the kernels
+    delta_ms = _time_ms(torch, lambda: (do.float() * o.float()).sum(-1))
     say("times", f"swa_flash_bwd BKV={bkv} G={g} S={s} hd={hd} bf16 causal: "
                  f"dq {res['swa_flash_bwd_dq']}, dkdv "
                  f"{res['swa_flash_bwd_dkdv']} (plain and library are the "
                  f"whole backward: the plain dq/dk/dv from materialized "
-                 f"scores, SDPA's backward with enable_gqa); "
-                 f"{card_note(torch)}")
+                 f"scores, SDPA's backward with enable_gqa); the wrapper's "
+                 f"delta pass {delta_ms:.6f} ms; {card_note(torch)}")
 
     # the attention forward at the same call: the training path's 32
     # launches a step (16 layers, the forward run again under remat)

@@ -55,12 +55,12 @@ SIGNATURES = {
         "swa_flash_decode": [_P] * 7 + [_I] * 7 + [_F, _I] + [_L] * 6 + [_P],
     },
     "swa_flash_bwd": {
-        # q, k, v, lse, delta, do, dq, bkv, G, S, hd, window, dtype, scale,
-        # stream
-        "swa_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
-        # q, k, v, lse, delta, do, dk, dv, bkv, G, S, hd, window, dtype,
-        # scale, stream
-        "swa_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+        # q, k, v, lse, delta, do, dq, bkv, G, S, hd, window, bq, bk,
+        # blocks, dtype, scale, stream
+        "swa_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _P],
+        # q, k, v, lse, delta, do, dk, dv, bkv, G, S, hd, window, bkey, bqs,
+        # blocks, dtype, scale, stream
+        "swa_flash_bwd_dkdv": [_P] * 8 + [_I] * 9 + [_F, _P],
     },
     "kfac_factor": {
         # x, out, ws, arrived, n, ld, d, nb, b, dtype, ctas, stream

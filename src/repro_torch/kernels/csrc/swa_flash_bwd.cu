@@ -12,29 +12,44 @@
 //   dq     (BKV, G, S, HD)  f32
 //   dk, dv (BKV, S, HD)     f32, summed over the G query heads of the group
 //
-// q is scaled by HD^-0.5 as it is read; p = exp(q.k - lse) is rebuilt from
-// the residual, ds = p * (do.v - delta), dq = scale * sum_j ds k_j,
-// dk = sum_i ds q_i (q already scaled), dv = sum_i p do_i. Key j is visible
-// to query i iff i - window < j <= i (window 0: causal).
+// p = exp(scale q.k - lse) is rebuilt from the residual, ds = p * (do.v -
+// delta), dq = scale * sum_j ds k_j, dk = scale * sum_i ds q_i, dv = sum_i
+// p do_i. Key j is visible to query i iff i - window < j <= i (window 0:
+// causal).
 //
+// Bound: about 14*HD*G*BKV*(visible (i, j) pairs) operations between the
+// two kernels (6 for dq, 8 for dk/dv) against a few MB of inputs: at the
+// training path's shapes (BKV 32, G 4, S 1024, HD 64) bound by operations,
+// which for bf16 means the tensor cores.
+//
+// bf16 (every training call) runs the tensor-core kernels of
+// swa_flash_bwd_wgmma.cuh: persistent blocks of a TMA producer and two
+// wgmma consumer warpgroups; dq takes (128-row query tile, query head)
+// items as the forward walk does, dk/dv (128-key tile, KV head) items
+// streaming 64-query stages of every head of the group; P and dS are each
+// split in two bf16 terms for the products that take them, which keeps the
+// gradients within BWD_REL_TOL. On an H100 80GB HBM3 at 700 W the pair runs
+// about 16x faster than the CUDA-core bodies at the training call, a little
+// faster than SDPA's whole backward and at about 3.6x its bound
+// (chip_smoke.py times both kernels beside their bound and SDPA; PERF.md
+// keeps the numbers).
+//
+// f32 (the 2-layer f32 route checks) keeps the CUDA-core bodies below,
+// with q scaled by HD^-0.5 as it is read (exact enough in f32):
 // dq: one block of 128 threads per (query tile, group head, KV head); HD/32
 // threads share a query row, each owning 32 of its dims (interleaved float4
 // groups) in registers, and a dot product is their partial sums joined by
 // shuffles. The block walks only the 32-key tiles that meet the band of its
-// query tile, staging K and V in shared memory as f32.
+// query tile, staging K and V in shared memory.
 // dkdv: one block per (key tile, KV head), the key rows and their dk/dv
 // sums in registers. It walks the G query heads and, for each, the 32-row
 // query tiles that can see its keys, so the sum over the group stays a
 // register sum: no atomics and no second pass. Query rows past S are
 // masked explicitly (the TPU wrapper pads S and relies on zero-padded
-// do/delta), as are key rows past S.
-//
-// Bound: about 8*HD*G*BKV*(visible (i, j) pairs) operations between the two
-// kernels against a few MB of inputs: at the training path's shapes (BKV 32,
-// G 4, S 1024, HD 64) bound by operations. These kernels run their products
-// on the f32 CUDA cores, not the tensor cores, which is what limits them.
+// do/delta), as are key rows past S. These f32 products run on the CUDA
+// cores.
 
-#include "common.cuh"
+#include "swa_flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -273,38 +288,85 @@ void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
       S, window, scale);
 }
 
-// dtype x head-dim switch shared by both entry points
-#define REPRO_BWD_DISPATCH(CALL)                                              \
-  switch (dtype * 1000 + hd) {                                                \
-    case DT_F32 * 1000 + 64: CALL(float, 64); break;                          \
-    case DT_F32 * 1000 + 128: CALL(float, 128); break;                        \
-    case DT_BF16 * 1000 + 64: CALL(__nv_bfloat16, 64); break;                 \
-    case DT_BF16 * 1000 + 128: CALL(__nv_bfloat16, 128); break;               \
-    default: return (int)cudaErrorInvalidValue;                               \
-  }
+// the f32 bodies' geometry: query rows (dq) or keys (dkdv) per block, and
+// keys (dq) or query rows (dkdv) per shared-memory tile
+// (kernels/swa_attention.py dq_geometry, dkdv_geometry)
+static_assert(BKT == BQT, "kernels/swa_attention.py SIMT_BWD_TILE is both tiles");
+inline bool simt_geometry(int hd, int rows, int tile) {
+  return (hd == 64 || hd == 128) && rows == NTHREADS / (hd / 32) && tile == BKT;
+}
 
 }  // namespace
 
+// (bq, bk, blocks): the caller's geometry (kernels/swa_attention.py
+// dq_geometry), refused unless it is the dtype's kernel's
 extern "C" int swa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* lse, const void* delta, const void* dout,
-                                void* dq, int bkv, int G, int S, int hd, int window,
-                                int dtype, float scale, void* stream) {
+                                void* dq, int bkv, int G, int S, int hd, int window, int bq,
+                                int bk, int blocks, int dtype, float scale, void* stream) {
+  if (bkv < 1 || G < 1 || S < 1 || window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_DQ(T, HD) \
-  launch_dq<T, HD>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st)
-  REPRO_BWD_DISPATCH(REPRO_DQ)
-#undef REPRO_DQ
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  int rc = 0;
+  switch (dtype) {
+    case DT_F32:
+      if (!simt_geometry(hd, bq, bk)) return (int)cudaErrorInvalidValue;
+      if (hd == 64) launch_dq<float, 64>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      else launch_dq<float, 128>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      break;
+    case DT_BF16:
+      if (hd == 64)
+        rc = swa_tc::launch_bwd_dq<64>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G, bkv,
+                                       S, window, scale, bq, bk, blocks, st);
+      else if (hd == 128)
+        rc = swa_tc::launch_bwd_dq<128>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G,
+                                        bkv, S, window, scale, bq, bk, blocks, st);
+      else
+        rc = (int)cudaErrorInvalidValue;
+      break;
+    default:
+      rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
+// (bkey, bqs, blocks): the caller's geometry (kernels/swa_attention.py
+// dkdv_geometry), refused unless it is the dtype's kernel's
 extern "C" int swa_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                   const void* lse, const void* delta, const void* dout,
                                   void* dk, void* dv, int bkv, int G, int S, int hd,
-                                  int window, int dtype, float scale, void* stream) {
+                                  int window, int bkey, int bqs, int blocks, int dtype,
+                                  float scale, void* stream) {
+  if (bkv < 1 || G < 1 || S < 1 || window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_DKDV(T, HD) \
-  launch_dkdv<T, HD>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st)
-  REPRO_BWD_DISPATCH(REPRO_DKDV)
-#undef REPRO_DKDV
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  int rc = 0;
+  switch (dtype) {
+    case DT_F32:
+      if (!simt_geometry(hd, bkey, bqs)) return (int)cudaErrorInvalidValue;
+      if (hd == 64)
+        launch_dkdv<float, 64>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
+      else
+        launch_dkdv<float, 128>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
+      break;
+    case DT_BF16:
+      if (hd == 64)
+        rc = swa_tc::launch_bwd_dkdv<64>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
+                                         scale, bkey, bqs, blocks, st);
+      else if (hd == 128)
+        rc = swa_tc::launch_bwd_dkdv<128>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
+                                          scale, bkey, bqs, blocks, st);
+      else
+        rc = (int)cudaErrorInvalidValue;
+      break;
+    default:
+      rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }

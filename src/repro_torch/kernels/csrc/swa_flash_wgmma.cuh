@@ -250,6 +250,25 @@ __device__ __forceinline__ void split_p(const float (&s)[BK / 2], uint32_t (&pa)
   }
 }
 
+// keep split operands in registers ahead of the products that read them
+template <int K16>
+__device__ __forceinline__ void fence_split(uint32_t (&a)[K16][2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) asm volatile("" : "+r"(a[kk][e / 4][e % 4])::"memory");
+}
+
+// A bf16 tensor map (hd, S, heads) over rows of hd elements, boxes of 64
+// columns (one 128-byte swizzle atom) by `rows` rows; rows past S read as
+// zero. 0 or a CUDA error code.
+inline int encode_rows(CUtensorMap* map, const void* base, int hd, int S, int heads, int rows) {
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)S * hd * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return encode_bf16(map, base, 3, dims, strides, box);
+}
+
 // Work item i of a launch: query tile qtiles - 1 - i / heads (longest
 // first), query head i % heads. Block b of `blocks` takes items b,
 // 2 blocks - 1 - b, 2 blocks + b, ... (a snake over rounds of `blocks`
@@ -389,10 +408,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 #pragma unroll
       for (int r = 0; r < Gm::OFRAG; ++r) o[r] *= corr[(r >> 1) & 1];
       split_p<BK>(s, pa);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) asm volatile("" : "+r"(pa[kk][e / 4][e % 4])::"memory");
+      fence_split(pa);
       fence_operands(o);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -455,14 +471,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
-  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)S * HD * 2};
-  const cuuint64_t qdims[3] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)heads};
-  const cuuint64_t kvdims[3] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)kv_heads};
-  const cuuint32_t qbox[3] = {64, BQ, 1};
-  const cuuint32_t kvbox[3] = {64, (cuuint32_t)Gm::BK, 1};
-  int rc = encode_bf16(&maps[0], q, 3, qdims, strides, qbox);
-  if (!rc) rc = encode_bf16(&maps[1], k, 3, kvdims, strides, kvbox);
-  if (!rc) rc = encode_bf16(&maps[2], v, 3, kvdims, strides, kvbox);
+  int rc = encode_rows(&maps[0], q, HD, S, heads, BQ);
+  if (!rc) rc = encode_rows(&maps[1], k, HD, S, kv_heads, Gm::BK);
+  if (!rc) rc = encode_rows(&maps[2], v, HD, S, kv_heads, Gm::BK);
   if (rc) return rc;
   auto kernel = forward_kernel<HD, LSE>;
   const cudaError_t e =

@@ -23,7 +23,12 @@
   ``repro/kernels/swa_attention.py::swa_flash_bwd_dq`` and
   ``::swa_flash_bwd_dkdv``: the training backward from the forward's
   (o, lse), two kernels, dk/dv summed per KV head in registers. Bound by
-  operations at the training path's shapes.
+  operations at the training path's shapes. bf16 runs both on the tensor
+  cores (``csrc/swa_flash_bwd_wgmma.cuh``: persistent blocks, ``wgmma`` fed
+  by TMA, P and dS each split in two bf16 terms): dq walks the forward's
+  items (:func:`dq_geometry`), dk/dv takes 128-key items and streams
+  64-query stages (:func:`dkdv_geometry`, :func:`query_tiles`,
+  :func:`stage_kind`). f32 keeps the CUDA-core bodies.
 
 Each wrapper takes CUDA tensors only (the plain versions for the CPU are in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels
@@ -91,6 +96,63 @@ def tile_masked(qt: int, kt: int, window: int, bq: int, bk: int) -> bool:
                 and (window <= 0 or k0 > q0 + bq - 1 - window))
 
 
+# the backward's tiles. bf16: dq the forward walk's; dk/dv items of
+# TC_BKEY keys (two consumer warpgroups of 64) streaming stages of TC_BQS
+# query rows (csrc/swa_flash_bwd_wgmma.cuh BKEY, BQS). f32 on the CUDA
+# cores: 128 / (hd / 32) rows (dq) or keys (dk/dv) a block, 32-row tiles
+# (csrc/swa_flash_bwd.cu NTHREADS, BKT, BQT).
+TC_BKEY, TC_BQS = 128, 64
+SIMT_BWD_TILE = 32
+
+
+def dq_geometry(s: int, hd: int, dtype: torch.dtype
+                ) -> tuple[int, int, tuple[int, ...]]:
+    """(query rows per item, keys per tile, query tiles in launch order) of
+    one dq launch: bf16 walks the forward's tiles longest first
+    (:func:`walk_geometry`), f32 its own blocks in order."""
+    if dtype == torch.bfloat16:
+        return walk_geometry(s, hd, dtype)
+    bq = 128 // (hd // 32)
+    return bq, SIMT_BWD_TILE, tuple(range(-(-s // bq)))
+
+
+def dkdv_geometry(s: int, hd: int, dtype: torch.dtype
+                  ) -> tuple[int, int, tuple[int, ...]]:
+    """(keys per item, query rows per stage, key tiles in launch order) of
+    one dk/dv launch. Under causal attention key tile 0 sees every query
+    tile, so the bf16 launch takes key tiles in order: longest first."""
+    if dtype == torch.bfloat16:
+        return TC_BKEY, TC_BQS, tuple(range(-(-s // TC_BKEY)))
+    bkey = 128 // (hd // 32)
+    return bkey, SIMT_BWD_TILE, tuple(range(-(-s // bkey)))
+
+
+def query_tiles(kt: int, s: int, window: int, bkey: int, bqs: int
+                ) -> tuple[int, int]:
+    """First and last query tile (``bqs`` rows) that key tile ``kt`` visits,
+    for each query head of its group: from the tile holding its first key
+    to the tile holding the last query that sees its last key (the
+    kernel's ``query_tiles``)."""
+    k0 = kt * bkey
+    k_hi = min(k0 + bkey - 1, s - 1)
+    q_end = min(s, k_hi + window) if window > 0 else s
+    return k0 // bqs, (q_end - 1) // bqs
+
+
+def stage_kind(kc: int, qt: int, s: int, window: int, bqs: int,
+               keys: int = TC_BKEY // 2) -> str:
+    """What a dk/dv consumer owning ``keys`` keys from ``kc`` does with
+    query tile ``qt``: ``"skip"`` when none of the pairs is visible,
+    ``"interior"`` when every one is (no mask), else ``"masked"`` (the
+    kernel's ``stage_kind``)."""
+    q0, q1, k1 = qt * bqs, qt * bqs + bqs - 1, kc + keys - 1
+    if kc >= s or kc > q1 or (window > 0 and k1 <= q0 - window):
+        return "skip"
+    if k1 <= q0 and q1 < s and (window <= 0 or kc > q1 - window):
+        return "interior"
+    return "masked"
+
+
 def walk_blocks(items: int, sms: int) -> int:
     """Persistent blocks of one tensor-core launch over ``items`` work
     items (query tile, query head): one per SM, at most one per item."""
@@ -114,12 +176,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _blocks(q: torch.Tensor, heads: int, qtiles: int) -> int:
-    """Persistent blocks of a bf16 launch (0 for f32, whose walk launches a
-    block per query tile and head)."""
+def _blocks(q: torch.Tensor, heads: int, tiles: int) -> int:
+    """Persistent blocks of a bf16 launch over ``heads`` x ``tiles`` work
+    items (0 for f32, whose bodies launch a block per tile and head)."""
     if q.dtype != torch.bfloat16:
         return 0
-    return walk_blocks(heads * qtiles, _sm_count(q.device.index))
+    return walk_blocks(heads * tiles, _sm_count(q.device.index))
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
@@ -320,16 +382,13 @@ def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *swa_flash_bwd_dkdv(q, k, v, lse, delta, do, window=window))
 
 
-def _bwd_args(q, k, v, lse, delta, do, window):
-    bkv, g, s, hd = q.shape
+def _bwd_args(q, k, v, lse, delta, do):
     require(delta.shape == lse.shape and delta.dtype == torch.float32
             and delta.is_cuda and delta.is_contiguous(),
             "swa_flash_bwd: delta must be a contiguous f32 (BKV, G, S)")
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+    _check_aligned("swa_flash_bwd", q, k, v, do)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), do.data_ptr())
-    tail = (bkv, g, s, hd, int(window), build.DTYPE_CODES[q.dtype],
-            hd ** -0.5, stream(q))
-    return head, tail
 
 
 def swa_flash_bwd_dq(q, k, v, lse, delta, do, *, window: int = 0):
@@ -338,10 +397,14 @@ def swa_flash_bwd_dq(q, k, v, lse, delta, do, *, window: int = 0):
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return dq
-    head, tail = _bwd_args(q, k, v, lse, delta, do, window)
+    bkv, g, s, hd = q.shape
+    head = _bwd_args(q, k, v, lse, delta, do)
+    bq, bk, order = dq_geometry(s, hd, q.dtype)
+    blocks = _blocks(q, bkv * g, len(order))
     with torch.cuda.device(q.device):
         rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dq(
-            *head, dq.data_ptr(), *tail)
+            *head, dq.data_ptr(), bkv, g, s, hd, int(window), bq, bk, blocks,
+            build.DTYPE_CODES[q.dtype], hd ** -0.5, stream(q))
     build.check(rc, "swa_flash_bwd_dq")
     LAUNCHES["swa_flash_bwd_dq"] += 1
     return dq
@@ -354,10 +417,15 @@ def swa_flash_bwd_dkdv(q, k, v, lse, delta, do, *, window: int = 0):
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return dk, dv
-    head, tail = _bwd_args(q, k, v, lse, delta, do, window)
+    bkv, g, s, hd = q.shape
+    head = _bwd_args(q, k, v, lse, delta, do)
+    bkey, bqs, order = dkdv_geometry(s, hd, q.dtype)
+    blocks = _blocks(q, bkv, len(order))
     with torch.cuda.device(q.device):
         rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dkdv(
-            *head, dk.data_ptr(), dv.data_ptr(), *tail)
+            *head, dk.data_ptr(), dv.data_ptr(), bkv, g, s, hd, int(window),
+            bkey, bqs, blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
+            stream(q))
     build.check(rc, "swa_flash_bwd_dkdv")
     LAUNCHES["swa_flash_bwd_dkdv"] += 1
     return dk, dv
