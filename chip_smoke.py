@@ -56,6 +56,14 @@ PEAK_OPS_PER_S = {                     # dense, without sparsity
     "bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
     "float8_e4m3fn": 1979e12, "float8_e5m2": 1979e12,
 }
+# f32-accurate products on the tensor cores: each f32 operand split in two
+# TF32 parts and three TF32 products (hi hi, hi lo, lo hi) per product at
+# 495 TFLOP/s dense, so 495 / 3 = 165 TFLOP/s of f32 work. The bound of the
+# f32 product kernels (block_precond, ns_inverse_blocks and the tiled NS
+# pair), whether or not a kernel runs them that way: the least time the card
+# takes for f32-accurate work (PEAK_OPS_PER_S["float32"], the CUDA cores'
+# fmaf, is 2.5 times slower).
+PEAK_SPLIT_F32_OPS_PER_S = 495e12 / 3
 
 # bf16 outputs: one bf16 ulp at |out| <= 2 is 7.8e-3; lse is f32 arithmetic
 # on both sides in another summation order
@@ -628,8 +636,12 @@ def _time_ms(torch, fn, reps=20, warmup=3) -> float:
     return statistics.median(ts)
 
 
-def _bound(ops: float, nbytes: float, dtype) -> tuple[float, str]:
-    t_ops = ops / PEAK_OPS_PER_S[str(dtype).replace("torch.", "")] * 1e3
+def _bound(ops: float, nbytes: float, dtype, rate: float | None = None
+           ) -> tuple[float, str]:
+    """The least time for ``ops`` operations at the peak of ``dtype`` (or
+    ``rate`` operations a second) and ``nbytes`` at the memory rate."""
+    rate = rate or PEAK_OPS_PER_S[str(dtype).replace("torch.", "")]
+    t_ops = ops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -849,7 +861,8 @@ def check_factor_kernel(torch) -> float:
 def check_precond_kernel(torch) -> float:
     """block_precond, both modes, vs the plain blocked einsum: every shape
     of the training path (b 2048; m 512 .. 128256; nb 1 and 4) and a
-    ragged last block."""
+    ragged last block; a second launch on the same inputs gives the same
+    bits."""
     from repro_torch.kernels import dispatch, kfac
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
@@ -865,7 +878,11 @@ def check_precond_kernel(torch) -> float:
         w = torch.randn(shape, generator=gen, device="cuda")
         right = mode == "right"
         got = kfac.block_precond(binv, w, right=right)
+        again = kfac.block_precond(binv, w, right=right)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"block_precond {mode} {shape}: two "
+                                       f"launches differ")
+        del again
         want = (dispatch.lookup("block_precond_right", "ref")(w, binv) if right
                 else dispatch.lookup("block_precond_left", "ref")(binv, w))
         err = _rel_err(torch, got, want)
@@ -874,13 +891,17 @@ def check_precond_kernel(torch) -> float:
         worst = max(worst, _max_err(torch, got, want))
         say("precond-kernel", f"{mode} binv ({nb}, {b}, {b}) w {shape} f32: "
                               f"max|err| / max|U| = {err:.3e} "
-                              f"(tol {KFAC_REL_TOL})")
+                              f"(tol {KFAC_REL_TOL}); two launches "
+                              f"bit-identical")
         del binv, w, got, want
     # the dispatch op on an expanded identity (a fresh optimizer state's
     # preconditioner), 3 blocks of 97 over 290 columns
     eye = torch.eye(97, device="cuda").expand(3, 97, 97)
     w = torch.randn((70, 290), generator=gen, device="cuda")
     got = dispatch.block_precond_right(w, eye, backend="cuda")
+    check(torch.equal(got, dispatch.block_precond_right(w, eye,
+                                                        backend="cuda")),
+          "dispatch.block_precond_right identity: two launches differ")
     err = _rel_err(torch, got, w)
     check(err <= KFAC_REL_TOL, f"dispatch.block_precond_right identity: {err}")
     say("precond-kernel", f"dispatch.block_precond_right w (70, 290) x an "
@@ -1299,25 +1320,30 @@ def time_train_kernels(torch) -> dict:
     b, m = 2048, 8192
     binv = torch.randn((1, b, b), generator=gen, device="cuda") / b ** 0.5
     w = torch.randn((b, m), generator=gen, device="cuda")
-    bound, by = _bound(2 * b * b * m, (b * b + 2 * b * m) * 4, w.dtype)
+    bound, by = _bound(2 * b * b * m, (b * b + 2 * b * m) * 4, w.dtype,
+                       PEAK_SPLIT_F32_OPS_PER_S)
     left_ref = dispatch.lookup("block_precond_left", "ref")
     res["block_precond"] = {
         "ms": _time_ms(torch, lambda: kfac.block_precond(binv, w)),
         "plain_ms": _time_ms(torch, lambda: left_ref(binv, w)),
         "library_ms": _time_ms(torch, lambda: torch.matmul(binv[0], w)),
         "bound_ms": bound, "bound_by": by}
+    core, _ = _bound(2 * b * b * m, (b * b + 2 * b * m) * 4, w.dtype)
     say("times", f"block_precond left binv (1, {b}, {b}) w ({b}, {m}) f32: "
                  f"{res['block_precond']} (library: cuBLAS f32 matmul, TF32 "
-                 f"off); {card_note(torch)}")
+                 f"off; the bound at the f32 CUDA cores' rate {core:.6f}); "
+                 f"{card_note(torch)}")
     wh = torch.randn((128256, b), generator=gen, device="cuda")
     msh = _time_ms(torch, lambda: kfac.block_precond(binv, wh, right=True),
                    reps=5)
     libh = _time_ms(torch, lambda: torch.matmul(wh, binv[0]), reps=5)
     bh, byh = _bound(2 * b * b * 128256, (b * b + 2 * b * 128256) * 4,
-                     wh.dtype)
+                     wh.dtype, PEAK_SPLIT_F32_OPS_PER_S)
     say("times", f"block_precond right w (128256, {b}) binv (1, {b}, {b}) "
                  f"(the embedding's G side): ms {msh:.4f}, bound_ms {bh:.6f} "
-                 f"({byh}), library_ms {libh:.4f}; {card_note(torch)}")
+                 f"({byh}; at the f32 CUDA cores' rate "
+                 f"{_bound(2 * b * b * 128256, 0, wh.dtype)[0]:.6f}), "
+                 f"library_ms {libh:.4f}; {card_note(torch)}")
     del binv, w, wh
 
     # attention backward: one layer's call, BKV 32 (4 x 8 KV heads), G 4,
@@ -1434,7 +1460,9 @@ def check_ns_kernels(torch) -> dict:
     that converge and on ill-conditioned ones that must fall back to eigh;
     one residual and one update launch at (64, 2048, 2048), with frozen
     blocks; the whole tiled inverse at (16, 2048, 2048); ragged b 1000
-    (resident) and 1100 (tiled)."""
+    (resident) and 1100 (tiled); b 250 (resident, rows off 16-byte
+    alignment: the element loads). Every whole inverse is launched twice
+    and must give the same bits."""
     from repro_torch.core import kfac
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import newton_schulz as ns
@@ -1445,7 +1473,11 @@ def check_ns_kernels(torch) -> dict:
     def whole(label, g, b, spread, damping, expect_conv: bool):
         f, d, m = _ns_factors(torch, gen, g, b, spread, damping)
         x, res, trips = ns.ns_inverse(m, iters, tol)
+        again = ns.ns_inverse(m, iters, tol)
         torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip((x, res, trips), again)),
+              f"NS {label} ({g}, {b}, {b}): two launches differ")
+        del again
         want, wres, wtrips = ref.ns_inverse_blocks_ref(m, iters, tol)
         conv, wconv = res <= tol, wres <= tol
         # flags and trips equal wherever the plain residual is not within
@@ -1464,7 +1496,8 @@ def check_ns_kernels(torch) -> dict:
               f"{wres.tolist()}")
         kern = "ns_inverse_blocks" if ns.route(b) == "resident" else \
             "ns_tiled_update"
-        msg = f"NS {label} ({g}, {b}, {b}) via {ns.route(b)}: trips " \
+        msg = f"NS {label} ({g}, {b}, {b}) via {ns.route(b)}, two launches " \
+              f"bit-identical: trips " \
               f"{int(trips.min())}-{int(trips.max())} (equal to the plain " \
               f"iteration's), res " \
               f"{float(res.min()):.2e}-{float(res.max()):.2e} (plain " \
@@ -1500,6 +1533,7 @@ def check_ns_kernels(torch) -> dict:
     whole("converging", 16, 2048, 1.0, 1e-3, True)
     whole("ragged", 4, 1000, 1.0, 1e-3, True)
     whole("ragged", 4, 1100, 1.0, 1e-3, True)
+    whole("unaligned", 4, 250, 1.0, 1e-3, True)
 
     # one residual and one update launch at the w1/w3 G family's shape, with
     # every fourth block frozen
@@ -1700,7 +1734,7 @@ def time_ns_kernels(torch) -> dict:
     _, _, trips = ns.ns_inverse_blocks(m, iters, 0.0)
     check(bool((trips == iters).all()), f"tol 0: trips {trips.tolist()}")
     bound, by = _bound(4 * b ** 3 * g * iters, 2 * g * b * b * 4 + 8 * g,
-                       m.dtype)
+                       m.dtype, PEAK_SPLIT_F32_OPS_PER_S)
     eigh_ms = _time_ms(torch, lambda: kfac.damped_inverse(f, d), reps=5)
     res["ns_inverse_blocks"] = {
         "ms": _time_ms(torch, lambda: ns.ns_inverse_blocks(m, iters, 0.0)),
@@ -1720,7 +1754,9 @@ def time_ns_kernels(torch) -> dict:
                        reps=5)
     say("times", f"ns_inverse_blocks ({g}, {b}, {b}) f32, tol 0 ({iters} "
                  f"trips): {res['ns_inverse_blocks']}, "
-                 f"{res['ns_inverse_blocks']['ms'] / iters:.4f} ms a trip "
+                 f"{res['ns_inverse_blocks']['ms'] / iters:.4f} ms a trip, "
+                 f"the bound at the f32 CUDA cores' rate "
+                 f"{_bound(4 * b ** 3 * g * iters, 0, m.dtype)[0]:.6f} "
                  f"(library: torch.linalg.inv on the damped blocks; eigh "
                  f"(kfac.damped_inverse) {eigh_ms:.4f} ms); clusters of "
                  f"{ns.resident_cluster(g, b)} blocks; the tiled pair "
@@ -1737,7 +1773,8 @@ def time_ns_kernels(torch) -> dict:
     eye = torch.eye(b, device="cuda")
     r, _ = ns.ns_tiled_residual(m, x)
     nbytes = 3 * g * b * b * 4
-    bound, by = _bound(2 * b ** 3 * g, nbytes + 4 * g, m.dtype)
+    bound, by = _bound(2 * b ** 3 * g, nbytes + 4 * g, m.dtype,
+                       PEAK_SPLIT_F32_OPS_PER_S)
     res["ns_tiled_residual"] = {
         "ms": _time_ms(torch, lambda: ns.ns_tiled_residual(m, x)),
         "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_residual_ref(m, x),
@@ -1745,13 +1782,16 @@ def time_ns_kernels(torch) -> dict:
         "library_ms": _time_ms(torch, lambda: torch.baddbmm(eye, m, x,
                                                             alpha=-1.0)),
         "bound_ms": bound, "bound_by": by}
-    bound, by = _bound(2 * b ** 3 * g, nbytes, m.dtype)
+    bound, by = _bound(2 * b ** 3 * g, nbytes, m.dtype,
+                       PEAK_SPLIT_F32_OPS_PER_S)
     res["ns_tiled_update"] = {
         "ms": _time_ms(torch, lambda: ns.ns_tiled_update(x, r)),
         "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_update_ref(x, r),
                              reps=5),
         "library_ms": _time_ms(torch, lambda: torch.baddbmm(x, x, r)),
         "bound_ms": bound, "bound_by": by}
+    say("times", f"the tiled pair's bound at the f32 CUDA cores' rate "
+                 f"{_bound(2 * b ** 3 * g, 0, m.dtype)[0]:.6f} ms a launch")
     say("times", f"ns_tiled_residual ({g}, {b}, {b}) f32: "
                  f"{res['ns_tiled_residual']}; ns_tiled_update: "
                  f"{res['ns_tiled_update']} (library: torch.baddbmm f32, TF32 "

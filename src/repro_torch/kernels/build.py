@@ -76,8 +76,8 @@ SIGNATURES = {
         "dequant_rows": [_P] * 3 + [_L] * 2 + [_I, _P],
     },
     "kfac_precond": {
-        # binv, w, out, b, dim, other, ldw, ldo, nb, right, stream
-        "block_precond": [_P] * 3 + [_I] * 7 + [_P],
+        # binv, w, out, b, dim, other, ldw, ldo, nb, right, blocks, stream
+        "block_precond": [_P] * 3 + [_I] * 8 + [_P],
     },
     "newton_schulz": {
         # m, x, alt, r, res, trips, g, b, iters, tol, stream
@@ -130,8 +130,9 @@ def source_hash() -> str:
 def build(verbose: bool = False) -> dict[str, Path]:
     """Compile every source whose library is missing, all in parallel;
     returns {library name: path}. With ``verbose``, each library compiled
-    here prints its kernels' registers, shared memory, spills and any
-    compiler warning (ptxas's report); a cached library prints nothing."""
+    here prints its kernels' registers, shared memory, spills, any
+    compiler warning and any wgmma serialization ptxas reports; a cached
+    library prints nothing."""
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -158,7 +159,8 @@ def build(verbose: bool = False) -> dict[str, Path]:
                              "Function properties for "):
                     if mark in line:
                         entry = line.split(mark)[1].split("'")[0].strip()
-                if "Used" in line or "spill" in line or "warning" in line:
+                if any(k in line for k in ("Used", "spill", "warning",
+                                           "Performance Loss")):
                     print(f"[nvcc {src.name}] {entry}: {line.strip()}",
                           flush=True)
         os.replace(tmp, dst)

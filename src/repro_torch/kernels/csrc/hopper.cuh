@@ -1,5 +1,6 @@
 // Device and host helpers of the Hopper tensor-core kernels (the factor
-// sums of kfac_factor.cu and the attention walk of swa_flash_wgmma.cuh):
+// sums of kfac_factor.cu, the attention walk of swa_flash_wgmma.cuh and
+// the f32 split products of f32_split_gemm.cuh):
 // shared-memory addresses, the wgmma shared-memory descriptor, mbarriers,
 // TMA tile loads, and cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint (the build links no libcuda).
@@ -80,28 +81,36 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of `rank` dimensions (innermost first; strides in
-// bytes of dimensions 1..rank-1), boxes of `box` elements read in the
-// 128-byte swizzle; elements out of range read as zero. 0 or a CUDA error
-// code; cuTensorMapEncodeTiled is looked up once.
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
+// A tensor map of `rank` dimensions of `type` (innermost first; strides in
+// bytes of dimensions 1..rank-1), boxes of `box` elements read in
+// `swizzle`; elements out of range read as zero. 0 or a CUDA error code;
+// cuTensorMapEncodeTiled is looked up once.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode_tiled = nullptr;
+  if (!encode_tiled) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
     const cudaError_t e =
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
     if (e != cudaSuccess) return (int)e;
     if (q != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
   }
   const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode_tiled(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                                  one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 tensor map read in the 128-byte swizzle (see encode)
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

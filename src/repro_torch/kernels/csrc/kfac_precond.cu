@@ -1,133 +1,193 @@
-// Blocked preconditioner application, f32 throughout (no TF32).
+// Blocked preconditioner application at f32 accuracy on the tensor cores:
+// split TF32 products (3xTF32) on wgmma, the tile of f32_split_gemm.cuh.
 //
 // Replaces the TPU kernel repro/kernels/kfac_precond.py::block_precond
 // (_precond_kernel) with its wrapper repro/kernels/ops.py
 // kfac_block_precond, and the transposes through which
 // repro/kernels/dispatch.py _precond_right_pallas reuses it from the right.
 //
-//   binv (nb, b, b) f32 contiguous, the inverse of each diagonal block
+//   binv (nb, b, b) f32 contiguous, the inverse of each diagonal block (not
+//        assumed symmetric)
 //   left mode  (A^-1 dW):  w (dim, other), rows in blocks of b, row stride ldw
 //                          out[kb + r, :] = sum_c binv[k, r, c] * w[kb + c, :]
 //   right mode (dW G^-1):  w (other, dim), columns in blocks of b
 //                          out[:, kb + p] = sum_c w[:, kb + c] * binv[k, c, p]
-//   out has w's shape, contiguous (row stride ldo)
+//   out has w's shape, row stride ldo
 //
-// One launch covers every block (grid.z). Each block of threads owns a
-// 64 x 64 output tile and walks the contraction 16 deep through shared
-// memory; both modes read w in place through its row stride, so the right
-// mode needs no transpose. The ragged last block (dim not a multiple of b)
-// is masked on load and store instead of padding w to nb*b and b to
-// lcm(bm, bk) as the TPU wrapper does.
+// Each block k is one product C = Q P of f32_split_gemm.cuh, with both
+// operands read in place through their row strides (no transpose): left,
+// Q = binv[k] and P = w's rows kb..kb+b; right, Q = w's columns kb..kb+b
+// and P = binv[k]. C is cut into 128 x 128 tiles. The work items are
+// (block k, tile), block-major, the tile index along binv's side of C
+// fastest (so the items in flight share one panel of w and sweep binv,
+// which stays in L2); a block whose valid rows (left) or columns (right)
+// end before a tile skips it. The blocks of threads are persistent, one
+// per SM: block w of B takes items w, w + B, w + 2B, ...
+// (kernels/kfac.py precond_geometry mirrors the partition, and the wrapper
+// passes B). Each tile sums its K in one block in a fixed order, with no
+// atomics, so two launches give the same bits.
+//
+// Operands: 16-byte aligned bases and row strides (b and ldw multiples of
+// 4) go through TMA: 3-D maps over binv (b, b, nb) and 2-D maps over w, so
+// a box past binv's edge or past w's last row or column reads zeros. The
+// ragged last block (dim not a multiple of b) needs nothing else: its K
+// range stops at its valid rows of w, and w reads as zero past dim, so
+// the binv entries past the valid range multiply zeros; a K range that
+// runs past b reads zeros from binv's side. Other shapes (the expanded
+// (3, 97, 97) identity of a fresh optimizer state) go through the same
+// pipeline with the producer's element loads, masked on both sides.
 //
 // Bound: 2*dim*b*other operations on dim*other + nb*b*b f32 inputs and
 // dim*other f32 outputs; at the training path's shapes (b 2048, other 512
-// to 128256) far above the bytes/operation ratio of the card, so bound by
-// f32 operations (67 TFLOP/s). The products run on the CUDA cores with
-// fmaf: TF32 would lose the 1e-4 agreement the preconditioning is held to.
+// to 128256) far above the card's bytes per operation, so bound by
+// f32-accurate operations: the split products' 165 TFLOP/s of f32 work
+// (three TF32 products at 495). The f32 CUDA cores (67 TFLOP/s, fmaf) are
+// not used: one TF32 product alone would miss the 1e-4 agreement, the
+// split keeps it (f32_split_gemm.cuh).
 
-#include "simt_tile.cuh"
+#include "f32_split_gemm.cuh"
 
 namespace {
 
-using simt::BK;
-using simt::NT;
-using simt::TILE;
+using namespace f32g;
 
-__global__ void __launch_bounds__(NT)
-block_precond_kernel(const float* __restrict__ binv, const float* __restrict__ w,
-                     float* __restrict__ out, int b, int dim, int other, int ldw, int ldo,
-                     int right) {
-  const int blk = blockIdx.z;
-  const int valid = min(b, dim - blk * b);   // rows/columns of w in this block
-  const float* A;
-  const float* B;
-  float* C;
-  int lda, ldb, m_lim, n_lim;
-  if (!right) {                 // C[b x other] = binv[k] @ w[kb:kb+valid, :]
-    A = binv + (size_t)blk * b * b;
-    lda = b;
-    B = w + (size_t)blk * b * ldw;
-    ldb = ldw;
-    C = out + (size_t)blk * b * ldo;
-    m_lim = valid;
-    n_lim = other;
-  } else {                      // C[other x b] = w[:, kb:kb+valid] @ binv[k]
-    A = w + (size_t)blk * b;
-    lda = ldw;
-    B = binv + (size_t)blk * b * b;
-    ldb = b;
-    C = out + (size_t)blk * b;
-    m_lim = other;
-    n_lim = valid;
+constexpr int TN = 128;    // C rows per tile (TM = 128 columns)
+using G = Geo<TN>;
+
+struct Shape {
+  int b, dim, other, ldw, ldo, nb, right;
+  int tiles_r, tiles_c;    // tiles along one block's C rows and columns
+};
+
+// item i -> (block k, tile row tr, tile column tc) and the block's valid
+// rows of w (left) or columns (right); false when the tile lies past them
+__device__ __forceinline__ bool item_tile(const Shape& s, int i, int& k, int& tr, int& tc,
+                                          int& valid) {
+  const int per = s.tiles_r * s.tiles_c;
+  k = i / per;
+  const int t = i - k * per;
+  if (s.right) {
+    tc = t % s.tiles_c;
+    tr = t / s.tiles_c;
+  } else {
+    tr = t % s.tiles_r;
+    tc = t / s.tiles_r;
   }
-  const int k_lim = valid;
-  const int row0 = blockIdx.y * TILE;
-  const int col0 = blockIdx.x * TILE;
-  if (row0 >= m_lim || col0 >= n_lim) return;   // uniform over the block
+  valid = min(s.b, s.dim - k * s.b);
+  return (s.right ? tc * TM : tr * TN) < valid;
+}
 
-  __shared__ __align__(16) simt::Smem sm;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  // A slice (64 rows x 16 deep, contiguous along the depth): 4 per thread
-  const int ar = tid / 4;
-  const int ak = (tid % 4) * 4;
-  // B slice (16 deep x 64 columns, contiguous along the columns)
-  const int br = tid / 16;
-  const int bc = (tid % 16) * 4;
+template <bool TMA>
+__global__ void __launch_bounds__(NT, 1)
+block_precond_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap pmap, const float* __restrict__ binv,
+                     const float* __restrict__ w, float* __restrict__ out, Shape s) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3 * G::STAGES];
+  const Ring<TN> ring = ring_init<TN>(smem_raw, bars, TMA);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int items = s.nb * s.tiles_r * s.tiles_c;
+  int it = 0;
 
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < k_lim; k0 += BK) {
-    float av[4], bv[4];
-    const int arow = row0 + ar;
-    const int bk = k0 + br;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ak_e = k0 + ak + e;
-      av[e] = (arow < m_lim && ak_e < k_lim) ? A[(size_t)arow * lda + ak_e] : 0.f;
-      const int bcol = col0 + bc + e;
-      bv[e] = (bk < k_lim && bcol < n_lim) ? B[(size_t)bk * ldb + bcol] : 0.f;
+  if (wg < 2) {
+    // producers: give registers back for the consumers' (2 x 40 + 2 x 216
+    // per thread = the SM's 512)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = threadIdx.x;
+    if (TMA && pt > 0 && pt < 32) return;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      int k, tr, tc, valid;
+      if (!item_tile(s, i, k, tr, tc, valid)) continue;
+      const int stages = (valid + BK - 1) / BK;
+      if (TMA) {
+        const int kb = k * s.b;
+        tile_produce_tma<TN>(ring, it, stages, pt,
+                             [&](uint32_t dq, uint32_t dp, uint32_t bar, int k0) {
+                               if (s.right) {
+                                 tma_load(dq, &qmap, kb + k0, tr * TN, bar);   // w
+                                 tma_load_p(dp, &pmap, 3, tc * TM, k0, k, bar);  // binv[k]
+                               } else {
+                                 tma_load(dq, &qmap, k0, tr * TN, k, bar);     // binv[k]
+                                 tma_load_p(dp, &pmap, 2, tc * TM, kb + k0, 0, bar);  // w
+                               }
+                             });
+      } else {
+        const size_t kb = (size_t)k * s.b;
+        if (s.right)
+          tile_produce_elements<TN>(ring, it, stages, pt, w + kb, s.ldw, s.other, tr * TN,
+                                    binv + kb * s.b, s.b, valid, tc * TM, valid);
+        else
+          tile_produce_elements<TN>(ring, it, stages, pt, binv + kb * s.b, s.b, valid, tr * TN,
+                                    w + kb * s.ldw, s.ldw, s.other, tc * TM, valid);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sm.a[ak + e][ar] = av[e];
-      sm.b[br][bc + e] = bv[e];
-    }
-    __syncthreads();
-    simt::tile_fma(sm, acc, ty, tx);
+    return;
   }
 
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = row0 + ty * 4 + r;
-    if (i >= m_lim) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = col0 + tx * 4 + c;
-      if (j < n_lim) C[(size_t)i * ldo + j] = acc[r][c];
-    }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+  const int cw = wg - 2, t = threadIdx.x % 128;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int k, tr, tc, valid;
+    if (!item_tile(s, i, k, tr, tc, valid)) continue;
+    float acc[G::FRAG];
+    tile_product<TN, TMA>(acc, ring, it, (valid + BK - 1) / BK, cw, t);
+    const int rows = s.right ? s.other : valid;   // C's extent in bounds
+    const int cols = s.right ? valid : s.other;
+    float* c = out + (s.right ? (size_t)k * s.b : (size_t)k * s.b * s.ldo);
+    const int r0 = tr * TN, c0 = tc * TM;
+    for_each_pair<TN>(acc, cw, t, [&](int row, int col, float& v0, float& v1) {
+      const int i_ = r0 + row, j = c0 + col;
+      if (i_ >= rows || j >= cols) return;
+      float* o = c + (size_t)i_ * s.ldo + j;
+      if (j + 1 < cols && (reinterpret_cast<uintptr_t>(o) & 7) == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (j + 1 < cols) o[1] = v1;
+      }
+    });
   }
 }
 
 }  // namespace
 
+// blocks: the persistent blocks of threads (kernels/kfac.py
+// precond_geometry), 1 .. the launch's items
 extern "C" int block_precond(const void* binv, const void* w, void* out, int b, int dim,
-                             int other, int ldw, int ldo, int nb, int right,
+                             int other, int ldw, int ldo, int nb, int right, int blocks,
                              void* stream) {
-  if (nb < 1 || b < 1 || (long long)(nb - 1) * b >= dim || (long long)nb * b < dim)
+  if (nb < 1 || b < 1 || other < 1 || (long long)(nb - 1) * b >= dim ||
+      (long long)nb * b < dim)
     return (int)cudaErrorInvalidValue;
-  const int rows = right ? other : b;
-  const int cols = right ? b : other;
-  const dim3 grid((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE, nb);
-  if (grid.y > 65535u || nb > 65535) return (int)cudaErrorInvalidValue;
-  block_precond_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(binv), static_cast<const float*>(w),
-      static_cast<float*>(out), b, dim, other, ldw, ldo, right);
+  Shape s{b, dim, other, ldw, ldo, nb, right, 0, 0};
+  s.tiles_r = ((right ? other : b) + TN - 1) / TN;
+  s.tiles_c = ((right ? b : other) + TM - 1) / TM;
+  const long long items = (long long)nb * s.tiles_r * s.tiles_c;
+  if (items > 0x7fffffffLL || blocks < 1 || blocks > items) return (int)cudaErrorInvalidValue;
+  const bool tma = reinterpret_cast<uintptr_t>(binv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldw % 4 == 0 && b % 4 == 0;
+  CUtensorMap qmap, pmap;
+  memset(&qmap, 0, sizeof(qmap));
+  memset(&pmap, 0, sizeof(pmap));
+  if (tma) {
+    const cuuint64_t bdims[3] = {(cuuint64_t)b, (cuuint64_t)b, (cuuint64_t)nb};
+    const cuuint64_t bstrides[2] = {(cuuint64_t)b * 4, (cuuint64_t)b * b * 4};
+    const cuuint64_t wdims[2] = {(cuuint64_t)(right ? dim : other),
+                                 (cuuint64_t)(right ? other : dim)};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)ldw * 4};
+    const int rc = right ? (encode_q(&qmap, w, 2, wdims, wstrides, TN) ||
+                            encode_p(&pmap, binv, 3, bdims, bstrides))
+                         : (encode_q(&qmap, binv, 3, bdims, bstrides, TN) ||
+                            encode_p(&pmap, w, 2, wdims, wstrides));
+    if (rc) return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = tma ? block_precond_kernel<true> : block_precond_kernel<false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, NT, G::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, pmap, static_cast<const float*>(binv), static_cast<const float*>(w),
+      static_cast<float*>(out), s);
   return (int)cudaGetLastError();
 }

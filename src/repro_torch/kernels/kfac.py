@@ -10,7 +10,9 @@
 * :func:`block_precond` (``csrc/kfac_precond.cu``) replaces
   ``repro/kernels/kfac_precond.py::block_precond``: ``Binv[k] @ W[k]`` over
   the row blocks of W (left) or ``W[:, k] @ Binv[k]`` over its column
-  blocks (right), f32 without TF32, W read in place. Bound by operations.
+  blocks (right), W read in place. Bound by operations: f32-accurate split
+  TF32 products (3xTF32) on the tensor cores, 128 x 128 tiles, persistent
+  blocks over all (block, tile) items (:func:`precond_geometry`).
 
 Each wrapper takes CUDA tensors only (the plain versions for the CPU are in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels
@@ -137,6 +139,51 @@ def factor_syrk(x: torch.Tensor, max_dim: int) -> torch.Tensor:
     return out
 
 
+# csrc/kfac_precond.cu: output tile (TN x TM of f32_split_gemm.cuh)
+PRECOND_TILE = 128
+
+
+@functools.lru_cache(maxsize=None)
+def precond_geometry(nb: int, b: int, dim: int, other: int, right: bool,
+                     sms: int) -> tuple[int, int, int, int]:
+    """(tiles along a block's output rows, tiles along its columns, work
+    items, blocks of threads) of one block_precond launch on ``sms`` SMs.
+
+    Block k's output is (valid, other) on the left and (other, valid) on
+    the right, valid = min(b, dim - k b), cut into 128 x 128 tiles; the
+    items are nb x tiles_r x tiles_c (:func:`precond_item`), one persistent
+    block of threads per SM (the ring's 193 KB of shared memory), block w
+    taking items w, w + blocks, ... (:func:`precond_block_items`)."""
+    tiles_r = -(-(other if right else b) // PRECOND_TILE)
+    tiles_c = -(-(b if right else other) // PRECOND_TILE)
+    items = nb * tiles_r * tiles_c
+    return tiles_r, tiles_c, items, min(items, sms)
+
+
+def precond_item(i: int, nb: int, b: int, dim: int, other: int, right: bool
+                 ) -> tuple[int, int, int, int] | None:
+    """The kernel's item i (``item_tile``): (block k, first output row,
+    first output column, valid) of its tile within block k's output, or
+    None for a tile past the ragged last block's valid rows (left) or
+    columns (right). The tile index along binv's side runs fastest."""
+    tiles_r, tiles_c, _, _ = precond_geometry(nb, b, dim, other, right, 1)
+    per = tiles_r * tiles_c
+    k, t = divmod(i, per)
+    if right:
+        tr, tc = divmod(t, tiles_c)
+    else:
+        tc, tr = divmod(t, tiles_r)
+    valid = min(b, dim - k * b)
+    if (tc if right else tr) * PRECOND_TILE >= valid:
+        return None
+    return k, tr * PRECOND_TILE, tc * PRECOND_TILE, valid
+
+
+def precond_block_items(w: int, blocks: int, items: int) -> range:
+    """The items block of threads w takes."""
+    return range(w, items, blocks)
+
+
 def block_precond(binv: torch.Tensor, w: torch.Tensor, *,
                   right: bool = False) -> torch.Tensor:
     """binv (nb, b, b) f32 contiguous. Left: w (dim, m) -> Binv applied to
@@ -162,9 +209,11 @@ def block_precond(binv: torch.Tensor, w: torch.Tensor, *,
         return out
     lib = build.load()["kfac_precond"]
     with torch.cuda.device(w.device):
+        sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+        blocks = precond_geometry(nb, b, dim, other, right, sms)[3]
         rc = lib.block_precond(binv.data_ptr(), w.data_ptr(), out.data_ptr(),
                                b, dim, other, w.stride(0), out.stride(0), nb,
-                               int(right), stream(w))
+                               int(right), blocks, stream(w))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out

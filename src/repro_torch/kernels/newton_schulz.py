@@ -4,8 +4,10 @@ the tiled path's trip loop; the counterpart of ``repro/kernels/ops.py``
 
 * :func:`ns_inverse_blocks` (``csrc/newton_schulz.cu``) replaces the TPU
   kernel ``repro/kernels/newton_schulz.py::ns_inverse_blocks``: the whole
-  iteration of each block in one launch, one cluster of 8 blocks of threads
-  per factor block, the iterates in scratch in device memory.
+  iteration of each block in one launch, one cluster of up to 8 blocks of
+  threads per factor block, the iterates in scratch in device memory, the
+  products f32-accurate split TF32 products (3xTF32) on the tensor cores
+  over 128 x 128 output tiles (:func:`resident_tiles`).
 * :func:`ns_tiled_residual` and :func:`ns_tiled_update` replace
   ``::ns_tiled_residual`` and ``::ns_tiled_update``: ``R = I - M X`` with
   ``||R||_F^2`` and ``X + X R``, one block of threads per 64 x 64 output
@@ -13,7 +15,8 @@ the tiled path's trip loop; the counterpart of ``repro/kernels/ops.py``
 * :func:`ns_inverse_tiled` is ``ops.ns_inverse_tiled``'s trip loop, and
   :func:`ns_inverse` routes by block size as the JAX package does.
 
-All are bound by f32 operations (4 b^3 a block and trip). Every input is an
+All are bound by f32-accurate operations (4 b^3 a block and trip); the
+tiled pair still runs them on the CUDA cores. Every input is an
 already-damped, already-symmetrized ``M = F + lambda I`` block (g, b, b) f32
 (``kernels/dispatch.py`` owns that prep); a ragged b is masked in the
 kernels, not padded with a scaled identity as on the TPU, so the residual
@@ -42,14 +45,17 @@ LAUNCHES: dict[str, int] = {"ns_inverse_blocks": 0, "ns_tiled_residual": 0,
 # H100 the resident kernel keeps its iterates in device memory whatever b
 # is, so the cap is kept at the JAX package's value (ops.NS_KERNEL_MAX_DIM)
 # for parity only: the same blocks take the same kernel in both packages.
-# It was not chosen by timing the two routes on this card, and the timing
-# does not favour it: on an H100 SXM (700 W) 40 trips on the path's
-# (16, 512, 512) blocks take 25.8 ms resident against 20.5 ms tiled
-# (chip_smoke.py time_ns_kernels; PERF.md). At the training path's shapes
-# the 512 blocks (wk.G, wv.G) run resident and the 2048 blocks tiled.
+# It was not chosen by timing the two routes on this card; chip_smoke.py
+# time_ns_kernels times both on the path's (16, 512, 512) blocks, and
+# PERF.md records which is faster. At the training path's shapes the 512
+# blocks (wk.G, wv.G) run resident and the 2048 blocks tiled.
 NS_RESIDENT_MAX_DIM = 1024
 
-_TILE = 64          # csrc/newton_schulz.cu output tile edge
+_TILE = 64          # csrc/newton_schulz.cu: the tiled pair's output tile edge
+# the resident kernel's output tile (res::TN rows x f32g::TM columns) and
+# its largest cluster (MAX_CLUSTER)
+RESIDENT_TILE = (128, 128)
+MAX_CLUSTER = 8
 
 
 def reset_launches() -> None:
@@ -108,10 +114,21 @@ def ns_inverse_blocks(m: torch.Tensor, iters: int, tol: float):
     return x, res, trips
 
 
+def resident_tiles(b: int, csize: int, rank: int) -> list[tuple[int, int]]:
+    """The output tiles (first row, first column) that block ``rank`` of a
+    cluster of ``csize`` takes in each product of the resident kernel on
+    blocks of b (``res::product``): tiles rank, rank + csize, ... of the
+    row-major (b / 128) x (b / 128) grid."""
+    tn, tm = RESIDENT_TILE
+    nc = -(-b // tm)
+    tiles = -(-b // tn) * nc
+    return [((t // nc) * tn, (t % nc) * tm) for t in range(rank, tiles, csize)]
+
+
 def resident_cluster(g: int, b: int) -> int:
     """How many blocks of threads the resident kernel gives each of g factor
-    blocks of size b on the current card (1-8, the card's own occupancy
-    decides; see ``pick_cluster`` in csrc/newton_schulz.cu)."""
+    blocks of size b on the current card (1 to MAX_CLUSTER, the card's own
+    occupancy decides; see ``pick_cluster`` in csrc/newton_schulz.cu)."""
     rc = build.load()["newton_schulz"].ns_resident_cluster(int(g), int(b))
     build.check(-rc if rc < 0 else 0, "ns_resident_cluster")
     return rc
