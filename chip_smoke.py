@@ -58,11 +58,11 @@ PEAK_OPS_PER_S = {                     # dense, without sparsity
 }
 # f32-accurate products on the tensor cores: each f32 operand split in two
 # TF32 parts and three TF32 products (hi hi, hi lo, lo hi) per product at
-# 495 TFLOP/s dense, so 495 / 3 = 165 TFLOP/s of f32 work. The bound of the
-# f32 product kernels (block_precond, ns_inverse_blocks and the tiled NS
-# pair), whether or not a kernel runs them that way: the least time the card
-# takes for f32-accurate work (PEAK_OPS_PER_S["float32"], the CUDA cores'
-# fmaf, is 2.5 times slower).
+# an H100 SXM's 495 TFLOP/s dense (data sheet, 700 W), so 495 / 3 = 165
+# TFLOP/s of f32 work. The bound of the f32 product kernels (block_precond
+# and the three Newton-Schulz kernels), which all run their products that
+# way: the least time the card takes for f32-accurate work
+# (PEAK_OPS_PER_S["float32"], the CUDA cores' fmaf, is 2.5 times slower).
 PEAK_SPLIT_F32_OPS_PER_S = 495e12 / 3
 
 # bf16 outputs: one bf16 ulp at |out| <= 2 is 7.8e-3; lse is f32 arithmetic
@@ -1459,10 +1459,11 @@ def check_ns_kernels(torch) -> dict:
     training path's shapes: the resident kernel at (16, 512, 512) on blocks
     that converge and on ill-conditioned ones that must fall back to eigh;
     one residual and one update launch at (64, 2048, 2048), with frozen
-    blocks; the whole tiled inverse at (16, 2048, 2048); ragged b 1000
-    (resident) and 1100 (tiled); b 250 (resident, rows off 16-byte
-    alignment: the element loads). Every whole inverse is launched twice
-    and must give the same bits."""
+    blocks, each launched twice; the whole tiled inverse at (16, 2048,
+    2048); ragged b 1000 (resident) and 1100 (tiled); b 250 (resident) and
+    1030 (tiled), rows off 16-byte alignment: the element loads. Every
+    whole inverse is launched twice, and every launch must give the same
+    bits as its twin."""
     from repro_torch.core import kfac
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import newton_schulz as ns
@@ -1534,6 +1535,7 @@ def check_ns_kernels(torch) -> dict:
     whole("ragged", 4, 1000, 1.0, 1e-3, True)
     whole("ragged", 4, 1100, 1.0, 1e-3, True)
     whole("unaligned", 4, 250, 1.0, 1e-3, True)
+    whole("unaligned", 2, 1030, 1.0, 1e-3, True)
 
     # one residual and one update launch at the w1/w3 G family's shape, with
     # every fourth block frozen
@@ -1545,10 +1547,16 @@ def check_ns_kernels(torch) -> dict:
     for label, act in (("all active", None), ("every 4th frozen", active)):
         r, ss = ns.ns_tiled_residual(m, x, act)
         xn = ns.ns_tiled_update(x, r, act)
+        r2, ss2 = ns.ns_tiled_residual(m, x, act)
+        xn2 = ns.ns_tiled_update(x, r, act)
         torch.cuda.synchronize()
+        sel = live if act is not None else torch.ones_like(live)
+        check(torch.equal(r[sel], r2[sel]) and torch.equal(ss, ss2)
+              and torch.equal(xn, xn2),
+              f"NS tiled pair ({label}): two launches differ")
+        del r2, ss2, xn2
         wr, wss = ref.ns_tiled_residual_ref(m, x)
         wx = ref.ns_tiled_update_ref(x, wr)
-        sel = live if act is not None else torch.ones_like(live)
         e_r = _rel_err(torch, r[sel], wr[sel])
         e_ss = _rel_err(torch, ss[sel], wss[sel])
         e_x = _rel_err(torch, xn[sel], wx[sel])
@@ -1564,7 +1572,8 @@ def check_ns_kernels(torch) -> dict:
                                        _max_err(torch, xn[sel], wx[sel]))
         say("ns-kernel", f"tiled residual + update (64, 2048, 2048), {label}: "
                          f"max|err|/max r {e_r:.3e}, ss {e_ss:.3e}, x' "
-                         f"{e_x:.3e} (tol {NS_PRODUCT_REL_TOL})"
+                         f"{e_x:.3e} (tol {NS_PRODUCT_REL_TOL}); two launches "
+                         f"bit-identical"
             + ("; frozen blocks: ss 0 and x' == x bit for bit"
                if act is not None else ""))
         del r, ss, xn, wr, wss, wx
@@ -1792,10 +1801,14 @@ def time_ns_kernels(torch) -> dict:
         "bound_ms": bound, "bound_by": by}
     say("times", f"the tiled pair's bound at the f32 CUDA cores' rate "
                  f"{_bound(2 * b ** 3 * g, 0, m.dtype)[0]:.6f} ms a launch")
+    shares = "; ".join(
+        f"{k} {v['bound_ms'] / v['ms']:.1%} of the bound, "
+        f"{v['library_ms'] / v['ms']:.3f}x faster than baddbmm"
+        for k, v in res.items() if k.startswith("ns_tiled"))
     say("times", f"ns_tiled_residual ({g}, {b}, {b}) f32: "
                  f"{res['ns_tiled_residual']}; ns_tiled_update: "
                  f"{res['ns_tiled_update']} (library: torch.baddbmm f32, TF32 "
-                 f"off); {card_note(torch)}")
+                 f"off); {shares}; {card_note(torch)}")
     del m, x, r
     torch.cuda.empty_cache()
     return res

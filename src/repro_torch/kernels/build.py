@@ -84,10 +84,10 @@ SIGNATURES = {
         "ns_inverse_blocks": [_P] * 6 + [_I] * 3 + [_F, _P],
         # g, b -> the cluster size ns_inverse_blocks launches with
         "ns_resident_cluster": [_I] * 2,
-        # m, x, active, r, partials, counter, ss, g, b, stream
-        "ns_tiled_residual": [_P] * 7 + [_I] * 2 + [_P],
-        # x, r, active, out, g, b, stream
-        "ns_tiled_update": [_P] * 4 + [_I] * 2 + [_P],
+        # m, x, active, r, partials, counter, ss, g, b, blocks, stream
+        "ns_tiled_residual": [_P] * 7 + [_I] * 3 + [_P],
+        # x, r, active, out, g, b, blocks, stream
+        "ns_tiled_update": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

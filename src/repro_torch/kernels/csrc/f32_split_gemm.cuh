@@ -1,6 +1,6 @@
 // f32-accurate matrix products on Hopper's tensor cores: the product tile
-// shared by block_precond (kfac_precond.cu) and the resident Newton-Schulz
-// kernel (newton_schulz.cu).
+// shared by block_precond (kfac_precond.cu) and the three Newton-Schulz
+// kernels, resident and tiled (newton_schulz.cu).
 //
 // A tile is C[TN x TM] of C = Q P, for Q (rows x K) and P (K x cols), both
 // f32 and row-major. It runs on wgmma m64nTNk8 .f32.tf32.tf32 as

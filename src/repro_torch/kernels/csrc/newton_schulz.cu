@@ -44,94 +44,51 @@
 // adapts to g (pick_cluster), so that the clusters run in one wave where
 // the card can hold them.
 //
-// ns_tiled_residual / ns_tiled_update: one block of 256 threads per
-// (factor block, 64 x 64 output tile); the contraction is a loop inside the
-// block (it replaces the TPU's sequential k grid axis). The identity is
-// added on the diagonal; each tile's sum of r^2 goes into a (g, tiles)
-// partials buffer and the last block of a factor block to finish adds them
-// in a fixed order, so ss does not depend on the order blocks run in. A
-// per-block `active` flag (device memory, no host read) makes the
-// residual's blocks of a frozen factor block return at once and the update's
-// copy their X tile unchanged (bit-stable). The freeze logic and the trip
+// ns_tiled_residual / ns_tiled_update: one launch each per trip, on the
+// same split-TF32 tile: the residual is C = Q P with Q = M, P = X and
+// C = I - Q P, plus each block's ||R||_F^2; the update Q = X, P = R and
+// C = X + Q P, out of place (X's tile read with __ldcg in the epilogue).
+// The work items are (factor block, 128 x 128 output tile), block-major
+// (the tiles in flight share one block's operands, 32 MB at b 2048, in
+// an H100's 50 MB L2), the tiles of a block row-major; the blocks of
+// threads are persistent, one per SM (the ring's 193 KB of shared memory
+// fills one): block w takes items w, w + B, ... (kernels/newton_schulz.py
+// tiled_geometry and tiled_item mirror the partition, and the wrapper
+// passes B). TMA brings both operands from 3-D maps over the (g, b, b)
+// buffers when b is a multiple of 4; otherwise the producers load
+// elements. Each tile's sum of r^2 is reduced by the consumers alone
+// (their own named barrier: the producers are already filling the ring
+// for the next item) into a (g, tiles) partials buffer, and the consumer
+// thread whose tile is the block's last to finish adds the block's
+// partials in a fixed order, so ss does not depend on the order tiles
+// finish in and two launches give the same bits. A per-block `active`
+// flag (device memory, no host read) makes both roles skip the items of a
+// frozen factor block: the residual writes nothing for it (its ss stays
+// the caller's 0) and the update's consumers copy its X tile unchanged
+// (bit-stable) without touching the ring. The freeze logic and the trip
 // loop are in the wrapper (kernels/newton_schulz.py ns_inverse_tiled).
-// Their products still run on the CUDA cores with fmaf (simt_tile.cuh).
 //
 // Bound: one trip is two b x b x b products, 4 b^3 operations a block, on
 // 3 b^2 f32 of data: far above the card's operations-per-byte ratio at the
 // path's b 512 and 2048, so bound by f32-accurate operations: 165 TFLOP/s
-// of f32 work for the split products (three TF32 products at 495), 67 for
-// the tiled pair's fmaf. One TF32 product would miss the residual
-// tolerance 1e-4 and the 1e-5 agreement with the plain iteration; the
-// split keeps both (f32_split_gemm.cuh). The resident kernel occupies up
-// to 8 g SMs.
+// of f32 work for the split products (three TF32 products at 495; an
+// H100 SXM's data sheet at its 700 W limit), where the f32 CUDA cores'
+// fmaf gives 67. One TF32 product would miss the residual tolerance 1e-4
+// and the 1e-5 agreement with the plain iteration; the split keeps both
+// (f32_split_gemm.cuh). The resident kernel occupies up to 8 g SMs, the
+// tiled pair every SM.
 
 #include <cooperative_groups.h>
 
 #include "f32_split_gemm.cuh"
-#include "simt_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using simt::BK;
-using simt::TILE;
-
-constexpr int GROUP = simt::NT;        // threads of one 64 x 64 tile product (tiled pair)
 constexpr int MAX_CLUSTER = 8;         // blocks per factor block, at most (portable)
 
-// acc = A[row0 : row0+64, 0:b] @ B[0:b, col0 : col0+64] for b x b row-major
-// A and B, entries past b read as 0, by the block's 256 threads (t).
-__device__ __forceinline__ void simt_product(const float* A, const float* B, int b, int row0,
-                                             int col0, simt::Smem& sm, float (&acc)[4][4],
-                                             int t) {
-  const int tx = t % 16, ty = t / 16;
-  const int ar = t / 4, ak = (t % 4) * 4;      // A slice: 64 rows x 16 deep
-  const int br = t / 16, bc = (t % 16) * 4;    // B slice: 16 deep x 64 columns
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < b; k0 += BK) {
-    float av[4], bv[4];
-    const int arow = row0 + ar;
-    const int bk = k0 + br;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ak_e = k0 + ak + e;
-      av[e] = (arow < b && ak_e < b) ? A[(size_t)arow * b + ak_e] : 0.f;
-      const int bcol = col0 + bc + e;
-      bv[e] = (bk < b && bcol < b) ? B[(size_t)bk * b + bcol] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sm.a[ak + e][ar] = av[e];
-      sm.b[br][bc + e] = bv[e];
-    }
-    __syncthreads();
-    simt::tile_fma(sm, acc, ty, tx);
-  }
-}
-
-// Sum of v over the block's threads in a fixed order (warp shuffles, then
-// the warps' sums by warp 0); every thread gets the result.
-template <int NT>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  v = warp_sum(v);
-  __syncthreads();                 // red may still be read from the last call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < NT / 32 ? red[lane] : 0.f;
-    s = warp_sum(s);
-    if (lane == 0) red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
-}
-
+// The largest of v over the block's threads; every thread gets the result.
 template <int NT>
 __device__ __forceinline__ float block_max(float v, float* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -153,7 +110,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 namespace res {
 
 using namespace f32g;
-using f32g::BK;            // not simt's
+using f32g::BK;
 using f32g::NT;
 using f32g::TM;
 
@@ -383,91 +340,250 @@ ns_inverse_blocks_kernel(const __grid_constant__ Maps maps, const float* __restr
 
 // --- the tiled pair -----------------------------------------------------------
 
-__global__ void __launch_bounds__(GROUP)
-ns_tiled_residual_kernel(const float* __restrict__ m_all, const float* __restrict__ x_all,
-                         const int* __restrict__ active, float* __restrict__ r_all,
-                         float* partials, unsigned int* counter, float* __restrict__ ss_out,
-                         int b) {
-  const int g = blockIdx.z;
-  if (active != nullptr && !active[g]) return;     // frozen: uniform over the block
-  __shared__ __align__(16) simt::Smem sm;
-  __shared__ float red[33];
-  __shared__ bool last;
-  const size_t off = (size_t)g * b * b;
-  const int nt = gridDim.x;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  float acc[4][4];
-  simt_product(m_all + off, x_all + off, b, row0, col0, sm, acc, t);
-  float ss = 0.f;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = row0 + ty * 4 + r;
-    if (i >= b) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = col0 + tx * 4 + c;
-      if (j >= b) continue;
-      const float v = (i == j ? 1.f : 0.f) - acc[r][c];
-      ss = fmaf(v, v, ss);
-      r_all[off + (size_t)i * b + j] = v;
-    }
-  }
-  ss = block_sum<GROUP>(ss, red);
-  const int tiles = nt * nt;
-  if (t == 0) {
-    partials[(size_t)g * tiles + blockIdx.y * nt + blockIdx.x] = ss;
-    __threadfence();
-    last = atomicAdd(&counter[g], 1u) == (unsigned)(tiles - 1);
-  }
-  __syncthreads();
-  if (!last) return;               // uniform: `last` is in shared memory
-  __threadfence();
-  float s = 0.f;
-  for (int e = t; e < tiles; e += GROUP) s += __ldcg(&partials[(size_t)g * tiles + e]);
-  s = block_sum<GROUP>(s, red);
-  if (t == 0) {
-    ss_out[g] = s;
-    counter[g] = 0u;               // ready for the next launch
+namespace tiled {
+
+using namespace f32g;
+using f32g::BK;
+using f32g::NT;
+using f32g::TM;
+
+constexpr int TN = 128;    // rows of an output tile (TM = 128 columns)
+using G = Geo<TN>;
+constexpr int CONSUMERS = NT - PRODUCERS;
+
+struct Shape {
+  int g, b;
+  int nc, tiles;           // tiles along a block's edge, tiles per block
+};
+
+// item i -> factor block gi, the tile's index t within it and its first
+// row and column: g-major, the tiles of a block row-major
+// (kernels/newton_schulz.py tiled_item)
+__device__ __forceinline__ int item_tile(const Shape& s, int i, int& t, int& row0, int& col0) {
+  const int gi = i / s.tiles;
+  t = i - gi * s.tiles;
+  row0 = (t / s.nc) * TN;
+  col0 = (t % s.nc) * TM;
+  return gi;
+}
+
+// the consumers' own barrier: the producers have run ahead into the next
+// items and never reach it
+__device__ __forceinline__ void consumer_bar() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// C[i][j], C[i][j + 1] = v0, v1 where inside b x b (i < b, j even)
+__device__ __forceinline__ void store_pair(float* C, int b, int i, int j, float v0, float v1) {
+  float* o = C + (size_t)i * b + j;
+  if (j + 1 < b && (reinterpret_cast<uintptr_t>(o) & 7) == 0) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  } else {
+    if (j < b) o[0] = v0;
+    if (j + 1 < b) o[1] = v1;
   }
 }
 
-__global__ void __launch_bounds__(GROUP)
-ns_tiled_update_kernel(const float* __restrict__ x_all, const float* __restrict__ r_all,
-                       const int* __restrict__ active, float* __restrict__ out_all, int b) {
-  const int g = blockIdx.z;
-  const size_t off = (size_t)g * b * b;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const float* X = x_all + off;
-  float* O = out_all + off;
-  if (active != nullptr && !active[g]) {           // frozen: copy the tile as it is
+// A frozen block's tile of the update: X's tile copied as it is (bit for
+// bit) by the consumers (ct = 0 .. CONSUMERS - 1), outside the ring
+__device__ __forceinline__ void copy_tile(const float* X, float* O, int b, int row0, int col0,
+                                          int ct) {
+  const int rows = min(TN, b - row0), cols = min(TM, b - col0);
+  for (int e = ct; e < rows * TM; e += CONSUMERS) {
+    const int r = e / TM, c = e % TM;
+    if (c >= cols) continue;
+    const size_t o = (size_t)(row0 + r) * b + col0 + c;
+    O[o] = __ldcg(X + o);
+  }
+}
+
+// The residual's sum of r^2 over one tile (tile t of factor block gi) from
+// each consumer thread's own sum: warp sums, then the eight warps' in
+// order, into partials[gi, t]. The consumer thread whose arrival brings
+// block gi's count to `tiles` adds the block's partials (lane-strided, then
+// a fixed shuffle tree in its warp) into ss_out[gi] and resets the count.
+// Every sum is in a fixed order, whatever order the tiles finish in.
+__device__ __forceinline__ void tile_ss(float ss, float* red, const Shape& s, int gi, int t,
+                                        float* partials, unsigned int* counter, float* ss_out,
+                                        int ct) {
+  const int lane = ct % 32;
+  ss = warp_sum(ss);
+  consumer_bar();                  // red may still be read for the last tile
+  if (lane == 0) red[ct / 32] = ss;
+  consumer_bar();
+  if (ct >= 32) return;            // the first consumer warp goes on
+  float* part = partials + (size_t)gi * s.tiles;
+  unsigned last = 0;
+  if (ct == 0) {
+    float sum = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = row0 + ty * 4 + r;
-      if (i >= b) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = col0 + tx * 4 + c;
-        if (j < b) O[(size_t)i * b + j] = X[(size_t)i * b + j];
-      }
+    for (int w = 0; w < CONSUMERS / 32; ++w) sum += red[w];
+    part[t] = sum;
+    __threadfence();               // the partial before the arrival
+    last = atomicAdd(&counter[gi], 1u) == (unsigned)(s.tiles - 1);
+  }
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();                 // every partial of gi is in L2
+  float sum = 0.f;
+  for (int e = lane; e < s.tiles; e += 32) sum += __ldcg(part + e);
+  sum = warp_sum(sum);
+  if (lane == 0) {
+    ss_out[gi] = sum;
+    counter[gi] = 0u;              // ready for another launch
+  }
+}
+
+// One launch of the pair: C = Q P of every active factor block, tile by
+// tile. RESIDUAL: Q = M, P = X, C = R = I - Q P with its sum of squares;
+// else Q = X, P = R, C = X + Q P (out of place; a frozen block's tiles
+// copied). Persistent blocks: block w takes items w, w + gridDim.x, ...
+// R and X were written with plain stores by an earlier launch of the
+// pair (or by PyTorch); the kernel boundary orders those stores before
+// this launch's TMA reads (the async proxy), so no fence is needed here.
+// Within a launch C is never read.
+template <bool TMA, bool RESIDUAL>
+__global__ void __launch_bounds__(NT, 1)
+ns_tiled_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap pmap, const float* __restrict__ q_all,
+                const float* __restrict__ p_all, const int* __restrict__ active,
+                float* __restrict__ c_all, float* partials, unsigned int* counter,
+                float* __restrict__ ss_out, Shape s) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3 * G::STAGES];
+  __shared__ float red[CONSUMERS / 32];
+  const Ring<TN> ring = ring_init<TN>(smem_raw, bars, TMA);
+  __syncthreads();
+  const int b = s.b;
+  const int items = s.g * s.tiles, stages = (b + BK - 1) / BK;
+  const size_t bb = (size_t)b * b;
+  // every row of X and C starts 8-byte aligned (the update's fast epilogue)
+  const bool interior =
+      b % 2 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q_all) | reinterpret_cast<uintptr_t>(c_all)) & 7) == 0;
+  int it = 0;                      // ring position (each role keeps its own)
+
+  if (threadIdx.x < PRODUCERS) {
+    // producers: give registers back for the consumers' (2 x 40 + 2 x 216
+    // per thread = the SM's 512)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = threadIdx.x;
+    if (TMA && pt > 0 && pt < 32) return;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      int t, row0, col0;
+      const int gi = item_tile(s, i, t, row0, col0);
+      if (active != nullptr && !active[gi]) continue;   // frozen: no stage for it
+      if (TMA)
+        tile_produce_tma<TN>(ring, it, stages, pt,
+                             [&](uint32_t dq, uint32_t dp, uint32_t bar, int k0) {
+                               tma_load(dq, &qmap, k0, row0, gi, bar);
+                               tma_load_p(dp, &pmap, 3, col0, k0, gi, bar);
+                             });
+      else
+        tile_produce_elements<TN>(ring, it, stages, pt, q_all + gi * bb, b, b, row0,
+                                  p_all + gi * bb, b, b, col0, b);
     }
     return;
   }
-  __shared__ __align__(16) simt::Smem sm;
-  float acc[4][4];
-  simt_product(X, r_all + off, b, row0, col0, sm, acc, t);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = row0 + ty * 4 + r;
-    if (i >= b) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = col0 + tx * 4 + c;
-      if (j < b) O[(size_t)i * b + j] = X[(size_t)i * b + j] + acc[r][c];
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+  const int ct = threadIdx.x - PRODUCERS;
+  const int cw = ct / 128, t128 = ct % 128;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    int t, row0, col0;
+    const int gi = item_tile(s, i, t, row0, col0);
+    const size_t off = gi * bb;
+    float* C = c_all + off;
+    if (active != nullptr && !active[gi]) {     // frozen: uniform over the block
+      if (!RESIDUAL) copy_tile(q_all + off, C, b, row0, col0, ct);
+      continue;
+    }
+    float acc[G::FRAG];
+    tile_product<TN, TMA>(acc, ring, it, stages, cw, t128);
+    if (RESIDUAL) {
+      float ss = 0.f;
+      for_each_pair<TN>(acc, cw, t128, [&](int row, int col, float& v0, float& v1) {
+        const int r = row0 + row, j = col0 + col;
+        if (r >= b) return;
+        v0 = (r == j ? 1.f : 0.f) - v0;
+        v1 = (r == j + 1 ? 1.f : 0.f) - v1;
+        if (j < b) ss = fmaf(v0, v0, ss);
+        if (j + 1 < b) ss = fmaf(v1, v1, ss);
+        store_pair(C, b, r, j, v0, v1);
+      });
+      tile_ss(ss, red, s, gi, t, partials, counter, ss_out, ct);
+    } else if (interior && row0 + TN <= b && col0 + TM <= b) {
+      // a whole tile, 8-byte pairs: no branch between the loads, so they
+      // are all in flight at once; all of them before any store
+      const float* X = q_all + off + (size_t)row0 * b + col0;
+      for_each_pair<TN>(acc, cw, t128, [&](int row, int col, float& v0, float& v1) {
+        const float2 u = __ldcg(reinterpret_cast<const float2*>(X + (size_t)row * b + col));
+        v0 += u.x;
+        v1 += u.y;
+      });
+      float* O = C + (size_t)row0 * b + col0;
+      for_each_pair<TN>(acc, cw, t128, [&](int row, int col, float& v0, float& v1) {
+        *reinterpret_cast<float2*>(O + (size_t)row * b + col) = make_float2(v0, v1);
+      });
+    } else {
+      const float* X = q_all + off;
+      // all of the tile's X reads before any store
+      for_each_pair<TN>(acc, cw, t128, [&](int row, int col, float& v0, float& v1) {
+        const int r = row0 + row, j = col0 + col;
+        if (r >= b) return;
+        const float* x = X + (size_t)r * b + j;
+        if (j + 1 < b && (reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+          const float2 u = __ldcg(reinterpret_cast<const float2*>(x));
+          v0 += u.x;
+          v1 += u.y;
+        } else {
+          if (j < b) v0 += __ldcg(x);
+          if (j + 1 < b) v1 += __ldcg(x + 1);
+        }
+      });
+      for_each_pair<TN>(acc, cw, t128, [&](int row, int col, float& v0, float& v1) {
+        const int r = row0 + row;
+        if (r < b) store_pair(C, b, r, col0 + col, v0, v1);
+      });
     }
   }
 }
+
+// One launch: TMA from 3-D maps over the (g, b, b) buffers when b is a
+// multiple of 4 and Q's and P's bases are 16-byte aligned, else the
+// producers' element loads. blocks: the persistent blocks of threads
+// (kernels/newton_schulz.py tiled_geometry), 1 .. the launch's items.
+template <bool RESIDUAL>
+int launch(const void* q, const void* p, const void* active, void* c, void* partials,
+           void* counter, void* ss, int g, int b, int blocks, void* stream) {
+  if (g < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  Shape s{g, b, (b + TN - 1) / TN, 0};
+  s.tiles = s.nc * s.nc;
+  const long long items = (long long)g * s.tiles;
+  if (items > 0x7fffffffLL || blocks < 1 || blocks > items) return (int)cudaErrorInvalidValue;
+  const bool tma =
+      b % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(p)) % 16 == 0;
+  CUtensorMap qmap, pmap;
+  memset(&qmap, 0, sizeof(qmap));
+  memset(&pmap, 0, sizeof(pmap));
+  if (tma) {
+    const cuuint64_t dims[3] = {(cuuint64_t)b, (cuuint64_t)b, (cuuint64_t)g};
+    const cuuint64_t strides[2] = {(cuuint64_t)b * 4, (cuuint64_t)b * b * 4};
+    if (encode_q(&qmap, q, 3, dims, strides, TN) || encode_p(&pmap, p, 3, dims, strides))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = tma ? ns_tiled_kernel<true, RESIDUAL> : ns_tiled_kernel<false, RESIDUAL>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, NT, G::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, pmap, static_cast<const float*>(q), static_cast<const float*>(p),
+      static_cast<const int*>(active), static_cast<float*>(c), static_cast<float*>(partials),
+      static_cast<unsigned int*>(counter), static_cast<float*>(ss), s);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
 
 cudaLaunchConfig_t resident_config(int csize, int g, cudaStream_t stream,
                                    cudaLaunchAttribute* attr) {
@@ -584,30 +700,20 @@ extern "C" int ns_inverse_blocks(const void* m, void* x, void* alt, void* r, voi
                                  static_cast<int*>(trips), b, iters, tol);
 }
 
-// m, x (g, b, b), active (g,) i32 or null -> r (g, b, b), ss (g,); partials
-// (g, tiles) f32 scratch, counter (g,) u32 zeroed before the first launch.
+// m, x (g, b, b), active (g,) i32 or null -> r (g, b, b), ss (g,) (zeroed
+// by the caller: a frozen block's stays 0); partials (g, tiles) f32
+// scratch, counter (g,) u32 zeroed before the first launch; blocks as
+// tiled::launch takes it
 extern "C" int ns_tiled_residual(const void* m, const void* x, const void* active, void* r,
                                  void* partials, void* counter, void* ss, int g, int b,
-                                 void* stream) {
-  const int nt = (b + TILE - 1) / TILE;
-  if (g < 1 || b < 1 || g > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nt, nt, g);
-  ns_tiled_residual_kernel<<<grid, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), static_cast<const float*>(x),
-      static_cast<const int*>(active), static_cast<float*>(r), static_cast<float*>(partials),
-      static_cast<unsigned int*>(counter), static_cast<float*>(ss), b);
-  return (int)cudaGetLastError();
+                                 int blocks, void* stream) {
+  return tiled::launch<true>(m, x, active, r, partials, counter, ss, g, b, blocks, stream);
 }
 
 // x, r (g, b, b), active (g,) i32 or null -> out (g, b, b) = x + x r (x where
-// frozen)
+// frozen); out must not alias x or r
 extern "C" int ns_tiled_update(const void* x, const void* r, const void* active, void* out,
-                               int g, int b, void* stream) {
-  const int nt = (b + TILE - 1) / TILE;
-  if (g < 1 || b < 1 || g > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nt, nt, g);
-  ns_tiled_update_kernel<<<grid, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(r),
-      static_cast<const int*>(active), static_cast<float*>(out), b);
-  return (int)cudaGetLastError();
+                               int g, int b, int blocks, void* stream) {
+  return tiled::launch<false>(x, r, active, out, nullptr, nullptr, nullptr, g, b, blocks,
+                              stream);
 }

@@ -5,29 +5,33 @@ the tiled path's trip loop; the counterpart of ``repro/kernels/ops.py``
 * :func:`ns_inverse_blocks` (``csrc/newton_schulz.cu``) replaces the TPU
   kernel ``repro/kernels/newton_schulz.py::ns_inverse_blocks``: the whole
   iteration of each block in one launch, one cluster of up to 8 blocks of
-  threads per factor block, the iterates in scratch in device memory, the
-  products f32-accurate split TF32 products (3xTF32) on the tensor cores
-  over 128 x 128 output tiles (:func:`resident_tiles`).
+  threads per factor block, the iterates in scratch in device memory
+  (:func:`resident_tiles`).
 * :func:`ns_tiled_residual` and :func:`ns_tiled_update` replace
   ``::ns_tiled_residual`` and ``::ns_tiled_update``: ``R = I - M X`` with
-  ``||R||_F^2`` and ``X + X R``, one block of threads per 64 x 64 output
-  tile, frozen factor blocks skipped on the device.
+  ``||R||_F^2`` and ``X + X R``, persistent blocks of threads, one per SM,
+  over every (factor block, 128 x 128 output tile) item
+  (:func:`tiled_geometry`, :func:`tiled_item`), frozen factor blocks
+  skipped on the device.
 * :func:`ns_inverse_tiled` is ``ops.ns_inverse_tiled``'s trip loop, and
   :func:`ns_inverse` routes by block size as the JAX package does.
 
-All are bound by f32-accurate operations (4 b^3 a block and trip); the
-tiled pair still runs them on the CUDA cores. Every input is an
-already-damped, already-symmetrized ``M = F + lambda I`` block (g, b, b) f32
-(``kernels/dispatch.py`` owns that prep); a ragged b is masked in the
-kernels, not padded with a scaled identity as on the TPU, so the residual
-is that of the unpadded block. Each wrapper takes CUDA tensors only (the
-plain versions for the CPU are in :mod:`repro_torch.kernels.ref`), checks
-dtype, shape and layout, allocates outputs and scratch with ``torch.empty``,
-launches on the current stream and counts the launch in :data:`LAUNCHES`.
+All are bound by f32-accurate operations (4 b^3 a block and trip), and
+all run them as f32-accurate split TF32 products (3xTF32) on the tensor
+cores, on the 128 x 128 tile of ``csrc/f32_split_gemm.cuh``. Every input
+is an already-damped, already-symmetrized ``M = F + lambda I`` block
+(g, b, b) f32 (``kernels/dispatch.py`` owns that prep); a ragged b is
+masked in the kernels, not padded with a scaled identity as on the TPU, so
+the residual is that of the unpadded block. Each wrapper takes CUDA
+tensors only (the plain versions for the CPU are in
+:mod:`repro_torch.kernels.ref`), checks dtype, shape and layout, allocates
+outputs and scratch with ``torch.empty``, launches on the current stream
+and counts the launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,11 +55,12 @@ LAUNCHES: dict[str, int] = {"ns_inverse_blocks": 0, "ns_tiled_residual": 0,
 # blocks (wk.G, wv.G) run resident and the 2048 blocks tiled.
 NS_RESIDENT_MAX_DIM = 1024
 
-_TILE = 64          # csrc/newton_schulz.cu: the tiled pair's output tile edge
 # the resident kernel's output tile (res::TN rows x f32g::TM columns) and
 # its largest cluster (MAX_CLUSTER)
 RESIDENT_TILE = (128, 128)
 MAX_CLUSTER = 8
+# the tiled pair's output tile edge (tiled::TN = f32g::TM)
+TILED_TILE = 128
 
 
 def reset_launches() -> None:
@@ -134,6 +139,34 @@ def resident_cluster(g: int, b: int) -> int:
     return rc
 
 
+@functools.lru_cache(maxsize=None)
+def tiled_geometry(g: int, b: int, sms: int) -> tuple[int, int, int, int]:
+    """(tiles along a block's edge, tiles per factor block, work items,
+    blocks of threads) of one launch of the tiled pair on ``sms`` SMs: the
+    items are g x tiles (:func:`tiled_item`), one persistent block of
+    threads per SM (the ring's 193 KB of shared memory), block w taking
+    items w, w + blocks, ..."""
+    nc = -(-b // TILED_TILE)
+    items = g * nc * nc
+    return nc, nc * nc, items, min(items, sms)
+
+
+def tiled_item(i: int, g: int, b: int) -> tuple[int, int, int]:
+    """The kernel's item i (``tiled::item_tile``): (factor block, first
+    row, first column) of its output tile. Block-major, the tiles of a
+    block row-major."""
+    nc, tiles, _, _ = tiled_geometry(g, b, 1)
+    gi, t = divmod(i, tiles)
+    return gi, (t // nc) * TILED_TILE, (t % nc) * TILED_TILE
+
+
+def _tiled_launch(g: int, b: int, dev) -> tuple[int, int]:
+    """(tiles per factor block, blocks of threads) of a launch on dev."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, tiles, _, blocks = tiled_geometry(g, b, sms)
+    return tiles, blocks
+
+
 def ns_tiled_residual(m: torch.Tensor, x: torch.Tensor,
                       active: torch.Tensor | None = None):
     """R = I - M X and ss = ||R||_F^2 per block: m, x (g, b, b) ->
@@ -142,18 +175,18 @@ def ns_tiled_residual(m: torch.Tensor, x: torch.Tensor,
     name = "ns_tiled_residual"
     g, b = _blocks(name, m, x)
     act = _active_ptr(active, g, m.device)
-    nt = -(-b // _TILE)
     r = torch.empty_like(m)
     ss = torch.zeros(g, dtype=torch.float32, device=m.device)
-    partials = torch.empty((g, nt * nt), dtype=torch.float32,
-                           device=m.device)
-    counter = torch.zeros(g, dtype=torch.int32, device=m.device)
     lib = build.load()["newton_schulz"]
     with torch.cuda.device(m.device):
+        tiles, blocks = _tiled_launch(g, b, m.device)
+        partials = torch.empty((g, tiles), dtype=torch.float32,
+                               device=m.device)
+        counter = torch.zeros(g, dtype=torch.int32, device=m.device)
         rc = lib.ns_tiled_residual(m.data_ptr(), x.data_ptr(), act,
                                    r.data_ptr(), partials.data_ptr(),
                                    counter.data_ptr(), ss.data_ptr(), g, b,
-                                   stream(m))
+                                   blocks, stream(m))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return r, ss
@@ -169,8 +202,9 @@ def ns_tiled_update(x: torch.Tensor, r: torch.Tensor,
     out = torch.empty_like(x)
     lib = build.load()["newton_schulz"]
     with torch.cuda.device(x.device):
+        _, blocks = _tiled_launch(g, b, x.device)
         rc = lib.ns_tiled_update(x.data_ptr(), r.data_ptr(), act,
-                                 out.data_ptr(), g, b, stream(x))
+                                 out.data_ptr(), g, b, blocks, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
