@@ -315,49 +315,88 @@ def check_prefill_kernel(torch) -> float:
     return worst
 
 
-def _decode_case(torch, gen, n, c, fmt):
+def _decode_case(torch, gen, n, g, hd, c, kind, offset=0):
+    """q (n, g, hd) f32 and the cache (n, c, hd) in ``kind``: f32, bf16, or
+    an fp8 payload with its (n, c) row scales; an f32 cache ``offset``
+    elements into a fresh buffer (1: rows off 16-byte boundaries)."""
     from repro_torch.quant import quant
-    q = torch.randn((n, 4, 64), generator=gen, device="cuda")
-    k = torch.randn((n, c, 64), generator=gen, device="cuda")
-    v = torch.randn((n, c, 64), generator=gen, device="cuda")
-    if fmt is None:
+    q = torch.randn((n, g, hd), generator=gen, device="cuda")
+
+    def rows():
+        buf = torch.randn((n * c * hd + offset,), generator=gen,
+                          device="cuda")
+        return buf[offset:].view(n, c, hd)
+    k, v = rows(), rows()
+    if kind == "bf16":
+        return q, k.bfloat16(), v.bfloat16(), None, None
+    if kind == "f32":
         return q, k, v, None, None
-    kp, ks = quant.quantize_rows(k, fmt)
-    vp, vs = quant.quantize_rows(v, fmt)
+    kp, ks = quant.quantize_rows(k, kind)
+    vp, vs = quant.quantize_rows(v, kind)
     return q, kp, vp, ks, vs
 
 
+def _split_positions(torch, gen, n, c, window, per):
+    """(n,) positions: 0, c - 1, both sides of every split boundary (the
+    last slot of split s - 1 and the first of split s), for a ring also
+    each of those one lap on (wrapped), the rest random."""
+    edges = [0, c - 1] + [e for b in range(per, c, per) for e in (b - 1, b)]
+    if window:
+        edges += [c + e for e in edges]
+    check(len(edges) <= n, f"{len(edges)} boundary positions > {n} lanes")
+    pos = torch.randint(0, 3 * c, (n,), generator=gen, device="cuda")
+    pos[:len(edges)] = torch.tensor(edges, device="cuda")
+    return pos.to(torch.int32)
+
+
 def check_decode_kernel(torch) -> float:
+    """swa_flash_decode against its plain version at DEC_TOL: the dense f32
+    cache and the fp8 rings at the paths' shapes, then hd 128, a bf16
+    cache, G 1 and G 16, rows off 16-byte boundaries (the element loads),
+    each with a query at both sides of every split boundary
+    (``decode_splits``) and at 0 and C - 1 (unwrapped and wrapped on a
+    ring), so that splits with nothing visible occur; every case launched
+    twice, the two bit-identical."""
     from repro_torch.kernels import ref, swa_attention
     from repro_torch.quant import quant
     gen = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = 64
     worst = 0.0
-    dense_pos = torch.randint(0, 1024, (n,), generator=gen, device="cuda")
-    dense_pos[:3] = torch.tensor([0, 1023, 511], device="cuda")
-    ring_pos = torch.randint(0, 3000, (n,), generator=gen, device="cuda")
-    ring_pos[:5] = torch.tensor([0, 254, 255, 256, 1000], device="cuda")
-    cases = [("dense f32 C=1024", 1024, 0, None, dense_pos),
-             ("ring e4m3 C=window=256", 256, 256, "e4m3", ring_pos),
-             ("ring e5m2 C=window=256", 256, 256, "e5m2", ring_pos)]
-    for label, c, window, fmt, pos in cases:
-        pos = pos.to(torch.int32)
-        q, k, v, ks, vs = _decode_case(torch, gen, n, c, fmt)
+    cases = [(4, 64, 1024, 0, "f32", 0), (4, 64, 256, 256, "e4m3", 0),
+             (4, 64, 256, 256, "e5m2", 0), (4, 128, 1024, 0, "bf16", 0),
+             (1, 64, 1024, 0, "f32", 0), (16, 128, 1024, 0, "f32", 0),
+             (16, 64, 512, 512, "bf16", 0), (1, 128, 256, 256, "e4m3", 0),
+             (16, 128, 256, 256, "e5m2", 0), (4, 64, 1024, 0, "f32", 1)]
+    for g, hd, c, window, kind, off in cases:
+        splits, per = swa_attention.decode_splits(n, c, hd, sms)
+        pos = _split_positions(torch, gen, n, c, window, per)
+        q, k, v, ks, vs = _decode_case(torch, gen, n, g, hd, c, kind, off)
         got = swa_attention.swa_flash_decode(q, k, v, pos, window=window,
                                              k_scale=ks, v_scale=vs)
+        again = swa_attention.swa_flash_decode(q, k, v, pos, window=window,
+                                               k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"swa_flash_decode G={g} hd={hd} "
+              f"{kind} C={c}: two launches on the same inputs differ")
         want = ref.swa_decode_ref(q, k, v, pos, window=window, k_scale=ks,
                                   v_scale=vs)
         torch.testing.assert_close(got, want, **DEC_TOL)
         err = _max_err(torch, got, want)
         worst = max(worst, err)
-        say("decode-kernel", f"N={n} G=4 hd=64 {label}: max|err|={err:.3e} "
-                             f"(tol {DEC_TOL})")
+        say("decode-kernel", f"N={n} G={g} hd={hd} "
+                             f"{'ring' if window else 'dense'} {kind} C={c}"
+                             f"{', rows off 16-byte boundaries' if off else ''}, "
+                             f"{splits} splits of {per} slots, positions on "
+                             f"every split boundary: max|err|={err:.3e} (tol "
+                             f"{DEC_TOL}); a second launch identical")
     # the serving paths' calls: bf16 q and the (B, KV, C, hd) view of the
     # serving cache, read in place through strides -- the dense f32 cache of
     # the main path (B=8, C=1024) and the fp8 e4m3 ring of the ring path
     # (B=4, C=window=256) with its (B, KV, C) scale views
-    view_cases = [("dense f32", 8, 1024, 0, None, dense_pos[:8]),
+    view_cases = [("dense f32", 8, 1024, 0, None,
+                   torch.tensor([0, 1023, 511, 63, 64, 700, 128, 300],
+                                device="cuda")),
                   ("ring e4m3", 4, 256, 256, "e4m3",
                    torch.tensor([0, 256, 511, 1000], device="cuda"))]
     for label, b, c, window, fmt, lane_pos in view_cases:
@@ -376,7 +415,12 @@ def check_decode_kernel(torch) -> float:
         got = swa_attention.swa_flash_decode(q, kview, vview, pos,
                                              window=window, k_scale=ks,
                                              v_scale=vs)
+        again = swa_attention.swa_flash_decode(q, kview, vview, pos,
+                                               window=window, k_scale=ks,
+                                               v_scale=vs)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"swa_flash_decode cache view "
+                                       f"{label}: two launches differ")
         flat = (lambda t: None if t is None else t.reshape(b * kv, c))
         want = ref.swa_decode_ref(
             q.float(), kview.reshape(b * kv, c, 64),
@@ -387,7 +431,8 @@ def check_decode_kernel(torch) -> float:
         worst = max(worst, err)
         say("decode-kernel", f"cache view ({b}, {kv}, {c}, 64) {label}, "
                              f"bf16 q, positions {lane_pos.tolist()}: "
-                             f"max|err|={err:.3e} (tol {DEC_TOL})")
+                             f"max|err|={err:.3e} (tol {DEC_TOL}); a second "
+                             f"launch identical")
     return worst
 
 
@@ -720,9 +765,14 @@ def time_kernels(torch, main_path, ring) -> dict:
     lib_r = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         qr.float().view(nb, kv * g, 1, hd), kdq, vdq, enable_gqa=True))
     say("times", f"swa_flash_decode N={nb * kv} G={g} hd={hd} fp8 e4m3 ring "
-                 f"C=256: ms {ring_ms:.4f}, bound_ms {bound_r:.6f} ({by_r}), "
-                 f"library_ms (SDPA over the dequantized ring) {lib_r:.4f}; "
+                 f"C=256: ms {ring_ms:.6f}, bound_ms {bound_r:.6f} ({by_r}), "
+                 f"library_ms (SDPA over the dequantized ring) {lib_r:.6f}; "
                  f"{card_note(torch)}")
+    # the least any launch reads as in this harness: an empty kernel
+    floor = _time_ms(torch, lambda: torch.cuda._sleep(0))
+    say("times", f"an empty launch (torch.cuda._sleep(0)) reads ms "
+                 f"{floor:.6f} in _time_ms (L2 flushed, launch latency "
+                 f"included); {card_note(torch)}")
     say("path", f"prefill {main_path['prefill_tps']:.1f} tokens/s, decode "
                 f"{main_path['decode_tps']:.1f} tokens/s at 8 lanes")
     return res
@@ -1852,8 +1902,11 @@ def check_fp8_kernels(torch) -> dict:
     """quant_rows and dequant_rows against their plain versions, bit for
     bit: the history rows of the path (64 x 2,098,176 at b 2048, 32 x
     131,328 at b 512), a ragged b 1000 (t 500,500), zero rows, e5m2, pow2
-    scales, a clipped outlier and rows off 16-byte alignment (the element
-    path). factor_syrk_wire at n 4096, b 512 / 1000 / 1024, bf16 and f32:
+    scales, a clipped outlier, rows off 16-byte alignment (the element
+    path), the wire route's 1 and 4 rows of 2,098,176 and a row longer
+    than the resident route takes (the long-row route); quant_rows
+    launched twice, the two bit-identical. factor_syrk_wire at n 4096, b
+    512 / 1000 / 1024, bf16 and f32:
     payload and scales bit-identical to quant_rows' plain version on the
     kernel's own f32 sums (its scratch), those sums within
     WIRE_SCALE_REL_TOL of the plain sums, and against the plain composition
@@ -1868,20 +1921,37 @@ def check_fp8_kernels(torch) -> dict:
     from repro_torch.quant import quant
     gen = torch.Generator(device="cuda").manual_seed(10)
     worst = {"quant_rows": 0.0, "dequant_rows": 0.0, "factor_syrk_wire": 0.0}
+    grid = qk.resident_grid(torch.device("cuda"))
     cases = [(64, 2098176, "e4m3", "fp32", (), 0),
              (32, 131328, "e4m3", "fp32", (), 0),
              (4, 500500, "e4m3", "fp32", (1,), 0),
              (16, 131328, "e5m2", "fp32", (3,), 0),
              (16, 131328, "e4m3", "pow2", (0,), 0),
              (4, 500500, "e5m2", "pow2", (), 0),
-             (3, 561, "e4m3", "fp32", (2,), 1)]
+             (3, 561, "e4m3", "fp32", (2,), 1),
+             (1, 2098176, "e4m3", "fp32", (), 0),
+             (4, 2098176, "e5m2", "pow2", (2,), 0),
+             (5, 100003, "e4m3", "fp32", (4,), 1),
+             (2, 2600000, "e4m3", "fp32", (), 0)]
+    check(cases[-1][1] > grid * qk.QUANT_SLICE_MAX,
+          f"the last case must take the long-row route on {grid} blocks")
     for g, t, fmt, mode, zero, off in cases:
+        slice_ = qk.quant_slice(g, t, grid)
+        route = (f"resident route, items of {slice_}" if slice_ else
+                 "long-row route")
+        check(bool(slice_) != (t > grid * qk.QUANT_SLICE_MAX),
+              f"quant_rows ({g}, {t}): {route} on {grid} blocks")
         x = _fp8_rows(torch, gen, g, t, zero, off)
         if g == 3:
             x[0, 5] = 1e30                # clipped, never NaN
         p, sc = qk.quant_rows(x, fmt, mode)
+        p2, sc2 = qk.quant_rows(x, fmt, mode)
         d = qk.dequant_rows(p, sc)
         torch.cuda.synchronize()
+        check(torch.equal(p.view(torch.uint8), p2.view(torch.uint8))
+              and torch.equal(sc, sc2), f"quant_rows ({g}, {t}): two "
+                                        f"launches on the same rows differ")
+        del p2, sc2
         rp, rs = ref.quant_rows_ref(x, fmt, mode)
         rd = ref.dequant_rows_ref(rp, rs)
         bad_p = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
@@ -1903,9 +1973,10 @@ def check_fp8_kernels(torch) -> dict:
                                     _max_err(torch, d, rd))
         say("fp8-kernel", f"quant_rows + dequant_rows ({g}, {t}) {fmt} {mode}"
                           f"{', zero rows ' + str(list(zero)) if zero else ''}"
-                          f"{', 16-byte misaligned' if off else ''}: payload, "
-                          f"scales and decode bit-identical to the plain "
-                          f"versions")
+                          f"{', 16-byte misaligned' if off else ''}, {route}:"
+                          f" payload, scales and decode bit-identical to the "
+                          f"plain versions; a second quant_rows launch "
+                          f"identical")
         del x, p, sc, d, rp, rs, rd
     torch.cuda.empty_cache()
 
@@ -2190,7 +2261,8 @@ def time_fp8_kernels(torch) -> dict:
     """The three fp8 kernels at the training path's shapes beside their
     bound, plain version and library call: quant_rows and dequant_rows on
     the largest history family (64 rows of 2,098,176: mlp up/gate G, 16
-    layers x 4 blocks of 2048), and on the b 512 family (16 x 131,328)
+    layers x 4 blocks of 2048), and on the b 512 family (16 x 131,328);
+    quant_rows at the b > 1024 wire route's 1 and 4 rows of 2,098,176
     (factor_syrk_wire: time_factor_sums)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import quant as qk
@@ -2221,9 +2293,19 @@ def time_fp8_kernels(torch) -> dict:
     b_s, _ = _bound(0, g * t * 5 + 4 * g, x.dtype)
     q_s = _time_ms(torch, lambda: qk.quant_rows(x, "e4m3"))
     d_s = _time_ms(torch, lambda: qk.dequant_rows(p, sc))
-    say("times", f"quant_rows ({g}, {t}): ms {q_s:.4f}; dequant_rows ms "
-                 f"{d_s:.4f}; bound_ms {b_s:.6f} (bytes); {card_note(torch)}")
+    say("times", f"quant_rows ({g}, {t}): ms {q_s:.6f}; dequant_rows ms "
+                 f"{d_s:.6f}; bound_ms {b_s:.6f} (bytes); {card_note(torch)}")
     del x, p, sc
+    # the b > 1024 wire route's shapes: one block of 2048 (nb 1) and the
+    # mlp down projection's four (d 8192)
+    for g in (1, 4):
+        x = _fp8_rows(torch, gen, g, 2098176)
+        b_w, _ = _bound(0, x.numel() * 5 + 4 * g, x.dtype)
+        q_w = _time_ms(torch, lambda: qk.quant_rows(x, "e4m3"))
+        say("times", f"quant_rows ({g}, 2098176) f32 -> e4m3 (wire route): "
+                     f"ms {q_w:.6f}; bound_ms {b_w:.6f} (bytes); "
+                     f"{card_note(torch)}")
+        del x
     torch.cuda.empty_cache()
     return res
 

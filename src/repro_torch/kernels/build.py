@@ -49,10 +49,10 @@ SIGNATURES = {
         "swa_flash": [_P] * 4 + [_I] * 8 + [_F, _P],
     },
     "swa_flash_decode": {
-        # q, k, v, k_scale, v_scale, pos, out, N, G, C, hd, window,
-        # q_dtype, kv_dtype, scale, kvh, s_b, s_h, s_c, sc_b, sc_h, sc_c,
-        # stream
-        "swa_flash_decode": [_P] * 7 + [_I] * 7 + [_F, _I] + [_L] * 6 + [_P],
+        # q, k, v, k_scale, v_scale, pos, out, part, counters, N, G, C, hd,
+        # window, q_dtype, kv_dtype, splits, per, scale, kvh, s_b, s_h, s_c,
+        # sc_b, sc_h, sc_c, stream
+        "swa_flash_decode": [_P] * 9 + [_I] * 9 + [_F, _I] + [_L] * 6 + [_P],
     },
     "swa_flash_bwd": {
         # q, k, v, lse, delta, do, dq, bkv, G, S, hd, window, bq, bk,
@@ -70,10 +70,13 @@ SIGNATURES = {
         "factor_syrk_wire": [_P] * 7 + [_I] * 9 + [_F, _P],
     },
     "quant_pack": {
-        # x, payload, scale, amax, g, t, fmt, pow2, inv_max, stream
-        "quant_rows": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_F, _P],
-        # payload, scale, out, g, t, fmt, stream
-        "dequant_rows": [_P] * 3 + [_L] * 2 + [_I, _P],
+        # x, payload, scale, scratch, g, t, fmt, pow2, inv_max, grid, slice,
+        # sms, stream
+        "quant_rows": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
+        # -> the resident route's grid on the current device
+        "quant_rows_grid": [],
+        # payload, scale, out, g, t, fmt, sms, stream
+        "dequant_rows": [_P] * 3 + [_L] * 2 + [_I] * 2 + [_P],
     },
     "kfac_precond": {
         # binv, w, out, b, dim, other, ldw, ldo, nb, right, blocks, stream

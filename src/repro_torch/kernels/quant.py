@@ -2,8 +2,13 @@
 
 * :func:`quant_rows` (``csrc/quant_pack.cu``) replaces the TPU kernel
   ``repro/kernels/quant_pack.py::quant_rows``: per row of a (g, t) f32
-  matrix, amax, the scale, the clip and the fp8 cast, as two launches (a
-  max pass over row chunks, then a quantize pass). Bound by bytes.
+  matrix, amax, the scale, the clip and the fp8 cast. Bound by bytes. One
+  cooperative launch of blocks all resident (:func:`resident_grid`) reads
+  x from HBM once: rows cut into items of :func:`quant_slice` elements,
+  dealt to the blocks in waves of whole rows (:func:`quant_items`), each
+  item held in shared memory until its row's amax is complete. A row with
+  more items than blocks takes the long-row route (a max pass, then a
+  quantize pass that reads x again), chosen here by size.
 * :func:`dequant_rows` (``csrc/quant_pack.cu``) replaces
   ``::dequant_rows``: ``payload.f32 * scale`` per row. Bound by bytes.
 * :func:`factor_syrk_wire` (``csrc/kfac_factor.cu``) replaces
@@ -24,10 +29,13 @@ current stream and counts the launch in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import on_card, require, stream
+from repro_torch.kernels.common import (counters, on_card, require,
+                                        sm_count, stream)
 from repro_torch.kernels.kfac import SYRK_DTYPES, syrk_buffers
 from repro_torch.quant import quant as q
 
@@ -36,9 +44,78 @@ LAUNCHES: dict[str, int] = {"quant_rows": 0, "dequant_rows": 0,
                             "factor_syrk_wire": 0}
 
 
+# csrc/quant_pack.cu: the most elements of one work item of the resident
+# route (three buffers of it fill an SM's shared memory) and the granule
+# of an item's length
+QUANT_SLICE_MAX = 18432
+QUANT_SLICE_ALIGN = 64
+# the fixed cost of an item (its barrier, publish and wait), in elements
+# moved: the slice choice weighs it against the items' length
+QUANT_ITEM_COST = 4096
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_grid(index: int) -> int:
+    lib = build.load()["quant_pack"]
+    with torch.cuda.device(index):
+        grid = lib.quant_rows_grid()
+    build.check(-min(grid, 0), "quant_rows_grid")
+    return grid
+
+
+def resident_grid(device: torch.device) -> int:
+    """Blocks of quant_rows' resident route that ``device`` holds at once
+    (the occupancy API's count an SM times the SMs): its cooperative
+    launch's grid."""
+    return _resident_grid(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def quant_slice(g: int, t: int, grid: int) -> int:
+    """Elements per work item of quant_rows' resident route on ``grid``
+    co-resident blocks, or 0 for the long-row route. The (g, t) rows are
+    cut into items of ``slice`` elements, P = ceil(t / slice) a row, and a
+    wave of the grid holds floor(grid / P) whole rows (:func:`quant_items`).
+    Of the slices up to QUANT_SLICE_MAX (a multiple of the granule), the
+    one with the least work per block is taken, waves x (slice +
+    QUANT_ITEM_COST), the fewer waves and then the fewer items a row
+    breaking ties. A row of more than grid x QUANT_SLICE_MAX elements takes
+    the two-pass body."""
+    a = QUANT_SLICE_ALIGN
+    if -(-t // QUANT_SLICE_MAX) > grid:
+        return 0
+    best = None
+    for p in range(-(-t // QUANT_SLICE_MAX), grid + 1):
+        share = -(-t // p)
+        sl = -(-share // a) * a
+        waves = -(-g // (grid // -(-t // sl)))
+        cost = (waves * (sl + QUANT_ITEM_COST), waves)
+        if best is None or cost < best[0]:
+            best = (cost, sl)
+    return best[1]
+
+
+def quant_items(g: int, t: int, grid: int, slice_: int
+                ) -> list[tuple[int, int, int, int, int]]:
+    """The resident route's schedule, row by row: (block, wave, row, first
+    element, end) of each item (elements counted in the row). Slice s of
+    row r goes to block ``(r % R) * P + s`` in wave ``r // R``, R =
+    floor(grid / P) rows a wave: every block takes at most one item a wave,
+    and a row lies in one wave."""
+    per_row = -(-t // slice_)
+    rows = grid // per_row
+    out = []
+    for r in range(g):
+        for s in range(per_row):
+            lo = s * slice_
+            out.append(((r % rows) * per_row + s, r // rows, r, lo,
+                        min(lo + slice_, t)))
+    return out
 
 
 def _fmt_args(name: str, fmt: str, scale_mode: str) -> tuple[int, int, float]:
@@ -64,11 +141,17 @@ def quant_rows(x: torch.Tensor, fmt: str = "e4m3",
     scale = torch.empty((g,), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return payload, scale.fill_(1.0)
-    amax = torch.empty((g,), dtype=torch.int32, device=x.device)
+    grid = resident_grid(x.device)
+    slice_ = quant_slice(g, t, grid)
+    # the resident route's amax and arrival counters (2g, left zero), or
+    # the long-row route's amax (g, zeroed by the kernel)
+    scratch = (counters(x, 2 * g) if slice_ else
+               torch.empty((g,), dtype=torch.int32, device=x.device))
     lib = build.load()["quant_pack"]
     with torch.cuda.device(x.device):
         rc = lib.quant_rows(x.data_ptr(), payload.data_ptr(), scale.data_ptr(),
-                            amax.data_ptr(), g, t, code, pow2, inv_max,
+                            scratch.data_ptr(), g, t, code, pow2, inv_max,
+                            grid, slice_, sm_count(x.device.index),
                             stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
@@ -97,6 +180,7 @@ def dequant_rows(payload: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         rc = lib.dequant_rows(payload.data_ptr(), scale.data_ptr(),
                               out.data_ptr(), g, t,
                               build.DTYPE_CODES[payload.dtype],
+                              sm_count(payload.device.index),
                               stream(payload))
     build.check(rc, name)
     LAUNCHES[name] += 1

@@ -18,7 +18,10 @@
 * :func:`swa_flash_decode` (``csrc/swa_flash_decode.cu``) replaces
   ``repro/kernels/swa_attention.py::swa_flash_decode``: single-query flash
   decode over a dense or ring cache in its stored dtype, fp8 dequantized on
-  read. Bound by the bytes of the visible cache rows.
+  read. Bound by the bytes of the visible cache rows. Split-K: the cache's
+  slots are cut into :func:`decode_splits`, a block each, and the last
+  block of a row to arrive merges the partials in split order, in the same
+  launch.
 * :func:`swa_flash_bwd` (``csrc/swa_flash_bwd.cu``) replaces
   ``repro/kernels/swa_attention.py::swa_flash_bwd_dq`` and
   ``::swa_flash_bwd_dkdv``: the training backward from the forward's
@@ -44,7 +47,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import on_card, require, stream
+from repro_torch.kernels.common import (counters, on_card, require,
+                                        sm_count, stream)
 
 # kernel name -> number of launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"swa_flash": 0, "swa_flash_fwd": 0,
@@ -56,6 +60,10 @@ _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
 _HEAD_DIMS = (64, 128)
 MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
 MAX_HEADS = 65535   # csrc/swa_flash.cu MAX_GRID_Y
+# the decode's split-K (csrc/swa_flash_decode.cu MAX_SPLITS): blocks an SM
+# it aims for, and the most splits one merge reads
+DECODE_BLOCKS_PER_SM = 4
+DECODE_MAX_SPLITS = 64
 
 # the forward walks' query rows per block and keys per tile: bf16 on the
 # tensor cores (csrc/swa_flash_wgmma.cuh BQ and Geo<hd>::BK), f32 on the
@@ -171,9 +179,26 @@ def block_items(b: int, blocks: int, items: int) -> list[int]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def decode_tile(hd: int) -> int:
+    """Cache slots a decode block stages in shared memory at a time
+    (``csrc/swa_flash_decode.cu`` Tile<HD>::T): 16 KB of f32 K rows."""
+    return 4096 // hd
+
+
+def decode_splits(n: int, c: int, hd: int, sms: int) -> tuple[int, int]:
+    """(splits S, slots per split) of one decode launch over ``n`` (lane,
+    KV head) rows of a ``c``-slot cache: split s takes slots [s * per,
+    (s + 1) * per), ``per`` a whole number of tiles. The launch is n x S
+    blocks; S is chosen so that n * S reaches DECODE_BLOCKS_PER_SM blocks
+    an SM where the cache has tiles for it, at most DECODE_MAX_SPLITS, and
+    no split is empty of slots. It depends on shapes only: the host never
+    reads ``pos``."""
+    tile = decode_tile(hd)
+    tiles = -(-c // tile)
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(n, 1))
+    s = max(1, min(tiles, want, DECODE_MAX_SPLITS))
+    per = -(-tiles // s)
+    return -(-tiles // per), per * tile
 
 
 def _blocks(q: torch.Tensor, heads: int, tiles: int) -> int:
@@ -181,7 +206,7 @@ def _blocks(q: torch.Tensor, heads: int, tiles: int) -> int:
     items (0 for f32, whose bodies launch a block per tile and head)."""
     if q.dtype != torch.bfloat16:
         return 0
-    return walk_blocks(heads * tiles, _sm_count(q.device.index))
+    return walk_blocks(heads * tiles, sm_count(q.device.index))
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
@@ -341,15 +366,22 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n == 0:
         return out
     require(c > 0, f"{name}: empty cache")
+    splits, per = decode_splits(n, c, hd, sm_count(q.device.index))
+    # each block's partial (acc, m, d), and the merge's arrival counters
+    part = torch.empty((n, splits, g * hd + 2 * g), dtype=torch.float32,
+                       device=q.device)
+    arrived = counters(q, n)
     lib = build.load()["swa_flash_decode"]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            pos.data_ptr(), out.data_ptr(), n, g, c, hd, int(window),
-            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
-            hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3], stream(q))
+            pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+            arrived.data_ptr(), n, g, c, hd, int(window),
+            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype], splits,
+            per, hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3],
+            stream(q))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
