@@ -10,14 +10,19 @@ kernel against its plain PyTorch version on the card, serves
 ``llama3_2_1b`` at full width (random weights from a seed) through
 ``ContinuousBatcher`` -- once on the default dense cache, once on the fp8
 ring cache -- then holds one SP-NGD capture step on the kernels against
-``backend="ref"`` (full width, 2 layers, f32) and trains full-width
-``llama3_2_1b`` for 4 steps of ``repro_torch.launch.train``'s loop (each a
-capture step or a fast step as the staleness controller decides), then
-for a warm-up and three timed steps of the fast-step builder. Then the same
-for Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): a
-capture step on the kernels against ``backend="ref"`` (2 layers, f32) and
-full-width training for 2 loop steps and the fast-step builder's warm-up
-and three timed steps. Then the fp8 factor slice: the quant_rows,
+``backend="ref"`` (full width, 2 layers, f32), the same with Stage 4 by
+Newton-Schulz, and two capture steps and a fast step of the double-buffered
+optimizer (``NGDConfig(double_buffer=True)``), with the staged and active
+buffers' identities; trains full-width ``llama3_2_1b`` for 4 steps of
+``repro_torch.launch.train``'s loop (each a capture step or a fast step as
+the staleness controller decides), then for a warm-up and three timed steps
+of the fast-step builder; then a warm-up and three timed steps of momentum
+SGD (``repro_torch.optim.SGD``) on a fresh model, beside the fast step.
+Then Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): its
+kernels against the plain iteration, full-width training for 2 loop steps
+and the fast-step builder's warm-up and three timed steps, and again with
+the double buffer (2 loop + 2 fast steps), its walls and peak memory beside
+the single-buffer run's. Then the fp8 factor slice: the quant_rows,
 dequant_rows and factor_syrk_wire kernels against their plain versions, a
 capture step with the fp8 history and fused e4m3 capture on the kernels
 against ``backend="ref"`` (2 layers, f32), and full-width training with
@@ -89,6 +94,8 @@ ROUTE_REL_TOL = 1e-4
 TRAIN = dict(steps=4, batch=4, seq=1024, lr=2e-2, damping=2.5e-4)
 # make_fast_step steps timed after the loop (and one warm-up before them)
 FAST_TIMED = 3
+# momentum-SGD steps timed on a fresh model (and one warm-up before them)
+SGD_TIMED = 3
 # the Newton-Schulz training path: 2 loop steps (both capture at random init)
 TRAIN_NS = dict(TRAIN, steps=2)
 # Newton-Schulz, the whole inverse against the plain iteration on the same
@@ -187,20 +194,6 @@ def main(argv: list[str]) -> int:
     del main_path, ring
     torch.cuda.empty_cache()
 
-    check_train_route(torch)
-    check_ns_route(torch)
-    train = train_path(torch)
-    launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
-    times.update(time_train_kernels(torch))
-    times.update(time_factor_sums(torch))
-    profile_train(torch, train)
-
-    errs.update(check_ns_kernels(torch))
-    ns_path = train_path_ns(torch, train)
-    launches.update({k: ns_path["launches"][k] for k in NS_KERNELS})
-    times.update(time_ns_kernels(torch))
-    t_fp8 = time.perf_counter()
-
     clock = {}
 
     def timed(fn, *args):
@@ -208,6 +201,24 @@ def main(argv: list[str]) -> int:
         out = fn(*args)
         clock[fn.__name__] = time.perf_counter() - t
         return out
+
+    single = check_train_route(torch)
+    check_ns_route(torch)
+    timed(check_db_route, torch, single)
+    del single
+    train = train_path(torch)
+    launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
+    times.update(time_train_kernels(torch))
+    times.update(time_factor_sums(torch))
+    profile_train(torch, train)
+    timed(sgd_path, torch, train)
+
+    errs.update(check_ns_kernels(torch))
+    ns_path = train_path_ns(torch, train)
+    launches.update({k: ns_path["launches"][k] for k in NS_KERNELS})
+    timed(train_path_ns_db, torch, ns_path)
+    times.update(time_ns_kernels(torch))
+    t_fp8 = time.perf_counter()
     errs.update(timed(check_fp8_kernels, torch))
     timed(check_fp8_route, torch)
     fp8_path = timed(train_path_fp8, torch, train)
@@ -221,7 +232,7 @@ def main(argv: list[str]) -> int:
     t_end = time.perf_counter()
     say("clock", f"{t_end - t_start:.1f} s from the build on, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s and the swa_attention phases "
-                 f"{t_end - t_swa:.1f} s of it ("
+                 f"{t_end - t_swa:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
     rows = []
@@ -1097,10 +1108,11 @@ def _route_step(torch, cfg, batch, backend: str, capture=None,
     return out
 
 
-def check_train_route(torch) -> None:
+def check_train_route(torch) -> dict:
     """One SP-NGD capture step at full width, 2 layers, f32, through the
     kernels and again with backend="ref" on the card: the loss, the raw
-    factor families and the updated params agree."""
+    factor families and the updated params agree. Returns the kernel
+    run's preconditioners ({"fam.key": tensor})."""
     cfg = _route_cfg(torch)
     batch = _train_batch(torch, cfg.vocab, 2, 512)
     k, r = (_route_step(torch, cfg, batch, b) for b in ("auto", "ref"))
@@ -1119,6 +1131,7 @@ def check_train_route(torch) -> None:
                        f"{len(r['raw'])} raw factor families {worst_raw:.3e}, "
                        f"over {len(r['params'])} updated params {worst_p:.3e} "
                        f"(tol {ROUTE_REL_TOL})")
+    return k["precond"]
 
 
 def check_ns_route(torch) -> None:
@@ -1342,7 +1355,8 @@ def train_path(torch) -> dict:
     return {"launches": launches, "model": model, "opt": opt,
             "params": params, "state": state, "cfg": cfg,
             "first_loss": recs[0]["loss"], "stage4_s": s4.seconds,
-            "refreshes": len(cap), "peak": peak}
+            "refreshes": len(cap), "peak": peak,
+            "fast_median": statistics.median(fast_s)}
 
 
 def _attn_inputs(torch, gen, bkv, g, s, hd, dtype):
@@ -1684,6 +1698,7 @@ def train_path_ns(torch, eigh_train) -> dict:
             params, state, recs = train.run(
                 model, opt, params, state,
                 log=lambda m: say("ns-train-path", m), **TRAIN_NS)
+        held = _precond_bytes(state)
         params, state = _fast_steps(torch, model, opt, params, state, recs,
                                     TRAIN_NS, "ns-train-path")
     finally:
@@ -1772,7 +1787,308 @@ def train_path_ns(torch, eigh_train) -> dict:
                              1e-4, 0.0), warm=False)
     del model, opt, params, state
     torch.cuda.empty_cache()
+    return {"launches": launches, "peak": peak, "held": held,
+            "cap_s": cap_s, "fast_s": fast_s}
+
+
+def _precond_bytes(state) -> int:
+    """Bytes of the distinct storages behind the preconditioner buffers
+    (precond and, double-buffered, precond_next) of an SP-NGD state: an
+    initial identity view costs its one row, two buffers holding the same
+    tensors count once."""
+    seen = {}
+    for c in state["curv"].values():
+        for slot in ("precond", "precond_next"):
+            for v in c.get(slot, {}).values():
+                st = v.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _db_route(torch, cfg) -> dict:
+    """Two capture steps (every statistic refreshed) and one fast step of
+    the double-buffered optimizer from the seed-0 model on the batches 0,
+    1, 2 of the stream, on the kernels; before each, a second optimizer
+    with backend="ref" takes the kernel run's params and state as they
+    stand and runs the same step. Returns, per step, the kernel run's
+    copies of both buffers, whether they hold the same tensors, both
+    losses, and the worst max|err|/max of the buffers and of the params
+    between the two runs; and the initial active buffer."""
+    from repro_torch.core.fisher import flatten
+    from repro_torch.launch import train
+    runs = {b: train.build(cfg=cfg, backend=b, device="cuda",
+                           double_buffer=True) for b in ("auto", "ref")}
+    steps = {b: (train.make_train_step(m, o), train.make_fast_step(m, o))
+             for b, (m, o, _, _) in runs.items()}
+    _, kopt, kparams, kstate = runs["auto"]
+    rparams = runs["ref"][2]
+    init = {f"{fam}.{k}": v.clone() for fam, c in kstate["curv"].items()
+            for k, v in c["precond"].items()}
+    flags = {k: True for k in kopt.stat_names()}
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+
+    def snap(params, state, m):
+        return {"loss": float(m["loss"]),
+                "precond": {f"{fam}.{k}": v.clone()
+                            for fam, c in state["curv"].items()
+                            for k, v in c["precond"].items()},
+                "next": {f"{fam}.{k}": v.clone()
+                         for fam, c in state["curv"].items()
+                         for k, v in c["precond_next"].items()},
+                "same": all(c["precond"][k] is c["precond_next"][k]
+                            for c in state["curv"].values()
+                            for k in c["precond"])}
+    out = {"auto": [], "init": init}
+    for i in range(3):
+        batch = _train_batch(torch, cfg.vocab, 2, 512, index=i)
+        # the ref step starts where the kernel run stands: the same params
+        # and state (the steps update only params and velocity in place)
+        with torch.no_grad():
+            for k, v in flatten(kparams).items():
+                flatten(rparams)[k].copy_(v)
+        rstate = {**kstate, "velocity": {k: v.clone() for k, v in
+                                         kstate["velocity"].items()}}
+        got = {}
+        for b, params, state in (("ref", rparams, rstate),
+                                 ("auto", kparams, kstate)):
+            capture, fast = steps[b]
+            if i < 2:
+                params, state, m = capture(params, state, batch, flags, lam,
+                                           lr, 0.9)
+            else:
+                params, state, m = fast(params, state, batch, lam, lr, 0.9)
+            got[b] = snap(params, state, m)
+            if b == "auto":
+                kparams, kstate = params, state
+            else:
+                rstate = state
+        k, r = got["auto"], got["ref"]
+        k["ref_loss"] = r["loss"]
+        k["worst"] = max(_rel_err(torch, k[key][n], want)
+                         for key in ("precond", "next")
+                         for n, want in r[key].items())
+        rflat = flatten(rparams)
+        k["worst_p"] = max(_rel_err(torch, v, rflat[n])
+                           for n, v in flatten(kparams).items())
+        out["auto"].append(k)
+        del got, r, rstate
+    del runs, steps, kopt, kparams, kstate, rparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_db_route(torch, single: dict) -> None:
+    """The double buffer (NGDConfig.double_buffer) at full width, 2 layers,
+    f32: two capture steps and a fast step on the kernels, each step also
+    run with backend="ref" from the kernel run's params and state as they
+    stand before it. Per step, the losses, both buffers and the params
+    after it agree within ROUTE_REL_TOL (step by step, as check_fp8_route
+    feeds the ref the kernel run's backward: the double buffer's stale
+    inverses make large updates, through which a free-running pair of runs
+    drifts apart by more than one step's kernel arithmetic). On the
+    kernels: after capture step 1 the active buffer is still the initial
+    one (identity blocks, ones, zero stats) and the staged one equals what
+    the single-buffer kernel run's step 1 (``check_train_route``, the same
+    batch) made active; capture step 2 applies the staged step-1
+    inverses; the fast step activates step 2's, both buffers then the
+    same tensors."""
+    out = _db_route(torch, _route_cfg(torch))
+    k = out["auto"]
+    for i, x in enumerate(k):
+        check(abs(x["loss"] - x["ref_loss"]) <= ROUTE_REL_TOL * abs(
+            x["ref_loss"]), f"double-buffer route step {i + 1} loss "
+                            f"{x['loss']} vs {x['ref_loss']}")
+    worst = max(x["worst"] for x in k)
+    worst_p = max(x["worst_p"] for x in k)
+    check(worst <= ROUTE_REL_TOL,
+          f"double-buffer route buffers rel err {worst}")
+    check(worst_p <= ROUTE_REL_TOL,
+          f"double-buffer route params rel err {worst_p}")
+    check(all(torch.equal(k[0]["precond"][n], v)
+              for n, v in out["init"].items()),
+          "double buffer: capture step 1 must apply the initial buffer")
+    stage = max(_rel_err(torch, k[0]["next"][n], v)
+                for n, v in single.items())
+    same = sum(int(torch.equal(k[0]["next"][n], v))
+               for n, v in single.items())
+    check(set(single) == set(k[0]["next"]) and stage <= ROUTE_REL_TOL,
+          f"double buffer: staged step-1 inverses vs the single-buffer "
+          f"step 1's, rel err {stage}")
+    check(all(torch.equal(k[1]["precond"][n], v)
+              for n, v in k[0]["next"].items()),
+          "double buffer: capture step 2 must apply step 1's inverses")
+    check(all(torch.equal(k[2]["precond"][n], v)
+              for n, v in k[1]["next"].items())
+          and [x["same"] for x in k] == [False, False, True],
+          f"double buffer: the fast step must activate step 2's inverses "
+          f"(both buffers the same tensors: {[x['same'] for x in k]})")
+    by_step = "; ".join(f"step {i + 1} buffers {x['worst']:.3e}, params "
+                        f"{x['worst_p']:.3e}" for i, x in enumerate(k))
+    say("db-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512), "
+                    f"double_buffer: 2 capture steps + 1 fast step on the "
+                    f"kernels, each step also with backend='ref' from the "
+                    f"kernel run's state: losses "
+                    f"{[round(x['loss'], 6) for x in k]} vs "
+                    f"{[round(x['ref_loss'], 6) for x in k]}; worst "
+                    f"max|err|/max by step: {by_step} (tol {ROUTE_REL_TOL})")
+    say("db-route", f"staged/active identities on the kernels: after "
+                    f"capture step 1 the active buffer is the initial one "
+                    f"({len(out['init'])} entries equal) and the staged one "
+                    f"is the single-buffer step 1's ({same} of {len(single)} "
+                    f"bit-identical, worst max|err|/max {stage:.3e}); "
+                    f"capture step 2 applies step 1's; the fast step "
+                    f"activates step 2's (both buffers the same tensors)")
+
+
+def train_path_ns_db(torch, ns_path) -> dict:
+    """launch.train at full width with Stage 4 by Newton-Schulz and the
+    double buffer (``build(double_buffer=True)``, the CLI's
+    ``--double-buffer``): 2 loop steps (both capture at random init), then
+    a warm-up and one timed step of the fast-step builder. Prints the step
+    walls, the bytes of both preconditioner buffers after the captures and
+    the peak memory beside the single-buffer NS path's. Checks: every loss
+    finite, the step kinds, the launches of the training kernels as
+    reckoned, every NS kernel launched, no ref dispatch, and the fast step
+    activating the staged buffer."""
+    import math
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, params, state = train.build(
+        "llama3_2_1b", full_config=True, device="cuda",
+        inverse_method="newton_schulz", double_buffer=True)
+    check(opt.cfg.double_buffer, "build(double_buffer=True) must reach "
+                                 "NGDConfig")
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    ns.reset_launches()
+    dispatch.reset_calls()
+    params, state, recs = train.run(
+        model, opt, params, state,
+        log=lambda m: say("db-train-path", m), **TRAIN_NS)
+    held = _precond_bytes(state)
+    params, state = _fast_steps(torch, model, opt, params, state, recs,
+                                TRAIN_NS, "db-train-path", timed=1)
+    kinds = [r["kind"] for r in recs]
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES, **ns.LAUNCHES}
+    dcalls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(kinds == ["capture"] * TRAIN_NS["steps"] + ["fast"] * 2,
+          f"double-buffer NS step kinds {kinds}")
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"double-buffer NS losses {[r['loss'] for r in recs]}")
+    check(all(c["precond"][k] is c["precond_next"][k]
+              for c in state["curv"].values() for k in c["precond"]),
+          "double-buffer NS path: the fast steps must activate the staged "
+          "buffer")
+    check(not any(b == "ref" for (_, b) in dcalls),
+          f"ref dispatches: {dcalls}")
+    want = _train_counts(model.cfg, kinds)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"double-buffer NS launches {got} != reckoned {want}")
+    check(all(launches[k] > 0 for k in NS_KERNELS),
+          f"the double-buffer NS path must run every NS kernel: {launches}")
+    cap_s = [r["seconds"] for r in recs if r["kind"] == "capture"]
+    fast_s = [r["seconds"] for r in recs if r["kind"] == "fast"]
+    gib = 2 ** 30
+    say("db-train-path", f"{len(recs)} steps (NS Stage 4, double buffer): "
+                         f"losses {[round(r['loss'], 6) for r in recs]}; "
+                         f"capture step wall {[round(x, 3) for x in cap_s]} s "
+                         f"(single buffer {[round(x, 3) for x in ns_path['cap_s']]}"
+                         f" s), fast step {[round(x, 3) for x in fast_s]} s "
+                         f"(warm-up first; single buffer median "
+                         f"{statistics.median(ns_path['fast_s']):.3f} s); "
+                         f"{card_note(torch)}")
+    say("db-train-path", f"preconditioner buffers after the 2 captures "
+                         f"{held / gib:.3f} GiB (single buffer "
+                         f"{ns_path['held'] / gib:.3f} GiB, difference "
+                         f"{(held - ns_path['held']) / gib:.3f} GiB); peak "
+                         f"memory {peak / gib:.2f} GiB (single buffer "
+                         f"{ns_path['peak'] / gib:.2f} GiB, difference "
+                         f"{(peak - ns_path['peak']) / gib:.2f} GiB; "
+                         f"torch.cuda.max_memory_allocated, same call)")
+    say("db-train-path", f"launches {got} (reckoned {want}), NS kernels "
+                         f"{ {k: launches[k] for k in NS_KERNELS} }; "
+                         f"dispatches {dcalls}")
+    del model, opt, params, state
+    torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def sgd_path(torch, train) -> None:
+    """Momentum SGD (repro_torch.optim.SGD) on a fresh full-width
+    llama3_2_1b from the training path's seed, batch 4 x seq 1024: one
+    warm-up and SGD_TIMED timed steps at the fast steps' learning rate and
+    momentum. Prints the median wall, tokens/s and the eigh fast step's
+    median over SGD's (the paper's claim: the fast step runs near SGD's
+    cost), then profiles one SGD step by the same groups as profile_train.
+    Checks: every loss finite, the first equal to the training path's,
+    the attention kernels launched as reckoned, nothing else, no ref
+    dispatch."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.optim import SGD
+    from repro_torch.optim.schedules import polynomial_decay
+    model = DecoderLM(get_config("llama3_2_1b"), device="cuda").init(
+        torch.Generator().manual_seed(0))
+    params = model.params()
+    opt = SGD(model.loss)
+    state = opt.init(params)
+    lr = polynomial_decay(TRAIN["lr"], 0, TRAIN["steps"], 4.0)(
+        TRAIN["steps"] - 1)
+    mom = 0.9 * lr / TRAIN["lr"]
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    dispatch.reset_calls()
+    recs = []
+    for i in range(1 + SGD_TIMED):
+        batch = _train_batch(torch, model.cfg.vocab, TRAIN["batch"],
+                             TRAIN["seq"], index=i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = opt.step(params, state, batch, lr, mom)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        recs.append((loss, time.perf_counter() - t))
+    kinds = ["sgd"] * len(recs)
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES}
+    calls = dict(dispatch.CALLS)
+    check(all(math.isfinite(x) for x, _ in recs),
+          f"SGD losses {[x for x, _ in recs]}")
+    d_loss = abs(recs[0][0] - train["first_loss"])
+    check(d_loss <= 1e-6 * abs(train["first_loss"]),
+          f"SGD first loss {recs[0][0]} != the training path's "
+          f"{train['first_loss']}")
+    want = {k: v for k, v in _train_counts(model.cfg, kinds).items()
+            if k.startswith("swa_")}
+    want.update(factor_syrk=0, block_precond=0)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"SGD launches {got} != reckoned {want}")
+    check(not any(b == "ref" for (_, b) in calls), f"ref dispatches: {calls}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    walls = [w for _, w in recs[1:]]
+    med = statistics.median(walls)
+    say("sgd-path", f"momentum SGD, llama3_2_1b full width, batch "
+                    f"{TRAIN['batch']} x seq {TRAIN['seq']}: losses "
+                    f"{[round(x, 6) for x, _ in recs]}; step wall "
+                    f"{[round(w, 3) for w in walls]} s after a {recs[0][1]:.3f}"
+                    f" s warm-up, median {med:.3f} s ({tokens / med:.1f} "
+                    f"tokens/s); eigh fast step median "
+                    f"{train['fast_median']:.3f} s = {train['fast_median'] / med:.3f}"
+                    f" x SGD's median; {card_note(torch)}")
+    say("sgd-path", f"launches {got} (reckoned {want}); dispatches {calls}")
+    batch = _train_batch(torch, model.cfg.vocab, TRAIN["batch"], TRAIN["seq"])
+    box = {"state": state}
+
+    def sgd_step():
+        _, box["state"], _ = opt.step(params, box["state"], batch, lr, 0.0)
+    _profile(torch, "one SGD step (4096 tokens)", sgd_step)
+    del model, opt, params, state, box
+    torch.cuda.empty_cache()
 
 
 def time_ns_kernels(torch) -> dict:
@@ -1978,6 +2294,32 @@ def check_fp8_kernels(torch) -> dict:
                           f"plain versions; a second quant_rows launch "
                           f"identical")
         del x, p, sc, d, rp, rs, rd
+    # payloads that are views off 4-byte alignment (words read as bytes),
+    # on rows whose starts are off 16-byte alignment too
+    for g, t, fmt, poff in ((3, 561, "e5m2", 1), (4, 2098176, "e4m3", 3)):
+        x = _fp8_rows(torch, gen, g, t)
+        p, sc = ref.quant_rows_ref(x, fmt, "fp32")
+        buf = torch.empty((g * t + poff,), dtype=torch.uint8, device="cuda")
+        pv = buf[poff:].view(g, t)
+        pv.copy_(p.view(torch.uint8))
+        pv = pv.view(p.dtype)
+        d, rd = qk.dequant_rows(pv, sc), ref.dequant_rows_ref(pv, sc)
+        torch.cuda.synchronize()
+        check(torch.equal(d, rd), f"dequant_rows ({g}, {t}) {fmt}, payload "
+                                  f"{poff} bytes off: differs from the plain "
+                                  f"version")
+        worst["dequant_rows"] = max(worst["dequant_rows"],
+                                    _max_err(torch, d, rd))
+        say("fp8-kernel", f"dequant_rows ({g}, {t}) {fmt}, the payload a view "
+                          f"{poff} byte(s) off 4-byte alignment: bit-identical "
+                          f"to the plain version")
+        del x, p, sc, buf, pv, d, rd
+    attrs = qk.dequant_attrs(torch.device("cuda"))
+    say("fp8-kernel", "dequant_rows instances (fmt, payload words aligned or "
+                      "read as bytes): registers, local bytes a thread (ptxas "
+                      "stack frame, spills included; cudaFuncGetAttributes) "
+                      + ", ".join(f"{n} {r}/{b} B" for n, (r, b) in
+                                  attrs.items()))
     torch.cuda.empty_cache()
 
     def wire_case(label, x, max_dim, fmt, mode, route):
@@ -2283,9 +2625,13 @@ def time_fp8_kernels(torch) -> dict:
         "plain_ms": _time_ms(torch, lambda: ref.dequant_rows_ref(p, sc),
                              reps=5),
         "library_ms": None, "bound_ms": bound, "bound_by": by}
+    # the copy yardstick: the same bytes (1 B in, 4 B out), no scale
+    copy_ms = _time_ms(torch, lambda: p.to(torch.float32))
     say("times", f"quant_rows ({g}, {t}) f32 -> e4m3: {res['quant_rows']}; "
                  f"dequant_rows: {res['dequant_rows']} (no single PyTorch "
-                 f"call computes either); {card_note(torch)}")
+                 f"call computes either; payload.to(torch.float32), the same "
+                 f"bytes without the scale, ms {copy_ms:.6f}); "
+                 f"{card_note(torch)}")
     del x, p, sc
     g, t = 16, 131328
     x = _fp8_rows(torch, gen, g, t)
@@ -2293,8 +2639,10 @@ def time_fp8_kernels(torch) -> dict:
     b_s, _ = _bound(0, g * t * 5 + 4 * g, x.dtype)
     q_s = _time_ms(torch, lambda: qk.quant_rows(x, "e4m3"))
     d_s = _time_ms(torch, lambda: qk.dequant_rows(p, sc))
+    c_s = _time_ms(torch, lambda: p.to(torch.float32))
     say("times", f"quant_rows ({g}, {t}): ms {q_s:.6f}; dequant_rows ms "
-                 f"{d_s:.6f}; bound_ms {b_s:.6f} (bytes); {card_note(torch)}")
+                 f"{d_s:.6f}; bound_ms {b_s:.6f} (bytes); "
+                 f"payload.to(torch.float32) ms {c_s:.6f}; {card_note(torch)}")
     del x, p, sc
     # the b > 1024 wire route's shapes: one block of 2048 (nb 1) and the
     # mlp down projection's four (d 8192)

@@ -13,7 +13,8 @@ parameter dicts, so that both packages compute the same function::
 (:func:`stats_from_jax`, :func:`stats_to_jax`); the SP-NGD optimizer state
 differs only in its velocity, a stacked params tree in JAX and a flat
 ``{"blocks/3/attn/wq": tensor}`` dict in the port
-(:func:`opt_state_from_jax`, :func:`opt_state_to_jax`).
+(:func:`opt_state_from_jax`, :func:`opt_state_to_jax`), and so does the
+momentum-SGD state (:func:`sgd_state_from_jax`, :func:`sgd_state_to_jax`).
 """
 
 from __future__ import annotations
@@ -109,21 +110,33 @@ def stats_to_jax(stats: dict) -> dict:
     return rec(stats)
 
 
+def _velocity_from_jax(np_vel: dict, cfg, device=None) -> dict:
+    flat = params_from_jax(np_vel, cfg, device)
+    return {k.replace(".", "/"): v for k, v in flat.items()}
+
+
 def opt_state_from_jax(np_state: dict, cfg, device=None) -> dict:
-    """JAX ``SPNGD.init``/step state (numpy leaves; single buffer, no
-    pipeline) -> the port's state."""
-    flat = params_from_jax(np_state["velocity"], cfg, device)
+    """JAX ``SPNGD.init``/step state (numpy leaves; a family's staged
+    ``precond_next`` kept where ``double_buffer`` put one; no pipeline)
+    -> the port's state."""
     return {"step": int(np.asarray(np_state["step"])),
-            "velocity": {k.replace(".", "/"): v for k, v in flat.items()},
+            "velocity": _velocity_from_jax(np_state["velocity"], cfg,
+                                           device),
             # a family's {slot: {key: array}} nests like {family: {key}}
             "curv": {fam: stats_from_jax(entry, device)
                      for fam, entry in np_state["curv"].items()}}
 
 
-def opt_state_to_jax(state: dict) -> dict:
-    """The port's SP-NGD state -> the JAX layout (numpy leaves)."""
+def sgd_state_from_jax(np_state: dict, cfg, device=None) -> dict:
+    """JAX ``SGD`` state (numpy leaves) -> the port's ``SGD`` state."""
+    return {"step": int(np.asarray(np_state["step"])),
+            "velocity": _velocity_from_jax(np_state["velocity"], cfg,
+                                           device)}
+
+
+def _velocity_to_jax(velocity: dict) -> dict:
     vel: dict = {}
-    for path, t in state["velocity"].items():
+    for path, t in velocity.items():
         parts = path.split("/")
         node = vel
         if parts[0] == "blocks":
@@ -144,7 +157,19 @@ def opt_state_to_jax(state: dict) -> dict:
         if isinstance(node, dict):
             return {k: stack(v) for k, v in node.items()}
         return node
+    return stack(vel)
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The port's SP-NGD state (single or double buffer) -> the JAX layout
+    (numpy leaves)."""
     return {"step": np.asarray(state["step"], np.int32),
-            "velocity": stack(vel),
+            "velocity": _velocity_to_jax(state["velocity"]),
             "curv": {fam: stats_to_jax(entry)
                      for fam, entry in state["curv"].items()}}
+
+
+def sgd_state_to_jax(state: dict) -> dict:
+    """The port's ``SGD`` state -> the JAX layout (numpy leaves)."""
+    return {"step": np.asarray(state["step"], np.int32),
+            "velocity": _velocity_to_jax(state["velocity"])}

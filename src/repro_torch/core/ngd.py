@@ -25,8 +25,10 @@ preconditioning runs once per layer and side. With
 ``factor_dtype="fp8_e4m3"`` (or e5m2) the X_-1/X_-2 history is stored
 encoded (``{"payload", "scale"}``, sym-packed for the blocked factors) and
 decoded on read; wire-format capture (``FactorSpec.wire_fmt``) is decoded
-once per refreshed statistic. The double buffer, refresh pipeline and
-sharded Stage 4 arrive with their slices.
+once per refreshed statistic. With ``double_buffer`` the inverses a
+refresh computes are staged (``precond_next``) and activate from the next
+step on (the paper's section 5.2 overlap). The chunked refresh pipeline
+and sharded Stage 4 arrive with their slices.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ class NGDConfig:
     sgd_fallback_scale: float = 1.0  # lr scale for non-sited params
     backend: str = "auto"            # kernel backend ("ref" | "cuda" |
                                      # "auto"; repro_torch.kernels.dispatch)
+    double_buffer: bool = False      # inverses a refresh computes at step t
+                                     # are STAGED (precond_next) and
+                                     # activate at t+1, while step t still
+                                     # applies the previous buffer
 
 
 # Eq. 24's guard against a zero weight norm
@@ -160,7 +166,9 @@ class SPNGD:
     def init(self, params) -> dict:
         """Zero history (encoded under fp8), identity preconditioners, zero
         momentum. The zero and identity entries are expanded views (no
-        memory): the first refresh replaces them."""
+        memory): the first refresh replaces them. With ``double_buffer`` the
+        staged buffer starts as the same views, so step 1 applies these
+        initial preconditioners."""
         curv = {}
         for fam, stats in self.fstats_fn().items():
             info = self.infos[fam]
@@ -183,6 +191,8 @@ class SPNGD:
                             (), device=dev).expand(shape)
                 else:                       # "d" (bias) / "uw": store stats
                     entry["precond"][key] = z
+            if self.cfg.double_buffer:
+                entry["precond_next"] = dict(entry["precond"])
             curv[fam] = entry
         velocity = {path: torch.zeros_like(p)
                     for path, p in flatten(params).items()}
@@ -244,7 +254,10 @@ class SPNGD:
         """Returns (entry, sims, info): with Stage 4 by Newton-Schulz, info
         maps each blocked a/g factor to its per-block {"ns_res",
         "ns_converged"}, the sentinels -1 and True when the family did not
-        refresh; else it is empty."""
+        refresh; else it is empty. With ``double_buffer`` the new inverses
+        (or, without a refresh, the staged ones) become ``precond_next``
+        and the staged buffer becomes ``precond``: this step applies what
+        the latest earlier refresh computed."""
         info = self.infos[fam]
         cfg = self.cfg
         normalized, new_prev, new_prev2, sims = self._shift_history(
@@ -254,7 +267,8 @@ class SPNGD:
                       info.spec.g_kind) == "full"] \
             if cfg.inverse_method == "newton_schulz" else []
         if not any(flags[f"{fam}.{k}"] for k in raw):
-            precond = curv["precond"]
+            precond = curv["precond_next" if cfg.double_buffer
+                           else "precond"]
             inv_info = {k: {"ns_res": torch.full(
                                 precond[k].shape[:-2], -1.0,
                                 device=precond[k].device),
@@ -277,8 +291,12 @@ class SPNGD:
             for key in ("d", "uw"):
                 if key in normalized:
                     precond[key] = normalized[key]
-        return ({"prev": new_prev, "prev2": new_prev2, "precond": precond},
-                sims, inv_info)
+        if cfg.double_buffer:
+            entry = {"precond": curv["precond_next"], "precond_next": precond}
+        else:
+            entry = {"precond": precond}
+        return ({"prev": new_prev, "prev2": new_prev2, **entry}, sims,
+                inv_info)
 
     # ---- preconditioned update for one family ----
 
@@ -406,9 +424,36 @@ class SPNGD:
                             aux, sims, inverse_info=inv_info)
 
     def fast_curv(self, state, lam):
-        """The fast path's curvature view: the stored preconditioners (the
-        double buffer and the refresh pipeline arrive with their slices)."""
-        return state, state["curv"], {}
+        """The fast path's curvature view: the stored preconditioners, the
+        staged buffer activated first with ``double_buffer`` (the chunked
+        refresh pipeline arrives with its slice). Returns (state, curv,
+        extra metrics)."""
+        return state, self._activate(state["curv"]), {}
+
+    def _activate(self, curv: dict) -> dict:
+        """Double-buffer activation on a fast step: the buffer the latest
+        refresh staged becomes the active preconditioner (``_finish`` keeps
+        the swap in the state). Identity without ``double_buffer``."""
+        if not self.cfg.double_buffer:
+            return curv
+        return {fam: {**entry, "precond": entry["precond_next"]}
+                for fam, entry in curv.items()}
+
+    def upgrade_state(self, state: dict) -> dict:
+        """A loaded optimizer state in this config's buffer layout: a
+        single-buffer state entering a ``double_buffer`` run seeds the
+        staged buffer from the active one (the first activation changes
+        nothing); a double-buffered state entering a single-buffer run
+        drops the staged buffer. Same-layout states pass through."""
+        curv = {}
+        for fam, entry in state["curv"].items():
+            entry = dict(entry)
+            if self.cfg.double_buffer and "precond_next" not in entry:
+                entry["precond_next"] = dict(entry["precond"])
+            if not self.cfg.double_buffer:
+                entry.pop("precond_next", None)
+            curv[fam] = entry
+        return {**state, "curv": curv}
 
     def step(self, params, state, batch, flags: dict, lam, lr, mom,
              generator: Optional[torch.Generator] = None):

@@ -75,8 +75,10 @@ SIGNATURES = {
         "quant_rows": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
         # -> the resident route's grid on the current device
         "quant_rows_grid": [],
-        # payload, scale, out, g, t, fmt, sms, stream
+        # payload, scale, out, g, t, fmt, tiles, stream
         "dequant_rows": [_P] * 3 + [_L] * 2 + [_I] * 2 + [_P],
+        # attrs (int[8]) -> registers and local bytes of each instance
+        "dequant_rows_attrs": [_P],
     },
     "kfac_precond": {
         # binv, w, out, b, dim, other, ldw, ldo, nb, right, blocks, stream

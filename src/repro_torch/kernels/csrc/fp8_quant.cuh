@@ -46,9 +46,20 @@ __device__ __forceinline__ unsigned char quant_one(float x, float s, float fmax,
                                               fmt == DT_E4M3 ? __NV_E4M3 : __NV_E5M2);
 }
 
-__device__ __forceinline__ float dequant_one(unsigned char p, float s, int fmt) {
-  const __half_raw h = __nv_cvt_fp8_to_halfraw(p, fmt == DT_E4M3 ? __NV_E4M3 : __NV_E5M2);
-  return __half2float(__half(h)) * s;
+// dequantize: fp8 -> f16 (exact for both formats), f16 -> f32 (exact),
+// one f32 product: the plain version's payload.f32 * scale, bit for bit.
+// Two codes a cvt (cvt.rn.f16x2.e4m3x2 / .e5m2x2): the low byte of the
+// pair is .x
+template <int FMT>
+__device__ __forceinline__ float2 dequant_pair(unsigned short pair, float s) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(pair, FMT == DT_E4M3 ? __NV_E4M3 : __NV_E5M2);
+  const float2 f = __half22float2(__half2(h));
+  return make_float2(f.x * s, f.y * s);
+}
+
+template <int FMT>
+__device__ __forceinline__ float dequant_one(unsigned char p, float s) {
+  return dequant_pair<FMT>(p, s).x;
 }
 
 // bits of |x|, for the amax max

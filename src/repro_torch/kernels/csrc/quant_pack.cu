@@ -55,9 +55,21 @@
 // quant_slice). It zeroes the amax scratch, runs a max pass over row
 // chunks and a flat quantize pass that re-reads x: 9 B an element.
 //
-// dequant_rows is a flat pass, 16 elements a thread (one 16-byte load,
-// four 16-byte stores). Flat passes fall back to one element at a time
-// where a 16-group straddles a row or the pointers are not aligned.
+// The long-row route's quantize pass is flat, 16 elements a thread; it
+// falls back to one element at a time where a 16-group straddles a row or
+// the pointers are not aligned.
+//
+// dequant_rows (rows_dequant_kernel) is one block per (row, tile) of
+// DQ_TILE words (4 elements each, 8 KB of payload, 32 KB of output), the
+// row's scale read once a block, offsets within the row in 32 bits. A
+// warp's load takes 128 contiguous payload bytes (a 32-bit word a lane)
+// and its store writes 512 contiguous output bytes (a float4 a lane): both
+// sides coalesced, and a thread's DQ_UNROLL loads are all in flight before
+// its first store. fmt is a template parameter and each cvt converts two
+// codes (cvt.rn.f16x2.e4m3x2 / .e5m2x2). The row's few elements before its
+// first 16-byte aligned output address and after its last whole word are
+// written one by one; a payload that is not 4-byte aligned (a view) reads
+// each word as four bytes, the stores stay vector.
 //
 // The arithmetic is fp8_quant.cuh's (shared with factor_syrk_wire): a max
 // is order-free, so payloads and scales are bit-identical to the plain
@@ -71,6 +83,11 @@ namespace {
 constexpr int NT = 256;              // threads per block, flat passes
 constexpr int CHUNK = NT * 32;       // elements of a row per block, max pass
 constexpr int VEC = 16;              // elements per thread, flat passes
+
+// dequant_rows
+constexpr int DQ_NT = 256;           // threads per block
+constexpr int DQ_UNROLL = 8;         // words (4 elements) a thread per tile
+constexpr int DQ_TILE = DQ_NT * DQ_UNROLL;  // words a tile (kernels/quant.py)
 
 // resident route
 constexpr int RT = 512;              // threads per block
@@ -337,29 +354,64 @@ rows_quant_kernel(const float* __restrict__ x, unsigned char* __restrict__ paylo
   }
 }
 
-__global__ void __launch_bounds__(NT)
+// dequant_rows: block b takes tile b % tiles of row b / tiles. The row's
+// elements before the first 4-aligned flat index (head) and after its last
+// whole word (tail) are written one by one by the row's first and last
+// tile; the words between go DQ_UNROLL a thread, the block's threads on
+// consecutive words: a warp reads 128 contiguous payload bytes and writes
+// 512 contiguous, 16-byte aligned output bytes per instruction. All of a
+// thread's loads are issued before its first store. ALIGNED: the payload's
+// words are 4-byte aligned (else each word is read as 4 bytes). Offsets
+// within a row are 32-bit (t < 2^31, checked by the wrapper).
+template <int FMT, bool ALIGNED>
+__global__ void __launch_bounds__(DQ_NT)
 rows_dequant_kernel(const unsigned char* __restrict__ payload, const float* __restrict__ scale,
-                    float* __restrict__ out, long long g, long long t, int fmt, int vec) {
-  const long long total = g * t;
-  const long long groups = (total + VEC - 1) / VEC;
-  for (long long v = (long long)blockIdx.x * NT + threadIdx.x; v < groups;
-       v += (long long)gridDim.x * NT) {
-    const long long i0 = v * VEC;
-    const long long i1 = min(i0 + VEC, total);
-    const long long r0 = i0 / t;
-    if (vec && r0 == (i1 - 1) / t && i1 - i0 == VEC) {
-      const float s = scale[r0];
-      const uint4 raw = *reinterpret_cast<const uint4*>(payload + i0);
-      const unsigned w[VEC / 4] = {raw.x, raw.y, raw.z, raw.w};
-      float4* dst = reinterpret_cast<float4*>(out + i0);
+                    float* __restrict__ out, int t, int tiles) {
+  const long long row = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const long long base = row * (long long)t;
+  const int head = min((int)((4 - (base & 3)) & 3), t);
+  const int words = (t - head) >> 2;
+  const float s = scale[row];
+  const unsigned char* prow = payload + base;
+  float* orow = out + base;
+  const int tid = threadIdx.x;
+  if (tile == 0 && tid < head) orow[tid] = fp8q::dequant_one<FMT>(prow[tid], s);
+  if (tile == tiles - 1) {
+    const int e = head + 4 * words + tid;
+    if (e < t) orow[e] = fp8q::dequant_one<FMT>(prow[e], s);
+  }
+  const int w0 = tile * DQ_TILE;
+  const int w1 = min(w0 + DQ_TILE, words);
+  const unsigned char* pv = prow + head;
+  float4* ov = reinterpret_cast<float4*>(orow + head);
+  auto load = [&](int j) -> unsigned {
+    if (ALIGNED) return __ldcs(reinterpret_cast<const unsigned*>(pv) + j);
+    const unsigned char* b = pv + 4 * j;
+    return (unsigned)__ldcs(b) | ((unsigned)__ldcs(b + 1) << 8) |
+           ((unsigned)__ldcs(b + 2) << 16) | ((unsigned)__ldcs(b + 3) << 24);
+  };
+  auto convert = [&](unsigned w) {
+    const float2 lo = fp8q::dequant_pair<FMT>((unsigned short)(w & 0xFFFFu), s);
+    const float2 hi = fp8q::dequant_pair<FMT>((unsigned short)(w >> 16), s);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  };
+  unsigned w[DQ_UNROLL];
+  if (w1 - w0 == DQ_TILE) {
 #pragma unroll
-      for (int k = 0; k < VEC / 4; ++k)
-        dst[k] = make_float4(fp8q::dequant_one(w[k] & 0xFFu, s, fmt),
-                             fp8q::dequant_one((w[k] >> 8) & 0xFFu, s, fmt),
-                             fp8q::dequant_one((w[k] >> 16) & 0xFFu, s, fmt),
-                             fp8q::dequant_one(w[k] >> 24, s, fmt));
-    } else {
-      for (long long i = i0; i < i1; ++i) out[i] = fp8q::dequant_one(payload[i], scale[i / t], fmt);
+    for (int i = 0; i < DQ_UNROLL; ++i) w[i] = load(w0 + i * DQ_NT + tid);
+#pragma unroll
+    for (int i = 0; i < DQ_UNROLL; ++i) ov[w0 + i * DQ_NT + tid] = convert(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < DQ_UNROLL; ++i) {
+      const int j = w0 + i * DQ_NT + tid;
+      w[i] = j < w1 ? load(j) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < DQ_UNROLL; ++i) {
+      const int j = w0 + i * DQ_NT + tid;
+      if (j < w1) ov[j] = convert(w[i]);
     }
   }
 }
@@ -397,6 +449,13 @@ int resident_grid(int* grid) {
   *grid = per_sm * sms;
   if (dev < 64) held[dev] = *grid;
   return 0;
+}
+
+// The dequant kernel's instances by (fmt, aligned payload)
+template <int FMT>
+const void* dequant_instance(int aligned) {
+  return aligned ? (const void*)rows_dequant_kernel<FMT, true>
+                 : (const void*)rows_dequant_kernel<FMT, false>;
 }
 
 }  // namespace
@@ -451,13 +510,41 @@ extern "C" int quant_rows(const void* x, void* payload, void* scale, void* scrat
   return (int)cudaGetLastError();
 }
 
+// tiles: the tiles a row (kernels/quant.py dequant_geometry), refused if
+// it is not max(1, ceil(floor(t / 4) / DQ_TILE)); out must be 16-byte
+// aligned (the wrapper allocates it)
 extern "C" int dequant_rows(const void* payload, const void* scale, void* out, long long g,
-                            long long t, int fmt, int sms, void* stream) {
+                            long long t, int fmt, int tiles, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g < 1 || t < 1 || (fmt != DT_E4M3 && fmt != DT_E5M2)) return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(payload) && aligned16(out);
-  rows_dequant_kernel<<<flat_grid(g * t, sms), NT, 0, st>>>(
-      static_cast<const unsigned char*>(payload), static_cast<const float*>(scale),
-      static_cast<float*>(out), g, t, fmt, vec);
-  return (int)cudaGetLastError();
+  if (g < 1 || t < 1 || t > 0x7FFFFFFFLL || (fmt != DT_E4M3 && fmt != DT_E5M2) ||
+      !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const long long want = ((t / 4) + DQ_TILE - 1) / DQ_TILE;
+  if (tiles != (want > 1 ? want : 1) || g * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const int aligned = (reinterpret_cast<uintptr_t>(payload) & 3u) == 0;
+  const void* kernel = fmt == DT_E4M3 ? dequant_instance<DT_E4M3>(aligned)
+                                      : dequant_instance<DT_E5M2>(aligned);
+  const unsigned char* pp = static_cast<const unsigned char*>(payload);
+  const float* sp = static_cast<const float*>(scale);
+  float* op = static_cast<float*>(out);
+  int ti = (int)t;
+  void* args[] = {&pp, &sp, &op, &ti, &tiles};
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)(g * tiles)), dim3(DQ_NT), args, 0, st);
+}
+
+// Registers and local memory (stack frame, spills included) a thread of
+// each dequant instance, from cudaFuncGetAttributes: attrs[4] pairs in the
+// order (e4m3, aligned), (e4m3, bytes), (e5m2, aligned), (e5m2, bytes)
+extern "C" int dequant_rows_attrs(void* attrs) {
+  int* a = static_cast<int*>(attrs);
+  const void* k[4] = {dequant_instance<DT_E4M3>(1), dequant_instance<DT_E4M3>(0),
+                      dequant_instance<DT_E5M2>(1), dequant_instance<DT_E5M2>(0)};
+  for (int i = 0; i < 4; ++i) {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, k[i]);
+    if (e != cudaSuccess) return (int)e;
+    a[2 * i] = fa.numRegs;
+    a[2 * i + 1] = (int)fa.localSizeBytes;
+  }
+  return 0;
 }

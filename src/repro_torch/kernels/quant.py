@@ -10,7 +10,10 @@
   more items than blocks takes the long-row route (a max pass, then a
   quantize pass that reads x again), chosen here by size.
 * :func:`dequant_rows` (``csrc/quant_pack.cu``) replaces
-  ``::dequant_rows``: ``payload.f32 * scale`` per row. Bound by bytes.
+  ``::dequant_rows``: ``payload.f32 * scale`` per row. Bound by bytes. One
+  block per (row, tile) (:func:`dequant_geometry`); a warp's loads and
+  stores are contiguous, a row's unaligned head and tail go element by
+  element (:func:`dequant_items` lists who writes what).
 * :func:`factor_syrk_wire` (``csrc/kfac_factor.cu``) replaces
   ``repro/kernels/kfac_factor.py::factor_syrk_wire``: the blocked factor
   sum with the fp8 wire epilogue, emitting the sym-packed payload
@@ -52,6 +55,13 @@ QUANT_SLICE_ALIGN = 64
 # the fixed cost of an item (its barrier, publish and wait), in elements
 # moved: the slice choice weighs it against the items' length
 QUANT_ITEM_COST = 4096
+
+
+# csrc/quant_pack.cu rows_dequant_kernel: threads a block, words (4
+# elements) a thread per tile
+DEQUANT_THREADS = 256
+DEQUANT_UNROLL = 8
+DEQUANT_TILE = DEQUANT_THREADS * DEQUANT_UNROLL
 
 
 def reset_launches() -> None:
@@ -118,6 +128,45 @@ def quant_items(g: int, t: int, grid: int, slice_: int
     return out
 
 
+def dequant_geometry(t: int) -> int:
+    """Tiles a row of dequant_rows' grid (one block each): the row's whole
+    words (4 elements) cut into tiles of DEQUANT_TILE, at least one."""
+    return max(1, -(-(t // 4) // DEQUANT_TILE))
+
+
+def dequant_items(g: int, t: int) -> list[tuple[int, int, str, int, int]]:
+    """dequant_rows' partition, as the kernel walks it: (block, thread,
+    kind, first element, end) of every write, elements counted in the row.
+    Block ``b`` takes tile ``b % P`` of row ``b // P``. The row's first
+    ``head`` elements (up to the first flat index that is a multiple of 4,
+    where the f32 output is 16-byte aligned) go one a thread in the first
+    tile ("head"), the elements after its last whole word one a thread in
+    the last tile ("tail"); each word between is one thread's 4 elements
+    ("word"): word ``w0 + i * DEQUANT_THREADS + thread`` in step ``i`` of
+    the tile starting at word ``w0``."""
+    tiles = dequant_geometry(t)
+    nt = DEQUANT_THREADS
+    out = []
+    for b in range(g * tiles):
+        row, tile = divmod(b, tiles)
+        head = min(-(row * t) % 4, t)
+        words = (t - head) // 4
+        if tile == 0:
+            out += [(b, i, "head", i, i + 1) for i in range(head)]
+        w0 = tile * DEQUANT_TILE
+        w1 = min(w0 + DEQUANT_TILE, words)
+        for i in range(DEQUANT_UNROLL):
+            for th in range(nt):
+                j = w0 + i * nt + th
+                if j < w1:
+                    e = head + 4 * j
+                    out.append((b, th, "word", e, e + 4))
+        if tile == tiles - 1:
+            out += [(b, e - head - 4 * words, "tail", e, e + 1)
+                    for e in range(head + 4 * words, t)]
+    return out
+
+
 def _fmt_args(name: str, fmt: str, scale_mode: str) -> tuple[int, int, float]:
     """(dtype code of the payload, pow2 flag, FMT_INV_MAX)."""
     require(fmt in q.FORMATS, f"{name}: unknown fp8 format {fmt!r}")
@@ -172,6 +221,8 @@ def dequant_rows(payload: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
             and scale.is_contiguous(),
             f"{name}: scale must be a contiguous ({g},) f32, got "
             f"{tuple(scale.shape)} {scale.dtype}")
+    require(t < 2 ** 31, f"{name}: rows of {t} elements: the kernel's "
+                         f"offsets within a row are 32-bit")
     out = torch.empty((g, t), dtype=torch.float32, device=payload.device)
     if out.numel() == 0:
         return out
@@ -180,11 +231,25 @@ def dequant_rows(payload: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         rc = lib.dequant_rows(payload.data_ptr(), scale.data_ptr(),
                               out.data_ptr(), g, t,
                               build.DTYPE_CODES[payload.dtype],
-                              sm_count(payload.device.index),
-                              stream(payload))
+                              dequant_geometry(t), stream(payload))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def dequant_attrs(device: torch.device) -> dict[str, tuple[int, int]]:
+    """Registers and local bytes (stack frame, spills included) a thread of
+    each dequant_rows instance on ``device`` (cudaFuncGetAttributes):
+    {"e4m3 aligned" | "e4m3 bytes" | "e5m2 aligned" | "e5m2 bytes": (regs,
+    local bytes)}."""
+    import ctypes
+    lib = build.load()["quant_pack"]
+    a = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        build.check(lib.dequant_rows_attrs(ctypes.addressof(a)),
+                    "dequant_rows_attrs")
+    names = ("e4m3 aligned", "e4m3 bytes", "e5m2 aligned", "e5m2 bytes")
+    return {n: (a[2 * i], a[2 * i + 1]) for i, n in enumerate(names)}
 
 
 def factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",

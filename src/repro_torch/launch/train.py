@@ -16,6 +16,7 @@ is refused with ``accum > 1``.
         --batch 4 --seq 1024 --full-config          # on the card
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
+    python -m repro_torch.launch.train --full-config --double-buffer
 """
 
 from __future__ import annotations
@@ -109,8 +110,8 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
           inverse_method: str = "eigh", estimator: str = "emp",
           weight_rescale: bool = False, history: int = 2,
           sgd_fallback_scale: float = 1.0, factor_dtype=torch.float32,
-          factor_wire: str | None = None, device=None, seed: int = 0,
-          cfg=None):
+          factor_wire: str | None = None, double_buffer: bool = False,
+          device=None, seed: int = 0, cfg=None):
     """The model (random weights from ``seed``), its optimizer (the
     ``NGDConfig`` fields of the same names) and the initial state:
     (model, opt, params, state). ``factor_wire`` sets
@@ -136,7 +137,8 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
                           inverse_method=inverse_method, estimator=estimator,
                           weight_rescale=weight_rescale, history=history,
                           sgd_fallback_scale=sgd_fallback_scale,
-                          factor_dtype=factor_dtype))
+                          factor_dtype=factor_dtype,
+                          double_buffer=double_buffer))
     return model, opt, params, opt.init(params)
 
 
@@ -257,6 +259,9 @@ def main(argv=None):
     ap.add_argument("--sgd-fallback-scale", type=float, default=1.0,
                     help="learning-rate scale of the parameters no "
                          "curvature site covers")
+    ap.add_argument("--double-buffer", action="store_true",
+                    help="stage each refresh's inverses and apply them from "
+                         "the next step on (NGDConfig.double_buffer)")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--device", default=None,
@@ -271,7 +276,8 @@ def main(argv=None):
         estimator=args.estimator, weight_rescale=args.weight_rescale,
         history=args.history, sgd_fallback_scale=args.sgd_fallback_scale,
         factor_dtype=FACTOR_DTYPES[args.factor_dtype],
-        factor_wire=args.factor_wire, device=device)
+        factor_wire=args.factor_wire, double_buffer=args.double_buffer,
+        device=device)
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} ({'full' if args.full_config else 'reduced'}), "
           f"{n / 1e6:.1f}M params, device {device}, factor history "
