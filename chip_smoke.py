@@ -22,7 +22,13 @@ Then Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): its
 kernels against the plain iteration, full-width training for 2 loop steps
 and the fast-step builder's warm-up and three timed steps, and again with
 the double buffer (2 loop + 2 fast steps), its walls and peak memory beside
-the single-buffer run's. Then the fp8 factor slice: the quant_rows,
+the single-buffer run's. Then the chunked refresh pipeline
+(``refresh_chunks``) and checkpoints: the pipeline's capture, drain and
+flip steps on the kernels against ``backend="ref"`` (2 layers, f32, fp8
+history), a checkpoint saved mid-drain, restored on the card and resumed
+bit for bit, and full-width training with the pipeline (K 4) under
+Newton-Schulz and eigh, each step's wall beside the inline capture step.
+Then the fp8 factor slice: the quant_rows,
 dequant_rows and factor_syrk_wire kernels against their plain versions, a
 capture step with the fp8 history and fused e4m3 capture on the kernels
 against ``backend="ref"`` (2 layers, f32), and full-width training with
@@ -216,7 +222,14 @@ def main(argv: list[str]) -> int:
     errs.update(check_ns_kernels(torch))
     ns_path = train_path_ns(torch, train)
     launches.update({k: ns_path["launches"][k] for k in NS_KERNELS})
-    timed(train_path_ns_db, torch, ns_path)
+    ns_db = timed(train_path_ns_db, torch, ns_path)
+    t_pipe = time.perf_counter()
+    timed(check_pipeline_route, torch)
+    timed(check_checkpoint_route, torch)
+    timed(train_path_pipeline, torch, ns_path, ns_db)
+    timed(train_path_pipeline_eigh, torch, train)
+    t_pipe = time.perf_counter() - t_pipe
+    del ns_db
     times.update(time_ns_kernels(torch))
     t_fp8 = time.perf_counter()
     errs.update(timed(check_fp8_kernels, torch))
@@ -230,7 +243,8 @@ def main(argv: list[str]) -> int:
     launches["swa_flash"] = timed(swa_path, torch)["launches"]["swa_flash"]
     times.update(timed(time_swa_kernel, torch))
     t_end = time.perf_counter()
-    say("clock", f"{t_end - t_start:.1f} s from the build on, the fp8 "
+    say("clock", f"{t_end - t_start:.1f} s from the build on, the "
+                 f"pipeline and checkpoint phases {t_pipe:.1f} s, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s and the swa_attention phases "
                  f"{t_end - t_swa:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
@@ -1271,6 +1285,8 @@ def _fast_steps(torch, model, opt, params, state, recs, spec, phase,
         torch.cuda.synchronize()
         recs.append({"t": len(recs) + 1, "kind": "fast", "loss": loss,
                      "seconds": time.perf_counter() - t, "warm": i == 0})
+        if "refresh_inflight" in m:
+            recs[-1]["refresh_inflight"] = m["refresh_inflight"]
         say(phase, f"step {len(recs)} fast (make_fast_step on the stale "
                    f"preconditioners{', warm-up' if i == 0 else ''}) loss "
                    f"{loss:.4f} {recs[-1]['seconds']:.3f} s")
@@ -1288,6 +1304,7 @@ def train_path(torch) -> dict:
     from repro_torch.kernels import dispatch, kfac, swa_attention
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t = time.perf_counter()
     model, opt, params, state = train.build("llama3_2_1b", full_config=True,
                                             device="cuda")
@@ -1355,7 +1372,7 @@ def train_path(torch) -> dict:
     return {"launches": launches, "model": model, "opt": opt,
             "params": params, "state": state, "cfg": cfg,
             "first_loss": recs[0]["loss"], "stage4_s": s4.seconds,
-            "refreshes": len(cap), "peak": peak,
+            "refreshes": len(cap), "peak": peak, "cap_s": cap, "base": base,
             "fast_median": statistics.median(fast_s)}
 
 
@@ -1796,13 +1813,19 @@ def _precond_bytes(state) -> int:
     (precond and, double-buffered, precond_next) of an SP-NGD state: an
     initial identity view costs its one row, two buffers holding the same
     tensors count once."""
-    seen = {}
-    for c in state["curv"].values():
-        for slot in ("precond", "precond_next"):
-            for v in c.get(slot, {}).values():
-                st = v.untyped_storage()
-                seen[st.data_ptr()] = st.nbytes()
-    return sum(seen.values())
+    return sum(_storages(v for c in state["curv"].values()
+                         for slot in ("precond", "precond_next")
+                         for v in c.get(slot, {}).values()).values())
+
+
+def _storages(tensors) -> dict:
+    """{storage address: bytes} of the distinct storages behind
+    ``tensors``."""
+    out = {}
+    for v in tensors:
+        st = v.untyped_storage()
+        out[st.data_ptr()] = st.nbytes()
+    return out
 
 
 def _db_route(torch, cfg) -> dict:
@@ -1956,6 +1979,7 @@ def train_path_ns_db(torch, ns_path) -> dict:
     from repro_torch.launch import train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     model, opt, params, state = train.build(
         "llama3_2_1b", full_config=True, device="cuda",
         inverse_method="newton_schulz", double_buffer=True)
@@ -2014,7 +2038,592 @@ def train_path_ns_db(torch, ns_path) -> dict:
                          f"dispatches {dcalls}")
     del model, opt, params, state
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "peak": peak, "base": base}
+
+
+# ---------------------------------------------------------------------------
+# the refresh pipeline and checkpoints
+# ---------------------------------------------------------------------------
+
+# the route checks of the refresh pipeline and of checkpoints: the route
+# config with the fp8 history, K 2
+ROUTE_PIPE = dict(factor_dtype="fp8_e4m3", refresh_chunks=2)
+# the family whose flags are off in the pipeline route's second capture
+PIPE_IDLE = "blk/mlp_up"
+# the full-width pipeline paths, K 4. Newton-Schulz: 7 loop steps (a
+# capture, 4 drains, a capture at cursor K that flips first, a drain), then
+# the fast-step builder's warm-up and FAST_TIMED steps (the last 3 chunks
+# and the flip). eigh: 6 loop steps (a capture, 4 drains, a capture).
+PIPE_K = 4
+TRAIN_PIPE_NS = dict(TRAIN, steps=7)
+TRAIN_PIPE_EIGH = dict(TRAIN, steps=6)
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bytes (an expanded view compared by its
+    elements)."""
+    def raw(t):
+        flat = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        return flat.copy_(t).reshape(-1).view(torch.uint8)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(raw(a), raw(b)))
+
+
+def _pipe_snap(params, state) -> dict:
+    """Copies of the params, both buffers and the raw store, by name."""
+    from repro_torch.core.fisher import flatten
+    out = {f"params/{k}": v.detach().clone()
+           for k, v in flatten(params).items()}
+    for fam, c in state["curv"].items():
+        for slot in ("precond", "precond_next"):
+            out.update({f"{slot}/{fam}.{k}": v.clone()
+                        for k, v in c[slot].items()})
+    for fam, stats in state["pipeline"]["raw"].items():
+        out.update({f"raw/{fam}.{k}": v.clone() for k, v in stats.items()})
+    return out
+
+
+def _expected_inflight(kinds, k) -> list:
+    """refresh_inflight as the pipeline's state machine gives it for a run
+    of step kinds from an idle pipeline (tests/test_refresh_pipeline.py's
+    sequence): K+1 on a capture and on the first drain step, down to 1 on
+    the flip step, 0 when idle."""
+    cursor, out = k + 1, []
+    for kind in kinds:
+        if kind == "capture":
+            out.append(k + 1)
+            cursor = 0
+        else:
+            out.append(min(max(k + 1 - cursor, 0), k + 1))
+            cursor = min(cursor + 1, k + 1)
+    return out
+
+
+def check_pipeline_route(torch) -> None:
+    """The refresh pipeline (``refresh_chunks`` 2) at full width, 2 layers,
+    f32, with the fp8 history: a capture with every statistic flagged, two
+    drains, a capture with PIPE_IDLE's flags off (at cursor K, so it flips
+    first), one drain, on the kernels; before each step a backend="ref"
+    optimizer starts from the kernel run's params and state and runs the
+    same step. Per step the losses, both buffers, the raw store and the
+    params agree within ROUTE_REL_TOL, and refresh_inflight follows the
+    state machine. On the kernels: PIPE_IDLE's encoded history passes the
+    second capture bit for bit (payload and scale), that capture applies
+    the drained buffer, and the drained inverses are bit-identical to the
+    inline double-buffered refresh of the same statistics (one backward
+    feeding both)."""
+    from repro_torch.core.fisher import flatten
+    from repro_torch.launch import train
+    cfg = _route_cfg(torch)
+    k = ROUTE_PIPE["refresh_chunks"]
+    runs = {b: train.build(cfg=cfg, backend=b, device="cuda", **ROUTE_PIPE)
+            for b in ("auto", "ref")}
+    model, kopt, kparams, kstate = runs["auto"]
+    _, ropt, rparams, _ = runs["ref"]
+    inline = train.build(cfg=cfg, device="cuda", double_buffer=True,
+                         factor_dtype=ROUTE_PIPE["factor_dtype"])
+    flags = {n: True for n in kopt.stat_names()}
+    mixed = {n: not n.startswith(PIPE_IDLE + ".") for n in flags}
+    seq = [("capture", flags), ("fast", None), ("fast", None),
+           ("capture", mixed), ("fast", None)]
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    rows, same_inline, n_stale, flipped = [], None, 0, None
+    for i, (kind, fl) in enumerate(seq):
+        batch = _train_batch(torch, cfg.vocab, 2, 512, index=i)
+        with torch.no_grad():
+            rflat = flatten(rparams)
+            for n, v in flatten(kparams).items():
+                rflat[n].copy_(v)
+        rstate = {**kstate, "velocity": {n: v.clone() for n, v in
+                                         kstate["velocity"].items()}}
+        if kind == "capture":
+            at_k = kstate["pipeline"]["cursor"] == k
+            staged = {fam: dict(c["precond_next"])
+                      for fam, c in kstate["curv"].items()}
+            hist = {(slot, key, part): v.clone()
+                    for slot in ("prev", "prev2")
+                    for key, enc in kstate["curv"][PIPE_IDLE][slot].items()
+                    for part, v in enc.items()}
+            _, rstate, rm = ropt.step(rparams, rstate, batch, fl, lam, lr,
+                                      0.9)
+            loss, aux, grads, raw = kopt.grads_and_raw(kparams, batch)
+            counts = model.site_counts(batch)
+            if i == 0:
+                _, imodel_state, _ = inline[1].apply_update(
+                    inline[2], inline[3], grads, raw, counts, fl, lam, lr,
+                    0.9, loss, aux)
+            kparams, kstate, km = kopt.apply_update(
+                kparams, kstate, grads, raw, counts, fl, lam, lr, 0.9, loss,
+                aux)
+            del grads, raw
+            if fl is mixed:
+                check(at_k, "pipeline route: the second capture must come "
+                            "at cursor K")
+                for (slot, key, part), v in hist.items():
+                    for st in (kstate, rstate):
+                        check(_bits_equal(torch, st["curv"][PIPE_IDLE][slot]
+                                          [key][part], v),
+                              f"pipeline route: {PIPE_IDLE}.{key} {slot} "
+                              f"{part} changed though not flagged")
+                    n_stale += 1
+                valid = kstate["pipeline"]["valid"]
+                flipped = all(kstate["curv"][fam]["precond"][key]
+                              is staged[fam][key]
+                              for fam in staged for key in staged[fam]
+                              if valid[fam][key])
+                check(flipped, "pipeline route: a capture at cursor K must "
+                               "apply the drained buffer")
+        else:
+            _, rstate, rm = ropt.step_fast(rparams, rstate, batch, lam, lr,
+                                           0.9)
+            kparams, kstate, km = kopt.step_fast(kparams, kstate, batch,
+                                                 lam, lr, 0.9)
+        got, want = _pipe_snap(kparams, kstate), _pipe_snap(rparams, rstate)
+        by = {}
+        for n, v in want.items():
+            part = n.split("/", 1)[0]
+            by[part] = max(by.get(part, 0.0), _rel_err(torch, got[n], v))
+        rows.append({"kind": kind, "loss": float(km["loss"]),
+                     "ref_loss": float(rm["loss"]), "by": by,
+                     "inflight": km["refresh_inflight"],
+                     "ref_inflight": rm["refresh_inflight"],
+                     "cursor": kstate["pipeline"]["cursor"]})
+        del got, want, rstate
+        if i == 2:
+            # every chunk drained: precond_next against the inline refresh
+            n_same = sum(
+                int(_bits_equal(torch, v, imodel_state["curv"][fam]
+                                ["precond_next"][key]))
+                for fam, c in kstate["curv"].items()
+                for key, v in c["precond_next"].items())
+            same_inline = (n_same, len(flags))
+            del inline, imodel_state
+            torch.cuda.empty_cache()
+    want_inf = _expected_inflight([kd for kd, _ in seq], k)
+    for i, x in enumerate(rows):
+        check(abs(x["loss"] - x["ref_loss"]) <= ROUTE_REL_TOL * abs(
+            x["ref_loss"]), f"pipeline route step {i + 1} loss {x['loss']} "
+                            f"vs {x['ref_loss']}")
+        check(x["inflight"] == x["ref_inflight"] == want_inf[i],
+              f"pipeline route step {i + 1} refresh_inflight "
+              f"{x['inflight']} / ref {x['ref_inflight']}, want "
+              f"{want_inf[i]}")
+        for part, err in x["by"].items():
+            check(err <= ROUTE_REL_TOL, f"pipeline route step {i + 1} "
+                                        f"{part} rel err {err}")
+    check(same_inline[0] == same_inline[1],
+          f"pipeline route: drained inverses bit-identical to the inline "
+          f"double-buffered refresh for {same_inline[0]} of "
+          f"{same_inline[1]} statistics")
+    by_step = "; ".join(
+        f"{i + 1} {x['kind']} (inflight {x['inflight']}, cursor after "
+        f"{x['cursor']}): " + ", ".join(f"{p} {e:.2e}"
+                                        for p, e in x["by"].items())
+        for i, x in enumerate(rows))
+    say("pipeline-route", f"llama3_2_1b width, 2 layers, f32, batch (2, 512),"
+                          f" fp8_e4m3 history, refresh_chunks {k}: capture, "
+                          f"2 drains, capture with {PIPE_IDLE} unflagged, "
+                          f"drain, on the kernels, each step also with "
+                          f"backend='ref' from the kernel run's state: losses "
+                          f"{[round(x['loss'], 6) for x in rows]} vs "
+                          f"{[round(x['ref_loss'], 6) for x in rows]}; worst "
+                          f"max|err|/max by step: {by_step} (tol "
+                          f"{ROUTE_REL_TOL})")
+    say("pipeline-route", f"on the kernels: {PIPE_IDLE}'s encoded history "
+                          f"({n_stale} payload and scale tensors of X_-1 and "
+                          f"X_-2) unchanged bit for bit through the capture "
+                          f"that did not flag it, in the kernel and the ref "
+                          f"step; the capture at cursor {k} applied the "
+                          f"drained buffer; drained inverses bit-identical "
+                          f"to the inline double-buffered refresh of the "
+                          f"same statistics for {same_inline[0]} of "
+                          f"{same_inline[1]}")
+    del runs, model, kopt, kparams, kstate, ropt, rparams
+    torch.cuda.empty_cache()
+
+
+def _run_leaves(model, state) -> dict:
+    """A run's params and optimizer state by path: tensors, and the host
+    step, cursor and latches."""
+    from repro_torch.core.fisher import flatten
+    out = {f"params/{k}": v for k, v in model.state_dict().items()}
+    out.update({f"state/{k}": v for k, v in flatten(state).items()})
+    return out
+
+
+def _leaf_gap(torch, a, b) -> float:
+    """0 when two leaves are the same bits, else their max |difference|
+    (inf for a host value or a shape that differs)."""
+    if not isinstance(a, torch.Tensor):
+        return 0.0 if a == b else float("inf")
+    if _bits_equal(torch, a, b):
+        return 0.0
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_checkpoint_route(torch) -> None:
+    """Checkpoints on the card: the pipeline route's config (full width, 2
+    layers, f32, fp8 history, refresh_chunks 2) after a capture and one
+    drain (mid-drain, 0 < cursor < K), saved with
+    ``repro_torch.checkpoint.save_checkpoint`` into a temporary directory
+    under ``build/`` (removed after) and restored on the card. Every leaf
+    (fp8 payload bits included), the cursor, the valid latches and the
+    controller's state_dict restore bit for bit. Then the run goes on 2
+    steps (a drain and the flip) three ways: as it stands, from a copy
+    made on the card before the save, and from the restore; the restored
+    run's leaves must equal the uninterrupted run's bit for bit, or, where
+    the two uninterrupted runs differ (a library call that does not repeat
+    its bits), lie within their measured spread."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.fisher import flatten, unflatten
+    from repro_torch.core.stale import IntervalController
+    from repro_torch.launch import train
+    cfg = _route_cfg(torch)
+    k = ROUTE_PIPE["refresh_chunks"]
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    model, opt, params, state = train.build(cfg=cfg, device="cuda",
+                                            **ROUTE_PIPE)
+    ctrl = IntervalController(opt.stat_names(), alpha=opt.cfg.alpha,
+                              min_interval=k + 1,
+                              bytes_per_stat=opt.stat_bytes())
+    for t in (1, 2):
+        flags = ctrl.flags(t)
+        batch = _train_batch(torch, cfg.vocab, 2, 512, index=t - 1)
+        if any(flags.values()):
+            params, state, m = opt.step(params, state, batch, flags, lam, lr,
+                                        0.9)
+        else:
+            params, state, m = opt.step_fast(params, state, batch, lam, lr,
+                                             0.9)
+        ctrl.update(t, flags, m["sims"])
+    cursor = state["pipeline"]["cursor"]
+    check(0 < cursor < k, f"checkpoint route: cursor {cursor} is not "
+                          f"mid-drain (0 < cursor < {k})")
+    # the second uninterrupted run: a copy on the card of the run as it
+    # stands
+    twin = train.build(cfg=cfg, device="cuda", **ROUTE_PIPE)
+    twin[0].load_state_dict(model.state_dict())
+    flat = flatten(state)
+    twin_state = unflatten(
+        {n: v.clone() if isinstance(v, torch.Tensor) else v
+         for n, v in flat.items()}, state)
+    live = _run_leaves(model, state)
+    need = sum(v.numel() * v.element_size() for v in live.values()
+               if isinstance(v, torch.Tensor))
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build_dir).free
+    check(free >= 2 * need, f"checkpoint route: {free / 2 ** 30:.2f} GiB "
+                            f"free under {build_dir}, the checkpoint needs "
+                            f"about {need / 2 ** 30:.2f} GiB (twice that "
+                            f"asked for)")
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-", dir=build_dir)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, 2, params, state, ctrl.state_dict())
+        t_save = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                      for f in os.listdir(ckpt_dir))
+        t0 = time.perf_counter()
+        r = restore_checkpoint(ckpt_dir, cfg=cfg)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir)
+    model3, opt3, _, _ = train.build(cfg=cfg, device="cuda", **ROUTE_PIPE)
+    model3.load_state_dict(r["params"])
+    state3 = opt3.upgrade_state(r["opt_state"])
+    back = _run_leaves(model3, state3)
+    check(set(back) == set(live), "checkpoint route: restored leaves "
+                                  f"{sorted(set(back) ^ set(live))[:4]} "
+                                  "differ from the saved ones")
+    bad = [n for n, v in live.items() if _leaf_gap(torch, back[n], v)]
+    check(not bad, f"checkpoint route: {len(bad)} leaves not restored bit "
+                   f"for bit, e.g. {bad[:3]}")
+    on_card = all(v.is_cuda for v in back.values()
+                  if isinstance(v, torch.Tensor))
+    check(on_card, "checkpoint route: the restore must put every tensor on "
+                   "the card")
+    check(state3["pipeline"]["cursor"] == cursor and r["controller"]
+          == ctrl.state_dict() and IntervalController.from_state_dict(
+              r["controller"]).state_dict() == ctrl.state_dict(),
+          "checkpoint route: cursor or controller not restored")
+    n_fp8 = sum(1 for v in back.values() if isinstance(v, torch.Tensor)
+                and v.dtype == torch.float8_e4m3fn)
+    del back, r
+    runs = {"uninterrupted": (model, opt, params, state),
+            "copy": (twin[0], twin[1], twin[0].params(), twin_state),
+            "restored": (model3, opt3, model3.params(), state3)}
+    out = {}
+    for name, (m_, o_, p_, s_) in runs.items():
+        for t in (3, 4):
+            batch = _train_batch(torch, cfg.vocab, 2, 512, index=t - 1)
+            p_, s_, _ = o_.step_fast(p_, s_, batch, lam, lr, 0.9)
+        check(s_["pipeline"]["cursor"] == k + 1, f"checkpoint route: the "
+              f"{name} run did not flip after 2 steps")
+        out[name] = _run_leaves(m_, s_)
+    u, c, rr = out["uninterrupted"], out["copy"], out["restored"]
+    spread = {n: _leaf_gap(torch, c[n], v) for n, v in u.items()}
+    gap = {n: _leaf_gap(torch, rr[n], v) for n, v in u.items()}
+    over = [n for n in u if gap[n] > spread[n]]
+    check(not over, f"checkpoint route: the resumed run leaves the "
+                    f"uninterrupted runs' spread at {len(over)} leaves, "
+                    f"e.g. {[(n, gap[n], spread[n]) for n in over[:3]]}")
+    n_spread = sum(1 for v in spread.values() if v)
+    n_gap = sum(1 for v in gap.values() if v)
+    say("checkpoint-route", f"llama3_2_1b width, 2 layers, f32, fp8_e4m3 "
+                            f"history, refresh_chunks {k}, saved at step 2 "
+                            f"mid-drain (cursor {cursor}): {written} bytes "
+                            f"({written / 2 ** 30:.3f} GiB) in "
+                            f"{len(live)} leaves ({n_fp8} fp8), save "
+                            f"{t_save:.2f} s, restore onto the card "
+                            f"{t_restore:.2f} s; every leaf, the cursor, the "
+                            f"valid latches and the controller restored bit "
+                            f"for bit")
+    say("checkpoint-route", f"2 more steps (a drain, the flip): the copy on "
+                            f"the card differs from the uninterrupted run at "
+                            f"{n_spread} of {len(u)} leaves, the restored "
+                            f"run at {n_gap} (bit for bit where 0); "
+                            f"{card_note(torch)}")
+    del runs, out, u, c, rr, model, opt, params, state, twin, twin_state
+    del model3, opt3, state3, live
+    torch.cuda.empty_cache()
+
+
+def _pipeline_path(torch, phase, spec, timed, patches=(), **build_kw):
+    """launch.train at full width with the refresh pipeline (PIPE_K
+    chunks) for ``spec``'s loop steps, then (``timed`` > 0) the fast-step
+    builder's warm-up and ``timed`` steps. Records per step the
+    Newton-Schulz launches and the torch.linalg.eigh calls made inside the
+    capture (``apply_update``) or the drain (``fast_curv``); ``patches``
+    (module, name, function) are set for the run. Checks: every loss
+    finite, no capture within K steps of a capture, refresh_inflight as the
+    state machine gives it, no Stage-4 work on a capture step and some on
+    every drain step (none on the flip), the training kernels' launches as
+    reckoned, no ref dispatch. Prints the schedule and each step."""
+    import math
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, opt, params, state = train.build(
+        "llama3_2_1b", full_config=True, device="cuda",
+        refresh_chunks=PIPE_K, **build_kw)
+    pipe = opt.pipeline
+    check(opt.cfg.double_buffer and pipe is not None and
+          pipe.chunks == PIPE_K, "build(refresh_chunks=) must reach "
+                                 "NGDConfig and set the double buffer")
+    say(phase, f"refresh_chunks {PIPE_K}: LPT loads (lead x b^3 a blocked "
+               f"factor) {pipe.loads}; "
+               + "; ".join(f"chunk {i}: {pipe.chunk_names(i)}"
+                           for i in range(PIPE_K)))
+    eigh_calls = [0]
+    real_eigh = torch.linalg.eigh
+
+    def eigh_spy(*a, **kw):
+        eigh_calls[0] += 1
+        return real_eigh(*a, **kw)
+
+    # per step: NS launches, eigh calls, and the peak allocation since the
+    # previous step's watched call (its update, then this step's forward,
+    # backward and capture or chunk)
+    work = []
+
+    def watch(fn):
+        def run(*a, **kw):
+            n0, e0 = sum(ns.LAUNCHES.values()), eigh_calls[0]
+            out = fn(*a, **kw)
+            work.append((sum(ns.LAUNCHES.values()) - n0,
+                         eigh_calls[0] - e0,
+                         torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            return out
+        return run
+    opt.apply_update = watch(opt.apply_update)
+    opt.fast_curv = watch(opt.fast_curv)
+    patches = [(torch.linalg, "eigh", eigh_spy), *patches]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    ns.reset_launches()
+    dispatch.reset_calls()
+    try:
+        params, state, recs = train.run(
+            model, opt, params, state, log=lambda m: say(phase, m), **spec)
+        if timed:
+            params, state = _fast_steps(torch, model, opt, params, state,
+                                        recs, spec, phase, timed=timed)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        del opt.apply_update, opt.fast_curv     # the wrappers hold opt
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [w[2] for w in work])
+    raw = _storages(v for stats in state["pipeline"]["raw"].values()
+                    for v in stats.values())
+    hist = _storages(v for c in state["curv"].values()
+                     for slot in ("prev", "prev2")
+                     for v in c[slot].values() if not isinstance(v, dict))
+    kinds = [r["kind"] for r in recs]
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES, **ns.LAUNCHES}
+    calls = dict(dispatch.CALLS)
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"{phase} losses {[r['loss'] for r in recs]}")
+    caps = [i for i, kd in enumerate(kinds) if kd == "capture"]
+    check(len(caps) >= 2 and all(b - a > PIPE_K
+                                 for a, b in zip(caps, caps[1:])),
+          f"{phase}: captures at steps {[i + 1 for i in caps]}, within "
+          f"{PIPE_K} steps of each other")
+    want_inf = _expected_inflight(kinds, PIPE_K)
+    got_inf = [r.get("refresh_inflight") for r in recs]
+    check(got_inf == want_inf, f"{phase} refresh_inflight {got_inf} != "
+                               f"{want_inf}")
+    check(len(work) == len(recs), f"{phase}: {len(work)} watched calls for "
+                                  f"{len(recs)} steps")
+    for r, inf, (n_ns, n_eigh, top) in zip(recs, want_inf, work):
+        r["ns"], r["eigh"], r["peak"] = n_ns, n_eigh, top
+        drain = r["kind"] == "fast" and inf >= 2
+        check(drain == (n_ns + n_eigh > 0),
+              f"{phase} step {r['t']} ({r['kind']}, inflight {inf}): "
+              f"{n_ns} NS launches, {n_eigh} eigh calls")
+    want = _train_counts(model.cfg, kinds)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{phase} launches {got} != reckoned {want}")
+    check(not any(b == "ref" for (_, b) in calls), f"ref dispatches: {calls}")
+    def what(r, inf):
+        if r["kind"] == "capture":
+            return "capture"
+        return (f"drain chunk {PIPE_K + 1 - inf}" if inf >= 2
+                else "flip" if inf == 1 else "fast")
+    say(phase, "steps: " + "; ".join(
+        f"{r['t']} {what(r, inf)} inflight {inf} {r['seconds']:.3f} s (NS "
+        f"launches {r['ns']}, eigh {r['eigh']}, peak "
+        f"{r['peak'] / 2 ** 30:.2f} GiB)"
+        for r, inf in zip(recs, want_inf)))
+    say(phase, f"launches {got} (reckoned {want}), NS kernels "
+               f"{ {k: launches[k] for k in NS_KERNELS} }; dispatches "
+               f"{calls}")
+    out = {"recs": recs, "peak": peak, "base": base,
+           "raw": sum(raw.values()),
+           "raw_shared": sum(v for p, v in raw.items() if p in hist),
+           "launches": launches}
+    del model, opt, params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipeline_walls(recs) -> dict:
+    """Walls of the capture steps, of the drain steps by chunk, and of the
+    flip steps; a drain step is a fast step with inflight >= 2, its chunk
+    K + 1 - inflight."""
+    walls = {"capture": [], "drain": {}, "flip": []}
+    for r in recs:
+        inf = r["refresh_inflight"]
+        if r["kind"] == "capture":
+            walls["capture"].append(r["seconds"])
+        elif inf >= 2:
+            walls["drain"].setdefault(PIPE_K + 1 - inf, []).append(
+                r["seconds"])
+        elif inf == 1:
+            walls["flip"].append(r["seconds"])
+    return walls
+
+
+def _say_pipeline(torch, phase, p, inline_cap, fast_median, peak_ref,
+                  ref_name) -> None:
+    w = _pipeline_walls(p["recs"])
+    # the first drain step of a run pays the chunk's first calls: its
+    # walls are listed, the peak surcharge takes the worst of all
+    drains = [x for v in w["drain"].values() for x in v]
+    worst = max(drains)
+    gib = 2 ** 30
+    say(phase, f"walls: capture {[round(x, 3) for x in w['capture']]} s "
+               f"(inline capture step "
+               f"{[round(x, 3) for x in inline_cap]} s); drain by chunk "
+               + ", ".join(f"{i}: {[round(x, 3) for x in v]}"
+                           for i, v in sorted(w["drain"].items()))
+               + f" s; flip {[round(x, 3) for x in w['flip']]} s; fast "
+               f"step median {fast_median:.3f} s (inline run, same call); "
+               f"peak drain-step surcharge over the fast step "
+               f"{worst - fast_median:.3f} s ({worst / fast_median:.2f}x "
+               f"the fast step); {card_note(torch)}")
+    say(phase, f"raw store {p['raw'] / gib:.3f} GiB, {p['raw_shared'] / gib:.3f}"
+               f" GiB of it the X_-1 history's own storage (f32 history: "
+               f"the parked statistic is X_-1); peak memory "
+               f"{p['peak'] / gib:.2f} GiB, {(p['peak'] - p['base']) / gib:.2f}"
+               f" GiB above the {p['base'] / gib:.2f} GiB allocated at the "
+               f"phase's start ({ref_name} {peak_ref[0] / gib:.2f} GiB, "
+               f"{(peak_ref[0] - peak_ref[1]) / gib:.2f} GiB above its "
+               f"start; torch.cuda.max_memory_allocated, same call)")
+
+
+def train_path_pipeline(torch, ns_path, ns_db) -> None:
+    """The refresh pipeline at full width with Stage 4 by Newton-Schulz:
+    ``_pipeline_path`` over TRAIN_PIPE_NS's 7 loop steps and the fast-step
+    builder's warm-up and FAST_TIMED steps. Also checks the launches of
+    the three NS kernels as reckoned from the recorded trips, and that the
+    plain iteration never runs. Prints the walls beside the inline NS
+    path's capture step and fast-step median, the peak drain-step
+    surcharge, the raw store's bytes and the peak memory beside the
+    double-buffered NS path's."""
+    from repro_torch.core import kfac as kfac_core
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.kernels import ref
+    calls, plain = [], []
+    inner = ns.ns_inverse
+
+    def spy_ns(m, iters, tol):
+        out = inner(m, iters, tol)
+        calls.append((m.shape[-1], out[2].cpu()))
+        return out
+
+    def plain_spy(fn):
+        def run(*a, **kw):
+            plain.append(fn.__name__)
+            return fn(*a, **kw)
+        return run
+    patches = [(ns, "ns_inverse", spy_ns)] + [
+        (mod, name, plain_spy(getattr(mod, name)))
+        for mod, name in ((kfac_core, "newton_schulz_inverse"),
+                          (ref, "ns_inverse_blocks_ref"),
+                          (ref, "ns_tiled_residual_ref"),
+                          (ref, "ns_tiled_update_ref"))]
+    p = _pipeline_path(torch, "pipe-train-path", TRAIN_PIPE_NS, FAST_TIMED,
+                       patches, inverse_method="newton_schulz")
+    check(not plain, f"the plain Newton-Schulz iteration ran: {plain}")
+    want = {"ns_inverse_blocks": sum(1 for b, _ in calls
+                                     if ns.route(b) == "resident")}
+    tiled = [int(t.max()) for b, t in calls if ns.route(b) == "tiled"]
+    want["ns_tiled_residual"] = sum(n + 1 for n in tiled)
+    want["ns_tiled_update"] = sum(tiled)
+    got = {k: p["launches"][k] for k in want}
+    check(got == want and all(want.values()),
+          f"pipeline NS launches {got} != reckoned {want}")
+    _say_pipeline(torch, "pipe-train-path", p, ns_path["cap_s"],
+                  statistics.median(ns_path["fast_s"]),
+                  (ns_db["peak"], ns_db["base"]), "double-buffered NS path")
+
+
+def train_path_pipeline_eigh(torch, train) -> None:
+    """The refresh pipeline at full width with eigh Stage 4 (the CLI's
+    default): ``_pipeline_path`` over TRAIN_PIPE_EIGH's 6 loop steps (no
+    torch.linalg.eigh on a capture step). Prints the walls beside the
+    inline eigh path's capture step and fast-step median, the surcharge,
+    the raw store and the peak memory beside the inline eigh path's."""
+    p = _pipeline_path(torch, "pipe-eigh-train-path", TRAIN_PIPE_EIGH, 0)
+    _say_pipeline(torch, "pipe-eigh-train-path", p, train["cap_s"],
+                  train["fast_median"], (train["peak"], train["base"]),
+                  "inline eigh path")
 
 
 def sgd_path(torch, train) -> None:

@@ -11,10 +11,18 @@ parameter dicts, so that both packages compute the same function::
 :func:`params_to_jax` goes back. Factor statistics keep the stacked
 ``{family: {key: (L, ...)}}`` layout in both packages
 (:func:`stats_from_jax`, :func:`stats_to_jax`); the SP-NGD optimizer state
-differs only in its velocity, a stacked params tree in JAX and a flat
-``{"blocks/3/attn/wq": tensor}`` dict in the port
-(:func:`opt_state_from_jax`, :func:`opt_state_to_jax`), and so does the
-momentum-SGD state (:func:`sgd_state_from_jax`, :func:`sgd_state_to_jax`).
+differs in its velocity, a stacked params tree in JAX and a flat
+``{"blocks/3/attn/wq": tensor}`` dict in the port, and in the refresh
+pipeline's cursor and ``valid`` latches, 0-d arrays in JAX and host
+``int``/``bool`` in the port (:func:`opt_state_from_jax`,
+:func:`opt_state_to_jax`); so does the momentum-SGD state
+(:func:`sgd_state_from_jax`, :func:`sgd_state_to_jax`).
+
+The ``*_layout`` functions build the JAX layout with CPU tensor leaves; the
+checkpoint module writes those through :func:`tensor_bits` (bf16 and fp8 as
+unsigned-integer bit views) and reads them back through
+:func:`bits_tensor`, so it needs no ``ml_dtypes``. Only :func:`to_numpy`
+(ml_dtypes arrays, the JAX package's own) imports it.
 """
 
 from __future__ import annotations
@@ -23,18 +31,53 @@ import numpy as np
 import torch
 
 
+# the extension dtypes, by their numpy (ml_dtypes) name
+EXT_DTYPES = {"bfloat16": torch.bfloat16,
+              "float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
+_EXT_NAMES = {v: k for k, v in EXT_DTYPES.items()}
+# the integer views that carry their bits, by element size: the torch view,
+# its numpy twin, and the unsigned type the bits are stored as (torch's
+# from_numpy takes no uint16)
+_BITS = {1: (torch.uint8, np.uint8, np.uint8),
+         2: (torch.int16, np.int16, np.uint16)}
+
+
+def tensor_bits(t: torch.Tensor) -> tuple[np.ndarray, str | None]:
+    """torch tensor -> (numpy array on the host, extension dtype name or
+    None): bf16 and fp8 come out as their unsigned-integer bit views
+    (uint16, uint8), every other dtype as itself."""
+    t = t.detach().cpu().contiguous()
+    name = _EXT_NAMES.get(t.dtype)
+    if name is None:
+        return t.numpy(), None
+    view, _, stored = _BITS[t.element_size()]
+    return t.view(view).numpy().view(stored), name
+
+
+def bits_tensor(a: np.ndarray, name: str | None = None,
+                device=None) -> torch.Tensor:
+    """Inverse of :func:`tensor_bits`: a numpy array, or with ``name`` the
+    bit view of that extension dtype, -> a torch tensor on ``device``."""
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    if name is None:
+        return torch.from_numpy(a).to(device)
+    dt = EXT_DTYPES[name]
+    view, twin, _ = _BITS[dt.itemsize]
+    return torch.from_numpy(a.view(twin)).view(dt).to(device)
+
+
 def to_torch(a, device=None) -> torch.Tensor:
-    """numpy array -> torch tensor, bf16 and fp8 (ml_dtypes) included."""
+    """numpy array (bf16 and fp8 as ml_dtypes arrays) or tensor -> torch
+    tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
-    name = a.dtype.name
-    bitcast = {"bfloat16": (np.int16, torch.bfloat16),
-               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
-               "float8_e5m2": (np.uint8, torch.float8_e5m2)}
-    if name in bitcast:
-        raw, dt = bitcast[name]
-        bits = torch.from_numpy(np.array(a).view(raw))
-        return bits.view(dt).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+    if a.dtype.name in EXT_DTYPES:
+        return bits_tensor(a.view(np.dtype(f"u{a.dtype.itemsize}")),
+                           a.dtype.name, device)
+    return bits_tensor(a, None, device)
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -64,50 +107,52 @@ def params_from_jax(np_params: dict, cfg, device=None) -> dict:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """torch tensor -> numpy array, bf16 and fp8 as ml_dtypes arrays."""
-    t = t.detach().cpu()
-    names = {torch.bfloat16: ("bfloat16", torch.int16, np.int16),
-             torch.float8_e4m3fn: ("float8_e4m3fn", torch.uint8, np.uint8),
-             torch.float8_e5m2: ("float8_e5m2", torch.uint8, np.uint8)}
-    if t.dtype in names:
-        import ml_dtypes
-        name, raw, _ = names[t.dtype]
-        return t.contiguous().view(raw).numpy().view(getattr(ml_dtypes, name))
-    return t.contiguous().numpy()
+    bits, name = tensor_bits(t)
+    if name is None:
+        return bits
+    import ml_dtypes
+    return bits.view(getattr(ml_dtypes, name))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu()
+
+
+def _stack(*xs):
+    if isinstance(xs[0], dict):
+        return {k: _stack(*(x[k] for x in xs)) for k in xs[0]}
+    return torch.stack(xs)
+
+
+def params_layout(params: dict) -> dict:
+    """The port's parameter tree (``DecoderLM.params()``: ``blocks`` a list
+    of per-layer dicts) -> the JAX layout (blocks stacked on (L,)), CPU
+    tensor leaves."""
+    out = {k: _map(_cpu, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = _stack(*(_map(_cpu, b) for b in params["blocks"]))
+    return out
 
 
 def params_to_jax(params: dict) -> dict:
-    """The port's parameter tree (``DecoderLM.params()``: ``blocks`` a list
-    of per-layer dicts) -> the JAX layout (blocks stacked on (L,)), numpy
-    leaves."""
-    def rec(node):
-        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
-                else to_numpy(node))
-    out = {k: rec(v) for k, v in params.items() if k != "blocks"}
-    layers = [rec(b) for b in params["blocks"]]
-
-    def stack(*xs):
-        if isinstance(xs[0], dict):
-            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return np.stack(xs)
-    out["blocks"] = stack(*layers)
-    return out
+    """:func:`params_layout` with numpy leaves."""
+    return _map(to_numpy, params_layout(params))
 
 
 def stats_from_jax(np_stats: dict, device=None) -> dict:
     """{family: {key: array}} (stacked (L, ...) block families) -> torch,
     the same layout; an encoded entry ({"payload", "scale"}: fp8 history or
     a wire-format capture) keeps its dict, fp8 payload bits included."""
-    def rec(node):
-        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
-                else to_torch(node, device))
-    return rec(np_stats)
+    return _map(lambda a: to_torch(a, device), np_stats)
 
 
 def stats_to_jax(stats: dict) -> dict:
-    def rec(node):
-        return ({k: rec(v) for k, v in node.items()} if isinstance(node, dict)
-                else to_numpy(node))
-    return rec(stats)
+    return _map(to_numpy, stats)
 
 
 def _velocity_from_jax(np_vel: dict, cfg, device=None) -> dict:
@@ -116,25 +161,34 @@ def _velocity_from_jax(np_vel: dict, cfg, device=None) -> dict:
 
 
 def opt_state_from_jax(np_state: dict, cfg, device=None) -> dict:
-    """JAX ``SPNGD.init``/step state (numpy leaves; a family's staged
-    ``precond_next`` kept where ``double_buffer`` put one; no pipeline)
-    -> the port's state."""
-    return {"step": int(np.asarray(np_state["step"])),
-            "velocity": _velocity_from_jax(np_state["velocity"], cfg,
-                                           device),
-            # a family's {slot: {key: array}} nests like {family: {key}}
-            "curv": {fam: stats_from_jax(entry, device)
-                     for fam, entry in np_state["curv"].items()}}
+    """JAX ``SPNGD.init``/step state (numpy or CPU tensor leaves; a
+    family's staged ``precond_next`` kept where ``double_buffer`` put one,
+    the refresh pipeline's state where ``refresh_chunks`` did) -> the
+    port's state."""
+    state = {"step": int(np_state["step"]),
+             "velocity": _velocity_from_jax(np_state["velocity"], cfg,
+                                            device),
+             # a family's {slot: {key: array}} nests like {family: {key}}
+             "curv": {fam: stats_from_jax(entry, device)
+                      for fam, entry in np_state["curv"].items()}}
+    if "pipeline" in np_state:
+        pipe = np_state["pipeline"]
+        state["pipeline"] = {
+            "cursor": int(pipe["cursor"]),
+            "raw": stats_from_jax(pipe["raw"], device),
+            "valid": _map(bool, pipe["valid"])}
+    return state
 
 
 def sgd_state_from_jax(np_state: dict, cfg, device=None) -> dict:
-    """JAX ``SGD`` state (numpy leaves) -> the port's ``SGD`` state."""
-    return {"step": int(np.asarray(np_state["step"])),
+    """JAX ``SGD`` state (numpy or CPU tensor leaves) -> the port's ``SGD``
+    state."""
+    return {"step": int(np_state["step"]),
             "velocity": _velocity_from_jax(np_state["velocity"], cfg,
                                            device)}
 
 
-def _velocity_to_jax(velocity: dict) -> dict:
+def _velocity_layout(velocity: dict) -> dict:
     vel: dict = {}
     for path, t in velocity.items():
         parts = path.split("/")
@@ -144,32 +198,50 @@ def _velocity_to_jax(velocity: dict) -> dict:
             node = node.setdefault("blocks", {})
             for p in parts[2:-1]:
                 node = node.setdefault(p, {})
-            node.setdefault(parts[-1], {})[layer] = to_numpy(t)
+            node.setdefault(parts[-1], {})[layer] = _cpu(t)
             continue
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = to_numpy(t)
+        node[parts[-1]] = _cpu(t)
 
     def stack(node):
         if isinstance(node, dict) and node and all(
                 isinstance(k, int) for k in node):
-            return np.stack([node[i] for i in range(len(node))])
+            return torch.stack([node[i] for i in range(len(node))])
         if isinstance(node, dict):
             return {k: stack(v) for k, v in node.items()}
         return node
     return stack(vel)
 
 
+def opt_state_layout(state: dict) -> dict:
+    """The port's SP-NGD state (single or double buffer, with or without
+    the refresh pipeline) -> the JAX layout, CPU tensor leaves: ``step``
+    and the pipeline's ``cursor`` int32, its ``valid`` latches bool, as
+    the JAX package keeps them."""
+    out = {"step": torch.tensor(state["step"], dtype=torch.int32),
+           "velocity": _velocity_layout(state["velocity"]),
+           "curv": _map(_cpu, state["curv"])}
+    if "pipeline" in state:
+        pipe = state["pipeline"]
+        out["pipeline"] = {
+            "cursor": torch.tensor(pipe["cursor"], dtype=torch.int32),
+            "raw": _map(_cpu, pipe["raw"]),
+            "valid": _map(lambda v: torch.tensor(bool(v)), pipe["valid"])}
+    return out
+
+
 def opt_state_to_jax(state: dict) -> dict:
-    """The port's SP-NGD state (single or double buffer) -> the JAX layout
-    (numpy leaves)."""
-    return {"step": np.asarray(state["step"], np.int32),
-            "velocity": _velocity_to_jax(state["velocity"]),
-            "curv": {fam: stats_to_jax(entry)
-                     for fam, entry in state["curv"].items()}}
+    """:func:`opt_state_layout` with numpy leaves."""
+    return _map(to_numpy, opt_state_layout(state))
+
+
+def sgd_state_layout(state: dict) -> dict:
+    """The port's ``SGD`` state -> the JAX layout, CPU tensor leaves."""
+    return {"step": torch.tensor(state["step"], dtype=torch.int32),
+            "velocity": _velocity_layout(state["velocity"])}
 
 
 def sgd_state_to_jax(state: dict) -> dict:
-    """The port's ``SGD`` state -> the JAX layout (numpy leaves)."""
-    return {"step": np.asarray(state["step"], np.int32),
-            "velocity": _velocity_to_jax(state["velocity"])}
+    """:func:`sgd_state_layout` with numpy leaves."""
+    return _map(to_numpy, sgd_state_layout(state))

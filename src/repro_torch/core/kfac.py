@@ -176,40 +176,66 @@ def damped_sym(f: torch.Tensor, damping) -> torch.Tensor:
     return f + d[..., None, None] * eye
 
 
+def family_pi(a: Optional[torch.Tensor], g: Optional[torch.Tensor],
+              d_a: int, d_g: int, *, a_kind: str = "full",
+              g_kind: str = "full") -> torch.Tensor:
+    """A family's damping split: :func:`pi_correction` when it has both
+    factors, else ones over its leading axes (pi = 1)."""
+    if a is not None and g is not None:
+        return pi_correction(a, g, d_a, d_g, a_kind=a_kind, g_kind=g_kind)
+    f, kind = (a, a_kind) if a is not None else (g, g_kind)
+    lead = f.shape[:-3] if kind == "full" else f.shape[:-1]
+    return torch.ones(lead, device=f.device)
+
+
+def factor_damping(pi: torch.Tensor, lam: float):
+    """Eq. 12's damping of the two factors: (pi*sqrt(lam), sqrt(lam)/pi)."""
+    sl = torch.sqrt(torch.as_tensor(lam, dtype=torch.float32,
+                                    device=pi.device))
+    return pi * sl, sl / pi
+
+
+def damped_stat_inverse(f: torch.Tensor, kind: str, damp: torch.Tensor, *,
+                        method: str = "eigh",
+                        backend: Optional[str] = None):
+    """One statistic's damped inverse: a blocked factor through
+    ``kernels.dispatch.damped_inverse`` (one batched call for all its
+    blocks and layers), a diagonal one elementwise as ``1/(max(x, 0) +
+    d)``; ``damp`` over the leading axes. Returns ``(inverse, info)``, info
+    the dispatch's per-block ``{"ns_res", "ns_converged"}`` of a blocked
+    factor and None for a diagonal one. The inline refresh and the refresh
+    pipeline's chunks both invert through here."""
+    if kind == "full":
+        from repro_torch.kernels import dispatch
+        return dispatch.damped_inverse(f, damp[..., None], method=method,
+                                       backend=backend, return_info=True)
+    return 1.0 / (torch.clamp(f, min=0.0) + damp[..., None]), None
+
+
 def damped_factor_inverses(a: Optional[torch.Tensor],
                            g: Optional[torch.Tensor], lam: float, d_a: int,
                            d_g: int, *, method: str = "eigh",
                            backend: Optional[str] = None,
                            a_kind: str = "full", g_kind: str = "full"):
-    """(A + pi*sqrt(lam) I)^-1 and (G + sqrt(lam)/pi I)^-1 (Eq. 12). A
-    blocked factor is inverted through ``kernels.dispatch.damped_inverse``
-    (one batched call for all its blocks and layers), a diagonal one
-    elementwise as ``1/(max(x, 0) + d)``. A site with one factor passes
-    None for the other: pi is then 1 and None comes back for it. Returns
+    """(A + pi*sqrt(lam) I)^-1 and (G + sqrt(lam)/pi I)^-1 (Eq. 12), each
+    by :func:`damped_stat_inverse`. A site with one factor passes None for
+    the other: pi is then 1 and None comes back for it. Returns
     ``(a_inv, g_inv, info)``: info maps "a"/"g" of each blocked factor to
     the dispatch's per-block ``{"ns_res", "ns_converged"}``."""
-    if a is not None and g is not None:
-        pi = pi_correction(a, g, d_a, d_g, a_kind=a_kind, g_kind=g_kind)
-    else:
-        f, kind = (a, a_kind) if a is not None else (g, g_kind)
-        lead = f.shape[:-3] if kind == "full" else f.shape[:-1]
-        pi = torch.ones(lead, device=f.device)
-    sl = torch.sqrt(torch.as_tensor(lam, dtype=torch.float32,
-                                    device=pi.device))
+    damp = factor_damping(family_pi(a, g, d_a, d_g, a_kind=a_kind,
+                                    g_kind=g_kind), lam)
     info = {}
     out = []
-    for key, f, kind, damp in (("a", a, a_kind, pi * sl),
-                               ("g", g, g_kind, sl / pi)):
+    for key, f, kind, d in (("a", a, a_kind, damp[0]),
+                            ("g", g, g_kind, damp[1])):
         if f is None:
             out.append(None)
-        elif kind == "full":
-            from repro_torch.kernels import dispatch
-            inv, info[key] = dispatch.damped_inverse(
-                f, damp[..., None], method=method, backend=backend,
-                return_info=True)
-            out.append(inv)
-        else:
-            out.append(1.0 / (torch.clamp(f, min=0.0) + damp[..., None]))
+            continue
+        inv, i = damped_stat_inverse(f, kind, d, method=method,
+                                     backend=backend)
+        out.append(inv)
+        if i is not None:
+            info[key] = i
     return (*out, info)
 
 

@@ -27,8 +27,11 @@ encoded (``{"payload", "scale"}``, sym-packed for the blocked factors) and
 decoded on read; wire-format capture (``FactorSpec.wire_fmt``) is decoded
 once per refreshed statistic. With ``double_buffer`` the inverses a
 refresh computes are staged (``precond_next``) and activate from the next
-step on (the paper's section 5.2 overlap). The chunked refresh pipeline
-and sharded Stage 4 arrive with their slices.
+step on (the paper's section 5.2 overlap). With ``refresh_chunks`` K > 1
+the chunked refresh pipeline (``core/pipeline.py``) takes over: a capture
+step runs no inversion, the next K fast steps each invert one chunk, and
+the step after them activates the refresh. Sharded Stage 4 arrives with
+its slice.
 """
 
 from __future__ import annotations
@@ -65,6 +68,16 @@ class NGDConfig:
                                      # are STAGED (precond_next) and
                                      # activate at t+1, while step t still
                                      # applies the previous buffer
+    refresh_chunks: int = 1          # chunked refresh pipeline
+                                     # (repro_torch.core.pipeline): > 1
+                                     # splits every refresh's Stage-4
+                                     # inversions into this many chunks, one
+                                     # per following fast step, activated
+                                     # K+1 steps after the capture. Needs
+                                     # double_buffer; the controller runs
+                                     # with min_interval = refresh_chunks + 1
+                                     # so a drain ends before the next
+                                     # capture. 1 = inline refresh
 
 
 # Eq. 24's guard against a zero weight norm
@@ -100,6 +113,14 @@ class SPNGD:
         self.cfg = cfg
         from repro_torch.quant.quant import parse_factor_dtype
         self._fp8 = parse_factor_dtype(cfg.factor_dtype)  # fmt key or None
+        self.pipeline = None          # RefreshPipeline when refresh_chunks>1
+        if cfg.refresh_chunks > 1:
+            if not cfg.double_buffer:
+                raise ValueError("refresh_chunks > 1 needs double_buffer: "
+                                 "the drain writes precond_next while the "
+                                 "fast path consumes precond")
+            from repro_torch.core.pipeline import RefreshPipeline
+            self.pipeline = RefreshPipeline(self, cfg.refresh_chunks)
 
     def sym_stat(self, fam: str, key: str) -> bool:
         """Whether a stat is a symmetric blocked factor."""
@@ -168,8 +189,10 @@ class SPNGD:
         momentum. The zero and identity entries are expanded views (no
         memory): the first refresh replaces them. With ``double_buffer`` the
         staged buffer starts as the same views, so step 1 applies these
-        initial preconditioners."""
+        initial preconditioners. With the refresh pipeline the state holds
+        an idle one under "pipeline"."""
         curv = {}
+        dev = None
         for fam, stats in self.fstats_fn().items():
             info = self.infos[fam]
             entry = {"prev": {}, "prev2": {}, "precond": {}}
@@ -196,24 +219,29 @@ class SPNGD:
             curv[fam] = entry
         velocity = {path: torch.zeros_like(p)
                     for path, p in flatten(params).items()}
-        return {"step": 0, "velocity": velocity, "curv": curv}
+        state = {"step": 0, "velocity": velocity, "curv": curv}
+        if self.pipeline is not None:
+            state["pipeline"] = self.pipeline.init_state(dev)
+        return state
 
     # ---- curvature refresh (Algorithm 1's on-refresh work) ----
 
     def _shift_history(self, fam: str, raw: dict, curv: dict, flags: dict,
-                       n_a, n_g):
+                       n_a, n_g, park: bool = False):
         """Normalize the raw sums, measure the Algorithm-2 distances of the
         flagged statistics against the decoded history, and shift X_-1/X_-2
         for them. A statistic that does not refresh keeps its stored entry
         as it is (under fp8, payload and scale bit for bit: the select is
         at the encoded level); its decoded X_-1 stands in for it when its
-        family recomputes. Returns (normalized, new_prev, new_prev2, sims)
-        with sims[name] a (2,) device tensor for a flagged stat and None
-        otherwise; normalized holds only what the family's refresh reads."""
+        family recomputes or when ``park`` (the pipeline's capture, which
+        parks every family). Returns (normalized, new_prev, new_prev2,
+        sims) with sims[name] a (2,) device tensor for a flagged stat and
+        None otherwise; normalized holds only what the family's refresh
+        reads, every statistic with ``park``."""
         from repro_torch.quant import quant
         cfg = self.cfg
         new_prev, new_prev2, sims, normalized = {}, {}, {}, {}
-        recompute = any(flags[f"{fam}.{k}"] for k in raw)
+        recompute = park or any(flags[f"{fam}.{k}"] for k in raw)
         for key, v in raw.items():
             name = f"{fam}.{key}"
             stored = curv["prev"][key]
@@ -338,10 +366,12 @@ class SPNGD:
 
     @torch.no_grad()
     def _finish(self, params, state, grads, curv, lam, lr, mom, loss, aux,
-                sims, inverse_info: Optional[dict] = None):
+                sims, inverse_info: Optional[dict] = None,
+                extra: Optional[dict] = None):
         """Eq. 23 momentum update, in place: per family, precondition, then
         ``v = mom v - lr u`` and ``w = w + v``; the parameters no site
-        covers take the plain gradient times ``sgd_fallback_scale``."""
+        covers take the plain gradient times ``sgd_fallback_scale``.
+        ``extra`` joins the metrics (the pipeline's ``refresh_inflight``)."""
         cfg = self.cfg
         flat_g = flatten(grads)
         flat_p = flatten(params)
@@ -385,6 +415,8 @@ class SPNGD:
                    "update_norm": torch.sqrt(usq)}
         if inverse_info:
             metrics["inverse_info"] = inverse_info
+        if extra:
+            metrics.update(extra)
         if isinstance(aux, dict):
             metrics.update({k: v for k, v in aux.items()
                             if isinstance(v, torch.Tensor) and v.dim() == 0})
@@ -406,7 +438,11 @@ class SPNGD:
         one transfer: metrics["sims"][name] = (d1, d2), or (-1, -1) for a
         statistic that did not refresh. With Stage 4 by Newton-Schulz,
         metrics["inverse_info"]["{fam}.{key}"] holds the per-block Stage-4
-        diagnostics of each blocked factor."""
+        diagnostics of each blocked factor. With the refresh pipeline this
+        is the capture step (:meth:`_apply_capture`)."""
+        if self.pipeline is not None:
+            return self._apply_capture(params, state, grads, raw, counts,
+                                       flags, lam, lr, mom, loss, aux)
         curv, dev_sims, inv_info = {}, {}, {}
         for fam in raw:
             n_a, n_g = counts[fam]
@@ -415,26 +451,58 @@ class SPNGD:
             dev_sims.update(s)
             inv_info.update({f"{fam}.{k}": v for k, v in fi.items()})
         del raw
-        live = [n for n, v in dev_sims.items() if v is not None]
-        host = (torch.stack([dev_sims[n] for n in live]).tolist()
-                if live else [])
-        sims = {n: (-1.0, -1.0) for n in dev_sims}
-        sims.update({n: tuple(v) for n, v in zip(live, host)})
         return self._finish(params, state, grads, curv, lam, lr, mom, loss,
-                            aux, sims, inverse_info=inv_info)
+                            aux, _host_sims(dev_sims), inverse_info=inv_info)
+
+    def _apply_capture(self, params, state, grads, raw, counts, flags, lam,
+                       lr, mom, loss, aux):
+        """The pipeline's capture step: a drain that has ended flips first
+        (so it is applied, not lost); then, per family, normalize, measure
+        the distances and shift the history as the inline refresh does,
+        park every statistic's post-select view (the fresh statistic when
+        flagged, the decoded X_-1 otherwise) in the raw store, latch
+        ``valid |= flag``, and restart the cursor. No inversion runs here;
+        ``refresh_inflight`` is K+1."""
+        pipe = state["pipeline"]
+        curv_in = self.pipeline.flip(state["curv"], pipe)
+        curv, dev_sims, new_raw, new_valid = {}, {}, {}, {}
+        for fam in raw:
+            n_a, n_g = counts[fam]
+            new_raw[fam], new_prev, new_prev2, s = self._shift_history(
+                fam, raw[fam], curv_in[fam], flags, n_a, n_g, park=True)
+            dev_sims.update(s)
+            curv[fam] = {**curv_in[fam], "prev": new_prev,
+                         "prev2": new_prev2}
+            new_valid[fam] = {k: pipe["valid"][fam][k]
+                              or bool(flags[f"{fam}.{k}"]) for k in raw[fam]}
+        del raw
+        state = {**state, "pipeline": {"cursor": 0, "raw": new_raw,
+                                       "valid": new_valid}}
+        return self._finish(params, state, grads, curv, lam, lr, mom, loss,
+                            aux, _host_sims(dev_sims),
+                            extra={"refresh_inflight":
+                                   self.pipeline.chunks + 1})
 
     def fast_curv(self, state, lam):
         """The fast path's curvature view: the stored preconditioners, the
-        staged buffer activated first with ``double_buffer`` (the chunked
-        refresh pipeline arrives with its slice). Returns (state, curv,
-        extra metrics)."""
-        return state, self._activate(state["curv"]), {}
+        staged buffer activated first with ``double_buffer``; with the
+        refresh pipeline, one drain (flip and/or one chunk). Returns
+        (state, curv, extra metrics): ``{"refresh_inflight": n}`` with the
+        pipeline, else empty. Every fast-step builder goes through here."""
+        if self.pipeline is None:
+            return state, self._activate(state["curv"]), {}
+        curv, pipe, inflight = self.pipeline.drain(
+            state["curv"], state["pipeline"], lam)
+        return ({**state, "pipeline": pipe}, curv,
+                {"refresh_inflight": inflight})
 
     def _activate(self, curv: dict) -> dict:
         """Double-buffer activation on a fast step: the buffer the latest
         refresh staged becomes the active preconditioner (``_finish`` keeps
-        the swap in the state). Identity without ``double_buffer``."""
-        if not self.cfg.double_buffer:
+        the swap in the state). Identity without ``double_buffer``, and
+        with the refresh pipeline, whose gated flip activates instead (an
+        unconditional swap would apply a half-written ``precond_next``)."""
+        if not self.cfg.double_buffer or self.pipeline is not None:
             return curv
         return {fam: {**entry, "precond": entry["precond_next"]}
                 for fam, entry in curv.items()}
@@ -444,7 +512,12 @@ class SPNGD:
         single-buffer state entering a ``double_buffer`` run seeds the
         staged buffer from the active one (the first activation changes
         nothing); a double-buffered state entering a single-buffer run
-        drops the staged buffer. Same-layout states pass through."""
+        drops the staged buffer. The pipeline state likewise: a state
+        without one entering a ``refresh_chunks > 1`` run gets an idle one
+        (the next capture starts it), and one entering an inline run loses
+        it (and with it a refresh not yet activated; the next inline
+        refresh recomputes it). Same-layout states pass through."""
+        state = dict(state)
         curv = {}
         for fam, entry in state["curv"].items():
             entry = dict(entry)
@@ -453,6 +526,11 @@ class SPNGD:
             if not self.cfg.double_buffer:
                 entry.pop("precond_next", None)
             curv[fam] = entry
+        if self.pipeline is None:
+            state.pop("pipeline", None)
+        elif "pipeline" not in state:
+            dev = next(iter(state["velocity"].values())).device
+            state["pipeline"] = self.pipeline.init_state(dev)
         return {**state, "curv": curv}
 
     def step(self, params, state, batch, flags: dict, lam, lr, mom,
@@ -465,8 +543,20 @@ class SPNGD:
                                  lam, lr, mom, loss, aux)
 
     def step_fast(self, params, state, batch, lam, lr, mom):
-        """No capture, no refresh: backward + stale-preconditioned update."""
+        """No capture: backward + stale-preconditioned update (plus one
+        drain of the refresh pipeline when ``refresh_chunks > 1``)."""
         loss, aux, grads = value_and_grad(self.loss_fn, params, batch)
-        state, curv, _ = self.fast_curv(state, lam)
+        state, curv, extra = self.fast_curv(state, lam)
         return self._finish(params, state, grads, curv, lam, lr, mom, loss,
-                            aux, {})
+                            aux, {}, extra=extra)
+
+
+def _host_sims(dev_sims: dict) -> dict:
+    """{name: (d1, d2)} on the host in one transfer, (-1, -1) for a
+    statistic that did not refresh (None on the device side)."""
+    live = [n for n, v in dev_sims.items() if v is not None]
+    host = (torch.stack([dev_sims[n] for n in live]).tolist()
+            if live else [])
+    sims = {n: (-1.0, -1.0) for n in dev_sims}
+    sims.update({n: tuple(v) for n, v in zip(live, host)})
+    return sims

@@ -17,6 +17,7 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
+    python -m repro_torch.launch.train --full-config --refresh-chunks 4
 """
 
 from __future__ import annotations
@@ -98,9 +99,9 @@ def make_fast_step(model, opt: SPNGD, accum: int = 1) -> Callable:
             loss = loss + l
         grads = unflatten({k: v / accum for k, v in flatten(grads).items()},
                           grads)
-        opt_state, curv, _ = opt.fast_curv(opt_state, lam)
+        opt_state, curv, extra = opt.fast_curv(opt_state, lam)
         return opt._finish(params, opt_state, grads, curv, lam, lr, mom,
-                           loss / accum, {}, {})
+                           loss / accum, {}, {}, extra=extra)
 
     return fast_step
 
@@ -111,11 +112,12 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
           weight_rescale: bool = False, history: int = 2,
           sgd_fallback_scale: float = 1.0, factor_dtype=torch.float32,
           factor_wire: str | None = None, double_buffer: bool = False,
-          device=None, seed: int = 0, cfg=None):
+          refresh_chunks: int = 1, device=None, seed: int = 0, cfg=None):
     """The model (random weights from ``seed``), its optimizer (the
-    ``NGDConfig`` fields of the same names) and the initial state:
-    (model, opt, params, state). ``factor_wire`` sets
-    ``ArchConfig.factor_wire`` (None keeps the config's)."""
+    ``NGDConfig`` fields of the same names; ``refresh_chunks`` > 1 sets
+    the double buffer too) and the initial state: (model, opt, params,
+    state). ``factor_wire`` sets ``ArchConfig.factor_wire`` (None keeps
+    the config's)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -138,7 +140,8 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
                           weight_rescale=weight_rescale, history=history,
                           sgd_fallback_scale=sgd_fallback_scale,
                           factor_dtype=factor_dtype,
-                          double_buffer=double_buffer))
+                          double_buffer=double_buffer or refresh_chunks > 1,
+                          refresh_chunks=refresh_chunks))
     return model, opt, params, opt.init(params)
 
 
@@ -154,12 +157,22 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     step)}; with Stage 4 by Newton-Schulz, a capture step's record also
     holds "inverse" ({"{fam}.{key}": {"ns_res", "ns_converged"}}
     of the refreshed blocked factors, on the host) and "fallbacks" (how many
-    of their blocks the Newton-Schulz inverse left to eigh)."""
+    of their blocks the Newton-Schulz inverse left to eigh). With the
+    refresh pipeline (``refresh_chunks`` K > 1) the controller never
+    captures again within K steps of a capture (``min_interval`` K + 1),
+    every record holds "refresh_inflight" (steps until the refresh in
+    flight is live: K+1 on the capture and on the first drain step, 0 when
+    idle), and a drain step's record "chunk" (the chunk it ran; K for the
+    flip step) and "chunk_stats" (its statistics, [] at the flip)."""
     from repro_torch.core.stale import IntervalController
     from repro_torch.data.synthetic import token_batches
     from repro_torch.optim.schedules import polynomial_decay
     cfg = model.cfg
+    k = opt.cfg.refresh_chunks
     ctrl = IntervalController(opt.stat_names(), alpha=opt.cfg.alpha,
+                              # a drain takes K chunk steps and the flip:
+                              # never capture again before it ends
+                              min_interval=k + 1 if k > 1 else 1,
                               bytes_per_stat=opt.stat_bytes())
     data = token_batches(cfg.vocab, batch, seq, seed=0)
     lr_fn = polynomial_decay(lr, 0, steps, 4.0)
@@ -190,6 +203,14 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
                "n_refreshed": sum(flags.values()), "n_stats": len(flags),
                "sims": m["sims"]}
         note = ""
+        if "refresh_inflight" in m:
+            infl = rec["refresh_inflight"] = m["refresh_inflight"]
+            if kind == "fast" and infl > 0:
+                rec["chunk"] = k + 1 - infl
+                rec["chunk_stats"] = (opt.pipeline.chunk_names(rec["chunk"])
+                                      if rec["chunk"] < k else [])
+                note = (f" chunk {rec['chunk']}/{k}" if rec["chunk"] < k
+                        else " flip")
         if "inverse_info" in m:
             rec["inverse"] = {
                 n: {k: v.cpu() for k, v in i.items()}
@@ -262,6 +283,16 @@ def main(argv=None):
     ap.add_argument("--double-buffer", action="store_true",
                     help="stage each refresh's inverses and apply them from "
                          "the next step on (NGDConfig.double_buffer)")
+    ap.add_argument("--refresh-chunks", type=int, default=1,
+                    help="chunked refresh pipeline (repro_torch.core."
+                         "pipeline): K>1 turns each refresh into a capture "
+                         "step (Stage-2/3 + similarities only) followed by K "
+                         "drain chunks of Stage-4 inversions, one run in "
+                         "each subsequent fast step, activated atomically "
+                         "K+1 steps after the capture. Implies "
+                         "--double-buffer and floors the refresh interval "
+                         "at K+1 so a drain always completes. 1 = inline "
+                         "refresh (default)")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--device", default=None,
@@ -277,7 +308,7 @@ def main(argv=None):
         history=args.history, sgd_fallback_scale=args.sgd_fallback_scale,
         factor_dtype=FACTOR_DTYPES[args.factor_dtype],
         factor_wire=args.factor_wire, double_buffer=args.double_buffer,
-        device=device)
+        refresh_chunks=max(1, args.refresh_chunks), device=device)
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} ({'full' if args.full_config else 'reduced'}), "
           f"{n / 1e6:.1f}M params, device {device}, factor history "
