@@ -39,7 +39,12 @@ kernel against the plain version, then one call at llama3_2_1b's heads
 (32 over 8 KV heads, repeated, hd 64, bf16) at S 32768 with the 8192
 window of ``repro``'s long-context variant, held against the plain version
 on every head and, for its layout, against the model layer's GQA kernel
-route. It
+route. Then multi-GPU Stage 3 and Stage 4 (``repro_torch.comm``) under an
+NCCL group of one rank: the dist steps of each of the five reduce
+strategies bit for bit equal to the single-device steps (2 layers, f32),
+the ring's fp8 hop codec on the kernels against its plain version at
+llama3_2_1b's hop shapes, and full-width training through the dist steps
+(dense and ring_fp8), their walls beside the single-device path's. It
 times all thirteen kernels beside their bound, their plain version and the
 PyTorch library call for the same function.
 Every failed check raises, so the exit code is nonzero. Without a CUDA
@@ -52,6 +57,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -213,6 +219,7 @@ def main(argv: list[str]) -> int:
     timed(check_db_route, torch, single)
     del single
     train = train_path(torch)
+    train_walls = {k: train[k] for k in ("cap_s", "fast_median", "peak")}
     launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
     times.update(time_train_kernels(torch))
     times.update(time_factor_sums(torch))
@@ -242,11 +249,16 @@ def main(argv: list[str]) -> int:
     errs.update(timed(check_swa_kernel, torch))
     launches["swa_flash"] = timed(swa_path, torch)["launches"]["swa_flash"]
     times.update(timed(time_swa_kernel, torch))
+    t_dist = time.perf_counter()
+    timed(check_dist_route, torch)
+    timed(check_ring_hop, torch)
+    timed(dist_path, torch, train_walls)
     t_end = time.perf_counter()
     say("clock", f"{t_end - t_start:.1f} s from the build on, the "
                  f"pipeline and checkpoint phases {t_pipe:.1f} s, the fp8 "
-                 f"phases {t_swa - t_fp8:.1f} s and the swa_attention phases "
-                 f"{t_end - t_swa:.1f} s of it; by phase ("
+                 f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
+                 f"{t_dist - t_swa:.1f} s and the multi-GPU phases "
+                 f"{t_end - t_dist:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
     rows = []
@@ -3574,6 +3586,297 @@ def time_swa_kernel(torch) -> dict:
     del q, k, v, q4, k4, v4, out, band
     torch.cuda.empty_cache()
     return {"swa_flash": b}
+
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU Stage 3 and Stage 4 (repro_torch.comm) under NCCL, world size 1
+# ---------------------------------------------------------------------------
+
+# the ring's hop rows at llama3_2_1b's b 2048 (t = 2,098,176 packed) over
+# p 4: a chunk of 4 layers of a one-block statistic, of four-block ones
+RING_HOP_SHAPES = ((4, 2098176), (16, 2098176))
+# the modelled ledger's group: 4 ranks, 2 hosts of 2 for hier
+LEDGER_P, LEDGER_DPH = 4, 2
+# dist_path's fast steps after its capture: a warm-up of each builder, then
+# the dist and the single-device step alternated on the same state
+DIST_FAST_ORDER = ("dist", "single", "dist", "single", "single", "dist")
+
+
+@contextlib.contextmanager
+def _nccl_world_one(torch):
+    """A world of one NCCL rank on card 0 over a ``file://`` store in a
+    temporary directory, its (1, 1) ``DeviceMesh``; torn down after."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    tmp = tempfile.mkdtemp(prefix="nccl_store_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_test_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dist_route_run(torch, cfg, batches, mesh, comm, **build_kw):
+    """A capture step and a fast step from the seed-0 route model, every
+    flag set: through the dist steps over ``mesh`` under ``comm``, or the
+    single-device steps without a mesh. Returns (losses, copies of every
+    param and state leaf by path)."""
+    from repro_torch.launch import train
+    model, opt, params, state = train.build(cfg=cfg, device="cuda",
+                                            **build_kw)
+    if mesh is None:
+        step, fast = (train.make_train_step(model, opt),
+                      train.make_fast_step(model, opt))
+    else:
+        step = train.make_dist_train_step(model, opt, mesh, comm=comm)
+        fast = train.make_dist_fast_step(model, opt, mesh, comm=comm)
+    flags = {k: True for k in opt.stat_names()}
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    params, state, m = step(params, state, batches[0], flags, lam, lr, 0.9)
+    losses = [float(m["loss"])]
+    params, state, m = fast(params, state, batches[1], lam, lr, 0.9)
+    losses.append(float(m["loss"]))
+    snap = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in _run_leaves(model, state).items()}
+    del model, opt, params, state, m, step, fast
+    torch.cuda.empty_cache()
+    return losses, snap
+
+
+def check_dist_route(torch) -> None:
+    """[dist-route] The dist steps (make_dist_train_step /
+    make_dist_fast_step) under NCCL at world size 1, the route config (2
+    layers, f32): for each of the five Stage-3 strategies, one capture and
+    one fast step bit for bit equal to make_train_step / make_fast_step
+    (fused against the e4m3 wire capture, inverse_sharding against the
+    double buffer); no ref dispatch; a CPU tensor under the NCCL group
+    raises."""
+    from repro_torch import comm as comm_lib
+    from repro_torch.kernels import dispatch
+    cfg = _route_cfg(torch)
+    batches = [_train_batch(torch, cfg.vocab, 2, 512, index=i)
+               for i in range(2)]
+    cases = ((dict(), ("dense", "ring", "ring_fp8", "hier"), {}),
+             (dict(factor_wire="e4m3"), ("fused",), {}),
+             (dict(double_buffer=True), ("dense",),
+              dict(inverse_sharding=True)))
+    with _nccl_world_one(torch) as mesh:
+        red = comm_lib.FactorReducer(mesh)
+        try:
+            red.psum(torch.ones(2))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("a CPU tensor under NCCL did not raise")
+        for ref_kw, strategies, dist_kw in cases:
+            t = time.perf_counter()
+            want_loss, want = _dist_route_run(torch, cfg, batches, None,
+                                              None, **ref_kw)
+            ref_s = time.perf_counter() - t
+            for strategy in strategies:
+                dispatch.reset_calls()
+                t = time.perf_counter()
+                got_loss, got = _dist_route_run(
+                    torch, cfg, batches, mesh,
+                    comm_lib.make_comm_config(strategy), **ref_kw, **dist_kw)
+                dist_s = time.perf_counter() - t
+                calls = dict(dispatch.CALLS)
+                differ = sorted(k for k in want
+                                if _leaf_gap(torch, want[k], got[k]) != 0)
+                label = strategy + "".join(f" {k}" for k in
+                                           {**ref_kw, **dist_kw})
+                check(got_loss == want_loss and not differ,
+                      f"dist-route {label}: losses {got_loss} vs "
+                      f"{want_loss}; {len(differ)} leaves differ "
+                      f"{differ[:6]}")
+                check(not any(b == "ref" for (_, b) in calls),
+                      f"dist-route {label}: ref dispatches {calls}")
+                if strategy == "fused":
+                    check(calls.get(("ring_hop_unpack", "cuda"), 0) > 0,
+                          f"fused took no ring_hop_unpack[cuda]: {calls}")
+                say("dist-route", f"{label}: capture + fast step bit for bit "
+                                  f"equal to the single-device steps ("
+                                  f"{len(want)} param and state leaves, "
+                                  f"losses {got_loss}); {dist_s:.1f} s "
+                                  f"(single-device {ref_s:.1f} s); "
+                                  f"ring_hop dispatches "
+                                  f"{ {k: v for k, v in calls.items() if k[0].startswith('ring_hop')} }")
+                del got
+            del want
+            torch.cuda.empty_cache()
+
+
+def check_ring_hop(torch) -> None:
+    """[ring-hop] The hop codec's cuda route (quant_rows / dequant_rows over
+    the rows) against ref at llama3_2_1b's hop shapes, payload and scales
+    bit for bit, then timed beside ref."""
+    from repro_torch.kernels import dispatch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for g, t in RING_HOP_SHAPES:
+        x = torch.randn((g, t), generator=gen, device="cuda")
+        x *= torch.logspace(-3, 3, g, device="cuda")[:, None]
+        x[-1] = 0.0                                 # a zero row: scale 1
+        dispatch.reset_calls()
+        pc, sc = dispatch.ring_hop_pack(x, backend="cuda")
+        pr, sr = dispatch.ring_hop_pack(x, backend="ref")
+        check(torch.equal(pc.view(torch.uint8), pr.view(torch.uint8))
+              and torch.equal(sc, sr),
+              f"ring_hop_pack ({g}, {t}): cuda != ref")
+        uc = dispatch.ring_hop_unpack(pc, sc, backend="cuda")
+        check(torch.equal(uc, dispatch.ring_hop_unpack(pr, sr,
+                                                       backend="ref")),
+              f"ring_hop_unpack ({g}, {t}): cuda != ref")
+        check(dispatch.CALLS.get(("ring_hop_pack", "cuda")) == 1,
+              f"dispatches {dispatch.CALLS}")
+        ms = {name: _time_ms(torch, fn, reps=10, warmup=2) for name, fn in (
+            ("pack", lambda: dispatch.ring_hop_pack(x, backend="cuda")),
+            ("pack ref", lambda: dispatch.ring_hop_pack(x, backend="ref")),
+            ("unpack", lambda: dispatch.ring_hop_unpack(pc, sc,
+                                                        backend="cuda")),
+            ("unpack ref", lambda: dispatch.ring_hop_unpack(
+                pc, sc, backend="ref")))}
+        bound = _bound(0, g * t * 5 + g * 4, torch.float32)[0]
+        say("ring-hop", f"({g}, {t}) e4m3: payload and scales bit for bit, "
+                        f"unpack bit for bit; ms {ms} (bound of each "
+                        f"{bound:.6f} ms, bytes); {card_note(torch)}")
+        del x, pc, sc, pr, sr, uc
+    torch.cuda.empty_cache()
+
+
+def _modelled_ledger(torch, opt) -> None:
+    """The Stage-3 wire bytes per refresh of the full-width template at
+    LEDGER_P ranks, each strategy, from the port's ledger: every statistic
+    scattering (SPNGD.wire_bytes) and with a one-axis reducer's fallbacks
+    (leading dim not divisible by LEDGER_P), beside the Stage-4 gather and
+    the assembly's dense f32 all-gather (not in repro's ledger)."""
+    import math
+    from repro_torch import comm as comm_lib
+    from repro_torch.comm.comm import _leaf_shape
+    template = opt.fstats_fn()
+    shapes = {f"{fam}.{k}": _leaf_shape(leaf)
+              for fam, stats in template.items() for k, leaf in stats.items()}
+
+    def scat(n):
+        return shapes[n][0] % LEDGER_P == 0
+
+    for s in comm_lib.STRATEGIES:
+        c = comm_lib.make_comm_config(s, devices_per_host=LEDGER_DPH)
+        every = sum(opt.wire_bytes(c, group_size=LEDGER_P).values())
+        real = comm_lib.template_wire_bytes(template, opt.sym_stat, c,
+                                            scattered_fn=scat,
+                                            group_size=LEDGER_P)
+        lv = comm_lib.template_wire_level_bytes(
+            template, opt.sym_stat, c, scattered_fn=scat,
+            group_size=LEDGER_P)
+        say("dist-path", f"modelled Stage-3 wire per refresh, llama3_2_1b, "
+                         f"p {LEDGER_P}, {s}/{c.wire_dtype}"
+                         + (f" (D {LEDGER_DPH})" if s == "hier" else "")
+                         + f": {every} B all scattering; {sum(real.values())}"
+                         f" B with the fallbacks (intra {sum(a for a, _ in lv.values())}"
+                         f", inter {sum(b for _, b in lv.values())})")
+    gather = comm_lib.template_gather_bytes(template, opt.sym_stat, scat)
+    assemble = sum(math.prod(v) * 4 for n, v in shapes.items() if scat(n))
+    say("dist-path", f"modelled per refresh at p {LEDGER_P}: Stage-4 gather "
+                     f"{sum(opt.gather_bytes().values())} B all scattering, "
+                     f"{sum(gather.values())} B with the fallbacks; "
+                     f"assemble (dense f32 all-gather, not in the ledger) "
+                     f"{assemble} B; {sum(map(scat, shapes))} of "
+                     f"{len(shapes)} statistics scatter")
+
+
+def dist_path(torch, train_walls) -> None:
+    """[dist-path] Full-width llama3_2_1b at TRAIN through the dist steps
+    under NCCL at world size 1, dense and ring_fp8, each on a fresh seed-0
+    model: one capture step of launch.train.run(mesh=...), then
+    make_dist_fast_step alternated with make_fast_step on the same state
+    (DIST_FAST_ORDER, a warm-up of each first); walls beside train_path's,
+    the grads' all_reduce alone, peak memory, the kernels launched, no ref
+    dispatch; at world size 1 no hop runs, so the two strategies' losses
+    are the same bits. First the modelled Stage-3 ledger at p 4."""
+    import math
+
+    from repro_torch import comm as comm_lib
+    from repro_torch.core.fisher import flatten, value_and_grad
+    from repro_torch.kernels import dispatch, kfac
+    from repro_torch.launch import train
+    from repro_torch.optim.schedules import polynomial_decay
+    spec, losses = TRAIN, {}
+    with _nccl_world_one(torch) as mesh:
+        for strategy in ("dense", "ring_fp8"):
+            model, opt, params, state = train.build(
+                "llama3_2_1b", full_config=True, device="cuda")
+            if strategy == "dense":
+                _modelled_ledger(torch, opt)
+            comm = comm_lib.make_comm_config(strategy)
+            kfac.reset_launches()
+            dispatch.reset_calls()
+            torch.cuda.reset_peak_memory_stats()
+            params, state, recs = train.run(
+                model, opt, params, state, steps=1, batch=spec["batch"],
+                seq=spec["seq"], lr=spec["lr"], damping=spec["damping"],
+                comm=comm, mesh=mesh,
+                log=lambda m: say("dist-path", f"{strategy}: {m}"))
+            check(recs[0]["kind"] == "capture", f"step kinds {recs}")
+            fast = train.make_dist_fast_step(model, opt, mesh, comm=comm)
+            steps = {"dist": fast, "single": train.make_fast_step(model, opt)}
+            walls = {k: [] for k in steps}
+            run_losses = [recs[0]["loss"]]
+            # train_path's fast steps' lr and momentum (its loop's last),
+            # which keep six fast steps after a capture finite
+            lr = polynomial_decay(spec["lr"], 0, spec["steps"], 4.0)(
+                spec["steps"] - 1)
+            # a warm-up of each, then the two alternated on the same state
+            for i, kind in enumerate(DIST_FAST_ORDER):
+                batch = _train_batch(torch, model.cfg.vocab, spec["batch"],
+                                     spec["seq"], index=1 + i)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, state, m = steps[kind](params, state, batch,
+                                               spec["damping"], lr,
+                                               0.9 * lr / spec["lr"])
+                run_losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls[kind].append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated()
+            launches, calls = dict(kfac.LAUNCHES), dict(dispatch.CALLS)
+            check(all(math.isfinite(x) for x in run_losses),
+                  f"losses {run_losses}")
+            check(launches["factor_syrk"] > 0 and launches["block_precond"]
+                  > 0, f"kernel launches {launches}")
+            check(not any(b == "ref" for (_, b) in calls),
+                  f"ref dispatches: {calls}")
+            losses[strategy] = run_losses
+            loss, _, grads = value_and_grad(opt.loss_fn, params, batch)
+            n = sum(g.numel() * g.element_size()
+                    for g in flatten(grads).values())
+            ar = _time_ms(torch, lambda: train.all_reduce_grads(
+                fast.reducer, loss, grads, 1), reps=5, warmup=1)
+            say("dist-path", f"{strategy}: capture step {recs[0]['seconds']:.3f}"
+                             f" s (train_path's {[round(x, 3) for x in train_walls['cap_s']]}"
+                             f" s); fast steps in the order {DIST_FAST_ORDER}, "
+                             f"dist {[round(x, 3) for x in walls['dist']]} s, "
+                             f"single-device {[round(x, 3) for x in walls['single']]}"
+                             f" s, each's first a warm-up (train_path's "
+                             f"median {train_walls['fast_median']:.3f} s); "
+                             f"losses {[round(x, 6) for x in run_losses]}; the "
+                             f"grads' all_reduce ({n} B, one bucket per "
+                             f"dtype: concatenate, NCCL all_reduce, divide) "
+                             f"{ar:.3f} ms; peak memory {peak / 2 ** 30:.2f} "
+                             f"GiB (train_path's over 4 captures "
+                             f"{train_walls['peak'] / 2 ** 30:.2f}); launches "
+                             f"{launches}; {card_note(torch)}")
+            del model, opt, params, state, fast, steps, loss, grads, m
+            torch.cuda.empty_cache()
+    check(losses["ring_fp8"] == losses["dense"],
+          f"world size 1: ring_fp8 losses {losses['ring_fp8']} != dense "
+          f"{losses['dense']}")
 
 
 if __name__ == "__main__":

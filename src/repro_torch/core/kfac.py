@@ -11,7 +11,7 @@ layer axes; all ops broadcast over leading axes.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -216,9 +216,12 @@ def damped_factor_inverses(a: Optional[torch.Tensor],
                            g: Optional[torch.Tensor], lam: float, d_a: int,
                            d_g: int, *, method: str = "eigh",
                            backend: Optional[str] = None,
-                           a_kind: str = "full", g_kind: str = "full"):
+                           a_kind: str = "full", g_kind: str = "full",
+                           invert: Optional[Callable] = None):
     """(A + pi*sqrt(lam) I)^-1 and (G + sqrt(lam)/pi I)^-1 (Eq. 12), each
-    by :func:`damped_stat_inverse`. A site with one factor passes None for
+    by :func:`damped_stat_inverse`, or by ``invert(key, f, kind, damp) ->
+    (inverse, info)`` when given (the optimizer's Stage-4 route, sharded
+    under ``inverse_sharding``). A site with one factor passes None for
     the other: pi is then 1 and None comes back for it. Returns
     ``(a_inv, g_inv, info)``: info maps "a"/"g" of each blocked factor to
     the dispatch's per-block ``{"ns_res", "ns_converged"}``."""
@@ -231,8 +234,11 @@ def damped_factor_inverses(a: Optional[torch.Tensor],
         if f is None:
             out.append(None)
             continue
-        inv, i = damped_stat_inverse(f, kind, d, method=method,
-                                     backend=backend)
+        if invert is not None:
+            inv, i = invert(key, f, kind, d)
+        else:
+            inv, i = damped_stat_inverse(f, kind, d, method=method,
+                                         backend=backend)
         out.append(inv)
         if i is not None:
             info[key] = i

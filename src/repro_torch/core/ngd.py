@@ -30,13 +30,16 @@ refresh computes are staged (``precond_next``) and activate from the next
 step on (the paper's section 5.2 overlap). With ``refresh_chunks`` K > 1
 the chunked refresh pipeline (``core/pipeline.py``) takes over: a capture
 step runs no inversion, the next K fast steps each invert one chunk, and
-the step after them activates the refresh. Sharded Stage 4 arrives with
-its slice.
+the step after them activates the refresh. With ``inverse_sharding`` the
+dist step builder (``launch/train.py make_dist_train_step``) attaches a
+``comm.Stage4Inverter``: each rank inverts its chunk of every full-kind
+factor and the preconditioners all-gather, inline or chunk by chunk.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -64,6 +67,14 @@ class NGDConfig:
     sgd_fallback_scale: float = 1.0  # lr scale for non-sited params
     backend: str = "auto"            # kernel backend ("ref" | "cuda" |
                                      # "auto"; repro_torch.kernels.dispatch)
+    inverse_sharding: bool = False   # Stage-4 distribution: each rank
+                                     # inverts only its FactorReducer-owned
+                                     # chunk of every full-kind factor and
+                                     # the preconditioners all-gather
+                                     # (repro_torch.comm.stage4). Takes
+                                     # effect under the dist step builders,
+                                     # which attach the Stage4Inverter; the
+                                     # single-device steps ignore it
     double_buffer: bool = False      # inverses a refresh computes at step t
                                      # are STAGED (precond_next) and
                                      # activate at t+1, while step t still
@@ -113,6 +124,8 @@ class SPNGD:
         self.cfg = cfg
         from repro_torch.quant.quant import parse_factor_dtype
         self._fp8 = parse_factor_dtype(cfg.factor_dtype)  # fmt key or None
+        self.stage4 = None            # Stage4Inverter, set by the dist step
+                                      # builder (set_stage4)
         self.pipeline = None          # RefreshPipeline when refresh_chunks>1
         if cfg.refresh_chunks > 1:
             if not cfg.double_buffer:
@@ -122,8 +135,16 @@ class SPNGD:
             from repro_torch.core.pipeline import RefreshPipeline
             self.pipeline = RefreshPipeline(self, cfg.refresh_chunks)
 
+    def set_stage4(self, inverter) -> None:
+        """Attach (or detach, with None) a
+        :class:`repro_torch.comm.Stage4Inverter`: full-kind factor inverses
+        then run shard-locally over the reducer's chunk layout and
+        all-gather."""
+        self.stage4 = inverter
+
     def sym_stat(self, fam: str, key: str) -> bool:
-        """Whether a stat is a symmetric blocked factor."""
+        """Whether a stat is a symmetric blocked factor (the fp8 history
+        codec and the Stage-3 reducer both ask)."""
         if key in ("a", "g"):
             info = self.infos[fam]
             kind = info.spec.a_kind if key == "a" else info.spec.g_kind
@@ -181,6 +202,34 @@ class SPNGD:
                     symmetric=self.sym_stat(fam, key))
                 for fam, stats in self.fstats_fn().items()
                 for key, leaf in stats.items()}
+
+    def wire_bytes(self, comm=None, group_size=None) -> dict[str, int]:
+        """Per-statistic Stage-3 collective payload under a
+        :class:`repro_torch.comm.CommConfig` (the ledger's wire column):
+        dense f32, sym-packed f32 for ``ring``, fp8 payload + per-row scales
+        for ``ring_fp8``/``fused``, both levels for ``hier``. Every
+        statistic scatters here; a reducer's ``wire_bytes_per_stat()``
+        prices its mesh's replication fallbacks."""
+        from repro_torch import comm as comm_mod
+        return comm_mod.template_wire_bytes(
+            self.fstats_fn(), self.sym_stat, comm or comm_mod.CommConfig(),
+            group_size=group_size)
+
+    def gather_bytes(self) -> dict[str, int]:
+        """Per-statistic Stage-4 preconditioner all-gather payload under
+        ``inverse_sharding``: sym-packed f32 triangles of the full-kind
+        factors, 0 for everything else (every statistic scatters)."""
+        from repro_torch import comm as comm_mod
+        return comm_mod.template_gather_bytes(self.fstats_fn(), self.sym_stat)
+
+    def wire_level_bytes(self, comm=None,
+                         group_size=None) -> dict[str, tuple[int, int]]:
+        """Per-statistic (intra-host, inter-host) Stage-3 wire bytes: the
+        ``hier`` split, (0, 0) for the flat strategies."""
+        from repro_torch import comm as comm_mod
+        return comm_mod.template_wire_level_bytes(
+            self.fstats_fn(), self.sym_stat, comm or comm_mod.CommConfig(),
+            group_size=group_size)
 
     # ---- state ----
 
@@ -310,8 +359,8 @@ class SPNGD:
             if a is not None or g is not None:
                 a_inv, g_inv, blk = kfac.damped_factor_inverses(
                     a, g, lam, info.d_in, info.d_out,
-                    method=cfg.inverse_method, backend=cfg.backend,
-                    a_kind=info.spec.a_kind, g_kind=info.spec.g_kind)
+                    a_kind=info.spec.a_kind, g_kind=info.spec.g_kind,
+                    invert=functools.partial(self._stat_inverse, fam))
                 precond.update({k: v for k, v in (("a", a_inv),
                                                   ("g", g_inv))
                                 if v is not None})
@@ -325,6 +374,22 @@ class SPNGD:
             entry = {"precond": precond}
         return ({"prev": new_prev, "prev2": new_prev2, **entry}, sims,
                 inv_info)
+
+    def _stat_inverse(self, fam: str, key: str, stat: torch.Tensor,
+                      kind: str, damp: torch.Tensor):
+        """One statistic's Stage-4 inverse, ``(inverse, info)``: shard-local
+        and all-gathered when a Stage4Inverter is attached (full-kind
+        factors only; its ``owner`` vector is dropped), else
+        ``kfac.damped_stat_inverse``. The inline refresh and the refresh
+        pipeline's chunks both invert through here."""
+        if kind == "full" and self.stage4 is not None:
+            inv, info = self.stage4.invert(stat, damp, fam=fam, key=key,
+                                           return_info=True)
+            return inv, {"ns_res": info["ns_res"],
+                         "ns_converged": info["ns_converged"]}
+        return kfac.damped_stat_inverse(stat, kind, damp,
+                                        method=self.cfg.inverse_method,
+                                        backend=self.cfg.backend)
 
     # ---- preconditioned update for one family ----
 
@@ -492,7 +557,7 @@ class SPNGD:
         if self.pipeline is None:
             return state, self._activate(state["curv"]), {}
         curv, pipe, inflight = self.pipeline.drain(
-            state["curv"], state["pipeline"], lam)
+            state["curv"], state["pipeline"], lam, self._stat_inverse)
         return ({**state, "pipeline": pipe}, curv,
                 {"refresh_inflight": inflight})
 

@@ -15,8 +15,9 @@ A refresh splits into a **capture** step and ``K = NGDConfig.refresh_chunks``
   statistic, K+1 steps after the capture.
 
 A chunk inverts from the raw store through the inline refresh's own
-functions (``kfac.family_pi``, ``kfac.factor_damping``,
-``kfac.damped_stat_inverse``), so a drained inverse is bit-identical to the
+functions (``kfac.family_pi``, ``kfac.factor_damping`` and the optimizer's
+``SPNGD._stat_inverse``, sharded under ``inverse_sharding``, passed to
+:meth:`RefreshPipeline.drain`), so a drained inverse is bit-identical to the
 inline double-buffered refresh of the same statistics; only the activation
 step moves. The controller's ``min_interval = K + 1`` keeps a capture from
 arriving before a drain ends; one that does restarts the cursor on the new
@@ -70,14 +71,15 @@ class RefreshPipeline:
     """Chunk scheduling for one :class:`repro_torch.core.ngd.SPNGD`: the
     (family, stat) -> chunk assignment is shape arithmetic over the
     ``fstats`` template, fixed at construction. It keeps the optimizer's
-    site infos and config, not the optimizer, which owns it (no reference
-    cycle to keep a finished run's model alive)."""
+    site infos, not the optimizer, which owns it (no reference cycle to
+    keep a finished run's model alive): the optimizer passes its inverse
+    route to each :meth:`drain`."""
 
     def __init__(self, opt, chunks: int):
         if chunks < 1:
             raise ValueError("refresh_chunks must be >= 1")
         from repro_torch.core.ngd import _dense_leaf_shape
-        self.infos, self.cfg = opt.infos, opt.cfg
+        self.infos = opt.infos
         self.chunks = int(chunks)
         self._shapes: dict[str, tuple] = {}
         units = []                      # (fam, key, cost)
@@ -127,16 +129,17 @@ class RefreshPipeline:
                     else cur for key, cur in entry["precond"].items()}}
                 for fam, entry in curv.items()}
 
-    def drain(self, curv: dict, pipe: dict, lam):
+    def drain(self, curv: dict, pipe: dict, lam, invert):
         """One fast step's pipeline work: flip if the drain has just ended,
-        run chunk ``cursor`` (none at K or idle), advance the cursor.
+        run chunk ``cursor`` (none at K or idle) through ``invert(fam, key,
+        stat, kind, damp) -> (inverse, info)``, advance the cursor.
         Returns ``(curv, pipe, inflight)``, ``inflight`` the steps until the
         refresh in flight is live: K+1 on the first drain step, 1 on the
         flip step, 0 when idle."""
         k, cursor = self.chunks, pipe["cursor"]
         curv = self.flip(curv, pipe)
         if cursor < k:
-            curv = self._run_chunk(cursor, curv, pipe["raw"], lam)
+            curv = self._run_chunk(cursor, curv, pipe["raw"], lam, invert)
         inflight = min(max(k + 1 - cursor, 0), k + 1)
         return curv, {**pipe, "cursor": min(cursor + 1, k + 1)}, inflight
 
@@ -148,20 +151,19 @@ class RefreshPipeline:
                               info.d_in, info.d_out, a_kind=info.spec.a_kind,
                               g_kind=info.spec.g_kind)
 
-    def _run_chunk(self, i: int, curv: dict, raw: dict, lam) -> dict:
+    def _run_chunk(self, i: int, curv: dict, raw: dict, lam,
+                   invert) -> dict:
         """Invert chunk ``i``'s units from the raw store into
         ``precond_next``, every unit whatever its flag (a stale statistic's
         raw entry is its decoded X_-1, as in the inline refresh)."""
-        cfg = self.cfg
         curv = dict(curv)
         for fam, key in self.schedule[i]:
             v = raw[fam][key]
             if key in ("a", "g"):
                 info = self.infos[fam]
                 damp = kfac.factor_damping(self._pi(fam, raw), lam)
-                v, _ = kfac.damped_stat_inverse(
-                    v, _stat_kind(info, key), damp[key == "g"],
-                    method=cfg.inverse_method, backend=cfg.backend)
+                v, _ = invert(fam, key, v, _stat_kind(info, key),
+                              damp[key == "g"])
             curv[fam] = {**curv[fam],
                          "precond_next": {**curv[fam]["precond_next"],
                                           key: v}}

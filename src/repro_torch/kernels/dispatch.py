@@ -303,6 +303,55 @@ def fp8_unpack(payload: torch.Tensor, scale: torch.Tensor, b: int, *,
 
 
 # ---------------------------------------------------------------------------
+# ring_hop_pack / ring_hop_unpack: the per-hop fp8 wire codec of the Stage-3
+# ring reduce-scatter (repro_torch.comm). Unlike fp8_pack/fp8_unpack these
+# take rows that are ALREADY sym-packed (a hop carries a chunk of packed
+# triangles): (..., t) f32 <-> (payload fp8 (..., t), scale f32 (...,)), one
+# scale per row, the same format as the fp8 history. cuda: the quant_rows
+# and dequant_rows kernels over the rows flattened to (g, t).
+# ---------------------------------------------------------------------------
+
+def _ring_hop_pack_ref(rows, fmt: str, scale_mode: str):
+    from repro_torch.quant import quant
+    return quant.quantize_rows(rows, fmt, scale_mode)
+
+
+def _ring_hop_pack_cuda(rows, fmt: str, scale_mode: str):
+    from repro_torch.kernels import quant as qk
+    lead, t = rows.shape[:-1], rows.shape[-1]
+    payload, scale = qk.quant_rows(rows.float().reshape(-1, t).contiguous(),
+                                   fmt, scale_mode)
+    return payload.reshape(lead + (t,)), scale.reshape(lead)
+
+
+def ring_hop_pack(rows: torch.Tensor, *, fmt: str = "e4m3",
+                  scale_mode: str = "fp32", backend: str | None = None):
+    """Quantize one ring hop's partial-sum rows to the fp8 wire format."""
+    which = resolve(backend, rows.device)
+    return _call("ring_hop_pack", which, rows, fmt, scale_mode)
+
+
+def _ring_hop_unpack_ref(payload, scale):
+    from repro_torch.quant import quant
+    return quant.dequantize_rows(payload, scale)
+
+
+def _ring_hop_unpack_cuda(payload, scale):
+    from repro_torch.kernels import quant as qk
+    lead, t = payload.shape[:-1], payload.shape[-1]
+    rows = qk.dequant_rows(payload.reshape(-1, t).contiguous(),
+                           scale.reshape(-1).contiguous())
+    return rows.reshape(lead + (t,))
+
+
+def ring_hop_unpack(payload: torch.Tensor, scale: torch.Tensor, *,
+                    backend: str | None = None) -> torch.Tensor:
+    """Dequantize a received hop payload back to the f32 accumulator."""
+    which = resolve(backend, payload.device)
+    return _call("ring_hop_unpack", which, payload, scale)
+
+
+# ---------------------------------------------------------------------------
 # block_precond_left:  rows of w in blocks of b:  U[k] = Binv[k] @ W[k]
 #   binv (..., nb, b, b), w (..., d, m) with d <= nb*b -> (..., d, m) f32
 # block_precond_right: columns of w in blocks of b:  U[:, k] = W[:, k] @ Binv[k]
@@ -463,6 +512,10 @@ register("fp8_pack", "ref", _fp8_pack_ref)
 register("fp8_pack", "cuda", _fp8_pack_cuda)
 register("fp8_unpack", "ref", _fp8_unpack_ref)
 register("fp8_unpack", "cuda", _fp8_unpack_cuda)
+register("ring_hop_pack", "ref", _ring_hop_pack_ref)
+register("ring_hop_pack", "cuda", _ring_hop_pack_cuda)
+register("ring_hop_unpack", "ref", _ring_hop_unpack_ref)
+register("ring_hop_unpack", "cuda", _ring_hop_unpack_cuda)
 register("block_precond_left", "ref", _precond_left_ref)
 register("block_precond_left", "cuda", _precond_left_cuda)
 register("block_precond_right", "ref", _precond_right_ref)
@@ -482,5 +535,6 @@ __all__ = ["BACKENDS", "CALLS", "register", "lookup", "resolve",
            "reset_calls", "swa_attention", "swa_attention_fwd_res",
            "swa_attention_bwd", "swa_decode", "factor_sum",
            "factor_sum_wire", "fp8_pack",
-           "fp8_unpack", "block_precond_left",
+           "fp8_unpack", "ring_hop_pack", "ring_hop_unpack",
+           "block_precond_left",
            "block_precond_right", "damped_inverse"]

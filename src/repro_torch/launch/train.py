@@ -18,6 +18,17 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
     python -m repro_torch.launch.train --full-config --refresh-chunks 4
+
+``make_dist_train_step`` / ``make_dist_fast_step`` are the multi-rank
+steps (``repro``'s ``make_shardmap_{train,fast}_step``) over a
+``torch.distributed`` ``DeviceMesh`` (``launch/mesh.py``): each rank keeps
+its rows of the global batch, the loss and gradients are summed by one
+``all_reduce`` per dtype, the raw factor sums go through the Stage-3
+``FactorReducer`` (``repro_torch.comm``) and are assembled back to full
+statistics, and with ``inverse_sharding`` Stage 4 inverts this rank's chunk
+of each factor and all-gathers. ``run(mesh=...)`` drives them; the CLI runs
+one process, where ``--comm-strategy`` and ``--inverse-sharding`` set the
+config and the modelled byte ledger.
 """
 
 from __future__ import annotations
@@ -106,18 +117,162 @@ def make_fast_step(model, opt: SPNGD, accum: int = 1) -> Callable:
     return fast_step
 
 
+def _local_rows(batch: dict, reducer) -> dict:
+    """This rank's contiguous rows of the global batch, in data-axis order
+    (``P(dp)``)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % reducer.ndev:
+        raise ValueError(f"global batch {b} does not split over "
+                         f"{reducer.ndev} data ranks")
+    rows = b // reducer.ndev
+    i = reducer.dp_index()
+    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
+# each gradient's view in the reduced buffer starts on a 256-byte boundary
+# (the caching allocator's own blocks start on 512), so the elementwise and
+# copy kernels that read the gradients keep their vector loads
+GRAD_ALIGN_BYTES = 256
+
+
+def all_reduce_grads(reducer, loss: torch.Tensor, grads: dict, n: int):
+    """Loss and gradients summed over the data axes and divided by ``n``:
+    one ``all_reduce`` per dtype over the tensors laid end to end, each
+    padded to ``GRAD_ALIGN_BYTES`` (the f32 loss rides with the f32
+    gradients). Returns (loss, grads), the gradients views into the
+    reduced buffers."""
+    from repro_torch.comm.comm import all_reduce
+    flat = {"": loss.reshape(1), **flatten(grads)}
+    buckets: dict[torch.dtype, list[str]] = {}
+    for path, t in flat.items():
+        buckets.setdefault(t.dtype, []).append(path)
+    out = {}
+    group = reducer.group(reducer.dp)
+    for dtype, paths in buckets.items():
+        align = max(1, GRAD_ALIGN_BYTES // dtype.itemsize)
+        parts, sizes = [], []
+        for p in paths:
+            t = flat[p].reshape(-1)
+            pad = -t.numel() % align
+            parts += [t, t.new_zeros(pad)] if pad else [t]
+            sizes.append(t.numel() + pad)
+        buf = all_reduce(torch.cat(parts), group).div_(n)
+        for p, part in zip(paths, buf.split(sizes)):
+            out[p] = part[:flat[p].numel()].view(flat[p].shape)
+    loss = out.pop("").reshape(())
+    return loss, unflatten(out, grads)
+
+
+def _local_grads(opt: SPNGD, params, batch: dict, accum: int,
+                 capture: bool):
+    """The local backward: (loss, grads[, raw]) summed over ``accum``
+    microbatches, not yet averaged (the dist steps divide after the
+    all_reduce, the G sums after the Stage-3 rescale)."""
+    parts = _micro(batch, accum) if accum > 1 else [batch]
+    loss = grads = raw = None
+    for mb in parts:
+        if capture:
+            l, _, g, r = opt.grads_and_raw(params, mb)
+        else:
+            l, _, g = value_and_grad(opt.loss_fn, params, mb)
+            r = None
+        loss = l if loss is None else loss + l
+        grads = g if grads is None else _tree_add(grads, g)
+        if capture:
+            raw = r if raw is None else _tree_add(raw, r)
+    return loss, grads, raw
+
+
+def make_dist_train_step(model, opt: SPNGD, mesh, accum: int = 1,
+                         comm=None) -> Callable:
+    """The paper's Algorithm 3 over ``torch.distributed``: Stage 1-2 on
+    this rank's rows of the global batch (no traffic), then one
+    ``all_reduce`` of the loss and gradients, the G-type raw sums rescaled
+    by 1/(accum^2 ndev^2) (a wire dict's scales, not its payload), ONE
+    Stage-3 reduce per statistic (``FactorReducer``, strategy from
+    ``comm``) and its assembly back to the full statistic, statistic by
+    statistic (each raw sum freed once reduced), and the update. With
+    ``inverse_sharding`` the builder attaches a ``Stage4Inverter`` over the
+    same reducer. Same signature as :func:`make_train_step`; every rank of
+    ``mesh`` calls it with the same arguments (the global batch). The data
+    axes are the mesh's "pod" / "data" axes (``manual_axes="auto"``):
+    ranks that differ only in a "model" index compute the same step."""
+    from repro_torch.comm import FactorReducer, Stage4Inverter
+    from repro_torch.quant import quant
+    _check_accum_capture(opt, accum)
+    reducer = FactorReducer(mesh, comm=comm, template=opt.fstats_fn(),
+                            sym_fn=opt.sym_stat)
+    ndev = reducer.ndev
+    if opt.cfg.inverse_sharding:
+        opt.set_stage4(Stage4Inverter(reducer, method=opt.cfg.inverse_method,
+                                      backend=opt.cfg.backend))
+    g_scale = 1.0 / (accum * accum * ndev * ndev)
+
+    def rescale_g(v):
+        if quant.is_wire(v):
+            return {"payload": v["payload"], "scale": v["scale"] * g_scale}
+        return v * g_scale
+
+    def train_step(params, opt_state, batch, flags, lam, lr, mom):
+        counts = model.site_counts(batch)          # full-batch counts
+        loss, grads, raw = _local_grads(opt, params,
+                                        _local_rows(batch, reducer), accum,
+                                        capture=True)
+        loss, grads = all_reduce_grads(reducer, loss, grads, ndev * accum)
+        stats = {}
+        for fam, fam_raw in raw.items():
+            stats[fam] = {}
+            for key in list(fam_raw):
+                v = fam_raw.pop(key)         # each raw sum dies once reduced
+                v = reducer.reduce_stat(fam, key,
+                                        v if key == "a" else rescale_g(v))
+                stats[fam][key] = reducer.assemble_stat(fam, key, v)
+                del v
+        del raw
+        return opt.apply_update(params, opt_state, grads, stats, counts,
+                                flags, lam, lr, mom, loss, {})
+
+    train_step.reducer = reducer
+    return train_step
+
+
+def make_dist_fast_step(model, opt: SPNGD, mesh, accum: int = 1,
+                        comm=None) -> Callable:
+    """The fast step over ``torch.distributed``: the local backward, one
+    ``all_reduce`` of loss and gradients, then ``opt.fast_curv`` (the
+    double buffer's activation or one drain chunk, sharded under an
+    attached Stage4Inverter) and the stale-preconditioned update."""
+    from repro_torch.comm import FactorReducer
+    reducer = FactorReducer(mesh, comm=comm)
+    ndev = reducer.ndev
+
+    def fast_step(params, opt_state, batch, lam, lr, mom):
+        loss, grads, _ = _local_grads(opt, params,
+                                      _local_rows(batch, reducer), accum,
+                                      capture=False)
+        loss, grads = all_reduce_grads(reducer, loss, grads, ndev * accum)
+        opt_state, curv, extra = opt.fast_curv(opt_state, lam)
+        return opt._finish(params, opt_state, grads, curv, lam, lr, mom,
+                           loss, {}, {}, extra=extra)
+
+    fast_step.reducer = reducer
+    return fast_step
+
+
 def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
           backend: str = "auto", damping: float = 2.5e-4,
           inverse_method: str = "eigh", estimator: str = "emp",
           weight_rescale: bool = False, history: int = 2,
           sgd_fallback_scale: float = 1.0, factor_dtype=torch.float32,
           factor_wire: str | None = None, double_buffer: bool = False,
-          refresh_chunks: int = 1, device=None, seed: int = 0, cfg=None):
+          refresh_chunks: int = 1, inverse_sharding: bool = False,
+          device=None, seed: int = 0, cfg=None):
     """The model (random weights from ``seed``), its optimizer (the
-    ``NGDConfig`` fields of the same names; ``refresh_chunks`` > 1 sets
-    the double buffer too) and the initial state: (model, opt, params,
-    state). ``factor_wire`` sets ``ArchConfig.factor_wire`` (None keeps
-    the config's)."""
+    ``NGDConfig`` fields of the same names; ``refresh_chunks`` > 1 and
+    ``inverse_sharding`` set the double buffer too, as ``repro``'s CLI
+    does) and the initial state: (model, opt, params, state).
+    ``factor_wire`` sets ``ArchConfig.factor_wire`` (None keeps the
+    config's)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -140,17 +295,25 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
                           weight_rescale=weight_rescale, history=history,
                           sgd_fallback_scale=sgd_fallback_scale,
                           factor_dtype=factor_dtype,
-                          double_buffer=double_buffer or refresh_chunks > 1,
+                          inverse_sharding=inverse_sharding,
+                          double_buffer=(double_buffer or inverse_sharding
+                                         or refresh_chunks > 1),
                           refresh_chunks=refresh_chunks))
     return model, opt, params, opt.init(params)
 
 
 def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
         accum: int = 1, lr: float = 2e-2, damping: float = 2.5e-4,
-        log: Callable = print):
+        log: Callable = print, comm=None, mesh=None):
     """The step loop of :func:`main`: the ``IntervalController`` decides
     per step which statistics refresh; a step with any refresh runs the
-    capture step, the others the fast step. Returns (params, state,
+    capture step, the others the fast step. Without ``mesh`` these are the
+    single-device steps and the controller's wire, level and gather
+    columns model ``comm`` (a ``repro_torch.comm.CommConfig``, dense by
+    default) with every statistic scattering; with a ``DeviceMesh`` they
+    are the dist steps under ``comm`` and the columns take the reducer's
+    own decisions (every rank of the mesh runs this loop). The gather
+    column is filled under ``inverse_sharding``. Returns (params, state,
     records) with one record per step: {"t", "kind" ("capture" | "fast"),
     "loss", "seconds" (synchronized wall time), "n_refreshed", "n_stats",
     "sims" (the Algorithm-2 distances the step measured, {} on a fast
@@ -164,20 +327,43 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     flight is live: K+1 on the capture and on the first drain step, 0 when
     idle), and a drain step's record "chunk" (the chunk it ran; K for the
     flip step) and "chunk_stats" (its statistics, [] at the flip)."""
+    from repro_torch.comm import CommConfig
     from repro_torch.core.stale import IntervalController
     from repro_torch.data.synthetic import token_batches
     from repro_torch.optim.schedules import polynomial_decay
     cfg = model.cfg
     k = opt.cfg.refresh_chunks
+    comm = comm or CommConfig()
+    sharding = opt.cfg.inverse_sharding
+    if mesh is None:
+        step_fn = make_train_step(model, opt, accum=accum)
+        fast_fn = make_fast_step(model, opt, accum=accum)
+        wire, levels = opt.wire_bytes(comm), opt.wire_level_bytes(comm)
+        gather = opt.gather_bytes() if sharding else None
+        report = {"strategy": comm.strategy, "wire_dtype": comm.wire_dtype}
+    else:
+        step_fn = make_dist_train_step(model, opt, mesh, accum=accum,
+                                       comm=comm)
+        fast_fn = make_dist_fast_step(model, opt, mesh, accum=accum,
+                                      comm=comm)
+        red = step_fn.reducer
+        wire, levels = (red.wire_bytes_per_stat(),
+                        red.wire_bytes_per_stat_levels())
+        gather = red.gather_bytes_per_stat() if sharding else None
+        report = red.scatter_report()
     ctrl = IntervalController(opt.stat_names(), alpha=opt.cfg.alpha,
                               # a drain takes K chunk steps and the flip:
                               # never capture again before it ends
                               min_interval=k + 1 if k > 1 else 1,
-                              bytes_per_stat=opt.stat_bytes())
+                              bytes_per_stat=opt.stat_bytes(),
+                              wire_bytes_per_stat=wire,
+                              wire_level_bytes_per_stat=levels,
+                              gather_bytes_per_stat=gather)
+    ctrl.record_comm({**report, "inverse_sharding": sharding,
+                      "double_buffer": opt.cfg.double_buffer,
+                      "refresh_chunks": k})
     data = token_batches(cfg.vocab, batch, seq, seed=0)
     lr_fn = polynomial_decay(lr, 0, steps, 4.0)
-    step_fn = make_train_step(model, opt, accum=accum)
-    fast_fn = make_fast_step(model, opt, accum=accum)
     dev = model.device
     records = []
     for t in range(1, steps + 1):
@@ -226,7 +412,14 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
                 f"refresh {sum(flags.values())}/{len(flags)} {dt:.3f} s"
                 + note)
     s = ctrl.summary()
-    log(f"statistic traffic: {100 * s['reduction_rate']:.1f}% of dense")
+    log(f"statistic traffic: {100 * s['reduction_rate']:.1f}% of dense; "
+        f"modelled wire [{comm.strategy}/{comm.wire_dtype}]: "
+        f"{s['comm']['total_wire_bytes']} B "
+        f"({100 * s['comm']['wire_reduction_rate']:.1f}% of "
+        f"refresh-every-step)")
+    if sharding:
+        log(f"modelled Stage-4 gather (sym-packed f32): "
+            f"{s['comm']['total_gather_bytes']} B")
     return params, state, records
 
 
@@ -293,6 +486,32 @@ def main(argv=None):
                          "--double-buffer and floors the refresh interval "
                          "at K+1 so a drain always completes. 1 = inline "
                          "refresh (default)")
+    from repro_torch import comm as comm_lib
+    ap.add_argument("--comm-strategy", default="dense",
+                    choices=comm_lib.STRATEGIES,
+                    help="Stage-3 factor reduce strategy (repro_torch.comm): "
+                         "dense reduce-scatter, ring over sym-packed "
+                         "triangles, ring_fp8 (fp8 hops, f32 accumulation), "
+                         "hier (intra-host f32 + inter-host fp8 rings) or "
+                         "fused (wire-format capture). This one-process CLI "
+                         "runs the single-device steps: the flag sets the "
+                         "config and MODELS the wire ledger; the collectives "
+                         "run under make_dist_train_step")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=sorted(comm_lib.WIRE_DTYPES),
+                    help="collective wire dtype; defaults to f32 for "
+                         "dense/ring and fp8_e4m3 for ring_fp8/hier/fused")
+    ap.add_argument("--devices-per-host", type=int, default=None,
+                    help="host-topology model of the hier strategy: the "
+                         "intra-host group width (default: "
+                         "LOCAL_WORLD_SIZE, else the world size)")
+    ap.add_argument("--inverse-sharding", action="store_true",
+                    help="Stage-4 distribution: invert only the local "
+                         "factor chunk and all-gather the preconditioners "
+                         "as sym-packed f32 triangles. Implies "
+                         "--double-buffer. In this one-process CLI the flag "
+                         "MODELS the gather ledger; the sharded inversion "
+                         "runs under make_dist_train_step")
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--device", default=None,
@@ -308,7 +527,11 @@ def main(argv=None):
         history=args.history, sgd_fallback_scale=args.sgd_fallback_scale,
         factor_dtype=FACTOR_DTYPES[args.factor_dtype],
         factor_wire=args.factor_wire, double_buffer=args.double_buffer,
-        refresh_chunks=max(1, args.refresh_chunks), device=device)
+        refresh_chunks=max(1, args.refresh_chunks),
+        inverse_sharding=args.inverse_sharding, device=device)
+    comm = comm_lib.make_comm_config(args.comm_strategy, args.wire_dtype,
+                                     backend=args.backend,
+                                     devices_per_host=args.devices_per_host)
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} ({'full' if args.full_config else 'reduced'}), "
           f"{n / 1e6:.1f}M params, device {device}, factor history "
@@ -316,7 +539,7 @@ def main(argv=None):
           flush=True)
     run(model, opt, params, state, steps=args.steps, batch=args.batch,
         seq=args.seq, accum=args.accum, lr=args.lr, damping=args.damping,
-        log=lambda s: print(s, flush=True))
+        log=lambda s: print(s, flush=True), comm=comm)
 
 
 if __name__ == "__main__":
