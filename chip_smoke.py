@@ -18,9 +18,17 @@ buffers' identities; trains full-width ``llama3_2_1b`` for 4 steps of
 the staleness controller decides), then for a warm-up and three timed steps
 of the fast-step builder; then a warm-up and three timed steps of momentum
 SGD (``repro_torch.optim.SGD``) on a fresh model, beside the fast step.
-Then Stage 4 by Newton-Schulz (``inverse_method="newton_schulz"``): its
-kernels against the plain iteration, full-width training for 2 loop steps
-and the fast-step builder's warm-up and three timed steps, and again with
+The profiled fast and capture steps are split by the SP-NGD stage range
+(``repro_torch.obs``) each launch fell in, and three overhead ratios are
+timed: the metrics stream enabled over disabled on the fast-step loop, and
+the stage and kernel ranges live over a null context on the fast step and
+on 8 decode steps. Then the trainer's CLI at full width with the metrics
+stream, the overhead probe and a one-step trace (``obs_path``), its stream
+read back and its overhead decomposition printed by
+``experiments/make_report.py``. Then Stage 4 by Newton-Schulz
+(``inverse_method="newton_schulz"``): its kernels against the plain
+iteration, full-width training for 2 loop steps and the fast-step
+builder's warm-up and three timed steps, and again with
 the double buffer (2 loop + 2 fast steps), its walls and peak memory beside
 the single-buffer run's. Then the chunked refresh pipeline
 (``refresh_chunks``) and checkpoints: the pipeline's capture, drain and
@@ -225,6 +233,9 @@ def main(argv: list[str]) -> int:
     times.update(time_factor_sums(torch))
     profile_train(torch, train)
     timed(sgd_path, torch, train)
+    t_obs = time.perf_counter()
+    timed(obs_path, torch)
+    t_obs = time.perf_counter() - t_obs
 
     errs.update(check_ns_kernels(torch))
     ns_path = train_path_ns(torch, train)
@@ -255,6 +266,7 @@ def main(argv: list[str]) -> int:
     timed(dist_path, torch, train_walls)
     t_end = time.perf_counter()
     say("clock", f"{t_end - t_start:.1f} s from the build on, the "
+                 f"observability phase obs_path {t_obs:.1f} s, the "
                  f"pipeline and checkpoint phases {t_pipe:.1f} s, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
                  f"{t_dist - t_swa:.1f} s and the multi-GPU phases "
@@ -818,9 +830,13 @@ def time_kernels(torch, main_path, ring) -> dict:
 
 def _device_us(evt) -> float:
     """Time of a device-side event (a kernel, a memset or a copy); host-side
-    operator entries count 0, so no kernel is counted twice."""
+    operator entries count 0, so no kernel is counted twice, and so do the
+    ranges' projections onto the device timeline (gpu_user_annotation)."""
     from torch.autograd import DeviceType
     if getattr(evt, "device_type", None) != DeviceType.CUDA:
+        return 0.0
+    if (getattr(evt, "is_user_annotation", False)
+            or evt.key.startswith(RANGE_PREFIXES)):
         return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -850,9 +866,12 @@ def _group(name: str) -> str:
     return "other (elementwise, copies, reductions, memsets)"
 
 
-def _profile(torch, label, fn, warm: bool = True) -> None:
+def _profile(torch, label, fn, warm: bool = True,
+             split: bool = False) -> None:
     """Device time by kernel and by group over ``fn``, and the device's busy
-    share of the wall time (torch.profiler, CUPTI)."""
+    share of the wall time (torch.profiler, CUPTI); with ``split``, also by
+    the SP-NGD stage and kernel range each launch fell in
+    (:func:`_stage_split`)."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -883,6 +902,131 @@ def _profile(torch, label, fn, warm: bool = True) -> None:
     for e in top:
         say("profile", f"  {_device_us(e):9.0f} us  {e.count:5d} x  "
                        f"{e.key[:90]}")
+    if split:
+        _stage_split(torch, label, prof, total)
+
+
+# the observability ranges (repro_torch.obs.tracing): stage and kernel
+RANGE_PREFIXES = ("spngd.", "repro.kernels.")
+# host API records of a launch, copy or memset (CUDA runtime and CUDA
+# driver API calls: cudaLaunchKernel, cudaLaunchKernelExC, cuLaunchKernel,
+# cudaMemcpyAsync, ...)
+LAUNCH_PREFIX = "cu"
+UNSCOPED_BEFORE = "unscoped, before the first precond range"
+UNSCOPED_AFTER = "unscoped, between and after the precond ranges"
+# the split must account for the device busy time of key_averages
+SPLIT_REL_TOL = 0.01
+
+
+def _window(wins, starts, t):
+    """The window of ``wins`` (sorted (start, end, name)) holding host time
+    ``t``, the innermost of up to four nested ones, else None."""
+    import bisect
+    i = bisect.bisect_right(starts, t) - 1
+    for j in range(i, max(i - 4, -1), -1):
+        if wins[j][1] >= t:
+            return wins[j]
+    return None
+
+
+def _ns(e, what: str) -> int:
+    """``start`` or ``duration`` of a kineto event in ns (the ns accessors
+    where this torch has them)."""
+    f = getattr(e, f"{what}_ns", None)
+    return f() if f is not None else int(getattr(e, f"{what}_us")() * 1000)
+
+
+def _stage_split(torch, label, prof, busy_us) -> None:
+    """Device time of a profiled step by where its launch fell: each device
+    event (kernel, copy, memset) goes to the ``spngd.*`` stage range whose
+    host window holds its launch record (the CUDA API call of the same
+    CUPTI correlation), on any thread: backward kernels launch on autograd's worker thread,
+    outside the main thread's ranges in the profiler's tree but inside
+    their windows. Outside every stage range it goes to the
+    forward/backward side (before the first ``spngd.stage4.precond``) or
+    the update side (between and after them). Inside each bucket the time
+    is split by the ``repro.kernels.*[cuda]`` range holding the launch, the
+    rest by kernel group. The buckets must sum to ``busy_us``
+    (key_averages) within SPLIT_REL_TOL."""
+    from torch.autograd import DeviceType
+    from repro_torch.obs import tracing
+    launch, stages, kranges, dev = {}, [], [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        ranged = name.startswith(RANGE_PREFIXES)
+        if e.device_type() == DeviceType.CUDA:
+            annotation = getattr(e, "is_user_annotation", None)
+            if not ranged and not (annotation and annotation()):
+                dev.append((name, _ns(e, "duration") / 1e3,
+                            e.correlation_id()))
+            continue
+        start = _ns(e, "start")
+        if name.startswith(LAUNCH_PREFIX):
+            launch[e.correlation_id()] = (start, name)
+        elif ranged:
+            win = (start, start + _ns(e, "duration"), name)
+            if name.startswith("spngd."):
+                stages.append(win)
+            elif name.endswith("[cuda]"):
+                kranges.append(win)
+    stages.sort()
+    kranges.sort()
+    s_starts = [w[0] for w in stages]
+    k_starts = [w[0] for w in kranges]
+    precond = [w[0] for w in stages if w[2] == tracing.STAGE_PRECOND]
+    first_precond = min(precond) if precond else None
+    buckets: dict = {}
+    by_range: dict = {}
+    launch_names = set()
+    for name, us, corr in dev:
+        rec = launch.get(corr)
+        t = None if rec is None else rec[0]
+        if t is None:
+            bucket = "launch not found"
+        else:
+            launch_names.add(rec[1])
+            st = _window(stages, s_starts, t)
+            if st is not None:
+                bucket = st[2].split("[")[0]
+            elif first_precond is None or t < first_precond:
+                bucket = UNSCOPED_BEFORE
+            else:
+                bucket = UNSCOPED_AFTER
+        b = buckets.setdefault(bucket, {"us": 0.0, "ranges": {},
+                                        "groups": {}})
+        b["us"] += us
+        kr = _window(kranges, k_starts, t) if t is not None else None
+        if kr is not None:
+            b["ranges"][kr[2]] = b["ranges"].get(kr[2], 0.0) + us
+            by_range[kr[2]] = by_range.get(kr[2], 0.0) + us
+        else:
+            g = _group(name)
+            b["groups"][g] = b["groups"].get(g, 0.0) + us
+    split = sum(b["us"] for b in buckets.values())
+    say("stage-split", f"{label}: {split:.0f} us of device work by launch "
+                       f"window against {busy_us:.0f} us busy in "
+                       f"key_averages ({split / busy_us:.4f}); {len(stages)} "
+                       f"stage and {len(kranges)} kernel ranges; launch "
+                       f"records {sorted(launch_names)}; "
+                       f"{card_note(torch)}")
+    say("stage-split", "  by kernel range: " + ", ".join(
+        f"{k} {v:.0f} us" for k, v in sorted(by_range.items(),
+                                             key=lambda kv: -kv[1])))
+    for bucket, b in sorted(buckets.items(), key=lambda kv: -kv[1]["us"]):
+        say("stage-split", f"  {bucket}: {b['us']:.0f} us "
+                           f"({b['us'] / busy_us:.3f}); in kernel ranges "
+                           + (", ".join(f"{k} {v:.0f}" for k, v in sorted(
+                               b["ranges"].items(), key=lambda kv: -kv[1]))
+                              or "none")
+                           + "; outside them by group "
+                           + ", ".join(f"{g} {v:.0f}" for g, v in sorted(
+                               b["groups"].items(), key=lambda kv: -kv[1])))
+    check(abs(split - busy_us) <= SPLIT_REL_TOL * busy_us,
+          f"{label}: the stage split holds {split:.0f} us, key_averages "
+          f"{busy_us:.0f} us busy")
+    lost = buckets.get("launch not found", {"us": 0.0})["us"]
+    check(lost <= SPLIT_REL_TOL * busy_us,
+          f"{label}: {lost:.0f} us of device work without a launch record")
 
 
 def profile_path(torch, main_path) -> None:
@@ -902,6 +1046,31 @@ def profile_path(torch, main_path) -> None:
         for _ in range(8):
             batcher.step()
     _profile(torch, "8 decode steps at 8 lanes", steps)
+    _decode_scope_overhead(torch, model, reqs)
+
+
+def _decode_scope_overhead(torch, model, reqs) -> None:
+    """OBS_DECODE decode steps at 8 lanes with the kernel and stage ranges
+    live against swapped for a null context (:func:`_scope_overhead`)."""
+    import numpy as np
+    from repro_torch.serve import ContinuousBatcher, ServeConfig
+    batcher = ContinuousBatcher(model, ServeConfig(), slots=8, max_len=1024)
+    rng = np.random.default_rng(5)
+    # a warm-up sample, the counted one and the turns, all decoding
+    for r in _requests(rng, model.cfg.vocab,
+                       [len(r.prompt) for r in reqs[:8]],
+                       OBS_DECODE * (4 * OBS_ROUNDS + 3)):
+        batcher.admit(r)
+
+    def steps():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(OBS_DECODE):
+            batcher.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    _scope_overhead(torch, f"{OBS_DECODE} decode steps at 8 lanes", steps,
+                    OBS_SCOPE_DECODE_BOUND)
 
 # ---------------------------------------------------------------------------
 # the training kernels against their plain versions
@@ -1503,7 +1672,9 @@ def time_train_kernels(torch) -> dict:
 def profile_train(torch, train) -> None:
     """Device time by kernel group over one fast step and one capture step
     (every statistic refreshed) of the trained model, and the device's busy
-    share of the wall time."""
+    share of the wall time; each split by stage range
+    (:func:`_stage_split`); then the fast step's overhead ratios
+    (:func:`_fast_step_overheads`)."""
     from repro_torch.launch import train as train_lib
     model, opt = train["model"], train["opt"]
     params, state = train["params"], train["state"]
@@ -1520,11 +1691,177 @@ def profile_train(torch, train) -> None:
     def capture_step():
         _, box["state"], _ = capture(params, box["state"], batch, flags, lam,
                                      lr, 0.0)
-    _profile(torch, "one fast train step (4096 tokens)", fast_step)
+    _profile(torch, "one fast train step (4096 tokens)", fast_step,
+             split=True)
     _profile(torch, "one capture train step, every statistic refreshed",
-             capture_step, warm=False)
+             capture_step, warm=False, split=True)
+    _fast_step_overheads(torch, opt, fast, params, box, batch, lam, lr)
     del train["model"], train["opt"], train["params"], train["state"]
     torch.cuda.empty_cache()
+
+
+# the overhead ratios: OBS_ROUNDS rounds of samples in turns (a, b, b, a),
+# a sample one fast step or OBS_DECODE decode steps
+OBS_ROUNDS = 6
+OBS_DECODE = 8
+# the bounds: the stream enabled over disabled (repro's own bound for
+# obs.enabled_over_disabled), the ranges live over a null context
+OBS_STREAM_BOUND = 1.03
+OBS_SCOPE_FAST_BOUND = 1.01
+OBS_SCOPE_DECODE_BOUND = 1.03
+
+
+@contextlib.contextmanager
+def _scopes_swapped(make):
+    """The stage and kernel ranges swapped for ``make(live)(*args)`` (every
+    call site reaches them through ``repro_torch.obs.tracing``)."""
+    from repro_torch.obs import tracing
+    live = tracing.stage_scope, tracing.kernel_scope
+    tracing.stage_scope, tracing.kernel_scope = map(make, live)
+    try:
+        yield
+    finally:
+        tracing.stage_scope, tracing.kernel_scope = live
+
+
+def _scopes_off():
+    """The ranges swapped for a null context."""
+    return _scopes_swapped(lambda f: lambda *a: contextlib.nullcontext())
+
+
+def _ranges_in(fn) -> int:
+    """How many stage and kernel ranges ``fn()`` opens."""
+    n = [0]
+
+    def counted(f):
+        def g(*a):
+            n[0] += 1
+            return f(*a)
+        return g
+    with _scopes_swapped(counted):
+        fn()
+    return n[0]
+
+
+def _in_turns(a, b, b_ctx=contextlib.nullcontext) -> tuple:
+    """``a()`` and ``b()`` (the latter under ``b_ctx()``) in turns a, b, b,
+    a for OBS_ROUNDS rounds: their values, as two lists."""
+    got = {"a": [], "b": []}
+    for _ in range(OBS_ROUNDS):
+        for arm in "abba":
+            if arm == "a":
+                got["a"].append(a())
+            else:
+                with b_ctx():
+                    got["b"].append(b())
+    return got["a"], got["b"]
+
+
+def _say_ratio(torch, what, on, off, bound, direct_s, how) -> None:
+    """The ratio of the two arms' median walls, the spread of the ``off``
+    arm's own samples (quartile distance over its median: a ratio inside
+    it is not resolved), and the same ratio from the host work measured
+    directly (``direct_s`` seconds a sample, ``how`` says what)."""
+    med_on, med_off = statistics.median(on), statistics.median(off)
+    r = med_on / med_off
+    q = statistics.quantiles(off, n=4)
+    spread = (q[2] - q[0]) / med_off
+    est = 1.0 + direct_s / med_off
+    verdict = (f"within the bound {bound}" if r <= bound else
+               f"above the bound {bound} by less than the noise: unresolved"
+               if r - 1.0 <= spread else f"MISSES the bound {bound}")
+    say("obs-overhead", f"{what}: {r:.4f} ({verdict}; "
+                        f"medians {med_on:.4f} / {med_off:.4f} s over "
+                        f"{len(on)} samples each, the off arm's quartiles "
+                        f"{spread:.4f} of its median apart); measured "
+                        f"directly {1e3 * direct_s:.4f} ms a sample ({how})"
+                        f" -> {est:.5f} ({'within' if est <= bound else 'MISSES'}"
+                        f" the bound); {card_note(torch)}")
+
+
+def _range_cost(torch, n: int = 5000) -> dict:
+    """Host microseconds a range's enter and exit cost, no profiler on:
+    ``torch.profiler.record_function`` itself, the kernel range as
+    ``repro_torch.obs`` opens it (a null context while nothing records),
+    and a null context."""
+    from repro_torch.obs import tracing
+    cost = {}
+    for what, make in (
+            ("record_function", lambda: torch.profiler.record_function(
+                "repro.kernels.x[cuda]")),
+            ("kernel_scope", lambda: tracing.kernel_scope("x", "cuda")),
+            ("nullcontext", contextlib.nullcontext)):
+        for _ in range(n // 10):
+            with make():
+                pass
+        t = time.perf_counter()
+        for _ in range(n):
+            with make():
+                pass
+        cost[what] = (time.perf_counter() - t) / n * 1e6
+    say("obs-overhead", "host us per range enter and exit, no profiler on: "
+                        + ", ".join(f"{k} {v:.3f}" for k, v in cost.items())
+                        + f"; {card_note(torch)}")
+    return cost
+
+
+def _scope_overhead(torch, what, sample, bound) -> None:
+    """``sample()`` (a synchronized wall) with the ranges live against a
+    null context, and the ranges' host cost reckoned from their count in
+    one sample and :func:`_range_cost`."""
+    sample()
+    n = _ranges_in(sample)
+    cost = _range_cost(torch)
+    live, null = _in_turns(sample, sample, _scopes_off)
+    extra = (cost["kernel_scope"] - cost["nullcontext"]) * 1e-6
+    _say_ratio(torch, f"{what}, scopes live over null", live, null, bound,
+               n * extra, f"{n} ranges x {1e6 * extra:.3f} us, their cost "
+               "over a null context while nothing records; record_function "
+               f"itself would be {n} x {cost['record_function']:.3f} us")
+
+
+def _fast_step_overheads(torch, opt, fast, params, box, batch, lam,
+                         lr) -> None:
+    """One fast step with the metrics stream enabled against disabled (each
+    step what ``train.run`` reads and writes for it), and with the ranges
+    live against a null context: synchronized walls, samples in turns,
+    medians."""
+    from repro_torch.core.stale import IntervalController
+    from repro_torch.obs import MetricsLogger
+    names = opt.stat_names()
+    none = {n: False for n in names}
+    ctrl = IntervalController(names, bytes_per_stat=opt.stat_bytes())
+    emitted = []
+    step = [0]
+
+    def sample(logger=MetricsLogger()):
+        step[0] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, box["state"], m = fast(params, box["state"], batch, lam, lr, 0.0)
+        ctrl.update(step[0], none, {})
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if logger.enabled:
+            te = time.perf_counter()
+            logger.log_step(step[0], loss=loss, dt=dt, kind="fast", lr=lr,
+                            mom=0.0, n_refreshed=0, n_stats=len(none),
+                            refreshed=[], grad_norm=float(m["grad_norm"]),
+                            update_norm=float(m["update_norm"]),
+                            comm=ctrl.drain())
+            emitted.append(time.perf_counter() - te)
+        return time.perf_counter() - t0
+
+    out = ROOT / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    with MetricsLogger(str(out / "overhead.jsonl")) as logger:
+        sample()
+        on, off = _in_turns(lambda: sample(logger), sample)
+    _say_ratio(torch, "fast step, metrics stream enabled over disabled", on,
+               off, OBS_STREAM_BOUND, statistics.median(emitted),
+               "the step event's reads and write, median")
+    _scope_overhead(torch, "fast step", sample, OBS_SCOPE_FAST_BOUND)
 
 # ---------------------------------------------------------------------------
 # Stage 4 by Newton-Schulz
@@ -2710,6 +3047,109 @@ def sgd_path(torch, train) -> None:
     _profile(torch, "one SGD step (4096 tokens)", sgd_step)
     del model, opt, params, state, box
     torch.cuda.empty_cache()
+
+
+# the observability path: repro_torch.launch.train's CLI at full width with
+# the metrics stream, the overhead probe and a one-step trace, at
+# train_path's lr and damping
+OBS_DIR = ROOT / "build" / "obs"
+OBS_STEPS_CLI = 8
+OBS_ARGS = ["--full-config", "--batch", str(TRAIN["batch"]), "--seq",
+            str(TRAIN["seq"]), "--steps", str(OBS_STEPS_CLI),
+            "--inverse-method", "newton_schulz", "--lr", str(TRAIN["lr"]),
+            "--damping", str(TRAIN["damping"]),
+            "--metrics-jsonl", str(OBS_DIR / "experiments" /
+                                   "metrics_torch.jsonl"),
+            "--profile-dir", str(OBS_DIR / "trace"), "--profile-steps", "1"]
+# ranges the one-step trace (a capture step) must hold
+OBS_TRACE_NAMES = ("spngd.stage2.capture", "spngd.stage4.inverse",
+                   "spngd.stage4.precond", "repro.kernels.factor_sum[cuda]")
+
+
+def obs_path(torch) -> None:
+    """``train.main(OBS_ARGS)``: the stream's schema (``v``, ``type``,
+    ``t_wall`` on every event; one run_config, one probe, a step per step,
+    one summary), finite losses, the comm drains summing to the summary,
+    the trace's stage and kernel ranges; then ``experiments/make_report.py``
+    (loaded by path, stdlib only) prints its overhead decomposition from
+    the stream. First, the ranges open under ``emit_nvtx`` (as NVTX
+    ranges) and not while nothing records."""
+    import importlib.util
+    import io
+    import math
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.obs import tracing
+    with torch.autograd.profiler.emit_nvtx():
+        nvtx = [tracing.kernel_scope("factor_sum", "cuda"),
+                tracing.stage_scope(tracing.STAGE_PRECOND)]
+    check(all(isinstance(r, torch.profiler.record_function) for r in nvtx)
+          and not isinstance(tracing.kernel_scope("factor_sum", "cuda"),
+                             torch.profiler.record_function),
+          f"ranges under emit_nvtx: {nvtx}")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    (OBS_DIR / "experiments").mkdir(parents=True)
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, _, recs = train.main(OBS_ARGS)
+    wall = time.perf_counter() - t
+    for line in out.getvalue().splitlines():
+        say("obs-path", line)
+    torch.cuda.empty_cache()
+    evts = [json.loads(line) for line in
+            (OBS_DIR / "experiments" / "metrics_torch.jsonl").read_text()
+            .splitlines()]
+    check(all({"v", "type", "t_wall"} <= set(e) for e in evts),
+          "every event carries v, type and t_wall")
+    kinds = {}
+    for e in evts:
+        kinds[e["type"]] = kinds.get(e["type"], 0) + 1
+    check(all(kinds.get(k) == n for k, n in (
+        ("run_config", 1), ("probe", 1), ("step", OBS_STEPS_CLI),
+        ("summary", 1))), f"event counts {kinds}")
+    steps = [e for e in evts if e["type"] == "step"]
+    check(all(math.isfinite(e["loss"]) for e in steps),
+          f"stream losses {[e['loss'] for e in steps]}")
+    check([e["loss"] for e in steps] == [r["loss"] for r in recs],
+          "stream losses are run's records'")
+    summary = next(e for e in evts if e["type"] == "summary")
+    totals: dict = {}
+    for e in steps:
+        for k, v in e["comm"].items():
+            totals[k] = totals.get(k, 0) + v
+    check(totals and all(summary[k] == v for k, v in totals.items()),
+          f"comm drains {totals} against the summary {summary}")
+    trace = (OBS_DIR / "trace" / "trace.json").read_text()
+    missing = [n for n in OBS_TRACE_NAMES if f'"{n}"' not in trace]
+    precond = [n for n in ("repro.kernels.block_precond_left[cuda]",
+                           "repro.kernels.block_precond_right[cuda]")
+               if f'"{n}"' in trace]
+    check(not missing and precond, f"ranges missing from the trace: "
+                                   f"{missing}, block_precond {precond}")
+    probe = next(e for e in evts if e["type"] == "probe")
+    say("obs-path", f"{OBS_STEPS_CLI} steps, kinds "
+                    f"{[e['kind'] for e in steps]}, losses "
+                    f"{[round(e['loss'], 6) for e in steps]}; {kinds}; probe "
+                    + ", ".join(f"{k} {v:.0f}" for k, v in probe.items()
+                                if k.endswith("_us"))
+                    + f" us; trace {len(trace)} B with every stage and "
+                      f"kernel range asked for; main() {wall:.1f} s; "
+                      f"{card_note(torch)}")
+    spec = importlib.util.spec_from_file_location(
+        "make_report", ROOT / "experiments" / "make_report.py")
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    out = io.StringIO()
+    with contextlib.chdir(OBS_DIR), contextlib.redirect_stdout(out):
+        report.overhead_section()
+    check("| forward/backward |" in out.getvalue(),
+          "make_report printed no decomposition table")
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            say("obs-report", line)
+    say("obs-report", "random init: nearly every step captures, so r above "
+                      "is not a trained run's refresh frequency")
 
 
 def time_ns_kernels(torch) -> dict:

@@ -5,7 +5,15 @@ where the JAX package has Pallas kernels; it imports nothing of JAX or of
 ``repro``. Entry points run on the card unless the caller passes
 ``device="cpu"``; on the CPU every op takes its plain PyTorch version.
 
-Ported so far: the serving path (``serve.ContinuousBatcher`` ->
-``models.transformer.DecoderLM.prefill/decode_step``) for dense decoders,
-with the prefill attention forward and the flash-decode kernels.
+Ported so far, for ``llama3_2_1b``: the serving path
+(``serve.ContinuousBatcher`` -> ``DecoderLM.prefill/decode_step``); the
+SP-NGD trainer (``launch.train``: capture, Algorithm-2 staleness, Stage 4
+by eigh, Cholesky or Newton-Schulz, preconditioning and the momentum
+update, f32 or fp8 factor history, fused fp8 capture, the double buffer,
+the chunked refresh pipeline) and the momentum-SGD baseline
+(``optim.SGD``); checkpoints in ``repro``'s layout (``checkpoint``);
+multi-GPU Stage 3 and Stage 4 over ``torch.distributed`` (``comm``); and
+observability (``obs``: stage and kernel ranges, the JSONL metrics
+stream). All thirteen Pallas kernels have a CUDA counterpart
+(``kernels/csrc``).
 """

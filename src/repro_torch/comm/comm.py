@@ -638,23 +638,27 @@ class FactorReducer:
         """One statistic's Stage-3 reduce: this rank's chunk of the leading
         dim when it scatters (the strategy applies), the full sum
         otherwise. Wire-format dicts take the pre-packed all_to_all path
-        and come back as dense f32."""
+        and come back as dense f32. Runs in the range
+        ``spngd.stage3.reduce[<strategy>:<fam>.<key>]``."""
+        from repro_torch.obs import tracing
         from repro_torch.quant import quant
-        if quant.is_wire(v):
-            return self._fused_wire(v)
-        axes = self.scatter_axes(v.shape[0]) if v.dim() >= 1 else ()
-        if not axes:
-            return self.psum(v)
-        if self.comm.strategy in ("dense", "fused"):
-            v = reduce_scatter(v, self.group(axes))
-        elif self.comm.strategy == "hier":
-            v = self._hier(v, axes, symmetric=self.sym_fn(fam, key))
-        else:
-            v = self._ring(v, axes, symmetric=self.sym_fn(fam, key))
-        rest = tuple(a for a in self.dp if a not in axes)
-        if rest:
-            v = all_reduce(v.contiguous(), self.group(rest))
-        return v
+        with tracing.stage_scope(
+                f"{tracing.STAGE_REDUCE}[{self.comm.strategy}:{fam}.{key}]"):
+            if quant.is_wire(v):
+                return self._fused_wire(v)
+            axes = self.scatter_axes(v.shape[0]) if v.dim() >= 1 else ()
+            if not axes:
+                return self.psum(v)
+            if self.comm.strategy in ("dense", "fused"):
+                v = reduce_scatter(v, self.group(axes))
+            elif self.comm.strategy == "hier":
+                v = self._hier(v, axes, symmetric=self.sym_fn(fam, key))
+            else:
+                v = self._ring(v, axes, symmetric=self.sym_fn(fam, key))
+            rest = tuple(a for a in self.dp if a not in axes)
+            if rest:
+                v = all_reduce(v.contiguous(), self.group(rest))
+            return v
 
     def reduce(self, raw: dict) -> dict:
         """Reduce a whole raw-statistics tree ({family: {key: tensor}})."""
@@ -685,17 +689,20 @@ class FactorReducer:
         """Stage-4 return leg: all-gather a shard-local preconditioner back
         to the full leading dim over the SAME ``axes`` its statistic
         scattered over. Symmetric blocks move the sym-packed f32 triangle;
-        the gather never quantizes."""
+        the gather never quantizes. Runs in the range
+        ``spngd.stage4.gather[<fam>.<key>]``."""
         from repro_torch.core import kfac
+        from repro_torch.obs import tracing
         if not axes:
             return v
-        sym = self.sym_fn(fam, key) and v.dim() >= 3 \
-            and v.shape[-1] == v.shape[-2]
-        b = v.shape[-1] if sym else 0
-        if sym:
-            v = kfac.sym_pack(v.float())
-        v = all_gather(v, self.group(axes))
-        return kfac.sym_unpack(v, b) if sym else v
+        with tracing.stage_scope(f"{tracing.STAGE_GATHER}[{fam}.{key}]"):
+            sym = self.sym_fn(fam, key) and v.dim() >= 3 \
+                and v.shape[-1] == v.shape[-2]
+            b = v.shape[-1] if sym else 0
+            if sym:
+                v = kfac.sym_pack(v.float())
+            v = all_gather(v, self.group(axes))
+            return kfac.sym_unpack(v, b) if sym else v
 
     # ---- the ring ----
 

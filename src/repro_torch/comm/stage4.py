@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.comm import FactorReducer, all_gather
+from repro_torch.obs import tracing
 
 
 def _batch_damp(damp, stat_ndim: int) -> torch.Tensor:
@@ -72,28 +73,34 @@ class Stage4Inverter:
         """Damped inverse of a full-kind blocked factor ``stat``
         ((lead..., nb, b, b)): this rank inverts its chunk of the leading
         dim, then the preconditioner all-gathers. Numerically the
-        replicated inverse: sharding only partitions the block batch."""
+        replicated inverse: sharding only partitions the block batch. Runs
+        in the range ``spngd.stage4.inverse[sharded:<fam>.<key>]``, or
+        ``[replicated:...]`` on the fallback."""
         reducer = self.reducer
         axes = reducer.scatter_axes(stat.shape[0]) if stat.dim() >= 3 else ()
         if not axes or reducer.group_size(axes) <= 1:
-            inv, info = self._inverse(stat, damp)
+            with tracing.stage_scope(
+                    f"{tracing.STAGE_INVERSE}[replicated:{fam}.{key}]"):
+                inv, info = self._inverse(stat, damp)
             if not return_info:
                 return inv
             info = dict(info, owner=torch.full(
                 stat.shape[:1], -1, dtype=torch.int32, device=stat.device))
             return inv, info
-        g = reducer.group(axes)
-        c = stat.shape[0] // g.size
-        rows = slice(g.index * c, (g.index + 1) * c)
-        damp = torch.as_tensor(damp, dtype=torch.float32)
-        if damp.dim() >= 1 and damp.shape[0] == stat.shape[0]:
-            damp = damp[rows]
-        inv, info = self._inverse(stat[rows], damp)
-        inv = reducer.gather_stat(fam, key, inv, axes)
-        if not return_info:
-            return inv
-        gathered = {k: all_gather(v, g) for k, v in info.items()}
-        gathered["owner"] = all_gather(
-            torch.full((c,), g.index, dtype=torch.int32, device=stat.device),
-            g)
-        return inv, gathered
+        with tracing.stage_scope(
+                f"{tracing.STAGE_INVERSE}[sharded:{fam}.{key}]"):
+            g = reducer.group(axes)
+            c = stat.shape[0] // g.size
+            rows = slice(g.index * c, (g.index + 1) * c)
+            damp = torch.as_tensor(damp, dtype=torch.float32)
+            if damp.dim() >= 1 and damp.shape[0] == stat.shape[0]:
+                damp = damp[rows]
+            inv, info = self._inverse(stat[rows], damp)
+            inv = reducer.gather_stat(fam, key, inv, axes)
+            if not return_info:
+                return inv
+            gathered = {k: all_gather(v, g) for k, v in info.items()}
+            gathered["owner"] = all_gather(
+                torch.full((c,), g.index, dtype=torch.int32,
+                           device=stat.device), g)
+            return inv, gathered

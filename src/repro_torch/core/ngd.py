@@ -48,6 +48,7 @@ from repro_torch.core import kfac
 from repro_torch.core.fisher import (SiteInfo, emp_fisher_grads, flatten,
                                      get_path, mc_fisher_grads,
                                      value_and_grad)
+from repro_torch.obs import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +58,8 @@ class NGDConfig:
     estimator: str = "emp"           # "emp" | "1mc"
     inverse_method: str = "eigh"     # "eigh" | "cholesky" | "newton_schulz"
                                      # (newton_schulz: per-block diagnostics
-                                     # in metrics["inverse_info"])
+                                     # in metrics["inverse_info"] whatever
+                                     # inverse_info says)
     factor_dtype: Any = torch.float32  # storage of the X_-1/X_-2 history:
                                      # a torch dtype (dense), or "fp8_e4m3"
                                      # / "fp8_e5m2" (sym-packed payload +
@@ -89,6 +91,14 @@ class NGDConfig:
                                      # with min_interval = refresh_chunks + 1
                                      # so a drain ends before the next
                                      # capture. 1 = inline refresh
+    inverse_info: bool = False       # surface the inline refresh's
+                                     # per-block Stage-4 diagnostics
+                                     # (ns_res / ns_converged) in
+                                     # metrics["inverse_info"] under every
+                                     # method; families that did not refresh
+                                     # carry ns_res = -1 (repro_torch.obs
+                                     # reads it). Off: the metrics tree is
+                                     # unchanged
 
 
 # Eq. 24's guard against a zero weight norm
@@ -328,13 +338,13 @@ class SPNGD:
 
     def _refresh_family(self, fam: str, raw: dict, curv: dict, flags: dict,
                         lam, n_a, n_g):
-        """Returns (entry, sims, info): with Stage 4 by Newton-Schulz, info
-        maps each blocked a/g factor to its per-block {"ns_res",
-        "ns_converged"}, the sentinels -1 and True when the family did not
-        refresh; else it is empty. With ``double_buffer`` the new inverses
-        (or, without a refresh, the staged ones) become ``precond_next``
-        and the staged buffer becomes ``precond``: this step applies what
-        the latest earlier refresh computed."""
+        """Returns (entry, sims, info): with Stage 4 by Newton-Schulz or with
+        ``inverse_info``, info maps each blocked a/g factor to its per-block
+        {"ns_res", "ns_converged"}, the sentinels -1 and True when the
+        family did not refresh; else it is empty. With ``double_buffer``
+        the new inverses (or, without a refresh, the staged ones) become
+        ``precond_next`` and the staged buffer becomes ``precond``: this
+        step applies what the latest earlier refresh computed."""
         info = self.infos[fam]
         cfg = self.cfg
         normalized, new_prev, new_prev2, sims = self._shift_history(
@@ -342,7 +352,8 @@ class SPNGD:
         info_keys = [k for k in ("a", "g") if k in raw and
                      (info.spec.a_kind if k == "a" else
                       info.spec.g_kind) == "full"] \
-            if cfg.inverse_method == "newton_schulz" else []
+            if cfg.inverse_info or cfg.inverse_method == "newton_schulz" \
+            else []
         if not any(flags[f"{fam}.{k}"] for k in raw):
             precond = curv["precond_next" if cfg.double_buffer
                            else "precond"]
@@ -357,10 +368,11 @@ class SPNGD:
             precond, inv_info = {}, {}
             a, g = normalized.get("a"), normalized.get("g")
             if a is not None or g is not None:
-                a_inv, g_inv, blk = kfac.damped_factor_inverses(
-                    a, g, lam, info.d_in, info.d_out,
-                    a_kind=info.spec.a_kind, g_kind=info.spec.g_kind,
-                    invert=functools.partial(self._stat_inverse, fam))
+                with tracing.stage_scope(tracing.STAGE_INVERSE):
+                    a_inv, g_inv, blk = kfac.damped_factor_inverses(
+                        a, g, lam, info.d_in, info.d_out,
+                        a_kind=info.spec.a_kind, g_kind=info.spec.g_kind,
+                        invert=functools.partial(self._stat_inverse, fam))
                 precond.update({k: v for k, v in (("a", a_inv),
                                                   ("g", g_inv))
                                 if v is not None})
@@ -456,7 +468,11 @@ class SPNGD:
 
         done = set()
         for fam, c in curv.items():
-            for path, u in self._apply_precond(fam, grads, c, lam).items():
+            # the range holds the preconditioning alone, as repro's does;
+            # the update of the family's parameters follows outside it
+            with tracing.stage_scope(tracing.STAGE_PRECOND):
+                updates = self._apply_precond(fam, grads, c, lam)
+            for path, u in updates.items():
                 apply(path, u)
                 done.add(path)
         for path, g in flat_g.items():
@@ -491,20 +507,22 @@ class SPNGD:
                       generator: Optional[torch.Generator] = None):
         """One backward pass: (loss, aux, grads, raw factor sums)."""
         fstats = self.fstats_fn()
-        if self.cfg.estimator == "1mc":
-            return mc_fisher_grads(self.loss_fn, params, fstats, batch,
-                                   generator)
-        return emp_fisher_grads(self.loss_fn, params, fstats, batch)
+        with tracing.stage_scope(tracing.STAGE_CAPTURE):
+            if self.cfg.estimator == "1mc":
+                return mc_fisher_grads(self.loss_fn, params, fstats, batch,
+                                       generator)
+            return emp_fisher_grads(self.loss_fn, params, fstats, batch)
 
     def apply_update(self, params, state, grads, raw, counts, flags,
                      lam, lr, mom, loss, aux):
         """Refresh curvature from the raw sums (per ``flags``) and apply the
         update. The flagged statistics' similarities come to the host in
         one transfer: metrics["sims"][name] = (d1, d2), or (-1, -1) for a
-        statistic that did not refresh. With Stage 4 by Newton-Schulz,
-        metrics["inverse_info"]["{fam}.{key}"] holds the per-block Stage-4
-        diagnostics of each blocked factor. With the refresh pipeline this
-        is the capture step (:meth:`_apply_capture`)."""
+        statistic that did not refresh. With Stage 4 by Newton-Schulz, or
+        with ``inverse_info``, metrics["inverse_info"]["{fam}.{key}"] holds
+        the per-block Stage-4 diagnostics of each blocked factor. With the
+        refresh pipeline this is the capture step (:meth:`_apply_capture`).
+        """
         if self.pipeline is not None:
             return self._apply_capture(params, state, grads, raw, counts,
                                        flags, lam, lr, mom, loss, aux)

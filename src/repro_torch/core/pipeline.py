@@ -47,6 +47,7 @@ import math
 import torch
 
 from repro_torch.core import kfac
+from repro_torch.obs import tracing
 
 
 def _unit_cost(shape: tuple, kind: str) -> int:
@@ -139,7 +140,9 @@ class RefreshPipeline:
         k, cursor = self.chunks, pipe["cursor"]
         curv = self.flip(curv, pipe)
         if cursor < k:
-            curv = self._run_chunk(cursor, curv, pipe["raw"], lam, invert)
+            with tracing.stage_scope(f"{tracing.STAGE_CHUNK}[{cursor}/{k}]"):
+                curv = self._run_chunk(cursor, curv, pipe["raw"], lam,
+                                       invert)
         inflight = min(max(k + 1 - cursor, 0), k + 1)
         return curv, {**pipe, "cursor": min(cursor + 1, k + 1)}, inflight
 

@@ -21,6 +21,7 @@ from repro_torch.configs.base import BACKENDS, check_backend
 # the iteration cap and tolerance live beside the algorithm (core.kfac
 # imports this module only inside functions)
 from repro_torch.core.kfac import NS_ITERS, NS_TOL
+from repro_torch.obs import tracing
 
 _TABLE: dict[str, dict[str, Callable]] = {}
 
@@ -59,8 +60,13 @@ def resolve(backend: str | None, device: torch.device) -> str:
 
 
 def _call(op: str, which: str, *args, **kwargs):
+    """Count the dispatch and run the resolved implementation inside its
+    profiler range, ``repro.kernels.<op>[<backend>]``
+    (:func:`repro_torch.obs.tracing.kernel_scope`)."""
     CALLS[(op, which)] = CALLS.get((op, which), 0) + 1
-    return lookup(op, which)(*args, **kwargs)
+    fn = lookup(op, which)
+    with tracing.kernel_scope(op, which):
+        return fn(*args, **kwargs)
 
 
 def reset_calls() -> None:

@@ -18,6 +18,8 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
     python -m repro_torch.launch.train --full-config --refresh-chunks 4
+    python -m repro_torch.launch.train --device cpu --steps 6 \
+        --metrics-jsonl experiments/metrics_torch.jsonl --profile-dir trace
 
 ``make_dist_train_step`` / ``make_dist_fast_step`` are the multi-rank
 steps (``repro``'s ``make_shardmap_{train,fast}_step``) over a
@@ -29,6 +31,13 @@ statistics, and with ``inverse_sharding`` Stage 4 inverts this rank's chunk
 of each factor and all-gathers. ``run(mesh=...)`` drives them; the CLI runs
 one process, where ``--comm-strategy`` and ``--inverse-sharding`` set the
 config and the modelled byte ledger.
+
+Telemetry is ``repro``'s (``repro_torch.obs``): ``--metrics-jsonl`` writes
+its JSONL stream (with the overhead probe's ``probe`` event unless
+``--no-overhead-probe``), which ``experiments/make_report.py`` turns into
+the overhead decomposition, and ``--profile-dir`` / ``--profile-steps``
+trace the first steps with ``torch.profiler`` (Chrome-trace JSON), the
+SP-NGD stages and the dispatched ops named as in ``repro``'s traces.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.fisher import flatten, unflatten, value_and_grad
-from repro_torch.core.ngd import SPNGD
+from repro_torch.core.ngd import SPNGD, _dense_leaf_shape
 
 
 def _micro(batch: dict, accum: int) -> list[dict]:
@@ -266,7 +275,7 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
           sgd_fallback_scale: float = 1.0, factor_dtype=torch.float32,
           factor_wire: str | None = None, double_buffer: bool = False,
           refresh_chunks: int = 1, inverse_sharding: bool = False,
-          device=None, seed: int = 0, cfg=None):
+          inverse_info: bool = False, device=None, seed: int = 0, cfg=None):
     """The model (random weights from ``seed``), its optimizer (the
     ``NGDConfig`` fields of the same names; ``refresh_chunks`` > 1 and
     ``inverse_sharding`` set the double buffer too, as ``repro``'s CLI
@@ -298,13 +307,124 @@ def build(arch: str = "llama3_2_1b", *, full_config: bool = False,
                           inverse_sharding=inverse_sharding,
                           double_buffer=(double_buffer or inverse_sharding
                                          or refresh_chunks > 1),
-                          refresh_chunks=refresh_chunks))
+                          refresh_chunks=refresh_chunks,
+                          inverse_info=inverse_info))
     return model, opt, params, opt.init(params)
+
+
+# ---------------------------------------------------------------------------
+# the overhead-accounting probe (make_report.py's decomposition input)
+# ---------------------------------------------------------------------------
+
+def _probe_time(fn, *, iters: int = 3, reset: Callable = None,
+                device=None) -> float:
+    """Median synchronized wall microseconds of ``fn()`` over ``iters``
+    calls after one warm-up call; ``reset()`` runs before every call,
+    outside the timing."""
+    ts = []
+    for i in range(iters + 1):
+        if reset is not None:
+            reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        if i:
+            ts.append((time.perf_counter() - t0) * 1e6)
+    return sorted(ts)[len(ts) // 2]
+
+
+class _Snapshot:
+    """A copy of the tensors a step updates in place (the parameters and
+    the momentum), on their device unless it lacks room (the copy over a
+    quarter of its free memory), then on the host, with the RNG states
+    the ``1mc`` estimator draws from; :meth:`restore` puts every bit
+    back."""
+
+    def __init__(self, tensors: list, device):
+        self.tensors = tensors
+        self.device = torch.device(device)
+        need = sum(t.numel() * t.element_size() for t in tensors)
+        keep = self.device
+        if (self.device.type == "cuda"
+                and 4 * need > torch.cuda.mem_get_info(self.device)[0]):
+            keep = torch.device("cpu")
+        with torch.no_grad():
+            self.copies = [t.detach().to(keep, copy=True) for t in tensors]
+        self.rng = torch.get_rng_state()
+        self.cuda_rng = (torch.cuda.get_rng_state(self.device)
+                         if self.device.type == "cuda" else None)
+
+    def restore(self) -> None:
+        with torch.no_grad():
+            for t, c in zip(self.tensors, self.copies):
+                t.copy_(c)
+        torch.set_rng_state(self.rng)
+        if self.cuda_rng is not None:
+            torch.cuda.set_rng_state(self.cuda_rng, self.device)
+
+
+def _overhead_probe(opt: SPNGD, step_fn, fast_fn, params, state, batch: dict,
+                    lr0: float, mom0: float, lam: float, logger) -> None:
+    """Time the step's stage-isolated parts and emit one ``probe`` event
+    (``repro``'s keys): the forward/backward alone, with the Stage-2
+    capture, the fast step, the all-flags refresh step, and one
+    ``damped_inverse`` per full-kind factor on an SPD stand-in shaped like
+    the statistic. ``make_report.py`` combines these with the stream's
+    refresh frequency into the paper's overhead decomposition. The steps
+    update ``params`` and the momentum in place, so both (and the RNG
+    states) are restored before every timed step and after the probe: the
+    run that follows sees the weights it would have seen without it. The
+    stand-ins' shapes come from the statistics template (views of one zero,
+    no memory) and they are drawn on the device from a seeded generator."""
+    from repro_torch.kernels import dispatch
+    flat = flatten(params)
+    dev = next(iter(flat.values())).device
+    snap = _Snapshot(list(flat.values()) + list(state["velocity"].values()),
+                     dev)
+    all_on = {k: True for k in opt.stat_names()}
+
+    def timed(fn, reset=None):
+        return _probe_time(fn, reset=reset, device=dev)
+
+    fwd_bwd_us = timed(lambda: value_and_grad(opt.loss_fn, params, batch))
+    capture_us = timed(lambda: opt.grads_and_raw(params, batch))
+    fast_us = timed(lambda: fast_fn(params, state, batch, lam, lr0, mom0),
+                    snap.restore)
+    refresh_us = timed(lambda: step_fn(params, state, batch, all_on, lam,
+                                       lr0, mom0), snap.restore)
+    snap.restore()
+    del snap
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inv_per_stat = {}
+    for fam, stats in opt.fstats_fn().items():
+        for key, leaf in stats.items():
+            if key not in ("a", "g") or not opt.sym_stat(fam, key):
+                continue
+            shape = _dense_leaf_shape(leaf)
+            b = shape[-1]
+            m = torch.randn(shape, generator=gen, device=dev)
+            spd = (m @ m.transpose(-1, -2) / b
+                   + 0.1 * torch.eye(b, device=dev))
+            del m
+            inv_per_stat[f"{fam}.{key}"] = _probe_time(
+                lambda: dispatch.damped_inverse(
+                    spd, lam, method=opt.cfg.inverse_method,
+                    backend=opt.cfg.backend),
+                iters=1, device=dev)
+            del spd
+    logger.emit("probe", fwd_bwd_us=fwd_bwd_us, capture_us=capture_us,
+                fast_us=fast_us, refresh_us=refresh_us,
+                inverse_us=sum(inv_per_stat.values()),
+                inverse_us_per_stat=inv_per_stat)
 
 
 def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
         accum: int = 1, lr: float = 2e-2, damping: float = 2.5e-4,
-        log: Callable = print, comm=None, mesh=None):
+        log: Callable = print, comm=None, mesh=None, logger=None,
+        profile=None, overhead_probe: bool = True,
+        run_config: dict | None = None):
     """The step loop of :func:`main`: the ``IntervalController`` decides
     per step which statistics refresh; a step with any refresh runs the
     capture step, the others the fast step. Without ``mesh`` these are the
@@ -326,11 +446,27 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     every record holds "refresh_inflight" (steps until the refresh in
     flight is live: K+1 on the capture and on the first drain step, 0 when
     idle), and a drain step's record "chunk" (the chunk it ran; K for the
-    flip step) and "chunk_stats" (its statistics, [] at the flip)."""
+    flip step) and "chunk_stats" (its statistics, [] at the flip).
+
+    ``logger`` (a ``repro_torch.obs.MetricsLogger``, disabled by default)
+    receives ``repro``'s stream: one ``run_config`` (``run_config`` adds
+    the caller's fields: the CLI's arch and full_config), one ``probe``
+    (:func:`_overhead_probe`, unless ``overhead_probe`` is False), a
+    ``step`` per step (``kind`` "refresh" for an inline refresh, "capture"
+    with K > 1, else "fast"; the records keep "capture" | "fast"), a
+    ``span`` per drain step and the ``summary``. Only an enabled logger
+    reads the norms to the host. ``profile`` (a
+    ``repro_torch.obs.ProfileCapture``, inert by default) traces the first
+    steps."""
     from repro_torch.comm import CommConfig
     from repro_torch.core.stale import IntervalController
     from repro_torch.data.synthetic import token_batches
+    from repro_torch.obs import (STAGE_CHUNK, MetricsLogger, ProfileCapture,
+                                 inverse_tally)
     from repro_torch.optim.schedules import polynomial_decay
+    from repro_torch.quant.quant import FACTOR_DTYPES
+    logger = logger or MetricsLogger()
+    profile = profile or ProfileCapture(None)
     cfg = model.cfg
     k = opt.cfg.refresh_chunks
     comm = comm or CommConfig()
@@ -365,12 +501,41 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     data = token_batches(cfg.vocab, batch, seq, seed=0)
     lr_fn = polynomial_decay(lr, 0, steps, 4.0)
     dev = model.device
+    logger.emit("run_config", arch=cfg.name, **(run_config or {}),
+                n_params=sum(p.numel() for p in model.parameters()),
+                steps=steps, batch=batch, seq=seq, accum=accum, lr=lr,
+                damping=damping, backend=opt.cfg.backend,
+                factor_dtype=next(n for n, d in FACTOR_DTYPES.items()
+                                  if d == opt.cfg.factor_dtype),
+                inverse_method=opt.cfg.inverse_method,
+                comm_strategy=comm.strategy, wire_dtype=comm.wire_dtype,
+                inverse_sharding=sharding,
+                double_buffer=opt.cfg.double_buffer, refresh_chunks=k,
+                device=str(dev), estimator=opt.cfg.estimator,
+                weight_rescale=opt.cfg.weight_rescale,
+                history=opt.cfg.history,
+                sgd_fallback_scale=opt.cfg.sgd_fallback_scale,
+                factor_wire=cfg.factor_wire)
+    # the Stage-4 tallies' per-block-size rollup needs each full-kind
+    # factor's block size, which the info tensors do not carry
+    block_sizes = {f"{fam}.{key}": _dense_leaf_shape(leaf)[-1]
+                   for fam, stats in opt.fstats_fn().items()
+                   for key, leaf in stats.items()
+                   if key in ("a", "g") and opt.sym_stat(fam, key)}
+    if logger.enabled and overhead_probe:
+        # a generator of its own: the probe does not advance the training
+        # stream, so a metrics run sees the batches of a default run
+        probe_batch = {k: v.to(dev) for k, v in next(token_batches(
+            cfg.vocab, batch, seq, seed=1)).items()}
+        _overhead_probe(opt, step_fn, fast_fn, params, state, probe_batch,
+                        lr_fn(0), 0.9 * lr_fn(0) / lr, damping, logger)
     records = []
     for t in range(1, steps + 1):
         b = {k: v.to(dev) for k, v in next(data).items()}
         lr_t = lr_fn(t - 1)
         mom = 0.9 * lr_t / lr
         flags = ctrl.flags(t)
+        profile.step_start(t)
         _sync(dev)
         t0 = time.perf_counter()
         if any(flags.values()):
@@ -397,7 +562,7 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
                                       if rec["chunk"] < k else [])
                 note = (f" chunk {rec['chunk']}/{k}" if rec["chunk"] < k
                         else " flip")
-        if "inverse_info" in m:
+        if "inverse_info" in m and opt.cfg.inverse_method == "newton_schulz":
             rec["inverse"] = {
                 n: {k: v.cpu() for k, v in i.items()}
                 for n, i in m["inverse_info"].items()
@@ -407,10 +572,33 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
             blocks = sum(i["ns_res"].numel() for i in rec["inverse"].values())
             note = f" eigh fallback {rec['fallbacks']}/{blocks} blocks"
         records.append(rec)
+        if logger.enabled:
+            trigger = kind == "capture"
+            evt = {"kind": ("capture" if trigger and k > 1 else
+                            "refresh" if trigger else "fast"),
+                   "lr": lr_t, "mom": mom,
+                   "n_refreshed": rec["n_refreshed"], "n_stats": len(flags),
+                   "refreshed": sorted(n for n, v in flags.items() if v),
+                   "grad_norm": float(m["grad_norm"]),
+                   "update_norm": float(m["update_norm"]),
+                   "comm": ctrl.drain()}
+            if "refresh_inflight" in rec:
+                evt["refresh_inflight"] = rec["refresh_inflight"]
+            if "chunk" in rec:
+                # the step window this chunk (or the flip) ran in
+                logger.emit("span", name=f"{STAGE_CHUNK}["
+                            f"{rec['chunk'] if rec['chunk'] < k else 'flip'}]",
+                            start=t0, dur=dt, depth=0, parent=None, step=t,
+                            stats=rec["chunk_stats"])
+            if "inverse_info" in m:
+                evt["inverse"] = inverse_tally(m["inverse_info"], block_sizes)
+            logger.log_step(t, loss=loss, dt=dt, **evt)
+        profile.step_end(t)
         if t % 10 == 0 or t == 1 or t == steps:
             log(f"step {t:4d} {kind:7s} loss {loss:.4f} lr {lr_t:.4f} "
                 f"refresh {sum(flags.values())}/{len(flags)} {dt:.3f} s"
                 + note)
+    profile.stop()
     s = ctrl.summary()
     log(f"statistic traffic: {100 * s['reduction_rate']:.1f}% of dense; "
         f"modelled wire [{comm.strategy}/{comm.wire_dtype}]: "
@@ -420,6 +608,7 @@ def run(model, opt, params, state, *, steps: int, batch: int, seq: int,
     if sharding:
         log(f"modelled Stage-4 gather (sym-packed f32): "
             f"{s['comm']['total_gather_bytes']} B")
+    logger.emit("summary", **ctrl.summary_flat())
     return params, state, records
 
 
@@ -516,10 +705,31 @@ def main(argv=None):
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="write the per-step JSONL event stream here "
+                         "(repro_torch.obs.MetricsLogger, repro's schema): "
+                         "loss/lr/norms, refresh decisions, drained "
+                         "comm-ledger bytes, Stage-4 inversion tallies, "
+                         "step-time EMA + p50/p99. Console text is "
+                         "unchanged (and mirrored into the stream)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="trace the first --profile-steps steps with "
+                         "torch.profiler into DIR/trace.json (Chrome "
+                         "trace; stage ranges spngd.stage*.* and kernel "
+                         "ranges repro.kernels.<op>[<backend>] name the "
+                         "regions)")
+    ap.add_argument("--profile-steps", type=int, default=3,
+                    help="length of the --profile-dir capture window")
+    ap.add_argument("--no-overhead-probe", action="store_true",
+                    help="skip the stage-isolated timing probe that "
+                         "metrics-enabled runs emit for make_report.py's "
+                         "overhead-accounting table")
     args = ap.parse_args(argv)
 
     from repro_torch.models.transformer import resolve_device
+    from repro_torch.obs import MetricsLogger, ProfileCapture
     device = resolve_device(args.device)
+    refresh_chunks = max(1, args.refresh_chunks)
     model, opt, params, state = build(
         args.arch, full_config=args.full_config, backend=args.backend,
         damping=args.damping, inverse_method=args.inverse_method,
@@ -527,19 +737,31 @@ def main(argv=None):
         history=args.history, sgd_fallback_scale=args.sgd_fallback_scale,
         factor_dtype=FACTOR_DTYPES[args.factor_dtype],
         factor_wire=args.factor_wire, double_buffer=args.double_buffer,
-        refresh_chunks=max(1, args.refresh_chunks),
-        inverse_sharding=args.inverse_sharding, device=device)
+        refresh_chunks=refresh_chunks,
+        inverse_sharding=args.inverse_sharding,
+        # metrics runs surface the per-block Stage-4 diagnostics; a capture
+        # step of the chunked pipeline inverts nothing, so there is nothing
+        # to report under it
+        inverse_info=args.metrics_jsonl is not None and refresh_chunks == 1,
+        device=device)
     comm = comm_lib.make_comm_config(args.comm_strategy, args.wire_dtype,
                                      backend=args.backend,
                                      devices_per_host=args.devices_per_host)
     n = sum(p.numel() for p in model.parameters())
-    print(f"arch={args.arch} ({'full' if args.full_config else 'reduced'}), "
-          f"{n / 1e6:.1f}M params, device {device}, factor history "
-          f"{args.factor_dtype}, capture {args.factor_wire or 'f32'}",
-          flush=True)
-    run(model, opt, params, state, steps=args.steps, batch=args.batch,
-        seq=args.seq, accum=args.accum, lr=args.lr, damping=args.damping,
-        log=lambda s: print(s, flush=True), comm=comm)
+    with MetricsLogger(args.metrics_jsonl) as logger:
+        logger.console(f"arch={args.arch} "
+                       f"({'full' if args.full_config else 'reduced'}), "
+                       f"{n / 1e6:.1f}M params, device {device}, factor "
+                       f"history {args.factor_dtype}, capture "
+                       f"{args.factor_wire or 'f32'}")
+        return run(
+            model, opt, params, state, steps=args.steps, batch=args.batch,
+            seq=args.seq, accum=args.accum, lr=args.lr, damping=args.damping,
+            log=logger.console, comm=comm, logger=logger,
+            profile=ProfileCapture(args.profile_dir, args.profile_steps,
+                                   device=device),
+            overhead_probe=not args.no_overhead_probe,
+            run_config={"full_config": args.full_config})
 
 
 if __name__ == "__main__":
