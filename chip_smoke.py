@@ -36,7 +36,17 @@ flip steps on the kernels against ``backend="ref"`` (2 layers, f32, fp8
 history), a checkpoint saved mid-drain, restored on the card and resumed
 bit for bit, and full-width training with the pipeline (K 4) under
 Newton-Schulz and eigh, each step's wall beside the inline capture step.
-Then the fp8 factor slice: the quant_rows,
+Then the paper's own model: the ConvNet (``models/resnet.py``: conv K-FAC
+through im2col, the unit-wise and the full BatchNorm Fisher) on the kernels
+against ``backend="ref"`` for eigh and Newton-Schulz with either BatchNorm
+Fisher (2 stages, f32, batch 16 at 16 x 16, 2 capture steps and a fast
+step), and ``resnet50`` at full width trained by
+``repro_torch.launch.train_convnet`` (the section 6 scheme: random erasing,
+running mixup, polynomial decay, coupled momentum, weight rescaling) at
+batch 1024 of 32 x 32 images for 8 steps, then its fast step beside
+momentum SGD on the same batch, both steps split by SP-NGD stage, and a
+capture step with the full BatchNorm Fisher; the factor-sum and
+preconditioning kernels are also checked and timed at its conv shapes. Then the fp8 factor slice: the quant_rows,
 dequant_rows and factor_syrk_wire kernels against their plain versions, a
 capture step with the fp8 history and fused e4m3 capture on the kernels
 against ``backend="ref"`` (2 layers, f32), and full-width training with
@@ -231,6 +241,7 @@ def main(argv: list[str]) -> int:
     launches.update({k: train["launches"][k] for k in TRAIN_KERNELS})
     times.update(time_train_kernels(torch))
     times.update(time_factor_sums(torch))
+    time_conv_precond(torch)
     profile_train(torch, train)
     timed(sgd_path, torch, train)
     t_obs = time.perf_counter()
@@ -249,6 +260,9 @@ def main(argv: list[str]) -> int:
     t_pipe = time.perf_counter() - t_pipe
     del ns_db
     times.update(time_ns_kernels(torch))
+    t_conv = time.perf_counter()
+    timed(check_convnet_route, torch)
+    timed(convnet_path, torch)
     t_fp8 = time.perf_counter()
     errs.update(timed(check_fp8_kernels, torch))
     timed(check_fp8_route, torch)
@@ -267,7 +281,8 @@ def main(argv: list[str]) -> int:
     t_end = time.perf_counter()
     say("clock", f"{t_end - t_start:.1f} s from the build on, the "
                  f"observability phase obs_path {t_obs:.1f} s, the "
-                 f"pipeline and checkpoint phases {t_pipe:.1f} s, the fp8 "
+                 f"pipeline and checkpoint phases {t_pipe:.1f} s, the "
+                 f"ConvNet phases {t_fp8 - t_conv:.1f} s, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
                  f"{t_dist - t_swa:.1f} s and the multi-GPU phases "
                  f"{t_end - t_dist:.1f} s of it; by phase ("
@@ -1084,8 +1099,9 @@ def _rel_err(torch, got, want) -> float:
 def check_factor_kernel(torch) -> float:
     """factor_syrk vs the plain blocked einsum at the training path's
     shapes (n 4096 x d 2048 / 8192 / 512 with max_dim 2048), a ragged n and
-    a padded last block, bf16 and f32; each case launched twice, the two
-    outputs identical."""
+    a padded last block, bf16 and f32, and at the ConvNet path's f32 shapes
+    (CONV_SYRK_SHAPES: d 10 .. 576, n up to 1,048,576); each case launched
+    twice, the two outputs identical."""
     from repro_torch.kernels import kfac, ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
@@ -1110,15 +1126,51 @@ def check_factor_kernel(torch) -> float:
                                  f"{tuple(got.shape)} {dtype}: max|err| / "
                                  f"max|A| = {err:.3e} (tol {KFAC_REL_TOL}), "
                                  f"a second launch identical")
+    for n, d in CONV_SYRK_SHAPES:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        got = kfac.factor_syrk(x, 2048)
+        check(torch.equal(got, kfac.factor_syrk(x, 2048)),
+              f"factor_syrk conv n={n} d={d}: two launches differ")
+        want = ref.factor_sum_ref(x, 2048)
+        err = _rel_err(torch, got, want)
+        check(got.shape == (1, d, d) and err <= KFAC_REL_TOL,
+              f"factor_syrk conv n={n} d={d}: {tuple(got.shape)}, rel err "
+              f"{err} > {KFAC_REL_TOL}")
+        worst = max(worst, _max_err(torch, got, want))
+        say("factor-kernel", f"ConvNet shape n={n} d={d} f32 -> (1, {d}, "
+                             f"{d}): max|err| / max|A| = {err:.3e} (tol "
+                             f"{KFAC_REL_TOL}), a second launch identical")
+        del x, got, want
     torch.cuda.empty_cache()
     return worst
 
 
+# the ConvNet path's factor sums (resnet50, batch 1024 x 32^2, f32): (pixel
+# positions, width) of the stem's A and G, stage 0's A (B x 32^2 x 144),
+# stage 1's (16^2: A 144 and 288, G 32), stage 2's (8^2: A 288 and 576, G
+# 64) and the head's A and G (1024 samples x 64 and 10)
+CONV_SYRK_SHAPES = ((1048576, 27), (1048576, 16), (1048576, 144),
+                    (262144, 144), (262144, 288), (262144, 32),
+                    (65536, 288), (65536, 576), (65536, 64), (1024, 64),
+                    (1024, 10))
+# the path's block_precond calls (mode, nb, b, dim, other): each conv
+# weight's (cin*k*k, cout) matrix from the left by A^-1 and from the right
+# by G^-1, the head's (64, 10)
+CONV_PRECOND_CASES = (
+    ("left", 1, 27, 27, 16), ("right", 1, 16, 16, 27),
+    ("left", 1, 144, 144, 16), ("right", 1, 16, 16, 144),
+    ("left", 1, 144, 144, 32), ("left", 1, 288, 288, 32),
+    ("right", 1, 32, 32, 288), ("left", 1, 16, 16, 32),
+    ("left", 1, 288, 288, 64), ("left", 1, 576, 576, 64),
+    ("right", 1, 64, 64, 576), ("left", 1, 32, 32, 64),
+    ("left", 1, 64, 64, 10), ("right", 1, 10, 10, 64))
+
+
 def check_precond_kernel(torch) -> float:
     """block_precond, both modes, vs the plain blocked einsum: every shape
-    of the training path (b 2048; m 512 .. 128256; nb 1 and 4) and a
-    ragged last block; a second launch on the same inputs gives the same
-    bits."""
+    of the training path (b 2048; m 512 .. 128256; nb 1 and 4), a ragged
+    last block, and the ConvNet path's (b 10 .. 576, CONV_PRECOND_CASES);
+    a second launch on the same inputs gives the same bits."""
     from repro_torch.kernels import dispatch, kfac
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
@@ -1128,6 +1180,7 @@ def check_precond_kernel(torch) -> float:
               ("right", 1, 2048, 2048, 8192), ("right", 1, 2048, 2048, 128256),
               ("right", 4, 2048, 8192, 2048), ("right", 1, 512, 512, 2048),
               ("left", 3, 684, 2050, 300), ("right", 3, 684, 2050, 300)]
+    cases += list(CONV_PRECOND_CASES)
     for mode, nb, b, dim, other in cases:
         binv = torch.randn((nb, b, b), generator=gen, device="cuda") / b ** 0.5
         shape = (dim, other) if mode == "left" else (other, dim)
@@ -3152,6 +3205,351 @@ def obs_path(torch) -> None:
                       "is not a trained run's refresh frequency")
 
 
+# ---------------------------------------------------------------------------
+# the ConvNet path: the paper's own model and training scheme
+# (repro_torch.launch.train_convnet)
+# ---------------------------------------------------------------------------
+
+# the route check: a 2-stage ConvNet, one block per stage, f32, batch 16 at
+# 16 x 16, two capture steps and a fast step; damping 1e-2, where the
+# factors' damped inverses are well conditioned, so that what the check
+# holds is the kernels' summation order and not its amplification by an
+# ill-conditioned inverse (tests/test_torch_convnet_train_parity.py
+# measured that amplification at 2.5e-4 on the CPU)
+CONV_ROUTE = dict(widths=(8, 16), blocks_per_stage=1)
+CONV_ROUTE_BATCH = dict(batch=16, size=16)
+CONV_ROUTE_DAMPING = 1e-2
+# the ConvNet path: resnet50 at full width, batch 1024 of 32 x 32 images
+# (1,048,576 pixel positions a step), the example's lr and damping
+CONV_PATH = dict(steps=8, batch=1024, image_size=32, lr=0.05,
+                 damping=2.5e-4)
+CONV_FAST_TIMED = 3
+CONV_KERNELS = ("factor_syrk", "block_precond", "ns_inverse_blocks")
+
+
+def _conv_batches(torch, batch: int, size: int, n: int) -> list:
+    """The first n batches of train_convnet.run's stream on the card:
+    image_batches (seed 0), random erasing, running mixup."""
+    import numpy as np
+    from repro_torch.data.augment import RunningMixup, random_erase
+    from repro_torch.data.synthetic import image_batches
+    data = image_batches(10, batch, size=size, seed=0, device="cuda")
+    mixup = RunningMixup(0.4, 10, seed=0)
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        raw = next(data)
+        x, y = mixup(random_erase(rng, raw["images"]), raw["labels"])
+        out.append({"images": x, "labels": y})
+    return out
+
+
+def _conv_launches(torch) -> dict:
+    from repro_torch.kernels import kfac, newton_schulz
+    return {**kfac.LAUNCHES, **newton_schulz.LAUNCHES}
+
+
+def _conv_reset(torch) -> None:
+    from repro_torch.kernels import dispatch, kfac, newton_schulz
+    kfac.reset_launches()
+    newton_schulz.reset_launches()
+    dispatch.reset_calls()
+
+
+def check_convnet_route(torch) -> None:
+    """The ConvNet (CONV_ROUTE, f32) on the kernels against
+    backend="ref", for eigh and Newton-Schulz, each with the unit-wise and
+    the full BatchNorm Fisher: two capture steps (every statistic flagged)
+    and a fast step on the scheme's batches; before each step the ref
+    optimizer starts from the kernel run's params and state. Per step the
+    losses, the updated params and every preconditioner (the conv and head
+    factors' inverses, the uw statistics or the uwf inverse) agree within
+    ROUTE_REL_TOL of each array's largest entry. The kernel runs launched
+    factor_syrk and block_precond, and ns_inverse_blocks under
+    Newton-Schulz (the ref runs launch none)."""
+    from repro_torch.core.fisher import flatten
+    from repro_torch.launch import train_convnet
+    from repro_torch.models.resnet import ConvNetConfig
+    cfg = ConvNetConfig(**CONV_ROUTE)
+    batches = _conv_batches(torch, CONV_ROUTE_BATCH["batch"],
+                            CONV_ROUTE_BATCH["size"], 3)
+    lam, lr, mom = CONV_ROUTE_DAMPING, CONV_PATH["lr"], 0.9
+
+    def snap(params, state):
+        out = {f"params/{k}": v.detach().clone()
+               for k, v in flatten(params).items()}
+        out.update({f"precond/{fam}.{k}": v.clone()
+                    for fam, c in state["curv"].items()
+                    for k, v in c["precond"].items()})
+        return out
+
+    for method in ("eigh", "newton_schulz"):
+        for bn in ("unit", "full"):
+            runs = {b: train_convnet.build(cfg=cfg, bn_fisher=bn, backend=b,
+                                           damping=lam, inverse_method=method,
+                                           device="cuda")
+                    for b in ("auto", "ref")}
+            _, kopt, kp, ks = runs["auto"]
+            _, ropt, rp, _ = runs["ref"]
+            flags = {n: True for n in kopt.stat_names()}
+            _conv_reset(torch)
+            rows = []
+            for i, b in enumerate(batches):
+                with torch.no_grad():
+                    rflat = flatten(rp)
+                    for n, v in flatten(kp).items():
+                        rflat[n].copy_(v)
+                rs = {**ks, "velocity": {n: v.clone() for n, v in
+                                         ks["velocity"].items()}}
+                if i < 2:
+                    _, rs, rm = ropt.step(rp, rs, b, flags, lam, lr, mom)
+                    kp, ks, km = kopt.step(kp, ks, b, flags, lam, lr, mom)
+                else:
+                    _, rs, rm = ropt.step_fast(rp, rs, b, lam, lr, mom)
+                    kp, ks, km = kopt.step_fast(kp, ks, b, lam, lr, mom)
+                got, want = snap(kp, ks), snap(rp, rs)
+                by = {}
+                for n, v in want.items():
+                    part = n.split("/", 1)[0]
+                    by[part] = max(by.get(part, 0.0),
+                                   _rel_err(torch, got[n], v))
+                rows.append((float(km["loss"]), float(rm["loss"]), by))
+                del got, want, rs
+            launches = dict(_conv_launches(torch))
+            from repro_torch.kernels import dispatch
+            calls = dict(dispatch.CALLS)
+            label = f"{method}, bn_fisher {bn}"
+            for i, (lk, lr_, by) in enumerate(rows):
+                check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+                      f"convnet route {label} step {i + 1}: loss {lk} vs "
+                      f"{lr_}")
+                for part, err in by.items():
+                    check(err <= ROUTE_REL_TOL,
+                          f"convnet route {label} step {i + 1}: {part} rel "
+                          f"err {err}")
+            want_k = ["factor_syrk", "block_precond"]
+            if method == "newton_schulz":
+                want_k.append("ns_inverse_blocks")
+            for k in want_k:
+                check(launches[k] > 0, f"convnet route {label}: {k} never "
+                                       f"launched ({launches})")
+            check(launches["ns_tiled_residual"] == 0,
+                  "convnet route: every block is <= 576, no tiled NS")
+            say("convnet-route",
+                f"ConvNet widths {cfg.widths} x {cfg.blocks_per_stage} "
+                f"block, f32, batch {CONV_ROUTE_BATCH['batch']} at "
+                f"{CONV_ROUTE_BATCH['size']}^2, damping {lam}, {label}: 2 "
+                f"capture steps + 1 fast step, kernels vs backend='ref' from "
+                f"the kernel run's state: losses "
+                f"{[round(r[0], 6) for r in rows]} vs "
+                f"{[round(r[1], 6) for r in rows]}; worst max|err|/max by "
+                f"step " + "; ".join(
+                    f"{i + 1}: " + ", ".join(f"{p} {e:.2e}"
+                                             for p, e in r[2].items())
+                    for i, r in enumerate(rows))
+                + f" (tol {ROUTE_REL_TOL}); kernel launches "
+                + str({k: launches[k] for k in CONV_KERNELS})
+                + f"; dispatches {calls}")
+            del runs, kopt, kp, ks, ropt, rp
+    torch.cuda.empty_cache()
+
+
+def _conv_counts(model, kinds) -> dict:
+    """Launches reckoned from the code: every conv and dense site has a
+    blocked A and G (one block each at kfac_max_dim 2048), so a capture step
+    sums 2 factors per site and every SP-NGD step preconditions 2 sides per
+    site; eigh runs no Newton-Schulz kernel."""
+    sites = sum(1 for i in model.site_infos().values()
+                if i.kind in ("conv", "dense"))
+    return {"factor_syrk": 2 * sites * kinds.count("capture"),
+            "block_precond": 2 * sites * len(kinds),
+            "ns_inverse_blocks": 0}
+
+
+def convnet_path(torch) -> None:
+    """The paper's training scheme on ``resnet50`` at full width (widths
+    16/32/64, 2 blocks per stage, 10 classes, f32) through
+    ``launch.train_convnet``: CONV_PATH's 8 steps as the controller decides
+    them (random erasing, running mixup, polynomial decay, coupled
+    momentum, weight rescaling), then 1 + CONV_FAST_TIMED fast steps and as
+    many momentum-SGD steps (a fresh SGD state on the same weights) on the
+    scheme's first batch, the im2col copies timed, a capture, a fast and an
+    SGD step profiled (the first two by SP-NGD stage), and one capture
+    step with ``bn_fisher="full"`` on a fresh model. Prints the walls, the
+    stage split, the fast step over SGD, peak memory and the launches per
+    kernel. Checks: every loss finite, the launches as reckoned, no ref
+    dispatch."""
+    import math
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train_convnet
+    from repro_torch.optim import SGD
+    spec = CONV_PATH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model, opt, params, state = train_convnet.build(
+        "resnet50", damping=spec["damping"], device="cuda")
+    cfg = model.cfg
+    say("convnet-path", f"resnet50: widths {cfg.widths} x "
+                        f"{cfg.blocks_per_stage} blocks, {cfg.n_classes} "
+                        f"classes, f32, "
+                        f"{sum(p.numel() for p in model.parameters())} "
+                        f"params, {len(opt.stat_names())} statistics; init "
+                        f"{time.perf_counter() - t:.1f} s")
+    _conv_reset(torch)
+    params, state, recs = train_convnet.run(
+        model, opt, params, state, log=lambda m: say("convnet-path", m),
+        **spec)
+    kinds = [r["kind"] for r in recs]
+    batch = _conv_batches(torch, spec["batch"], spec["image_size"], 1)[0]
+    lr = recs[-1]["lr"]
+    mom = 0.9 * lr / spec["lr"]
+    fast_s, fast_losses = [], []
+    for i in range(1 + CONV_FAST_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = opt.step_fast(params, state, batch,
+                                         spec["damping"], lr, mom)
+        fast_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        fast_s.append(time.perf_counter() - t)
+        kinds.append("fast")
+    launches = dict(_conv_launches(torch))
+    calls = dict(dispatch.CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [r["loss"] for r in recs] + fast_losses
+    check(all(math.isfinite(x) for x in losses), f"convnet losses {losses}")
+    want = _conv_counts(model, kinds)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"convnet launches {got} != reckoned {want}")
+    check(not any(b == "ref" for (_, b) in calls), f"ref dispatches: {calls}")
+    px = spec["batch"] * spec["image_size"] ** 2
+    cap = [r["seconds"] for r in recs if r["kind"] == "capture"]
+    loop_fast = [r["seconds"] for r in recs if r["kind"] == "fast"]
+    fast_med = statistics.median(fast_s[1:])
+    say("convnet-path", f"{len(recs)} loop steps, batch {spec['batch']} x "
+                        f"{spec['image_size']}^2 ({px} pixel positions a "
+                        f"step): kinds {[r['kind'] for r in recs]}, refreshed "
+                        f"{[len(r['refreshed']) for r in recs]} of "
+                        f"{recs[0]['n_stats']}, losses "
+                        f"{[round(r['loss'], 6) for r in recs]}, "
+                        f"accuracy probe {recs[0]['acc']:.3f} at step 1")
+    say("convnet-path", f"capture step wall {[round(x, 4) for x in cap]} s "
+                        f"(median {statistics.median(cap):.4f} s, "
+                        f"{spec['batch'] / statistics.median(cap):.1f} "
+                        f"images/s), loop fast steps "
+                        f"{[round(x, 4) for x in loop_fast]} s; fast step "
+                        f"(opt.step_fast on the scheme's first batch) "
+                        f"{[round(x, 4) for x in fast_s[1:]]} s after a "
+                        f"{fast_s[0]:.4f} s warm-up, median {fast_med:.4f} s "
+                        f"({spec['batch'] / fast_med:.1f} images/s), losses "
+                        f"{[round(x, 6) for x in fast_losses]}; peak memory "
+                        f"{peak / 2 ** 30:.2f} GiB above the "
+                        f"{base / 2 ** 30:.2f} GiB already allocated "
+                        f"(torch.cuda.max_memory_allocated); "
+                        f"{card_note(torch)}")
+    say("convnet-path", f"launches {got} (reckoned {want}); dispatches "
+                        f"{calls}")
+    # the im2col layout copies: stage 0's 3x3 patches (four of the path's
+    # sixteen conv sites take this shape) and the stem's
+    from repro_torch.core import tagging
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for c, k in ((cfg.widths[0], 3), (cfg.in_channels, 3)):
+        x = torch.randn((spec["batch"], spec["image_size"],
+                         spec["image_size"], c), generator=gen,
+                        device="cuda")
+        out_bytes = x.numel() * k * k * 4
+        bound, _ = _bound(0, x.numel() * 4 + out_bytes, torch.float32)
+        ms = _time_ms(torch, lambda: tagging.conv_patches(x, k, k))
+        say("convnet-path", f"im2col of a {tuple(x.shape)} input, {k}x{k} "
+                            f"SAME (F.pad, the window view, the copy to rows): ms "
+                            f"{ms:.6f}, bound_ms {bound:.6f} (bytes: x "
+                            f"read once, {out_bytes / 1e6:.1f} MB of "
+                            f"patches written once); {card_note(torch)}")
+        del x
+
+    sgd = SGD(model.loss)
+    sstate = sgd.init(params)
+    sgd_s = []
+    for i in range(1 + CONV_FAST_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, sstate, m = sgd.step(params, sstate, batch, lr, mom)
+        check(math.isfinite(float(m["loss"])), "convnet SGD loss")
+        torch.cuda.synchronize()
+        sgd_s.append(time.perf_counter() - t)
+    sgd_med = statistics.median(sgd_s[1:])
+    say("convnet-path", f"momentum SGD on the same batch and weights: "
+                        f"{[round(x, 4) for x in sgd_s[1:]]} s after a "
+                        f"{sgd_s[0]:.4f} s warm-up, median {sgd_med:.4f} s "
+                        f"({spec['batch'] / sgd_med:.1f} images/s); SP-NGD "
+                        f"fast step median {fast_med:.4f} s = "
+                        f"{fast_med / sgd_med:.3f} x SGD's; capture step "
+                        f"median {statistics.median(cap) / sgd_med:.3f} x "
+                        f"SGD's; {card_note(torch)}")
+    flags = {k: True for k in opt.stat_names()}
+    lam = spec["damping"]
+    box = {"state": state}
+
+    def capture_step():
+        _, box["state"], _ = opt.step(params, box["state"], batch, flags,
+                                      lam, lr, 0.0)
+
+    def fast_step():
+        _, box["state"], _ = opt.step_fast(params, box["state"], batch, lam,
+                                           lr, 0.0)
+
+    def sgd_step():
+        _, box["sgd"], _ = sgd.step(params, box.get("sgd", sstate), batch,
+                                    lr, 0.0)
+    _profile(torch, f"resnet50 capture step, batch {spec['batch']} x "
+                    f"{spec['image_size']}^2, every statistic refreshed",
+             capture_step, split=True)
+    _profile(torch, f"resnet50 fast step, batch {spec['batch']} x "
+                    f"{spec['image_size']}^2", fast_step, split=True)
+    _profile(torch, f"resnet50 momentum-SGD step, batch {spec['batch']} x "
+                    f"{spec['image_size']}^2", sgd_step)
+    del model, opt, params, state, sgd, sstate, box
+    torch.cuda.empty_cache()
+
+    # one capture step of the full BN Fisher baseline on a fresh model
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, opt, params, state = train_convnet.build(
+        "resnet50", bn_fisher="full", damping=spec["damping"], device="cuda")
+    _conv_reset(torch)
+    params, state, frecs = train_convnet.run(
+        model, opt, params, state, log=lambda m: None,
+        **{**spec, "steps": 1})
+    fl = frecs[0]
+    check(fl["kind"] == "capture" and math.isfinite(fl["loss"]),
+          f"convnet full-BN step {fl}")
+    peak_full = torch.cuda.max_memory_allocated() - base
+    flaunch = {k: _conv_launches(torch)[k] for k in CONV_KERNELS}
+    check(flaunch == _conv_counts(model, ["capture"]),
+          f"convnet full-BN launches {flaunch}")
+    uwf = {f: tuple(s["uwf"].shape) for f, s in model.fstats().items()
+           if "uwf" in s}
+    say("convnet-path", f"bn_fisher full: one capture step (step 1 of the "
+                        f"scheme, a cold first call) wall "
+                        f"{fl['seconds']:.4f} s, loss {fl['loss']:.6f}, "
+                        f"{len(uwf)} uwf statistics of "
+                        f"{sorted(set(uwf.values()))}, peak memory "
+                        f"{peak_full / 2 ** 30:.2f} GiB; launches {flaunch}; "
+                        f"{card_note(torch)}")
+    box = {"state": state}
+
+    def full_capture():
+        _, box["state"], _ = opt.step(params, box["state"], batch,
+                                      {k: True for k in opt.stat_names()},
+                                      lam, lr, 0.0)
+    _profile(torch, "resnet50 bn_fisher full capture step", full_capture,
+             split=True)
+    del model, opt, params, state, box, batch
+    torch.cuda.empty_cache()
+
+
 def time_ns_kernels(torch) -> dict:
     """The three Newton-Schulz kernels at the training path's shapes beside
     their bound, plain version and library call: the resident kernel at
@@ -3732,7 +4130,8 @@ def time_factor_sums(torch) -> dict:
     blocks, out_dtype); factor_syrk at n 4096 x d 2048 (nb 1, its row), 512
     and 8192 (nb 4); factor_syrk_wire at b 512 (its row) and both wire
     routes at b 2048, where dispatch caps the fused kernel
-    (FACTOR_WIRE_MAX_DIM 1024)."""
+    (FACTOR_WIRE_MAX_DIM 1024); then factor_syrk in f32 at the ConvNet
+    path's shapes (CONV_SYRK_TIMED) beside f32 torch.mm and the bound."""
     from repro_torch.core import kfac
     from repro_torch.kernels import kfac as kern
     from repro_torch.kernels import quant as qk
@@ -3797,8 +4196,67 @@ def time_factor_sums(torch) -> dict:
                          f"b 1024) ms {unfused:.6f}; bound_ms {bound:.6f} "
                          f"({by}), library_ms {lib:.6f}; {card_note(torch)}")
         del x
+    # the ConvNet path's f32 sums: the CUDA-core body (one block per pair
+    # of 64 x 64 tiles, no split over tokens) beside cuBLAS's f32 x^T x
+    # (TF32 off: chip_smoke sets allow_tf32 = False) and the bound at the
+    # CUDA cores' f32 rate
+    for n, d in CONV_SYRK_TIMED:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        bound, by = _bound(n * d * (d + 1), 4 * (n * d + d * d), f32)
+        row = {"ms": _time_ms(torch, lambda: kern.factor_syrk(x, 2048)),
+               "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(
+                   x, 2048)),
+               "library_ms": _time_ms(torch, lambda: torch.mm(x.t(), x)),
+               "bound_ms": bound, "bound_by": by}
+        say("times", f"factor_syrk ConvNet shape n={n} d={d} f32 -> f32 "
+                     f"(1 block): {row} (library: torch.mm(x.t(), x), "
+                     f"cuBLAS f32); ms/bound {row['ms'] / bound:.2f}, "
+                     f"ms/library {row['ms'] / row['library_ms']:.2f}; "
+                     f"{card_note(torch)}")
+        del x
     torch.cuda.empty_cache()
     return res
+
+
+def time_conv_precond(torch) -> None:
+    """block_precond at the ConvNet path's shapes (CONV_PRECOND_TIMED), one
+    launch each, beside its plain version, cuBLAS's f32 product (TF32 off)
+    and the bound at the split-f32 rate (its products are 3xTF32)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import kfac as kern
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for mode, b, other in CONV_PRECOND_TIMED:
+        right = mode == "right"
+        binv = torch.randn((1, b, b), generator=gen, device="cuda") / b ** 0.5
+        w = torch.randn((other, b) if right else (b, other), generator=gen,
+                        device="cuda")
+        plain = dispatch.lookup(f"block_precond_{mode}", "ref")
+        bound, by = _bound(2 * b * b * other, 4 * (b * b + 2 * b * other),
+                           torch.float32, PEAK_SPLIT_F32_OPS_PER_S)
+        row = {"ms": _time_ms(torch, lambda: kern.block_precond(
+                   binv, w, right=right)),
+               "plain_ms": _time_ms(torch, lambda: plain(w, binv) if right
+                                    else plain(binv, w)),
+               "library_ms": _time_ms(torch, lambda: torch.mm(w, binv[0])
+                                      if right else torch.mm(binv[0], w)),
+               "bound_ms": bound, "bound_by": by}
+        say("times", f"block_precond ConvNet shape {mode} binv (1, {b}, {b}) "
+                     f"w {tuple(w.shape)} f32: {row} (library: torch.mm, "
+                     f"cuBLAS f32); {card_note(torch)}")
+        del binv, w
+
+
+# block_precond's ConvNet calls timed: the widest A (stage 2's w2, 576)
+# and G (64) sides, stage 0's A (144), the stem's A (27), the head's G (10)
+CONV_PRECOND_TIMED = (("left", 576, 64), ("right", 64, 576),
+                      ("left", 144, 16), ("left", 27, 16), ("right", 10, 64))
+
+
+# the ConvNet path's f32 factor sums timed beside torch.mm: the stem's A,
+# stage 0's A (the largest patch matrix, 604 MB), stage 1's and stage 2's
+# widest A, and a G over the most positions
+CONV_SYRK_TIMED = ((1048576, 27), (1048576, 144), (262144, 288),
+                   (65536, 576), (1048576, 16))
 
 
 # ---------------------------------------------------------------------------

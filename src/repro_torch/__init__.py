@@ -14,6 +14,8 @@ the chunked refresh pipeline) and the momentum-SGD baseline
 (``optim.SGD``); checkpoints in ``repro``'s layout (``checkpoint``);
 multi-GPU Stage 3 and Stage 4 over ``torch.distributed`` (``comm``); and
 observability (``obs``: stage and kernel ranges, the JSONL metrics
-stream). All thirteen Pallas kernels have a CUDA counterpart
-(``kernels/csrc``).
+stream). For ``resnet50``, the paper's own model: the ConvNet with conv
+K-FAC and the unit-wise or full BatchNorm Fisher, trained by the paper's
+scheme (``launch.train_convnet``). All thirteen Pallas kernels have a CUDA
+counterpart (``kernels/csrc``).
 """

@@ -1,10 +1,11 @@
 """Architecture configuration schema + registry (counterpart of
 ``repro/configs/base.py``), with ``dtype`` as a torch dtype.
 
-Only the families the ported paths run are registered, and only the fields
-dense decoder blocks, the SP-NGD training step and its fp8 factor capture
-read; the MoE, SSM and frontend fields arrive with the slices that read
-them."""
+Only the families the ported paths run are registered: ``llama3_2_1b``
+(an :class:`ArchConfig`, with only the fields dense decoder blocks, the
+SP-NGD training step and its fp8 factor capture read; the MoE, SSM and
+frontend fields arrive with the slices that read them) and ``resnet50`` (a
+``repro_torch.models.resnet.ConvNetConfig``)."""
 
 from __future__ import annotations
 
@@ -98,21 +99,25 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCHS = ["llama3_2_1b"]
+ARCHS = ["llama3_2_1b", "resnet50"]
 
-_ALIASES = {"llama3-2-1b": "llama3_2_1b", "llama3.2-1b": "llama3_2_1b"}
+_ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+_ALIASES.update({"llama3.2-1b": "llama3_2_1b"})
 
 
 def list_archs() -> list[str]:
     return list(ARCHS)
 
 
-def get_config(name: str) -> ArchConfig:
+def get_config(name: str):
+    """The registered config: an :class:`ArchConfig` (validated), or the
+    ``ConvNetConfig`` of ``resnet50`` as it is."""
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
         raise KeyError(f"architecture {name!r} is not ported yet; "
                        f"repro_torch has {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     cfg = mod.CONFIG
-    cfg.validate()
+    if isinstance(cfg, ArchConfig):
+        cfg.validate()
     return cfg

@@ -8,7 +8,11 @@ parameter dicts, so that both packages compute the same function::
     np_params = jax.tree.map(np.asarray, jax_model.init(key))
     model.load_state_dict(params_from_jax(np_params, cfg, "cpu"))
 
-:func:`params_to_jax` goes back. Factor statistics keep the stacked
+:func:`params_to_jax` goes back. The ConvNet's trees have no ``blocks``;
+its conv weights (the only 4-D leaves of either model) are
+``(kh, kw, cin, cout)`` in JAX and ``(cout, cin, kh, kw)`` in the port, and
+every function here moves a 4-D leaf between the two (its momentum too).
+Factor statistics, ``uw`` and ``uwf`` included, keep the stacked
 ``{family: {key: (L, ...)}}`` layout in both packages
 (:func:`stats_from_jax`, :func:`stats_to_jax`); the SP-NGD optimizer state
 differs in its velocity, a stacked params tree in JAX and a flat
@@ -88,14 +92,27 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+def _conv_from_jax(t: torch.Tensor) -> torch.Tensor:
+    """A 4-D (conv) leaf from JAX's (kh, kw, cin, cout) to torch's
+    (cout, cin, kh, kw); any other leaf as it is."""
+    return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+
+def _conv_to_jax(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_conv_from_jax`, on the CPU."""
+    t = _cpu(t)
+    return t.permute(2, 3, 1, 0).contiguous() if t.dim() == 4 else t
+
+
 def params_from_jax(np_params: dict, cfg, device=None) -> dict:
     """Return a ``state_dict`` for ``DecoderLM(cfg)`` from the JAX params
-    tree (numpy leaves, blocks stacked on a leading (L,) axis)."""
+    tree (numpy leaves, blocks stacked on a leading (L,) axis), or for
+    ``ConvNet(cfg)`` (no blocks; conv weights moved to torch's layout)."""
     out = {}
     for name, a in _flatten({k: v for k, v in np_params.items()
                              if k != "blocks"}):
-        out[name] = to_torch(a, device)
-    for name, a in _flatten(np_params["blocks"]):
+        out[name] = _conv_from_jax(to_torch(a, device))
+    for name, a in _flatten(np_params.get("blocks", {})):
         if a.shape[0] != cfg.n_layers:
             raise ValueError(f"blocks leaf {name} has leading dim "
                              f"{a.shape[0]}, expected n_layers="
@@ -132,10 +149,12 @@ def _stack(*xs):
 
 def params_layout(params: dict) -> dict:
     """The port's parameter tree (``DecoderLM.params()``: ``blocks`` a list
-    of per-layer dicts) -> the JAX layout (blocks stacked on (L,)), CPU
-    tensor leaves."""
-    out = {k: _map(_cpu, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = _stack(*(_map(_cpu, b) for b in params["blocks"]))
+    of per-layer dicts; or ``ConvNet.params()``) -> the JAX layout (blocks
+    stacked on (L,), conv weights NHWC), CPU tensor leaves."""
+    out = {k: _map(_conv_to_jax, v) for k, v in params.items()
+           if k != "blocks"}
+    if "blocks" in params:
+        out["blocks"] = _stack(*(_map(_cpu, b) for b in params["blocks"]))
     return out
 
 
@@ -202,7 +221,7 @@ def _velocity_layout(velocity: dict) -> dict:
             continue
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _cpu(t)
+        node[parts[-1]] = _conv_to_jax(t)
 
     def stack(node):
         if isinstance(node, dict) and node and all(

@@ -10,6 +10,10 @@ loss:
 
     A  = raw_a / n_a    G = raw_g * n_g    d = raw_d * n_g    uw = raw_uw * n_g
 
+(``uwf``, the full BN Fisher, scales by n_g like ``uw``). For LM sites
+n_a == n_g == B*S; for conv sites n_a == B*Ho*Wo while n_g == B (Eq. 11's
+1/hw spatial normalization of A).
+
 Parameter trees are nested dicts whose ``blocks`` entry is a list of
 per-layer dicts; :func:`get_path` maps over that list, so
 ``get_path(params, "blocks/attn/wq")`` is the list of the L layers' ``wq``.
@@ -35,12 +39,13 @@ class SiteInfo:
     """Static metadata tying one tagged site to its parameter leaf.
     ``param`` is a '/'-joined path; ``lead`` the leading axes the factor
     arrays share with the (stacked) parameter, ``(L,)`` for block sites."""
-    kind: str                      # dense | embed | bias | scale_bias
+    kind: str                      # dense | conv | embed | bias | scale_bias
     param: str
     d_in: int = 0
     d_out: int = 0
     spec: FactorSpec = FactorSpec()
     lead: tuple = ()
+    ksize: int = 1                 # conv: spatial kernel (d_in = cin*k*k)
     beta_param: Optional[str] = None   # scale_bias: path of the bias leaf
 
 
@@ -104,7 +109,8 @@ def unflatten(flat: dict, like: Any, prefix: str = "") -> Any:
 
 def normalize_stats(raw: dict, infos: dict[str, SiteInfo],
                     counts: dict[str, tuple]) -> dict:
-    """raw: {family: {"a"|"g"|"d"|"uw": raw sums}} -> scaled factors."""
+    """raw: {family: {"a"|"g"|"d"|"uw"|"uwf": raw sums}} -> scaled
+    factors."""
     out = {}
     for fam, stats in raw.items():
         n_a, n_g = counts[fam]

@@ -159,7 +159,7 @@ class SPNGD:
             info = self.infos[fam]
             kind = info.spec.a_kind if key == "a" else info.spec.g_kind
             return kind == "full"
-        return False
+        return key == "uwf"                  # full BN Fisher is symmetric
 
     # ---- fp8 history codec (dequantize-on-read; repro_torch.quant) ----
 
@@ -271,7 +271,7 @@ class SPNGD:
                     else:
                         entry["precond"][key] = torch.ones(
                             (), device=dev).expand(shape)
-                else:                       # "d" (bias) / "uw": store stats
+                else:                       # "d" / "uw" / "uwf": zeros
                     entry["precond"][key] = z
             if self.cfg.double_buffer:
                 entry["precond_next"] = dict(entry["precond"])
@@ -380,6 +380,10 @@ class SPNGD:
             for key in ("d", "uw"):
                 if key in normalized:
                     precond[key] = normalized[key]
+            if "uwf" in normalized:
+                # full BN Fisher (2C x 2C): eigh with lam damping, whatever
+                # the inverse method
+                precond["uwf"] = kfac.damped_inverse(normalized["uwf"], lam)
         if cfg.double_buffer:
             entry = {"precond": curv["precond_next"], "precond_next": precond}
         else:
@@ -428,10 +432,25 @@ class SPNGD:
             return {path: kfac.precondition(grad(info.param), pc.get("a"),
                                             pc.get("g"),
                                             backend=self.cfg.backend)}
+        if info.kind == "conv":
+            # (cout, cin, kh, kw) -> the (cin*kh*kw, cout) matrix of the
+            # site's matmul: rows contiguous, as block_precond reads them
+            dw = grad(info.param)
+            cout = dw.shape[0]
+            u = kfac.precondition(dw.reshape(cout, -1).t().contiguous(),
+                                  pc.get("a"), pc.get("g"),
+                                  backend=self.cfg.backend)
+            return {path: u.t().reshape(dw.shape)}
         if info.kind == "bias":
             return {path: kfac.diag_solve(pc["d"], grad(info.param), lam)}
         if info.kind == "scale_bias":
             gg = grad(info.param)
+            if "uwf" in pc:                    # full BN Fisher baseline
+                gcat = torch.cat([gg, grad(info.beta_param)], dim=-1).float()
+                u = torch.matmul(pc["uwf"], gcat[..., None])[..., 0]
+                c = gg.shape[-1]
+                return {path: u[..., :c],
+                        _layer_path(info.beta_param, layer): u[..., c:]}
             if info.beta_param is not None:
                 ug, ub = kfac.unitwise_solve(pc["uw"], gg,
                                              grad(info.beta_param), lam)
@@ -481,7 +500,7 @@ class SPNGD:
 
         if cfg.weight_rescale:                 # Eq. 24
             for fam, info in self.infos.items():
-                if info.kind != "dense":
+                if info.kind not in ("dense", "conv"):
                     continue
                 layers = range(info.lead[0]) if info.lead else [None]
                 for layer in layers:

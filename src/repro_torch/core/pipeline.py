@@ -62,9 +62,8 @@ def _unit_cost(shape: tuple, kind: str) -> int:
 def _stat_kind(info, key: str) -> str:
     if key in ("a", "g"):
         return info.spec.a_kind if key == "a" else info.spec.g_kind
-    if key == "uwf":
-        raise NotImplementedError(
-            "the full BN Fisher ('uwf') arrives with the ResNet slice")
+    if key == "uwf":                    # the full BN Fisher: one 2C block
+        return "full"
     return "elem"                       # "d" / "uw": stats pass through
 
 
@@ -158,7 +157,8 @@ class RefreshPipeline:
                    invert) -> dict:
         """Invert chunk ``i``'s units from the raw store into
         ``precond_next``, every unit whatever its flag (a stale statistic's
-        raw entry is its decoded X_-1, as in the inline refresh)."""
+        raw entry is its decoded X_-1, as in the inline refresh); the full
+        BN Fisher by eigh with lam damping, as the inline refresh does."""
         curv = dict(curv)
         for fam, key in self.schedule[i]:
             v = raw[fam][key]
@@ -167,6 +167,8 @@ class RefreshPipeline:
                 damp = kfac.factor_damping(self._pi(fam, raw), lam)
                 v, _ = invert(fam, key, v, _stat_kind(info, key),
                               damp[key == "g"])
+            elif key == "uwf":
+                v = kfac.damped_inverse(v, lam)
             curv[fam] = {**curv[fam],
                          "precond_next": {**curv[fam]["precond_next"],
                                           key: v}}

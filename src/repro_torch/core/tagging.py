@@ -21,8 +21,8 @@ With ``FactorSpec.wire_fmt`` set, a full-kind factor's accumulator is a
 ``{"payload": fp8 (..., nb, t), "scale": f32 (..., nb)}`` pair and the
 backward returns the fused capture's sym-packed fp8 payload and per-block
 scales as their gradients (``kfac.factor_sum_wire``); the optimizer
-decodes them once. ``grouped_dense_site`` and ``conv_site`` arrive with
-the MoE and ResNet slices.
+decodes them once. A conv site is im2col patches through the dense site
+(Eq. 10-11). ``grouped_dense_site`` arrives with the MoE slice.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import kfac
 
@@ -216,11 +217,12 @@ def make_bias_stats(d: int, lead: tuple[int, ...] = (), device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Scale-bias site (RMSNorm / LayerNorm affine): y = xhat * gamma (+ beta)
+# Scale-bias site (BatchNorm / RMSNorm / LayerNorm affine):
+#   y = xhat * gamma (+ beta)
 # Unit-wise 2x2 Fisher (Eq. 15-16); ``spatial`` counts trailing token axes
-# within one sample, summed before the outer product (conv: H, W). The full
-# (2C x 2C) BN Fisher baseline of the JAX package arrives with the ResNet
-# slice that uses it.
+# within one sample, summed before the outer product (conv: H, W). A 2C-wide
+# accumulator asks for the full (2C x 2C) BN Fisher, the paper's expensive
+# baseline (Fig. 5).
 # ---------------------------------------------------------------------------
 
 class _ScaleBiasSite(torch.autograd.Function):
@@ -245,9 +247,16 @@ class _ScaleBiasSite(torch.autograd.Function):
             us, vs = u, gf
         us2, vs2 = us.reshape(-1, c), vs.reshape(-1, c)
         dgamma, dbeta = us2.sum(0), vs2.sum(0)
-        dacc = torch.stack([torch.sum(us2 * us2, 0), torch.sum(us2 * vs2, 0),
-                            torch.sum(vs2 * vs2, 0)],
-                           dim=-1).reshape(acc_shape)
+        if len(acc_shape) >= 2 and acc_shape[-1] == 2 * c:
+            # full BN Fisher: outer products of the per-sample [u, v]
+            z = torch.cat([us2, vs2], dim=-1)            # (n, 2C)
+            dacc = torch.matmul(z.t(), z).reshape(acc_shape)
+        else:
+            # unit-wise [sum u^2, sum u v, sum v^2] per channel
+            dacc = torch.stack([torch.sum(us2 * us2, 0),
+                                torch.sum(us2 * vs2, 0),
+                                torch.sum(vs2 * vs2, 0)],
+                               dim=-1).reshape(acc_shape)
         dx = (gf * gamma).to(xhat.dtype)
         if not has_beta:
             dbeta = torch.zeros_like(dbeta)
@@ -263,12 +272,16 @@ def scale_bias_site(xhat: torch.Tensor, gamma: torch.Tensor,
         return y + beta if beta is not None else y
     has_beta = beta is not None
     b = beta if has_beta else torch.zeros_like(gamma)
-    return _ScaleBiasSite.apply(xhat, gamma, b, stats["uw"], spatial,
-                                has_beta)
+    acc = stats["uwf"] if "uwf" in stats else stats["uw"]
+    return _ScaleBiasSite.apply(xhat, gamma, b, acc, spatial, has_beta)
 
 
 def make_scale_bias_stats(c: int, lead: tuple[int, ...] = (),
-                          device=None) -> dict:
+                          full: bool = False, device=None) -> dict:
+    """Unit-wise ``{"uw": (..., C, 3)}``, or with ``full`` the full BN
+    Fisher ``{"uwf": (..., 2C, 2C)}``."""
+    if full:
+        return {"uwf": zeros(lead + (2 * c, 2 * c), device)}
     return {"uw": zeros(lead + (c, 3), device)}
 
 
@@ -319,3 +332,49 @@ def make_embed_stats(vocab: int, d: int, spec: FactorSpec,
     if sg is not None:
         out["g"] = _factor_zeros(spec, spec.g_kind, sg, lead, device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Conv site = im2col patches + dense_site (Eq. 10-11): the Kronecker factors
+# of a conv layer are exactly the dense factors of its im2col matmul.
+#   x (B, H, W, cin) channels-last; w (cout, cin, kh, kw), torch's layout
+# ---------------------------------------------------------------------------
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis, (low, high): the output is
+    ceil(size / stride) and the padding total is split with the extra
+    element on the high side, so a 3x3 stride-2 conv on an even input pads
+    (0, 1), not (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_patches(x: torch.Tensor, kh: int, kw: int,
+                 stride: int = 1) -> torch.Tensor:
+    """im2col of a channels-last batch under SAME padding: x (B, H, W, cin)
+    -> (B, Ho, Wo, cin*kh*kw), features ordered (cin, kh, kw) as the JAX
+    package's ``conv_general_dilated_patches``. The windows are a strided
+    view of the padded input (``Tensor.unfold``, (B, Ho, Wo, cin, kh, kw));
+    the reshape is the site's one layout copy (rows contiguous, as the
+    factor-sum kernel reads them), a single launch for the whole batch."""
+    b, h, w, c = x.shape
+    (pt, pb), (pl, pr) = same_pads(h, kh, stride), same_pads(w, kw, stride)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    win = xp.unfold(1, kh, stride).unfold(2, kw, stride)
+    return win.reshape(b, win.shape[1], win.shape[2], c * kh * kw)
+
+
+def conv_site(x: torch.Tensor, w: torch.Tensor, stats: Optional[dict] = None,
+              stride: int = 1,
+              spec: FactorSpec = FactorSpec()) -> torch.Tensor:
+    """Tagged 2-D conv under SAME padding, x (B, H, W, cin) channels-last,
+    w (cout, cin, kh, kw) -> (B, Ho, Wo, cout): the patch matrix times
+    ``w.reshape(cout, -1).T`` (the JAX package's ``w2d``, element for
+    element) through :func:`dense_site`, so A is the patches' factor and G
+    the output's."""
+    cout, cin, kh, kw = w.shape
+    w2d = w.reshape(cout, cin * kh * kw).t()
+    if stats is None and (kh, kw) == (1, 1) and stride == 1:
+        return torch.matmul(x, w2d)
+    return dense_site(conv_patches(x, kh, kw, stride), w2d, stats, spec)

@@ -59,9 +59,19 @@
 // 132 blocks of 66 slices; from two tiles per SM on (d 8192 nb 4, 544
 // tiles), one block per tile, in waves, shares nothing.
 //
-// f32 inputs (the 2-layer f32 route checks) do not take the tensor cores:
-// they keep the CUDA-core tile of simt_tile.cuh, 64 x 64 per block of 256
-// threads, 4 x 4 per thread, 16 tokens deep, no split.
+// f32 inputs (the ConvNet path, the 2-layer f32 route checks) do not take
+// the tensor cores: they keep the CUDA-core tile of simt_tile.cuh, 64 x 64
+// per block of 256 threads, 4 x 4 per thread, 16 tokens deep. The tokens
+// are split into chunks (the wrapper's count, ``ctas``: enough blocks to
+// fill the SMs, each chunk at least 8192 rows; kernels/kfac.py
+// syrk_f32_split): block (pair, k, z) sums chunk z of one tile pair into a
+// partial in the workspace, and a second launch sums each entry's partials
+// in chunk order, mirrors the off-diagonal tiles and takes the wire
+// variant's amax. A sum over a million rows in one f32 accumulator was
+// off by 4.8e-4 of max|A| (1,048,576 x 27 on an H100); a chunk's is not.
+// Below 16,384 rows there is one chunk, which writes the output directly:
+// the single accumulator, whose sums at n 4096 equal those of the plain
+// f32 product (torch.mm on the card) bit for bit.
 //
 // Both bodies write each finished tile and, off the diagonal, its mirror,
 // so out comes back whole and exactly symmetric (a diagonal tile of the
@@ -102,14 +112,27 @@ __device__ __forceinline__ void tile_pair(int bx, int tiles, int& ti, int& tj) {
 // f32: the CUDA-core tile
 // ---------------------------------------------------------------------------
 
+// rows per chunk: a multiple of the 16-deep slice, the chunks covering n
+__host__ __device__ __forceinline__ int f32_chunk_rows(int n, int chunks) {
+  const int per = (n + chunks - 1) / chunks;
+  const int rows = (per + simt::BK - 1) / simt::BK * simt::BK;
+  return rows > simt::BK ? rows : simt::BK;
+}
+
+// part == nullptr: one chunk, the sums written to out (mirrored, amax);
+// else chunk blockIdx.z's partial of the tile pair to part[z][k] (the
+// pair's own entries only), for syrk_reduce_kernel
 template <typename T>
 __global__ void __launch_bounds__(simt::NT)
 factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* __restrict__ amax,
-                   int n, int ld, int d, int b, int tiles) {
+                   float* __restrict__ part, int n, int ld, int d, int b, int tiles,
+                   int rows) {
   using simt::BK;
   using simt::TILE;
   int ti, tj;
   tile_pair(blockIdx.x, tiles, ti, tj);
+  const int t_begin = blockIdx.z * rows;
+  const int t_end = min(n, t_begin + rows);
   const int blk = blockIdx.y;
   const int col0 = blk * b;
   const int valid = min(b, d - col0);   // columns of this block holding data
@@ -129,7 +152,7 @@ factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* _
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-  for (int t0 = 0; t0 < n; t0 += BK) {
+  for (int t0 = t_begin; t0 < t_end; t0 += BK) {
     const int t = t0 + lr;
     float av[4], bv[4];
     const T* row = x + (size_t)t * ld + col0;
@@ -137,8 +160,8 @@ factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* _
     for (int e = 0; e < 4; ++e) {
       const int ci = i0 + lc + e;
       const int cj = j0 + lc + e;
-      av[e] = (t < n && ci < valid) ? to_f32(row[ci]) : 0.f;
-      bv[e] = (t < n && cj < valid) ? to_f32(row[cj]) : 0.f;
+      av[e] = (t < t_end && ci < valid) ? to_f32(row[ci]) : 0.f;
+      bv[e] = (t < t_end && cj < valid) ? to_f32(row[cj]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -150,6 +173,19 @@ factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* _
     simt::tile_fma(sm, acc, ty, tx);
   }
 
+  if (part) {
+    float* p = part + ((size_t)blockIdx.z * gridDim.y + blk) * b * b;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + tx * 4 + c;
+        if (i < b && j < b) p[(size_t)i * b + j] = acc[r][c];
+      }
+    }
+    return;
+  }
   float* o = out + (size_t)blk * b * b;
   unsigned m = 0u;
 #pragma unroll
@@ -168,6 +204,32 @@ factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* _
   if (amax) {
     m = __reduce_max_sync(0xffffffffu, m);
     if (tid % 32 == 0 && m) atomicMax(amax + blk, m);
+  }
+}
+
+// out[k][i][j] = sum over chunks z, in order, of part[z][k] at (i, j), read
+// from (j, i) where that entry's tile lies below the diagonal (the partials
+// hold the upper tile pairs only); one thread an entry, blockIdx.y the
+// factor block
+__global__ void __launch_bounds__(256)
+syrk_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                   unsigned* __restrict__ amax, int chunks, int nb, int b) {
+  const int blk = blockIdx.y;
+  const long long bb = (long long)b * b;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned m = 0u;
+  if (e < bb) {
+    const int i = (int)(e / b), j = (int)(e % b);
+    const bool low = i / simt::TILE > j / simt::TILE;
+    const float* p = part + (size_t)blk * bb + (size_t)(low ? j : i) * b + (low ? i : j);
+    float s = 0.f;
+    for (int z = 0; z < chunks; ++z) s += __ldg(p + (size_t)z * nb * bb);
+    out[(size_t)blk * bb + e] = s;
+    m = fp8q::abs_bits(s);
+  }
+  if (amax) {
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (threadIdx.x % 32 == 0 && m) atomicMax(amax + blk, m);
   }
 }
 
@@ -503,19 +565,32 @@ pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ paylo
   for (int c = lane; c <= r; c += 32) out[c] = fp8q::quant_one(row[c], s, fmax, fmt);
 }
 
-// ws and arrived: the workspace of the partials of shared tiles (2 * ctas
-// * 64 KB f32) and one zeroed arrival counter per tile (bf16 only; unused
-// when no tile is shared)
+// bf16: ws and arrived are the workspace of the partials of shared tiles
+// (2 * ctas * 64 KB f32) and one zeroed arrival counter per tile (unused
+// when no tile is shared). f32: ctas is the chunk count the wrapper chose
+// and ws holds ctas * nb * b * b f32 partials when it is above 1.
 int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int n, int ld,
                 int d, int nb, int b, int dtype, int ctas, cudaStream_t st) {
   if (nb < 1 || b < 1 || (long long)(nb - 1) * b >= d || (long long)nb * b < d || ld < d)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case DT_F32: {
+      if (ctas < 1 || ctas > 65535) return (int)cudaErrorInvalidValue;   // grid z
       const int tiles = (b + simt::TILE - 1) / simt::TILE;
-      const dim3 grid(tiles * (tiles + 1) / 2, nb);
+      const int rows = f32_chunk_rows(n, ctas);
+      const int chunks = n > rows ? (n + rows - 1) / rows : 1;   // <= ctas
+      float* part = chunks > 1 ? static_cast<float*>(ws) : nullptr;
+      if (chunks > 1 && !ws) return (int)cudaErrorInvalidValue;
+      const dim3 grid(tiles * (tiles + 1) / 2, nb, chunks);
       factor_syrk_kernel<float><<<grid, simt::NT, 0, st>>>(
-          static_cast<const float*>(x), static_cast<float*>(out), amax, n, ld, d, b, tiles);
+          static_cast<const float*>(x), static_cast<float*>(out), amax, part, n, ld, d, b, tiles,
+          rows);
+      if (chunks > 1) {
+        const long long bb = (long long)b * b;
+        const dim3 rgrid((unsigned)((bb + 255) / 256), nb);
+        syrk_reduce_kernel<<<rgrid, 256, 0, st>>>(part, static_cast<float*>(out), amax, chunks,
+                                                  nb, b);
+      }
       break;
     }
     case DT_BF16: {

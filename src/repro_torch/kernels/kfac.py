@@ -6,7 +6,8 @@
   the ragged last block masked. Bound by operations at the training path's
   shapes. bf16 runs on the tensor cores (``wgmma``, 128 x 128 tiles, the
   work shared out evenly over the SMs: :func:`syrk_geometry`); f32 stays
-  on the CUDA cores.
+  on the CUDA cores, its tokens split into chunks summed in a fixed order
+  (:func:`syrk_f32_split`).
 * :func:`block_precond` (``csrc/kfac_precond.cu``) replaces
   ``repro/kernels/kfac_precond.py::block_precond``: ``Binv[k] @ W[k]`` over
   the row blocks of W (left) or ``W[:, k] @ Binv[k]`` over its column
@@ -92,18 +93,47 @@ def syrk_geometry(n: int, b: int, nb: int, sms: int
     return tiles, slices, best[1], best[2]
 
 
+# csrc/simt_tile.cuh: the f32 body's output tile and slice depth
+SIMT_TILE, SIMT_BK = 64, 16
+# the f32 body's split over tokens: enough chunks for F32_BLOCKS_PER_SM
+# blocks of threads an SM, each at least F32_MIN_CHUNK rows (but the last)
+F32_BLOCKS_PER_SM, F32_MIN_CHUNK = 4, 8192
+
+
+@functools.lru_cache(maxsize=None)
+def syrk_f32_split(n: int, b: int, nb: int, sms: int
+                   ) -> tuple[int, int, int]:
+    """(chunks asked, rows per chunk, chunks launched) of one f32
+    factor_syrk launch over n tokens and nb blocks of b on ``sms`` SMs: the
+    kernel's ``f32_chunk_rows`` (a multiple of the 16-deep slice) and the
+    chunks that cover n with it, never more than asked. Block (pair, k, z)
+    sums rows [z rows, (z + 1) rows) of one 64 x 64 tile pair; one chunk
+    writes the output directly, more write partials that a second launch
+    sums in chunk order."""
+    tiles = -(-b // SIMT_TILE)
+    pairs = nb * tiles * (tiles + 1) // 2
+    want = -(-F32_BLOCKS_PER_SM * sms // pairs)
+    asked = max(1, min(want, n // F32_MIN_CHUNK, 65535))
+    per = -(-n // asked)
+    rows = max(SIMT_BK, -(-per // SIMT_BK) * SIMT_BK)
+    return asked, rows, (-(-n // rows) if n > rows else 1)
+
+
 def syrk_buffers(x: torch.Tensor, b: int, nb: int, zeroed: int = 0):
     """Launch geometry and scratch of one factor_syrk launch on x: (blocks
-    of threads, workspace, flags), the workspace holding the partials of
-    shared tiles and flags zeroed: flags[:zeroed] for the caller (the wire
-    kernel's amax), then one arrival counter per tile. f32 takes no
-    workspace and no counters (its CUDA-core body has one block per tile
-    pair)."""
+    of threads, or f32's chunks asked, workspace, flags), flags zeroed:
+    flags[:zeroed] for the caller (the wire kernel's amax), then (bf16) one
+    arrival counter per tile. The workspace holds bf16's partials of shared
+    tiles, or f32's per-chunk partials (:func:`syrk_f32_split`)."""
     ws = torch.empty((0,), dtype=torch.float32, device=x.device)
-    if x.dtype != torch.bfloat16:
-        return 1, ws, torch.zeros((zeroed,), dtype=torch.int32,
-                                  device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if x.dtype != torch.bfloat16:
+        asked, _, chunks = syrk_f32_split(x.shape[0], b, nb, sms)
+        if chunks > 1:
+            ws = torch.empty((asked * nb * b * b,), dtype=torch.float32,
+                             device=x.device)
+        return asked, ws, torch.zeros((zeroed,), dtype=torch.int32,
+                                      device=x.device)
     tiles, slices, ctas, per = syrk_geometry(x.shape[0], b, nb, sms)
     counters = 0
     if per % slices:

@@ -355,6 +355,59 @@ def _segments(n, b, nb, sms):
     return segs, (tiles, slices, ctas, per, total)
 
 
+# the f32 body's split over tokens (kernels/kfac.py syrk_f32_split, the
+# kernel's f32_chunk_rows and chunk count)
+
+@pytest.mark.parametrize("n,d", [
+    (1048576, 27), (1048576, 16), (1048576, 144),   # the ConvNet's stage 0
+    (262144, 288), (65536, 576), (1024, 10),         # stages 1, 2, the head
+    (1024, 2048), (4096, 512), (4000, 2050),         # the LM's f32 route
+    (0, 16), (17, 16), (1025, 64)])
+def test_syrk_f32_split_covers_every_row_once(n, d):
+    nb, b = kfac.num_blocks(d, 2048), kfac.block_size(d, 2048)
+    asked, rows, chunks = kern.syrk_f32_split(n, b, nb, 132)
+    assert 1 <= chunks <= asked <= 65535
+    assert rows % kern.SIMT_BK == 0 and rows >= kern.SIMT_BK
+    # the kernel's f32_chunk_rows from (n, asked), and its chunk count
+    per = -(-n // asked)
+    assert rows == max(16, -(-per // 16) * 16)
+    spans = [(z * rows, min(n, (z + 1) * rows)) for z in range(chunks)]
+    if n:
+        assert sum(e - s for s, e in spans) == n and spans[-1][1] == n
+        assert all(e > s for s, e in spans)
+    else:
+        assert chunks == 1
+    tiles = -(-b // kern.SIMT_TILE)
+    pairs = nb * tiles * (tiles + 1) // 2
+    if chunks > 1:      # a chunk is never short, and the SMs are filled
+        assert rows >= kern.F32_MIN_CHUNK
+        assert pairs * chunks <= kern.F32_BLOCKS_PER_SM * 132 + pairs
+    # the LM's f32 route (the 2-layer checks) keeps one chunk
+    if (n, d) == (1024, 2048):
+        assert chunks == 1
+
+
+def test_syrk_f32_chunks_bound_the_rounding():
+    """The reason for the split, emulated in numpy f32 (a product rounded,
+    then added; the kernel fuses them): one accumulator over 262,144 rows
+    drifts from the f64 sum, chunk partials added in order do not."""
+    rng = np.random.RandomState(0)
+    n, d = 262144, 6
+    x = rng.randn(n, d).astype(np.float32)
+    exact = x.astype(np.float64).T @ x.astype(np.float64)
+    prods = (x[:, :, None] * x[:, None, :]).astype(np.float32)
+    one = np.cumsum(prods, axis=0, dtype=np.float32)[-1]
+    _, rows, chunks = kern.syrk_f32_split(n, d, 1, 132)
+    parts = [np.cumsum(prods[z * rows:(z + 1) * rows], axis=0,
+                       dtype=np.float32)[-1] for z in range(chunks)]
+    split = np.cumsum(np.stack(parts), axis=0, dtype=np.float32)[-1]
+    scale = np.abs(exact).max()
+    assert chunks > 1
+    assert np.abs(split - exact).max() / scale < 1e-6
+    assert np.abs(one - exact).max() / scale > 10 * (
+        np.abs(split - exact).max() / scale)
+
+
 @pytest.mark.parametrize("n,d,max_dim", [
     (4096, 512, 2048),     # wk/wv G, every wire call
     (4096, 2048, 2048),    # b 2048, nb 1

@@ -12,11 +12,11 @@ statistics), and capture, drain and flip steps against ``repro``'s, step by
 step from ``repro``'s state (buffers, raw store and params 1e-4 relative to
 the largest entry of each leaf; the fp8 history within one fp8 step and its
 scales 1e-5, as ``tests/test_torch_fp8_train_parity.py``), and 20 losses
-as the double-buffer test holds them.
+as the double-buffer test holds them. The full BN Fisher's ``uwf`` unit is
+held the same way on a small ConvNet with ``bn_fisher="full"``.
 """
 
 import functools
-import types
 
 import jax
 import jax.numpy as jnp
@@ -98,12 +98,6 @@ def test_config_validation():
               model.site_counts, NGDConfig(refresh_chunks=2))
     with pytest.raises(ValueError):
         RefreshPipeline(opt, 0)
-    # the full BN Fisher unit comes with the ResNet slice
-    bn = types.SimpleNamespace(
-        fstats_fn=lambda: {"bn": {"uwf": torch.zeros(2, 4, 4)}},
-        infos={"bn": None}, cfg=None)
-    with pytest.raises(NotImplementedError, match="uwf"):
-        RefreshPipeline(bn, 2)
 
 
 def test_build_sets_the_double_buffer():
@@ -290,6 +284,76 @@ def test_interval_controller_min_interval_floor():
     jc.update(1, {"x": True}, {"x": (0.9, 0.9)})
     jc.update(jc.stats["x"].t_next, {"x": True}, {"x": (0.0, 0.0)})
     assert jc.state_dict() == ctrl.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# the full BN Fisher's unit (uwf): a ConvNet with bn_fisher="full"
+# ---------------------------------------------------------------------------
+
+def test_uwf_unit_drains_like_repro():
+    """The ConvNet at widths (8, 16), one block, ``bn_fisher="full"``, under
+    ``refresh_chunks`` K: the same LPT schedule and loads as ``repro``'s
+    (each 2C x 2C ``uwf`` costed as a full block), then a capture, K drain
+    steps and the flip, each taken from ``repro``'s state with its batch:
+    the active and staged buffers (the ``uwf`` inverses among them), the
+    raw store, the cursor and the params within 1e-4 of each array's
+    largest entry."""
+    from repro.models.resnet import ConvNet as JConvNet
+    from repro.models.resnet import ConvNetConfig as JConvNetConfig
+    from repro.core.ngd import NGDConfig as JNGDConfig
+    from repro.core.ngd import SPNGD as JSPNGD
+    from repro_torch.core.ngd import NGDConfig, SPNGD
+    from repro_torch.models.resnet import ConvNet, ConvNetConfig
+    kw = dict(widths=(8, 16), blocks_per_stage=1, bn_fisher="full")
+    ngd = dict(damping=DAMP, double_buffer=True, refresh_chunks=K)
+    jm = JConvNet(JConvNetConfig(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    jopt = JSPNGD(jm.loss, jm.site_infos(), jm.fstats, jm.site_counts,
+                  JNGDConfig(**ngd))
+    js = jopt.init(jp)
+    tm = ConvNet(ConvNetConfig(**kw), device="cpu")
+    topt = SPNGD(tm.loss, tm.site_infos(), tm.fstats, tm.site_counts,
+                 NGDConfig(**ngd))
+    assert topt.pipeline.schedule == jopt.pipeline.schedule
+    assert topt.pipeline.loads == jopt.pipeline.loads
+    assert any(key == "uwf" for chunk in topt.pipeline.schedule
+               for _, key in chunk)
+    rng = np.random.RandomState(3)
+    x = rng.randn(6, 8, 8, 3).astype(np.float32)
+    y = rng.randint(0, 10, 6)
+    jb = {"images": jnp.asarray(x), "labels": jnp.asarray(y)}
+    tb = {"images": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+    flags = {k: True for k in jopt.stat_names()}
+    jstep, jfast = jax.jit(jopt.step), jax.jit(jopt.step_fast)
+    for i in range(K + 2):
+        np_p = jax.tree.map(np.asarray, jp)
+        tm.load_state_dict(convert.params_from_jax(np_p, tm.cfg, "cpu"))
+        ts = convert.opt_state_from_jax(jax.tree.map(np.asarray, js),
+                                        tm.cfg, "cpu")
+        if i == 0:
+            jp, js, jmet = jstep(jp, js, jb, {k: jnp.asarray(v) for k, v
+                                              in flags.items()},
+                                 DAMP, LR, MOM)
+            tp, ts, tmet = topt.step(tm.params(), ts, tb, flags, DAMP, LR,
+                                     MOM)
+        else:
+            jp, js, jmet = jfast(jp, js, jb, DAMP, LR, MOM)
+            tp, ts, tmet = topt.step_fast(tm.params(), ts, tb, DAMP, LR, MOM)
+        assert tmet["refresh_inflight"] == int(jmet["refresh_inflight"]), i
+        jst = jax.tree.map(np.asarray, js)
+        tst = convert.opt_state_to_jax(ts)
+        assert int(tst["pipeline"]["cursor"]) == int(
+            jst["pipeline"]["cursor"]), i
+        for path, want in _leaves({"curv": jst["curv"],
+                                   "raw": jst["pipeline"]["raw"]}):
+            got = _get({"curv": tst["curv"],
+                        "raw": tst["pipeline"]["raw"]}, path)
+            assert _rel(got, want) <= 1e-4, (i, path)
+        for path, want in _leaves(jax.tree.map(np.asarray, jp)):
+            assert _rel(_get(convert.params_to_jax(tp), path), want) \
+                <= 1e-4, (i, path)
+    # the flip made the drained uwf inverses active
+    assert not np.array_equal(jst["curv"]["stem_bn"]["precond"]["uwf"], 0)
 
 
 # ---------------------------------------------------------------------------
