@@ -62,9 +62,20 @@ NCCL group of one rank: the dist steps of each of the five reduce
 strategies bit for bit equal to the single-device steps (2 layers, f32),
 the ring's fp8 hop codec on the kernels against its plain version at
 llama3_2_1b's hop shapes, and full-width training through the dist steps
-(dense and ring_fp8), their walls beside the single-device path's. It
-times all thirteen kernels beside their bound, their plain version and the
-PyTorch library call for the same function.
+(dense and ring_fp8), their walls beside the single-device path's. Before
+those, the dense architecture family: the five attention kernels at head
+dim 192 (nemotron_4_340b's 96/8 heads, S 4096, bf16 and f32) against their
+plain versions and timed beside SDPA, a head dim the kernels lack refused
+on the card; each new config (llama3_2_3b, qwen1_5_4b, musicgen_medium,
+nemotron_4_340b, llava_next_34b) at a route size with its own head dim and
+GQA group, a capture and a fast step on the kernels against
+``backend="ref"``, then served; and llava_next_34b at full width (4
+layers, its vision projector over 2880 image rows): SP-NGD under
+Newton-Schulz, momentum SGD on the same batches, an eigh capture step,
+prefill and decode, and its kernels timed at its shapes. It times all
+thirteen kernels beside their bound, their plain version and the PyTorch
+library call for the same function, and again at the dense family's
+shapes (rows named ``kernel[hd192]`` and ``kernel[llava]``).
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -274,6 +285,11 @@ def main(argv: list[str]) -> int:
     errs.update(timed(check_swa_kernel, torch))
     launches["swa_flash"] = timed(swa_path, torch)["launches"]["swa_flash"]
     times.update(timed(time_swa_kernel, torch))
+    t_dense = time.perf_counter()
+    hd192 = timed(check_attention_hd192, torch)
+    routes = timed(check_dense_routes, torch)
+    llava = timed(llava_path, torch)
+    llava_times = timed(time_llava_kernels, torch)
     t_dist = time.perf_counter()
     timed(check_dist_route, torch)
     timed(check_ring_hop, torch)
@@ -284,7 +300,8 @@ def main(argv: list[str]) -> int:
                  f"pipeline and checkpoint phases {t_pipe:.1f} s, the "
                  f"ConvNet phases {t_fp8 - t_conv:.1f} s, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
-                 f"{t_dist - t_swa:.1f} s and the multi-GPU phases "
+                 f"{t_dense - t_swa:.1f} s, the dense-family phases "
+                 f"{t_dist - t_dense:.1f} s and the multi-GPU phases "
                  f"{t_end - t_dist:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
@@ -299,6 +316,29 @@ def main(argv: list[str]) -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # the same kernels at the dense family's shapes: the hd-192 instances
+    # at nemotron_4_340b's widths (launches: the nemotron route's training
+    # and serving, and the op's path call) and llava_path's (its launches)
+    where = {name: (source, replaces) for name, source, replaces in KERNEL_ROWS}
+    nem = routes["nemotron_4_340b"]
+    extra = [(f"{k}[hd192]", k, hd192["times"][k], hd192["errs"][k],
+              {**nem, **hd192["launches"]}.get((k, HD192["hd"]), 0))
+             for k in hd192["times"]]
+    extra += [(f"{k}[llava]", k, llava_times[k],
+               llava_times[k]["max_abs_err"], llava["launches"][k])
+              for k in LLAVA_KERNELS]
+    for label, name, t, err, n in extra:
+        source, replaces = where[name]
+        rows.append({"name": label, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    check(all(r["launches"] > 0 for r in rows),
+          f"kernels with no launch on their path: "
+          f"{[r['name'] for r in rows if not r['launches']]}")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4775,6 +4815,982 @@ def dist_path(torch, train_walls) -> None:
     check(losses["ring_fp8"] == losses["dense"],
           f"world size 1: ring_fp8 losses {losses['ring_fp8']} != dense "
           f"{losses['dense']}")
+
+
+
+# ---------------------------------------------------------------------------
+# the dense architecture family: the attention kernels at head dim 192,
+# each new config on the kernels against backend="ref", and llava_next_34b
+# at full width
+# ---------------------------------------------------------------------------
+
+# nemotron_4_340b's attention widths (src/repro/configs/nemotron_4_340b.py):
+# 96 query heads over 8 KV heads (G 12), hd 192; batch 1 x S 4096, causal
+HD192 = dict(heads=96, kv=8, hd=192, seq=4096)
+# f32 attention gradients on the CUDA cores against the f32 plain version,
+# relative to the largest gradient entry (f32 sums in another order)
+BWD_F32_REL_TOL = 2e-4
+
+
+def _sdpa_ms(torch, fn):
+    """SDPA's time, or None with the reason where it refuses the shapes."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"SDPA raised: {str(e).splitlines()[0][:120]}"
+    return _time_ms(torch, fn, reps=10, warmup=2), "SDPA"
+
+
+def _bwd_ref_by_kv(torch, ref, q, k, v, o, lse, do, window=0):
+    """The plain backward one KV head at a time (a whole (8, 12, 4096,
+    4096) score tensor in f32 would hold 6.4 GB several times over)."""
+    outs = [ref.swa_attention_bwd_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      o[i:i + 1], lse[i:i + 1], do[i:i + 1],
+                                      window=window)
+            for i in range(q.shape[0])]
+    return tuple(torch.cat([x[j] for x in outs]) for j in range(3))
+
+
+def _fwd_ref_by_kv(torch, ref, q, k, v, window=0):
+    outs = [ref.swa_attention_fwd_res_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                          window=window)
+            for i in range(q.shape[0])]
+    return torch.cat([x[0] for x in outs]), torch.cat([x[1] for x in outs])
+
+
+def check_attention_hd192(torch) -> dict:
+    """The five attention kernels at head dim 192 against their plain
+    versions: first small cases (ragged S, windows, f32 and bf16, G 1-12),
+    then nemotron_4_340b's widths (HD192: 96/8 heads, S 4096, causal) in
+    bf16 and f32, the forwards at FWD_TOL (bf16; lse at LSE_TOL) and
+    SWA_F32_TOL (f32), the gradients at BWD_REL_TOL (bf16) and
+    BWD_F32_REL_TOL (f32), the decode at N 8, G 12 on a 4096-slot cache in
+    f32, bf16 and e4m3 at DEC_TOL; every bf16 call twice, bit-identical.
+    Then the bf16 kernels timed at those widths beside their bound, their
+    plain version and SDPA. Returns {"errs", "times"} keyed by kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    f32, bf16 = torch.float32, torch.bfloat16
+    hd = HD192["hd"]
+    errs = {k: 0.0 for k in ("swa_flash", "swa_flash_fwd", "swa_flash_decode",
+                              "swa_flash_bwd_dq", "swa_flash_bwd_dkdv")}
+    swa_attention.reset_launches()
+
+    def rnd(dt, *shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def twice(name, fn, label):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        flat = (lambda x: x if isinstance(x, tuple) else (x,))
+        check(all(torch.equal(x, y) for x, y in zip(flat(a), flat(b))),
+              f"{name} {label}: two launches on the same inputs differ")
+        return a
+
+    def fwd_case(bkv, g, s, window, dt, by_kv=False):
+        label = f"BKV={bkv} G={g} S={s} hd={hd} window={window} {dt}"
+        q, k, v = rnd(dt, bkv, g, s, hd), rnd(dt, bkv, s, hd), rnd(dt, bkv, s, hd)
+        fn = (lambda: swa_attention.swa_flash_fwd(q, k, v, window=window))
+        out, lse = twice("swa_flash_fwd", fn, label) if dt == bf16 else fn()
+        torch.cuda.synchronize()
+        ro, rl = (_fwd_ref_by_kv(torch, ref, q, k, v, window) if by_kv else
+                  ref.swa_attention_fwd_res_ref(q, k, v, window=window))
+        tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
+        torch.testing.assert_close(out.float(), ro.float(), **tol)
+        torch.testing.assert_close(lse, rl, **(LSE_TOL if dt == bf16
+                                               else SWA_F32_TOL))
+        err = _max_err(torch, out, ro)
+        errs["swa_flash_fwd"] = max(errs["swa_flash_fwd"], err)
+        # the backward from the plain forward's residuals
+        do = rnd(dt, bkv, g, s, hd)
+        fn = (lambda: swa_attention.swa_flash_bwd(q, k, v, ro, rl, do,
+                                                  window=window))
+        got = twice("swa_flash_bwd", fn, label) if dt == bf16 else fn()
+        torch.cuda.synchronize()
+        want = (_bwd_ref_by_kv(torch, ref, q, k, v, ro, rl, do, window)
+                if by_kv else ref.swa_attention_bwd_ref(q, k, v, ro, rl, do,
+                                                        window=window))
+        rel = [_rel_err(torch, a, b) for a, b in zip(got, want)]
+        btol = BWD_REL_TOL if dt == bf16 else BWD_F32_REL_TOL
+        check(max(rel) <= btol, f"attention bwd {label}: rel errs {rel} > "
+                                f"{btol}")
+        errs["swa_flash_bwd_dq"] = max(errs["swa_flash_bwd_dq"],
+                                       _max_err(torch, got[0], want[0]))
+        errs["swa_flash_bwd_dkdv"] = max(errs["swa_flash_bwd_dkdv"],
+                                         _max_err(torch, got[1], want[1]),
+                                         _max_err(torch, got[2], want[2]))
+        say("hd192", f"swa_flash_fwd {label}: max|out err| {err:.3e} (tol "
+                     f"{tol}), max|lse err| {_max_err(torch, lse, rl):.3e}; "
+                     f"bwd max|err|/max|grad| dq {rel[0]:.3e} dk {rel[1]:.3e} "
+                     f"dv {rel[2]:.3e} (tol {btol})"
+                     + ("; bf16 calls twice, identical" if dt == bf16 else ""))
+
+    def flash_case(bh, s, window, dt, per_head=False):
+        label = f"BH={bh} S={s} hd={hd} window={window} {dt}"
+        q, k, v = rnd(dt, bh, s, hd), rnd(dt, bh, s, hd), rnd(dt, bh, s, hd)
+        fn = (lambda: swa_attention.swa_flash(q, k, v, window=window))
+        out = twice("swa_flash", fn, label) if dt == bf16 else fn()
+        torch.cuda.synchronize()
+        tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
+        err = 0.0
+        step = 8 if per_head else bh
+        for i in range(0, bh, step):
+            want = ref.swa_attention_ref(q[i:i + step], k[i:i + step],
+                                         v[i:i + step], window=window)
+            torch.testing.assert_close(out[i:i + step].float(), want.float(),
+                                       **tol)
+            err = max(err, _max_err(torch, out[i:i + step], want))
+        errs["swa_flash"] = max(errs["swa_flash"], err)
+        say("hd192", f"swa_flash {label}: max|err| {err:.3e} (tol {tol})")
+
+    # small cases: ragged S, windows, every group size of the family
+    for bkv, g, s, window, dt in [(2, 3, 1000, 0, bf16), (2, 3, 517, 64, bf16),
+                                  (1, 12, 300, 0, bf16), (2, 1, 130, 7, bf16),
+                                  (2, 3, 517, 64, f32), (1, 12, 300, 0, f32)]:
+        fwd_case(bkv, g, s, window, dt)
+    for bh, s, window, dt in [(4, 50, 0, bf16), (4, 1000, 7, bf16),
+                              (4, 1000, 1005, bf16), (4, 1000, 7, f32),
+                              (4, 50, 0, f32)]:
+        flash_case(bh, s, window, dt)
+    # nemotron's widths
+    kv, g, s = HD192["kv"], HD192["heads"] // HD192["kv"], HD192["seq"]
+    for dt in (bf16, f32):
+        fwd_case(kv, g, s, 0, dt, by_kv=True)
+        flash_case(kv * g, s, 0, dt, per_head=True)
+        torch.cuda.empty_cache()
+
+    # the decode at N 8 (a lane's 8 KV heads), G 12, a 4096-slot cache
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, c = kv, s
+    for kind, window, cap in (("f32", 0, c), ("bf16", 0, c), ("e4m3", 0, c),
+                              ("e4m3", 512, 512)):
+        splits, per = swa_attention.decode_splits(n, cap, hd, sms)
+        # positions on both sides of split boundaries (and one lap on for
+        # the ring), 0 and C - 1: three rounds of n
+        edges = [0, cap - 1] + [e for b in range(per, cap, per)
+                                for e in (b - 1, b)]
+        if window:
+            edges += [cap + e for e in edges]
+        order = torch.randperm(len(edges), generator=gen, device="cuda")
+        picks = [edges[0], edges[1]] + [edges[i] for i in order.tolist()
+                                        if i > 1][:3 * n - 2]
+        q, kc, vc, ks, vs = _decode_case(torch, gen, n, g, hd, cap, kind)
+        err = 0.0
+        for r in range(0, len(picks), n):
+            chunk = (picks[r:r + n] + [cap - 1] * n)[:n]
+            pos = torch.tensor(chunk, dtype=torch.int32, device="cuda")
+            fn = (lambda: swa_attention.swa_flash_decode(
+                q, kc, vc, pos, window=window, k_scale=ks, v_scale=vs))
+            got = twice("swa_flash_decode", fn, f"{kind} C={cap}")
+            want = ref.swa_decode_ref(q, kc, vc, pos, window=window,
+                                      k_scale=ks, v_scale=vs)
+            torch.testing.assert_close(got, want, **DEC_TOL)
+            err = max(err, _max_err(torch, got, want))
+        errs["swa_flash_decode"] = max(errs["swa_flash_decode"], err)
+        say("hd192", f"swa_flash_decode N={n} G={g} hd={hd} "
+                     f"{'ring' if window else 'dense'} {kind} C={cap}, "
+                     f"{splits} splits of {per} slots, {len(picks)} "
+                     f"positions on split boundaries, 0 and C - 1: max|err| "
+                     f"{err:.3e} (tol {DEC_TOL}); every call twice, "
+                     f"identical")
+    torch.cuda.empty_cache()
+
+    # a head dim the kernels lack raises on a CUDA tensor, through every
+    # wrapper and through dispatch under "auto": no plain version, no SDPA
+    from repro_torch.kernels import dispatch
+    x3, x4 = rnd(bf16, 2, 64, 96), rnd(bf16, 2, 2, 64, 96)
+    refused = []
+    for label, fn in (
+            ("swa_flash", lambda: swa_attention.swa_flash(x3, x3, x3)),
+            ("swa_flash_fwd", lambda: swa_attention.swa_flash_fwd(x4, x3,
+                                                                  x3)),
+            ("swa_flash_bwd", lambda: swa_attention.swa_flash_bwd(
+                x4, x3, x3, x4, x4[..., 0].float(), x4)),
+            ("swa_flash_decode", lambda: swa_attention.swa_flash_decode(
+                x4[0].reshape(2, 64, 96)[:, :4].contiguous(), x3, x3,
+                torch.zeros(2, dtype=torch.int32, device="cuda"))),
+            ("dispatch.swa_attention", lambda: dispatch.swa_attention(
+                x3, x3, x3)),
+            ("dispatch.swa_attention_fwd_res",
+             lambda: dispatch.swa_attention_fwd_res(x4, x3, x3))):
+        swa_attention.reset_launches()
+        try:
+            fn()
+        except ValueError as e:
+            check("head dim 96" in str(e), f"{label}: {e}")
+            refused.append(label)
+        else:
+            raise AssertionError(f"{label} took head dim 96 on the card")
+        check(not any(swa_attention.LAUNCHES.values()),
+              f"{label}: launches at hd 96 {swa_attention.LAUNCHES}")
+    say("hd192", f"head dim 96 on CUDA tensors raises (no fallback): "
+                 f"{', '.join(refused)}")
+    del x3, x4
+
+    # one dispatch.swa_attention call at nemotron's widths, KV repeated to
+    # every head: the op's path at hd 192 (its launch is the row's count)
+    qp = rnd(bf16, kv * g, s, hd)
+    kp = rnd(bf16, kv, s, hd).repeat_interleave(g, 0)
+    vp = rnd(bf16, kv, s, hd).repeat_interleave(g, 0)
+    swa_attention.reset_launches()
+    dispatch.reset_calls()
+    outp = dispatch.swa_attention(qp, kp, vp)
+    torch.cuda.synchronize()
+    path_launches = dict(swa_attention.LAUNCHES_HD)
+    check(path_launches == {("swa_flash", hd): 1}
+          and dict(dispatch.CALLS) == {("swa_attention", "cuda"): 1},
+          f"swa_attention at hd {hd}: launches {path_launches}, dispatches "
+          f"{dispatch.CALLS}")
+    check(bool(torch.isfinite(outp).all()), "swa_attention hd 192 output")
+    del qp, kp, vp, outp
+
+    # times at nemotron's widths, bf16
+    times = {}
+    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, kv, g, s, hd, bf16)
+    del o
+    pairs = kv * g * s * (s + 1) // 2
+    row_bytes = kv * g * s * 4
+    q4 = q.reshape(1, kv * g, s, hd)
+    k4, v4 = k.reshape(1, kv, s, hd), v.reshape(1, kv, s, hd)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + row_bytes
+    bound, by = _bound(4 * hd * pairs, nbytes, bf16)
+    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True))
+    times["swa_flash_fwd"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v),
+                       reps=10),
+        "plain_ms": _time_ms(torch, lambda: _fwd_ref_by_kv(torch, ref, q, k,
+                                                           v), reps=2,
+                             warmup=1),
+        "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    say("hd192-times", f"swa_flash_fwd BKV={kv} G={g} S={s} hd={hd} bf16 "
+                       f"causal: {times['swa_flash_fwd']} (plain: one KV head "
+                       f"at a time; library: {why}, is_causal, enable_gqa); "
+                       f"{card_note(torch)}")
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
+                         + q.numel() * 4, bf16)
+    b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
+                         + 2 * k.numel() * 4, bf16)
+    ro, rl = swa_attention.swa_flash_fwd(q, k, v)
+    plain = _time_ms(torch, lambda: _bwd_ref_by_kv(torch, ref, q, k, v, ro,
+                                                   rl, do), reps=2, warmup=1)
+    qg = q4.detach().requires_grad_()
+    kg, vg = k4.detach().requires_grad_(), v4.detach().requires_grad_()
+    lib = None
+    try:
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+        gout = do.reshape(1, kv * g, s, hd)
+        lib = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), gout, retain_graph=True), reps=10, warmup=2)
+        why = "SDPA's whole backward"
+    except RuntimeError as e:
+        why = f"SDPA raised: {str(e).splitlines()[0][:120]}"
+    times["swa_flash_bwd_dq"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
+            q, k, v, lse, delta, do), reps=10),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
+        "bound_by": by_dq}
+    times["swa_flash_bwd_dkdv"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
+            q, k, v, lse, delta, do), reps=10),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
+        "bound_by": by_kv}
+    say("hd192-times", f"swa_flash_bwd BKV={kv} G={g} S={s} hd={hd} bf16 "
+                       f"causal: dq {times['swa_flash_bwd_dq']}, dkdv "
+                       f"{times['swa_flash_bwd_dkdv']} (plain and library "
+                       f"the whole backward; library: {why}); "
+                       f"{card_note(torch)}")
+    del qg, kg, vg, ro, rl
+    # swa_flash on the KV repeated to every head: (96, S, 192)
+    qf = q.reshape(kv * g, s, hd).contiguous()
+    kf = k.repeat_interleave(g, 0)
+    vf = v.repeat_interleave(g, 0)
+    bound, by = _swa_bound(kv * g, s, hd, 0, bf16)
+    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+        qf[None], kf[None], vf[None], is_causal=True))
+    times["swa_flash"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash(qf, kf, vf),
+                       reps=10),
+        "plain_ms": _time_ms(torch, lambda: [ref.swa_attention_ref(
+            qf[i:i + 8], kf[i:i + 8], vf[i:i + 8]) for i in range(0, kv * g,
+                                                              8)],
+            reps=2, warmup=1),
+        "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    say("hd192-times", f"swa_flash BH={kv * g} S={s} hd={hd} bf16 causal: "
+                       f"{times['swa_flash']} (plain: 8 heads a call; "
+                       f"library: {why}, is_causal); {card_note(torch)}")
+    del q, k, v, do, lse, delta, qf, kf, vf, q4, k4, v4
+    # the decode: 8 lanes' KV head rows... one lane's 8 KV heads over a
+    # dense bf16 cache of 4096 slots, the last position
+    qd = rnd(bf16, n, g, hd)
+    kd, vd = rnd(bf16, n, c, hd), rnd(bf16, n, c, hd)
+    pos = torch.full((n,), c - 1, dtype=torch.int32, device="cuda")
+    nbytes = 2 * n * c * hd * 2 + qd.numel() * 2 + qd.numel() * 4 + 4 * n
+    bound, by = _bound(4 * hd * g * n * c, nbytes, bf16)
+    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd.view(1, n * g, 1, hd), kd.view(1, n, c, hd), vd.view(1, n, c, hd),
+        enable_gqa=True))
+    times["swa_flash_decode"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_decode(
+            qd, kd, vd, pos)),
+        "plain_ms": _time_ms(torch, lambda: ref.swa_decode_ref(qd, kd, vd,
+                                                               pos)),
+        "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    say("hd192-times", f"swa_flash_decode N={n} G={g} hd={hd} dense bf16 "
+                       f"C={c}, pos {c - 1}: {times['swa_flash_decode']} "
+                       f"(library: {why}, enable_gqa); {card_note(torch)}")
+    del qd, kd, vd
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "launches": path_launches}
+
+
+
+# the new configs at a route size: reduced() (2 layers, d_model <= 256,
+# d_ff 256, vocab 512, factor blocks of 128, f32) with each config's own
+# head dim and GQA group restored
+DENSE_ROUTES = {
+    "llama3_2_3b": dict(head_dim=128, n_heads=6, n_kv_heads=2),
+    "qwen1_5_4b": dict(head_dim=128, n_heads=4, n_kv_heads=4),
+    "musicgen_medium": dict(head_dim=64, n_heads=4, n_kv_heads=4),
+    "nemotron_4_340b": dict(head_dim=192, n_heads=12, n_kv_heads=1,
+                            kfac_max_dim=128),
+    "llava_next_34b": dict(head_dim=128, n_heads=7, n_kv_heads=1),
+}
+ATTN_KERNELS = ("swa_flash_fwd", "swa_flash_bwd_dq", "swa_flash_bwd_dkdv")
+
+
+def _dense_batch(torch, cfg, batch, seq, index=0, seed=0):
+    """Batch ``index`` of the trainer's stream, with ``pixel_embeds`` from
+    ``seed`` under the vision frontend (in cfg.dtype)."""
+    out = _train_batch(torch, cfg.vocab, batch, seq, index=index)
+    if cfg.frontend == "vision":
+        gen = torch.Generator(device="cuda").manual_seed(seed + index)
+        out["pixel_embeds"] = torch.randn(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+            device="cuda").to(cfg.dtype)
+    return out
+
+
+def _dense_serve(torch, model, cfg) -> float:
+    """2 lanes of a 64-token prompt (after their image rows under the
+    vision frontend) through DecoderLM.prefill and 4 decode steps on the
+    kernels and again with ServeConfig(backend="ref"), the same tokens fed
+    to both: the worst max|err| / max|logit| over the 5 logit tensors,
+    held to F32_LOGIT_REL_TOL."""
+    from repro_torch.serve import ServeConfig
+    batch = _dense_batch(torch, cfg, 2, 64, index=5)
+    batch.pop("labels")
+    n_front = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    max_len = n_front + 64 + 4
+    logits, caches = {}, {}
+    with torch.no_grad():
+        for b in ("auto", "ref"):
+            lg, caches[b] = model.prefill(batch, max_len,
+                                          serve=ServeConfig(backend=b))
+            logits[b] = [lg[:, -1]]
+        tok = logits["ref"][0].argmax(-1)
+        for _ in range(4):
+            for b in ("auto", "ref"):
+                lg, caches[b] = model.decode_step(
+                    caches[b], tok, serve=ServeConfig(backend=b))
+                logits[b].append(lg)
+            tok = logits["ref"][-1].argmax(-1)
+    worst = 0.0
+    for got, want in zip(logits["auto"], logits["ref"]):
+        check(bool(torch.isfinite(got).all()), f"{cfg.name} serving logits")
+        worst = max(worst, _rel_err(torch, got, want))
+    check(worst <= F32_LOGIT_REL_TOL,
+          f"{cfg.name} serving logits kernels vs ref: {worst}")
+    return worst
+
+
+def check_dense_routes(torch) -> dict:
+    """Each new config at the route size (DENSE_ROUTES: reduced, with its
+    own head dim and GQA group), batch (2, 512) (llava: and 8 image rows
+    of dim 64): a capture step (every statistic refreshed) and a fast step
+    from the seed-0 model on the kernels; before each, a second optimizer
+    with backend="ref" takes the kernel run's params and state as they
+    stand and runs the same step. The losses, the preconditioners and the
+    params after each step within ROUTE_REL_TOL; the three training
+    attention kernels launched at the config's head dim and at no other.
+    Then the trained kernel model serves (_dense_serve), the decode kernel
+    launched at the config's head dim. Returns {arch: the kernel run's
+    attention launches by (kernel, head dim)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fisher import flatten
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch import train
+    out = {}
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    for arch, over in DENSE_ROUTES.items():
+        cfg = get_config(arch).reduced(**over)
+        runs = {b: train.build(cfg=cfg, backend=b, device="cuda")
+                for b in ("auto", "ref")}
+        steps = {b: (train.make_train_step(m, o), train.make_fast_step(m, o))
+                 for b, (m, o, _, _) in runs.items()}
+        kmodel, kopt, kparams, kstate = runs["auto"]
+        rparams = runs["ref"][2]
+        flags = {k: True for k in kopt.stat_names()}
+        swa_attention.reset_launches()
+        worst, losses = {}, []
+        for i, kind in enumerate(("capture", "fast")):
+            batch = _dense_batch(torch, cfg, 2, 512, index=i)
+            with torch.no_grad():
+                for k, v in flatten(kparams).items():
+                    flatten(rparams)[k].copy_(v)
+            rstate = {**kstate, "velocity": {k: v.clone() for k, v in
+                                             kstate["velocity"].items()}}
+            got = {}
+            for b, params, state in (("ref", rparams, rstate),
+                                     ("auto", kparams, kstate)):
+                capture, fast = steps[b]
+                if kind == "capture":
+                    params, state, m = capture(params, state, batch, flags,
+                                               lam, lr, 0.9)
+                else:
+                    params, state, m = fast(params, state, batch, lam, lr,
+                                            0.9)
+                got[b] = (float(m["loss"]), {
+                    f"{fam}.{k}": v.clone() for fam, c in
+                    state["curv"].items() for k, v in c["precond"].items()})
+                if b == "auto":
+                    kparams, kstate = params, state
+                    hd_launches = dict(swa_attention.LAUNCHES_HD)
+            (lk, pk), (lr_, pr) = got["auto"], got["ref"]
+            losses.append((lk, lr_))
+            check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+                  f"{arch} {kind} loss {lk} vs ref {lr_}")
+            worst[kind, "precond"] = max(_rel_err(torch, pk[n], pr[n])
+                                         for n in pr)
+            rflat = flatten(rparams)
+            worst[kind, "params"] = max(_rel_err(torch, v, rflat[n])
+                                        for n, v in flatten(kparams).items())
+            for what in ("precond", "params"):
+                check(worst[kind, what] <= ROUTE_REL_TOL,
+                      f"{arch} {kind} step {what} rel err "
+                      f"{worst[kind, what]} > {ROUTE_REL_TOL}")
+            del got, rstate, pk, pr
+            # the kernel run's attention launches, counted after its step
+            swa_attention.reset_launches()
+            if i == 0:
+                launches = hd_launches
+            else:
+                for key, n in hd_launches.items():
+                    launches[key] = launches.get(key, 0) + n
+        hd = cfg.hd
+        check(all(launches.get((name, hd), 0) > 0 for name in ATTN_KERNELS)
+              and all(h == hd for (_, h) in launches),
+              f"{arch}: attention launches by head dim {launches}")
+        # serving on the trained kernel run: prefill and 4 decode steps on
+        # the kernels against the same on backend="ref" (f32: within
+        # F32_LOGIT_REL_TOL of the largest logit)
+        serve_err = _dense_serve(torch, kmodel, cfg)
+        for key, n in swa_attention.LAUNCHES_HD.items():
+            launches[key] = launches.get(key, 0) + n
+        check(launches.get(("swa_flash_decode", hd), 0) == 4 * cfg.n_layers,
+              f"{arch}: decode launches {launches}")
+        swa_attention.reset_launches()
+        out[arch] = launches
+        say("dense-route", f"{arch} reduced, {cfg.n_heads}/{cfg.n_kv_heads} "
+                           f"heads of hd {hd}, d {cfg.d_model}, "
+                           f"{cfg.n_layers} layers, f32, batch (2, 512)"
+                           + (f" + {cfg.frontend_tokens} image rows of dim "
+                              f"{cfg.frontend_dim}" if cfg.frontend ==
+                              "vision" else "")
+                           + f": losses (kernels, ref) {losses}; worst "
+                           f"max|err|/max, capture step: preconditioners "
+                           f"{worst['capture', 'precond']:.3e}, params "
+                           f"{worst['capture', 'params']:.3e}; fast step: "
+                           f"params {worst['fast', 'params']:.3e} (tol "
+                           f"{ROUTE_REL_TOL}); serving 2 lanes, prefill and "
+                           f"4 decode steps, kernels vs ref: max|err| / "
+                           f"max|logit| {serve_err:.3e} (tol "
+                           f"{F32_LOGIT_REL_TOL}); attention launches by "
+                           f"(kernel, hd) {launches}")
+        del runs, steps, kmodel, kopt, kparams, kstate, rparams
+        torch.cuda.empty_cache()
+    return out
+
+
+
+# llava_next_34b at full width (d 7168, 56/8 heads of hd 128, d_ff 20480,
+# vocab 64000, frontend 2880 x 1152, factor blocks up to 4096, bf16,
+# remat), depth cut: a layer holds 557.8 M parameters (params, grads and
+# velocity: 3.35 GB in bf16) and 1.94 GB of factors a copy (~4.5 copies at a
+# capture step's peak), ~12 GB a layer; the embedding, head and projector,
+# the 4096 x 64000 logits and the Newton-Schulz workspace of the (4 L, 4096,
+# 4096) blocks ~16 GB beside. 4 layers peak near 62 GiB, 5 near 75: LLAVA
+# keeps 4, under 70 GiB. One step is batch 1 x (2880 image rows + 1216 text
+# tokens) = 4096 positions.
+# lr and damping: at the LM path's lr 2e-2 and damping 2.5e-4 this
+# random-weight model's fast steps diverged (losses 12.1 -> 2703 in 4 fast
+# steps after 2 captures, chip_smoke on an H100); the parity tests' damping
+# 1e-3 and a tenth of that lr keep them finite
+LLAVA = dict(layers=4, text=1216, capture=2, fast=4, lr=2e-3,
+             damping=1e-3)
+LLAVA_SERVE = dict(lanes=4, prompts=(64, 512), decode=16)
+# the path's eigh capture step runs only if the phase is below this many
+# seconds before it
+LLAVA_EIGH_BUDGET_S = 75.0
+LLAVA_KERNELS = ("factor_syrk", "block_precond", "ns_tiled_residual",
+                 "ns_tiled_update", "swa_flash_decode", "swa_flash_fwd",
+                 "swa_flash_bwd_dq", "swa_flash_bwd_dkdv")
+
+
+def _llava_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llava_next_34b"),
+                               n_layers=LLAVA["layers"])
+
+
+def llava_path(torch) -> dict:
+    """llava_next_34b at full width (LLAVA: depth cut to 4 layers), random
+    weights from seed 0: SP-NGD with Stage 4 by Newton-Schulz, LLAVA's 2
+    capture steps (every statistic refreshed, as at random init) and 4 fast
+    steps (the first a warm-up) on batch 1 x (2880 image rows from seed 0 +
+    1216 text tokens of the trainer's stream); one capture and one fast
+    step profiled and split by SP-NGD stage; then momentum SGD on the same
+    model and batches (1 warm-up + 3 timed); an eigh capture step if the
+    phase's budget allows; then serving through DecoderLM.prefill /
+    decode_step with a ServeConfig (the dense f32 cache: neither package
+    has a bf16 one): 4 lanes of 2880 image rows + a 64- and a 512-token
+    prompt, 16 decode steps. Checks: finite losses and logits, every NS
+    block converged or re-solved by eigh as counted, no ref dispatch, the
+    plain iteration never called, the peak under 70 GiB, the attention
+    kernels launched as reckoned. Returns the path's kernel launches."""
+    import math
+    from repro_torch.core.ngd import NGDConfig, SPNGD
+    from repro_torch.kernels import dispatch, kfac, swa_attention
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    from repro_torch.optim import SGD
+    from repro_torch.serve import ServeConfig
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _llava_cfg()
+    model, opt, params, state = train.build(
+        cfg=cfg, device="cuda", inverse_method="newton_schulz",
+        damping=LLAVA["damping"])
+    n_params = sum(p.numel() for p in model.parameters())
+    say("llava-path", f"llava_next_34b full width, {cfg.n_layers} layers "
+                      f"(depth cut), d {cfg.d_model}, {cfg.n_heads}/"
+                      f"{cfg.n_kv_heads} heads of hd {cfg.hd}, d_ff "
+                      f"{cfg.d_ff}, vocab {cfg.vocab}, frontend "
+                      f"{cfg.frontend_tokens} x {cfg.frontend_dim}, "
+                      f"kfac_max_dim {cfg.kfac_max_dim}, {cfg.dtype}, remat "
+                      f"{cfg.remat}: {n_params} params, "
+                      f"{len(opt.stat_names())} statistics, "
+                      f"{sum(opt.stat_bytes().values())} B of statistics "
+                      f"a copy, sym-packed")
+    calls = []                 # (b, trips) of every Newton-Schulz call
+    inner = ns.ns_inverse
+
+    def spy_ns(m, iters, tol):
+        out = inner(m, iters, tol)
+        calls.append((m.shape[-1], out[2].cpu()))
+        return out
+    batches = [_dense_batch(torch, cfg, 1, LLAVA["text"], index=i)
+               for i in range(LLAVA["capture"] + LLAVA["fast"])]
+    capture = train.make_train_step(model, opt)
+    fast = train.make_fast_step(model, opt)
+    flags = {k: True for k in opt.stat_names()}
+    lam, lr, mom = LLAVA["damping"], LLAVA["lr"], 0.9
+    swa_attention.reset_launches()
+    kfac.reset_launches()
+    ns.reset_launches()
+    dispatch.reset_calls()
+    recs = []
+    ns.ns_inverse = spy_ns
+    try:
+        with _Stage4Timer(torch) as s4:
+            for i, batch in enumerate(batches):
+                kind = "capture" if i < LLAVA["capture"] else "fast"
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if kind == "capture":
+                    params, state, m = capture(params, state, batch, flags,
+                                               lam, lr, mom)
+                else:
+                    params, state, m = fast(params, state, batch, lam, lr,
+                                            mom)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                recs.append({"kind": kind, "loss": loss,
+                             "seconds": time.perf_counter() - t,
+                             "inverse": m.get("inverse_info", {})})
+    finally:
+        ns.ns_inverse = inner
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**swa_attention.LAUNCHES, **kfac.LAUNCHES, **ns.LAUNCHES}
+    dcalls = dict(dispatch.CALLS)
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"llava losses {[r['loss'] for r in recs]}")
+    check(not any(b == "ref" for (_, b) in dcalls),
+          f"ref dispatches: {dcalls}")
+    check(peak < 70 * 2 ** 30, f"llava peak {peak / 2 ** 30:.2f} GiB >= 70")
+    steps = len(recs)
+    check(launches["swa_flash_fwd"] == 2 * cfg.n_layers * steps
+          and launches["swa_flash_bwd_dq"] == cfg.n_layers * steps
+          and launches["swa_flash_bwd_dkdv"] == cfg.n_layers * steps,
+          f"llava attention launches {launches}")
+    check(all(launches[k] > 0 for k in ("factor_syrk", "block_precond",
+                                        "ns_tiled_residual",
+                                        "ns_tiled_update")),
+          f"llava kernel launches {launches}")
+    cap = [r for r in recs if r["kind"] == "capture"]
+    infos = [i for r in cap for i in r["inverse"].values()]
+    check(len(calls) == len(infos), f"NS calls {len(calls)} vs blocked "
+                                    f"statistics {len(infos)}")
+    trips = [x for _, t in calls for x in t.tolist()]
+    fell = sum(int((~i["ns_converged"]).sum()) for i in infos)
+    by_b: dict = {}
+    for b, t in calls:
+        by_b[b] = by_b.get(b, 0) + t.numel()
+    cap_s = [r["seconds"] for r in cap]
+    fast_s = [r["seconds"] for r in recs if r["kind"] == "fast"][1:]
+    fast_med = statistics.median(fast_s)
+    tokens = cfg.frontend_tokens + LLAVA["text"]
+    say("llava-path", f"Newton-Schulz: {LLAVA['capture']} capture + "
+                      f"{LLAVA['fast']} fast steps, losses "
+                      f"{[round(r['loss'], 6) for r in recs]}; capture walls "
+                      f"{[round(x, 3) for x in cap_s]} s, fast walls "
+                      f"{[round(r['seconds'], 3) for r in recs if r['kind'] == 'fast']}"
+                      f" s (the first a warm-up; median {fast_med:.4f} s, "
+                      f"{tokens / fast_med:.1f} positions/s); Stage 4 "
+                      f"{s4.seconds:.3f} s over {len(cap)} refreshes "
+                      f"({s4.seconds / len(cap):.3f} s a refresh, "
+                      f"{s4.blocks} blocks); NS blocks by size {by_b}, trips "
+                      f"min {min(trips)} median {statistics.median(trips)} "
+                      f"max {max(trips)}, eigh fallback {fell} of "
+                      f"{len(trips)} blocks; peak memory "
+                      f"{peak / 2 ** 30:.2f} GiB; launches {launches}; "
+                      f"{card_note(torch)}")
+
+    # one capture and one fast step, profiled and split by stage
+    box = {"p": params, "s": state}
+    pb = batches[-1]
+
+    def cap_step():
+        box["p"], box["s"], _ = capture(box["p"], box["s"], pb, flags, lam,
+                                        lr, mom)
+
+    def fast_step():
+        box["p"], box["s"], _ = fast(box["p"], box["s"], pb, lam, lr, mom)
+    _profile(torch, "llava fast step (4096 positions)", fast_step, warm=False,
+             split=True)
+    _profile(torch, "llava capture step (4096 positions)", cap_step,
+             warm=False, split=True)
+    params = box["p"]
+    del box, state, opt, capture, fast, m
+    torch.cuda.empty_cache()
+
+    # momentum SGD on the same model and batches
+    sgd = SGD(model.loss)
+    sstate = sgd.init(params)
+    sgd_s, sgd_l = [], []
+    for i, batch in enumerate(batches[LLAVA["capture"]:]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, sstate, m = sgd.step(params, sstate, batch, lr, mom)
+        sgd_l.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        sgd_s.append(time.perf_counter() - t)
+    check(all(math.isfinite(x) for x in sgd_l), f"llava SGD losses {sgd_l}")
+    sgd_med = statistics.median(sgd_s[1:])
+    say("llava-path", f"momentum SGD on the same model and the fast steps' "
+                      f"batches: losses {[round(x, 6) for x in sgd_l]}, walls "
+                      f"{[round(x, 4) for x in sgd_s]} s (the first a "
+                      f"warm-up; median {sgd_med:.4f} s); the NS fast step "
+                      f"median {fast_med:.4f} s = {fast_med / sgd_med:.3f} x "
+                      f"SGD's; {card_note(torch)}")
+    del sgd, sstate
+    torch.cuda.empty_cache()
+
+    # one eigh capture step, when the budget allows
+    spent = time.perf_counter() - t_phase
+    if spent < LLAVA_EIGH_BUDGET_S:
+        eopt = SPNGD(model.loss, model.site_infos(), model.fstats,
+                     model.site_counts, NGDConfig(damping=lam))
+        estate = eopt.init(params)
+        torch.cuda.reset_peak_memory_stats()
+        with _Stage4Timer(torch) as s4e:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, estate, m = train.make_train_step(model, eopt)(
+                params, estate, batches[0], flags, lam, lr, mom)
+            eloss = float(m["loss"])
+            torch.cuda.synchronize()
+            ewall = time.perf_counter() - t
+        check(math.isfinite(eloss), f"llava eigh loss {eloss}")
+        say("llava-path", f"one eigh capture step: {ewall:.3f} s, Stage 4 "
+                          f"{s4e.seconds:.3f} s ({s4e.blocks} blocks), loss "
+                          f"{eloss:.6f}, peak "
+                          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                          f" GiB; {card_note(torch)}")
+        del eopt, estate, m
+        torch.cuda.empty_cache()
+    else:
+        say("llava-path", f"eigh capture step not timed: the phase had "
+                          f"spent {spent:.1f} s of its {LLAVA_EIGH_BUDGET_S}"
+                          f" s budget for it")
+
+    # serving: prefill and decode on the kernels
+    serve = ServeConfig()                   # window 0 -> the dense f32 cache
+    lanes, steps_d = LLAVA_SERVE["lanes"], LLAVA_SERVE["decode"]
+    max_len = cfg.frontend_tokens + max(LLAVA_SERVE["prompts"]) + steps_d
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    swa_attention.reset_launches()
+    dispatch.reset_calls()
+    pre = {}
+    with torch.no_grad():
+        for plen in LLAVA_SERVE["prompts"]:
+            req = {"tokens": torch.randint(0, cfg.vocab, (lanes, plen),
+                                           generator=gen, device="cuda"),
+                   "pixel_embeds": torch.randn(
+                       (lanes, cfg.frontend_tokens, cfg.frontend_dim),
+                       generator=gen, device="cuda").to(cfg.dtype)}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = model.prefill(req, max_len, serve=serve)
+            torch.cuda.synchronize()
+            pre[plen] = time.perf_counter() - t
+            check(logits.shape == (lanes, cfg.frontend_tokens + plen,
+                                   cfg.vocab)
+                  and bool(torch.isfinite(logits[:, -1]).all()),
+                  f"llava prefill logits {tuple(logits.shape)}")
+            check(cache["len"].tolist() == [cfg.frontend_tokens + plen]
+                  * lanes, f"cache len {cache['len'].tolist()}")
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps_d):
+            out, cache = model.decode_step(cache, tok, serve=serve)
+            tok = out.argmax(-1)
+        torch.cuda.synchronize()
+        dec = time.perf_counter() - t
+        check(bool(torch.isfinite(out).all()), "llava decode logits")
+    slaunch = dict(swa_attention.LAUNCHES)
+    check(slaunch["swa_flash_fwd"] == cfg.n_layers * len(pre)
+          and slaunch["swa_flash_decode"] == cfg.n_layers * steps_d,
+          f"llava serving launches {slaunch}")
+    check(not any(b == "ref" for (_, b) in dispatch.CALLS),
+          f"ref dispatches: {dispatch.CALLS}")
+    say("llava-path", f"serving {lanes} lanes, dense f32 cache of {max_len} "
+                      f"slots: prefill of {cfg.frontend_tokens} image rows + "
+                      + ", ".join(f"{p}-token prompts {pre[p]:.3f} s "
+                                  f"({lanes * (cfg.frontend_tokens + p) / pre[p]:.1f}"
+                                  f" positions/s)" for p in pre)
+                      + f"; {steps_d} decode steps {dec:.3f} s "
+                      f"({lanes * steps_d / dec:.1f} tokens/s); launches "
+                      f"{slaunch}; {card_note(torch)}")
+    for k in ("swa_flash_fwd", "swa_flash_decode"):
+        launches[k] = launches.get(k, 0) + slaunch[k]
+    del model, params, cache, logits, out
+    torch.cuda.empty_cache()
+    say("llava-path", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def time_llava_kernels(torch) -> dict:
+    """The kernels of llava_path at its shapes, each against its plain
+    version (max|err|) and timed beside its bound, the plain version and
+    the library call: factor_syrk of mlp_down's A (4096 positions x 20480,
+    5 blocks of 4096) and of a 7168-wide A (2 blocks of 3584), block_precond
+    of mlp_down's A side ((5, 4096, 4096) x (20480, 7168)), one tiled
+    Newton-Schulz residual and update on mlp_up's G blocks over the path's
+    layers ((4 L, 4096, 4096)), the attention trio at (8 KV heads, G 7,
+    S 4096, hd 128) causal, and the decode at the serving step (32 rows of
+    G 7 over the dense f32 cache). Returns {kernel: row}."""
+    import torch.nn.functional as F
+    from repro_torch.core import kfac
+    from repro_torch.kernels import dispatch, ref, swa_attention
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import newton_schulz as ns
+    cfg = _llava_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f32, bf16 = torch.float32, torch.bfloat16
+    res = {}
+    n, md = 4096, cfg.kfac_max_dim
+    for d in (cfg.d_ff, cfg.d_model):
+        x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+        nb, b = kfac.num_blocks(d, md), kfac.block_size(d, md)
+        got, want = kern.factor_syrk(x, md), ref.factor_sum_ref(x, md)
+        err = _max_err(torch, got, want)
+        check(_rel_err(torch, got, want) <= KFAC_REL_TOL,
+              f"factor_syrk ({n}, {d}): rel err {_rel_err(torch, got, want)}")
+        ops, nbytes = _syrk_ops_bytes(n, nb, b, nb * b * b * 4)
+        bound, by = _bound(ops, nbytes, x.dtype)
+        xb = x.view(n, nb, b).transpose(0, 1)
+        row = {"ms": _time_ms(torch, lambda: kern.factor_syrk(x, md)),
+               "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(x, md),
+                                    reps=5),
+               "library_ms": _time_ms(torch, lambda: torch.bmm(
+                   xb.transpose(1, 2), xb, out_dtype=f32)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        if d == cfg.d_ff:
+            res["factor_syrk"] = row
+        say("llava-times", f"factor_syrk n={n} d={d} nb={nb} b={b} bf16 -> "
+                           f"f32: {row} (library: torch.bmm over blocks, f32 "
+                           f"out); {card_note(torch)}")
+        del x, xb, got, want
+
+    b, nb = 4096, cfg.d_ff // 4096
+    binv = torch.randn((nb, b, b), generator=gen, device="cuda") / b ** 0.5
+    w = torch.randn((cfg.d_ff, cfg.d_model), generator=gen, device="cuda")
+    left_ref = dispatch.lookup("block_precond_left", "ref")
+    got, want = kern.block_precond(binv, w), left_ref(binv, w)
+    check(_rel_err(torch, got, want) <= KFAC_REL_TOL,
+          f"block_precond: rel err {_rel_err(torch, got, want)}")
+    bound, by = _bound(2 * b * w.shape[0] * w.shape[1],
+                       (binv.numel() + 2 * w.numel()) * 4, f32,
+                       PEAK_SPLIT_F32_OPS_PER_S)
+    wb = w.view(nb, b, -1)
+    res["block_precond"] = {
+        "ms": _time_ms(torch, lambda: kern.block_precond(binv, w), reps=10),
+        "plain_ms": _time_ms(torch, lambda: left_ref(binv, w), reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(binv, wb), reps=10),
+        "bound_ms": bound, "bound_by": by,
+        "max_abs_err": _max_err(torch, got, want)}
+    say("llava-times", f"block_precond left binv ({nb}, {b}, {b}) w "
+                       f"({cfg.d_ff}, {cfg.d_model}) f32: "
+                       f"{res['block_precond']} (library: torch.bmm f32, TF32"
+                       f" off); {card_note(torch)}")
+    del binv, w, wb, got, want
+    torch.cuda.empty_cache()
+
+    g = cfg.d_ff // b * cfg.n_layers          # mlp_up's G: 5 blocks a layer
+    _, _, m = _ns_factors(torch, gen, g, b, 1.0, 1e-3)
+    x = ref.ns_x0(m)
+    eye = torch.eye(b, device="cuda")
+    r, _ = ns.ns_tiled_residual(m, x)
+    r_ref, _ = ref.ns_tiled_residual_ref(m, x)
+    u, u_ref = ns.ns_tiled_update(x, r), ref.ns_tiled_update_ref(x, r)
+    errs = (_max_err(torch, r, r_ref), _max_err(torch, u, u_ref))
+    check(_rel_err(torch, r, r_ref) <= NS_PRODUCT_REL_TOL
+          and _rel_err(torch, u, u_ref) <= NS_PRODUCT_REL_TOL,
+          f"NS tiled pair at ({g}, {b}, {b}): rel errs "
+          f"{_rel_err(torch, r, r_ref)}, {_rel_err(torch, u, u_ref)}")
+    del r_ref, u_ref, u
+    nbytes = 3 * g * b * b * 4
+    bound, by = _bound(2 * b ** 3 * g, nbytes + 4 * g, f32,
+                       PEAK_SPLIT_F32_OPS_PER_S)
+    res["ns_tiled_residual"] = {
+        "ms": _time_ms(torch, lambda: ns.ns_tiled_residual(m, x), reps=5),
+        "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_residual_ref(m, x),
+                             reps=3),
+        "library_ms": _time_ms(torch, lambda: torch.baddbmm(eye, m, x,
+                                                            alpha=-1.0),
+                               reps=5),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": errs[0]}
+    bound, by = _bound(2 * b ** 3 * g, nbytes, f32, PEAK_SPLIT_F32_OPS_PER_S)
+    res["ns_tiled_update"] = {
+        "ms": _time_ms(torch, lambda: ns.ns_tiled_update(x, r), reps=5),
+        "plain_ms": _time_ms(torch, lambda: ref.ns_tiled_update_ref(x, r),
+                             reps=3),
+        "library_ms": _time_ms(torch, lambda: torch.baddbmm(x, x, r), reps=5),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": errs[1]}
+    say("llava-times", f"ns_tiled_residual ({g}, {b}, {b}) f32: "
+                       f"{res['ns_tiled_residual']}; ns_tiled_update: "
+                       f"{res['ns_tiled_update']} (library: torch.baddbmm "
+                       f"f32, TF32 off); {card_note(torch)}")
+    del m, x, r, eye
+    torch.cuda.empty_cache()
+
+    # the attention trio at one training layer's call
+    kv, gq, s, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 4096, cfg.hd
+    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, kv, gq, s, hd, bf16)
+    out, lse_k = swa_attention.swa_flash_fwd(q, k, v)
+    err_f = _max_err(torch, out, o)
+    torch.testing.assert_close(out.float(), o.float(), **FWD_TOL)
+    grads = swa_attention.swa_flash_bwd(q, k, v, o, lse, do)
+    want = ref.swa_attention_bwd_ref(q, k, v, o, lse, do)
+    rel = [_rel_err(torch, a, b_) for a, b_ in zip(grads, want)]
+    check(max(rel) <= BWD_REL_TOL, f"llava attention bwd rel errs {rel}")
+    err_dq = _max_err(torch, grads[0], want[0])
+    err_kv = max(_max_err(torch, grads[1], want[1]),
+                 _max_err(torch, grads[2], want[2]))
+    del out, lse_k, grads, want
+    pairs = kv * gq * s * (s + 1) // 2
+    row_bytes = kv * gq * s * 4
+    q4 = q.reshape(1, kv * gq, s, hd)
+    k4, v4 = k.reshape(1, kv, s, hd), v.reshape(1, kv, s, hd)
+    bound, by = _bound(4 * hd * pairs, 2 * (2 * q.numel() + k.numel()
+                                            + v.numel()) + row_bytes, bf16)
+    res["swa_flash_fwd"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v)),
+        "plain_ms": _time_ms(torch, lambda: ref.swa_attention_fwd_res_ref(
+            q, k, v), reps=3),
+        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err_f}
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
+                         + q.numel() * 4, bf16)
+    b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
+                         + 2 * k.numel() * 4, bf16)
+    plain = _time_ms(torch, lambda: ref.swa_attention_bwd_ref(q, k, v, o,
+                                                              lse, do),
+                     reps=3)
+    qg = q4.detach().requires_grad_()
+    kg, vg = k4.detach().requires_grad_(), v4.detach().requires_grad_()
+    sd = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        enable_gqa=True)
+    gout = do.reshape(1, kv * gq, s, hd)
+    lib = _time_ms(torch, lambda: torch.autograd.grad(
+        sd, (qg, kg, vg), gout, retain_graph=True))
+    res["swa_flash_bwd_dq"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
+        "bound_by": by_dq, "max_abs_err": err_dq}
+    res["swa_flash_bwd_dkdv"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
+        "bound_by": by_kv, "max_abs_err": err_kv}
+    say("llava-times", f"attention BKV={kv} G={gq} S={s} hd={hd} bf16 causal:"
+                       f" fwd {res['swa_flash_fwd']} (library: SDPA, "
+                       f"enable_gqa); dq {res['swa_flash_bwd_dq']}; dkdv "
+                       f"{res['swa_flash_bwd_dkdv']} (plain and library the "
+                       f"whole backward); {card_note(torch)}")
+    del q, k, v, do, o, lse, delta, q4, k4, v4, qg, kg, vg, sd, gout
+
+    # the decode: 4 lanes x 8 KV heads over the serving path's dense f32
+    # cache, positions near its end
+    nl = LLAVA_SERVE["lanes"] * kv
+    c = cfg.frontend_tokens + max(LLAVA_SERVE["prompts"]) + \
+        LLAVA_SERVE["decode"]
+    qd = torch.randn((nl, gq, hd), generator=gen, device="cuda").bfloat16()
+    kc = torch.randn((nl, c, hd), generator=gen, device="cuda")
+    vc = torch.randn((nl, c, hd), generator=gen, device="cuda")
+    pos = torch.full((nl,), c - 1, dtype=torch.int32, device="cuda")
+    got = swa_attention.swa_flash_decode(qd, kc, vc, pos)
+    want = ref.swa_decode_ref(qd.float(), kc, vc, pos)
+    torch.testing.assert_close(got, want, **DEC_TOL)
+    nbytes = 2 * nl * c * hd * 4 + qd.numel() * 6 + 4 * nl
+    bound, by = _bound(4 * hd * gq * nl * c, nbytes, f32)
+    res["swa_flash_decode"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_decode(
+            qd, kc, vc, pos)),
+        "plain_ms": _time_ms(torch, lambda: ref.swa_decode_ref(qd, kc, vc,
+                                                               pos)),
+        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd.float().view(1, nl * gq, 1, hd), kc.view(1, nl, c, hd),
+            vc.view(1, nl, c, hd), enable_gqa=True)),
+        "bound_ms": bound, "bound_by": by,
+        "max_abs_err": _max_err(torch, got, want)}
+    say("llava-times", f"swa_flash_decode N={nl} G={gq} hd={hd} dense f32 "
+                       f"C={c}: {res['swa_flash_decode']} (library: SDPA, "
+                       f"enable_gqa); {card_note(torch)}")
+    del qd, kc, vc, got, want
+    torch.cuda.empty_cache()
+    return res
 
 
 if __name__ == "__main__":

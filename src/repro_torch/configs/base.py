@@ -1,10 +1,14 @@
 """Architecture configuration schema + registry (counterpart of
 ``repro/configs/base.py``), with ``dtype`` as a torch dtype.
 
-Only the families the ported paths run are registered: ``llama3_2_1b``
-(an :class:`ArchConfig`, with only the fields dense decoder blocks, the
-SP-NGD training step and its fp8 factor capture read; the MoE, SSM and
-frontend fields arrive with the slices that read them) and ``resnet50`` (a
+Only the families the ported paths run are registered: the dense
+decoders ``llama3_2_1b``, ``llama3_2_3b``, ``qwen1_5_4b``,
+``musicgen_medium`` (audio: EnCodec token ids in, no frontend code),
+``nemotron_4_340b`` and ``llava_next_34b`` (a VLM: the ``proj`` site maps
+precomputed patch embeddings to ``d_model``), each an :class:`ArchConfig`
+with only the fields dense decoder blocks, their frontend, the SP-NGD
+training step and its fp8 factor capture read (the MoE and SSM fields
+arrive with the slices that read them); and ``resnet50`` (a
 ``repro_torch.models.resnet.ConvNetConfig``)."""
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ def check_backend(backend: str | None) -> None:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # dense (the families ported so far)
+    arch_type: str               # dense | vlm | audio (the families
+                                 # ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +53,10 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     # attention
     sliding_window: int = 0      # 0 = full causal
+    # frontend stubs (vlm / audio)
+    frontend: str = "none"       # none | vision | audio
+    frontend_tokens: int = 0     # patches / frames prepended
+    frontend_dim: int = 0        # raw embedding dim before projector
     aux_loss_coef: float = 0.01  # weight of the blocks' auxiliary loss
     # kernels
     backend: str = "auto"        # "ref" | "cuda" | "auto" (kernels.dispatch)
@@ -73,11 +82,14 @@ class ArchConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     def validate(self) -> None:
+        """Dense blocks (every family registered here: decoders, the VLM
+        backbone, the audio decoder) need whole GQA groups."""
         assert self.n_heads > 0 and self.n_heads % self.n_kv_heads == 0
 
     def reduced(self, **overrides) -> "ArchConfig":
-        """Smoke-test variant: same family, tiny dims (2 layers, d<=512),
-        f32, factor blocks of at most 128, no remat."""
+        """Smoke-test variant: same family, tiny dims (2 layers, d<=512,
+        at most 8 frontend tokens of dim 64), f32, factor blocks of at most
+        128, no remat."""
         hd = min(self.hd, 64)
         n_heads = max(2, min(4, self.n_heads))
         n_kv = max(1, min(n_heads, max(1, self.n_kv_heads * n_heads
@@ -91,6 +103,8 @@ class ArchConfig:
             d_ff=min(self.d_ff, 256),
             vocab=min(self.vocab, 512),
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            frontend_tokens=min(self.frontend_tokens, 8) if self.frontend_tokens else 0,
+            frontend_dim=min(self.frontend_dim, 64) if self.frontend_dim else 0,
             kfac_max_dim=128,
             dtype=torch.float32,
             remat=False,
@@ -99,10 +113,12 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCHS = ["llama3_2_1b", "resnet50"]
+ARCHS = ["qwen1_5_4b", "musicgen_medium", "llama3_2_1b", "llava_next_34b",
+         "nemotron_4_340b", "llama3_2_3b", "resnet50"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
-_ALIASES.update({"llama3.2-1b": "llama3_2_1b"})
+_ALIASES.update({"qwen1.5-4b": "qwen1_5_4b", "llama3.2-1b": "llama3_2_1b",
+                 "llama3.2-3b": "llama3_2_3b"})
 
 
 def list_archs() -> list[str]:

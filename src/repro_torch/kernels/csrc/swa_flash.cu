@@ -29,8 +29,8 @@
 // CUDA-event medians, L2 flushed): 5.88 ms at S 32768, window 8192 (bound
 // 1.95; the CUDA-core walk 103.2) and 0.0278 ms causal at S 1024 (SDPA
 // 0.0284; the CUDA-core walk 0.487). f32 keeps the CUDA-core walk of
-// swa_flash_tile.cuh: one block of 128 threads per (64-row query tile,
-// head), f32 FMAs.
+// swa_flash_tile.cuh: one block of 128 threads per (query tile of 64 rows,
+// 32 at hd 192; head), f32 FMAs.
 
 #include "swa_flash_tile.cuh"
 #include "swa_flash_wgmma.cuh"
@@ -52,7 +52,7 @@ swa_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 void launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int S,
                 int window, float scale, cudaStream_t stream) {
-  const dim3 grid((S + swa_tile::BQ - 1) / swa_tile::BQ, bh);
+  const dim3 grid((S + swa_tile::Geo<HD>::BQ - 1) / swa_tile::Geo<HD>::BQ, bh);
   swa_flash_kernel<HD><<<grid, swa_tile::NTHREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), S, window, scale);
@@ -70,13 +70,15 @@ extern "C" int swa_flash(const void* q, const void* k, const void* v, void* out,
   int rc;
   switch (dtype) {
     case DT_F32:
-      if (bq != swa_tile::BQ || bk != swa_tile::BK || (hd != 64 && hd != 128)) {
-        rc = (int)cudaErrorInvalidValue;
-      } else {
-        if (hd == 64) launch_f32<64>(q, k, v, out, bh, S, window, scale, st);
-        else launch_f32<128>(q, k, v, out, bh, S, window, scale, st);
-        rc = 0;
-      }
+      if (hd == 64 && swa_tile::geometry<64>(bq, bk))
+        launch_f32<64>(q, k, v, out, bh, S, window, scale, st);
+      else if (hd == 128 && swa_tile::geometry<128>(bq, bk))
+        launch_f32<128>(q, k, v, out, bh, S, window, scale, st);
+      else if (hd == 192 && swa_tile::geometry<192>(bq, bk))
+        launch_f32<192>(q, k, v, out, bh, S, window, scale, st);
+      else
+        return (int)cudaErrorInvalidValue;
+      rc = 0;
       break;
     case DT_BF16:
       rc = swa_tc::launch_hd<false>(q, k, v, out, nullptr, bh, bh, S, hd, window, scale, bq, bk,

@@ -36,14 +36,16 @@
 //
 // f32 (the 2-layer f32 route checks) keeps the CUDA-core bodies below,
 // with q scaled by HD^-0.5 as it is read (exact enough in f32):
-// dq: one block of 128 threads per (query tile, group head, KV head); HD/32
-// threads share a query row, each owning 32 of its dims (interleaved float4
-// groups) in registers, and a dot product is their partial sums joined by
-// shuffles. The block walks only the 32-key tiles that meet the band of its
-// query tile, staging K and V in shared memory.
+// dq: one block of 128 threads per (query tile, group head, KV head); TPR
+// threads share a query row (HD/32 at hd 64 and 128, 8 at hd 192, where 6
+// would not divide a warp), each owning HD/TPR of its dims (interleaved
+// float4 groups) in registers, and a dot product is their partial sums
+// joined by shuffles. The block walks only the key tiles (32 keys, 16 at
+// hd 192, so that two f32 tiles stay inside 48 KB of static shared memory)
+// that meet the band of its query tile, staging K and V in shared memory.
 // dkdv: one block per (key tile, KV head), the key rows and their dk/dv
-// sums in registers. It walks the G query heads and, for each, the 32-row
-// query tiles that can see its keys, so the sum over the group stays a
+// sums in registers. It walks the G query heads and, for each, the query
+// tiles (32 rows, 16 at hd 192) that can see its keys, so the sum over the group stays a
 // register sum: no atomics and no second pass. Query rows past S are
 // masked explicitly (the TPU wrapper pads S and relies on zero-padded
 // do/delta), as are key rows past S. These f32 products run on the CUDA
@@ -54,9 +56,19 @@
 namespace {
 
 constexpr int NTHREADS = 128;
-constexpr int BKT = 32;   // keys per shared-memory tile (dq kernel)
-constexpr int BQT = 32;   // queries per shared-memory tile (dkdv kernel)
 constexpr int LCH = 8;    // loads in flight per thread while staging a tile
+
+// the f32 bodies' geometry at head dim HD: threads a row, the float4 groups
+// each of them owns, rows (dq) or keys (dkdv) a block, and keys (dq) or
+// query rows (dkdv) a shared-memory tile
+template <int HD>
+struct Simt {
+  static_assert(HD == 64 || HD == 128 || HD == 192, "head dims 64, 128, 192");
+  static constexpr int TPR = HD == 192 ? 8 : HD / 32;
+  static constexpr int NGR = HD / TPR / 4;
+  static constexpr int ROWS = NTHREADS / TPR;
+  static constexpr int TILE = HD == 192 ? 16 : 32;
+};
 
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int window) {
   return qp < S && kp < S && kp <= qp && (window <= 0 || kp > qp - window);
@@ -96,32 +108,32 @@ __device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, in
   }
 }
 
-// Load this thread's 32 dims of one row (dims (i*TPR + h)*4 + c).
-template <typename T, int TPR>
-__device__ __forceinline__ void load_row(float (&r)[32], const T* src, int h, float mul) {
+// Load this thread's 4 NGR dims of one row (dims (i*TPR + h)*4 + c).
+template <typename T, int TPR, int NGR>
+__device__ __forceinline__ void load_row(float (&r)[4 * NGR], const T* src, int h, float mul) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NGR; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) r[4 * i + c] = to_f32(src[(i * TPR + h) * 4 + c]) * mul;
 }
 
-template <int TPR>
-__device__ __forceinline__ float dot_part(const float (&r)[32], const float* row, int h) {
+template <int TPR, int NGR>
+__device__ __forceinline__ float dot_part(const float (&r)[4 * NGR], const float* row, int h) {
   const float4* p = reinterpret_cast<const float4*>(row);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < NGR; ++i) {
     const float4 x = p[i * TPR + h];
     s += r[4 * i] * x.x + r[4 * i + 1] * x.y + r[4 * i + 2] * x.z + r[4 * i + 3] * x.w;
   }
   return s;
 }
 
-template <int TPR>
-__device__ __forceinline__ void axpy(float (&acc)[32], float a, const float* row, int h) {
+template <int TPR, int NGR>
+__device__ __forceinline__ void axpy(float (&acc)[4 * NGR], float a, const float* row, int h) {
   const float4* p = reinterpret_cast<const float4*>(row);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < NGR; ++i) {
     const float4 x = p[i * TPR + h];
     acc[4 * i] += a * x.x;
     acc[4 * i + 1] += a * x.y;
@@ -136,8 +148,11 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   const T* __restrict__ dout, float* __restrict__ dq, int G, int S,
                   int window, float scale) {
-  constexpr int TPR = HD / 32;
-  constexpr int BQ = NTHREADS / TPR;
+  constexpr int TPR = Simt<HD>::TPR;
+  constexpr int NGR = Simt<HD>::NGR;
+  constexpr int DPT = 4 * NGR;   // dims a thread
+  constexpr int BQ = Simt<HD>::ROWS;
+  constexpr int BKT = Simt<HD>::TILE;
   __shared__ __align__(16) float ks[BKT][HD];
   __shared__ __align__(16) float vs[BKT][HD];
 
@@ -150,19 +165,19 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int qpos = q0 + row;
   const size_t rows = (size_t)(b * G + g) * S;
 
-  float qr[32], dor[32], acc[32];
+  float qr[DPT], dor[DPT], acc[DPT];
   float l = 0.f, dl = 0.f;
   if (qpos < S) {
-    load_row<T, TPR>(qr, q + (rows + qpos) * HD, h, scale);
-    load_row<T, TPR>(dor, dout + (rows + qpos) * HD, h, 1.f);
+    load_row<T, TPR, NGR>(qr, q + (rows + qpos) * HD, h, scale);
+    load_row<T, TPR, NGR>(dor, dout + (rows + qpos) * HD, h, 1.f);
     l = lse[rows + qpos];
     dl = delta[rows + qpos];
   } else {
 #pragma unroll
-    for (int c = 0; c < 32; ++c) qr[c] = dor[c] = 0.f;
+    for (int c = 0; c < DPT; ++c) qr[c] = dor[c] = 0.f;
   }
 #pragma unroll
-  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
 
   const int q_hi = min(q0 + BQ - 1, S - 1);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -175,17 +190,17 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < BKT; ++j) {
-      const float s = row_sum<TPR>(dot_part<TPR>(qr, &ks[j][0], h));
-      const float dp = row_sum<TPR>(dot_part<TPR>(dor, &vs[j][0], h));
+      const float s = row_sum<TPR>(dot_part<TPR, NGR>(qr, &ks[j][0], h));
+      const float dp = row_sum<TPR>(dot_part<TPR, NGR>(dor, &vs[j][0], h));
       const float p = visible(qpos, kt + j, S, window) ? expf(s - l) : 0.f;
-      axpy<TPR>(acc, p * (dp - dl), &ks[j][0], h);
+      axpy<TPR, NGR>(acc, p * (dp - dl), &ks[j][0], h);
     }
   }
 
   if (qpos < S) {
     float* o = dq + (rows + qpos) * HD;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NGR; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[(i * TPR + h) * 4 + c] = acc[4 * i + c] * scale;
   }
@@ -198,8 +213,11 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, const T* __restrict__ dout,
                     float* __restrict__ dk, float* __restrict__ dv, int G, int S,
                     int window, float scale) {
-  constexpr int TPR = HD / 32;
-  constexpr int BKEY = NTHREADS / TPR;
+  constexpr int TPR = Simt<HD>::TPR;
+  constexpr int NGR = Simt<HD>::NGR;
+  constexpr int DPT = 4 * NGR;   // dims a thread
+  constexpr int BKEY = Simt<HD>::ROWS;
+  constexpr int BQT = Simt<HD>::TILE;
   __shared__ __align__(16) float qs[BQT][HD];
   __shared__ __align__(16) float dos[BQT][HD];
   __shared__ float ls[BQT];
@@ -213,16 +231,16 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kpos = k0 + row;
   const size_t krow = (size_t)b * S + kpos;
 
-  float kr[32], vr[32], dka[32], dva[32];
+  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
   if (kpos < S) {
-    load_row<T, TPR>(kr, k + krow * HD, h, 1.f);
-    load_row<T, TPR>(vr, v + krow * HD, h, 1.f);
+    load_row<T, TPR, NGR>(kr, k + krow * HD, h, 1.f);
+    load_row<T, TPR, NGR>(vr, v + krow * HD, h, 1.f);
   } else {
 #pragma unroll
-    for (int c = 0; c < 32; ++c) kr[c] = vr[c] = 0.f;
+    for (int c = 0; c < DPT; ++c) kr[c] = vr[c] = 0.f;
   }
 #pragma unroll
-  for (int c = 0; c < 32; ++c) dka[c] = dva[c] = 0.f;
+  for (int c = 0; c < DPT; ++c) dka[c] = dva[c] = 0.f;
 
   // queries that can see a key of [k0, k_hi]: k0 <= i < k_hi + window
   const int k_hi = min(k0 + BKEY - 1, S - 1);
@@ -241,11 +259,11 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 #pragma unroll 4
       for (int i = 0; i < BQT; ++i) {
-        const float s = row_sum<TPR>(dot_part<TPR>(kr, &qs[i][0], h));
-        const float dp = row_sum<TPR>(dot_part<TPR>(vr, &dos[i][0], h));
+        const float s = row_sum<TPR>(dot_part<TPR, NGR>(kr, &qs[i][0], h));
+        const float dp = row_sum<TPR>(dot_part<TPR, NGR>(vr, &dos[i][0], h));
         const float p = visible(qt + i, kpos, S, window) ? expf(s - ls[i]) : 0.f;
-        axpy<TPR>(dva, p, &dos[i][0], h);
-        axpy<TPR>(dka, p * (dp - dls[i]), &qs[i][0], h);
+        axpy<TPR, NGR>(dva, p, &dos[i][0], h);
+        axpy<TPR, NGR>(dka, p * (dp - dls[i]), &qs[i][0], h);
       }
     }
   }
@@ -254,7 +272,7 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* ok = dk + krow * HD;
     float* ov = dv + krow * HD;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NGR; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         ok[(i * TPR + h) * 4 + c] = dka[4 * i + c];
@@ -267,7 +285,7 @@ template <typename T, int HD>
 void launch_dq(const void* q, const void* k, const void* v, const void* lse,
                const void* delta, const void* dout, void* dq, int bkv, int G, int S,
                int window, float scale, cudaStream_t st) {
-  constexpr int BQ = NTHREADS / (HD / 32);
+  constexpr int BQ = Simt<HD>::ROWS;
   const dim3 grid((S + BQ - 1) / BQ, G, bkv);
   swa_bwd_dq_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -279,7 +297,7 @@ template <typename T, int HD>
 void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
                  const void* delta, const void* dout, void* dk, void* dv, int bkv, int G,
                  int S, int window, float scale, cudaStream_t st) {
-  constexpr int BKEY = NTHREADS / (HD / 32);
+  constexpr int BKEY = Simt<HD>::ROWS;
   const dim3 grid((S + BKEY - 1) / BKEY, bkv);
   swa_bwd_dkdv_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -291,9 +309,9 @@ void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
 // the f32 bodies' geometry: query rows (dq) or keys (dkdv) per block, and
 // keys (dq) or query rows (dkdv) per shared-memory tile
 // (kernels/swa_attention.py dq_geometry, dkdv_geometry)
-static_assert(BKT == BQT, "kernels/swa_attention.py SIMT_BWD_TILE is both tiles");
-inline bool simt_geometry(int hd, int rows, int tile) {
-  return (hd == 64 || hd == 128) && rows == NTHREADS / (hd / 32) && tile == BKT;
+template <int HD>
+inline bool simt_geometry(int rows, int tile) {
+  return rows == Simt<HD>::ROWS && tile == Simt<HD>::TILE;
 }
 
 }  // namespace
@@ -311,9 +329,14 @@ extern "C" int swa_flash_bwd_dq(const void* q, const void* k, const void* v,
   int rc = 0;
   switch (dtype) {
     case DT_F32:
-      if (!simt_geometry(hd, bq, bk)) return (int)cudaErrorInvalidValue;
-      if (hd == 64) launch_dq<float, 64>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
-      else launch_dq<float, 128>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      if (hd == 64 && simt_geometry<64>(bq, bk))
+        launch_dq<float, 64>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      else if (hd == 128 && simt_geometry<128>(bq, bk))
+        launch_dq<float, 128>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      else if (hd == 192 && simt_geometry<192>(bq, bk))
+        launch_dq<float, 192>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
+      else
+        return (int)cudaErrorInvalidValue;
       break;
     case DT_BF16:
       if (hd == 64)
@@ -321,6 +344,9 @@ extern "C" int swa_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        S, window, scale, bq, bk, blocks, st);
       else if (hd == 128)
         rc = swa_tc::launch_bwd_dq<128>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G,
+                                        bkv, S, window, scale, bq, bk, blocks, st);
+      else if (hd == 192)
+        rc = swa_tc::launch_bwd_dq<192>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G,
                                         bkv, S, window, scale, bq, bk, blocks, st);
       else
         rc = (int)cudaErrorInvalidValue;
@@ -348,11 +374,14 @@ extern "C" int swa_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   int rc = 0;
   switch (dtype) {
     case DT_F32:
-      if (!simt_geometry(hd, bkey, bqs)) return (int)cudaErrorInvalidValue;
-      if (hd == 64)
+      if (hd == 64 && simt_geometry<64>(bkey, bqs))
         launch_dkdv<float, 64>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
-      else
+      else if (hd == 128 && simt_geometry<128>(bkey, bqs))
         launch_dkdv<float, 128>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
+      else if (hd == 192 && simt_geometry<192>(bkey, bqs))
+        launch_dkdv<float, 192>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
+      else
+        return (int)cudaErrorInvalidValue;
       break;
     case DT_BF16:
       if (hd == 64)
@@ -360,6 +389,9 @@ extern "C" int swa_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                          scale, bkey, bqs, blocks, st);
       else if (hd == 128)
         rc = swa_tc::launch_bwd_dkdv<128>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
+                                          scale, bkey, bqs, blocks, st);
+      else if (hd == 192)
+        rc = swa_tc::launch_bwd_dkdv<192>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
                                           scale, bkey, bqs, blocks, st);
       else
         rc = (int)cudaErrorInvalidValue;

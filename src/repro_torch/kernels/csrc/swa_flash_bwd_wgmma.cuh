@@ -18,10 +18,11 @@
 // dq (swa_bwd_dq_wgmma): a work item is one 128-row query tile of one query
 // head -- the forward's item and walk (kernels/swa_attention.py
 // walk_geometry, key_tiles, tile_masked, block_items). Q, dO (the item's
-// rows, double-buffered across items) and each row's lse and delta stay
+// rows, double-buffered across items; one buffer at hd 192, where two
+// would need 289 KB of shared memory) and each row's lse and delta stay
 // resident; a ring of DQ_STAGES K/V stages (BK keys: 128 at hd 64, 64 at
-// hd 128) streams through mbarriers. Two stages in each ring measured as
-// fast as three or four. Per key tile, consumer w (rows
+// hd 128 and 192) streams through mbarriers. Two stages in each ring
+// measured as fast as three or four. Per key tile, consumer w (rows
 // 64w..64w+63):
 //   S  = Q K^T    wgmma_ss m64nBK, both K-major; P = exp2(S c - lse log2e)
 //                 with c = hd^-0.5 log2e applied to the f32 score
@@ -34,7 +35,12 @@
 // edge evaluate the mask; rows past S are not stored.
 //
 // dk/dv (swa_bwd_dkdv_wgmma): a work item is one 128-key tile of one KV
-// head; consumer w owns its keys 64w..64w+63. The producer loads the item's
+// head; consumer w owns its keys 64w..64w+63. At hd 192 the dK and dV
+// accumulators of 64 keys alone are 192 registers a thread, so an item is
+// one 64-key tile and its two consumers split the work instead: consumer
+// 0 sums dV (S^T, P^T, dV += P^T dO), consumer 1 dK (S^T and dP^T again,
+// dS^T, dK += dS^T Q), each holding 96 accumulators; S^T is computed by
+// both, 7 products where one consumer would do 6. The producer loads the item's
 // K and V once (one buffer: a second, to load the next item's K and V
 // early, measured no faster), then streams a ring of KV_STAGES stages of
 // 64 query rows of Q and dO for each of the G query heads of the KV head
@@ -74,7 +80,6 @@
 
 namespace swa_tc {
 
-constexpr int BKEY = 128;   // dk/dv: keys per item, two consumer warpgroups of 64
 constexpr int BQS = 64;     // dk/dv: query rows per stage
 
 template <int HD>
@@ -87,9 +92,13 @@ struct BwdGeo {
   static constexpr int KV_HALF = BK * 128;
   static constexpr int KV_BYTES = HALVES * KV_HALF;     // one of K, V
   static constexpr int DQ_STAGES = 2;
-  static constexpr int DQ_SMEM = 2 * 2 * Q_BYTES + DQ_STAGES * 2 * KV_BYTES + 1024;
+  static constexpr int Q_BUFS = HD == 192 ? 1 : 2;      // (Q, dO) buffers
+  static constexpr int DQ_SMEM = Q_BUFS * 2 * Q_BYTES + DQ_STAGES * 2 * KV_BYTES + 1024;
   static constexpr int DQ_FRAG = HD / 2;                // dQ accumulators per thread
-  // dk/dv: resident K and V of BKEY rows, Q/dO stages of BQS rows
+  // dk/dv: resident K and V of BKEY rows, Q/dO stages of BQS rows; at hd
+  // 192 consumer 0 sums dV and consumer 1 dK of the same 64 keys
+  static constexpr bool SPLIT = HD == 192;
+  static constexpr int BKEY = SPLIT ? 64 : 128;         // keys per item
   static constexpr int K_HALF = BKEY * 128;
   static constexpr int K_BYTES = HALVES * K_HALF;       // one of K, V
   static constexpr int S_HALF = BQS * 128;
@@ -98,11 +107,12 @@ struct BwdGeo {
   static constexpr int KV_SMEM = 2 * K_BYTES + KV_STAGES * 2 * S_BYTES + 1024;
 };
 
-// The query tiles (BQS rows) that key tile k0 (its first key) visits: from
-// the one holding k0 to the one holding the last query that sees its last
-// key (kernels/swa_attention.py query_tiles).
-__device__ __forceinline__ void query_tiles(int k0, int S, int window, int& lo, int& hi) {
-  const int k_hi = min(k0 + BKEY - 1, S - 1);
+// The query tiles (BQS rows) that key tile k0 (its first key, bkey keys)
+// visits: from the one holding k0 to the one holding the last query that
+// sees its last key (kernels/swa_attention.py query_tiles).
+__device__ __forceinline__ void query_tiles(int k0, int bkey, int S, int window, int& lo,
+                                            int& hi) {
+  const int k_hi = min(k0 + bkey - 1, S - 1);
   const int q_end = window > 0 ? min(S, k_hi + window) : S;
   lo = k0 / BQS;
   hi = (q_end - 1) / BQS;
@@ -142,8 +152,8 @@ __device__ __forceinline__ void ds_of_rows(float (&s)[BK / 2], const float (&dp)
 // dk/dv: a consumer thread's keys key0 and key0 + 8 against the stage's
 // queries from q0 (entry r: key key0 + 8 ((r >> 1) & 1), query q0 + 8
 // (r >> 2) + 2 (lane mod 4) + r mod 2). rows[0] and rows[1] hold the
-// stage's lse log2e and delta; s becomes P^T and dp dS^T.
-template <bool MASK>
+// stage's lse log2e and delta; s becomes P^T and, when DS, dp dS^T.
+template <bool MASK, bool DS = true>
 __device__ __forceinline__ void p_ds_of_cols(float (&s)[32], float (&dp)[32],
                                              const float (*rows)[BQS], int key0, int q0,
                                              int lane, int S, int window, float c) {
@@ -162,7 +172,7 @@ __device__ __forceinline__ void p_ds_of_cols(float (&s)[32], float (&dp)[32],
         p = q < S && key <= q && (window <= 0 || key > q - window) ? p : 0.f;
       }
       s[r] = p;
-      dp[r] = p * (dp[r] - ((e & 1) ? d.y : d.x));
+      if (DS) dp[r] = p * (dp[r] - ((e & 1) ? d.y : d.x));
     }
   }
 }
@@ -179,6 +189,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   using Gm = BwdGeo<HD>;
   constexpr int BK = Gm::BK;
   constexpr int STAGES = Gm::DQ_STAGES;
+  constexpr int QB = Gm::Q_BUFS;
   const int items = heads * qtiles;
 
   extern __shared__ unsigned char smem_raw[];
@@ -189,7 +200,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   const uint32_t qempty0 = qfull0 + 16;
   const uint32_t full0 = qfull0 + 32;
   const uint32_t empty0 = full0 + 8 * STAGES;
-  const uint32_t kv0 = base + 4 * Gm::Q_BYTES;   // after two (Q, dO) buffers
+  const uint32_t kv0 = base + QB * 2 * Gm::Q_BYTES;   // after the (Q, dO) buffers
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -205,7 +216,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   __syncthreads();
 
   if (wg == 0) {
-    // producer: per item, its Q and dO tiles into buffer n % 2 once the
+    // producer: per item, its Q and dO tiles into buffer n % QB once the
     // consumers are done with that buffer's previous item, then the K/V
     // tiles of its band through the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -217,9 +228,9 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       const int q0 = (qtiles - 1 - i / heads) * BQ;
       const int h = i % heads;
       const int kvh = h / G;
-      const uint32_t qf = qfull0 + 8 * (n & 1);
-      const uint32_t qs = base + (n & 1) * 2 * Gm::Q_BYTES;
-      mbar_wait(qempty0 + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      const uint32_t qf = qfull0 + 8 * (n % QB);
+      const uint32_t qs = base + (n % QB) * 2 * Gm::Q_BYTES;
+      mbar_wait(qempty0 + 8 * (n % QB), ((n / QB) & 1) ^ 1);
       mbar_expect_tx(qf, 2 * Gm::Q_BYTES);
 #pragma unroll
       for (int a = 0; a < Gm::HALVES; ++a) {
@@ -257,7 +268,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     const int q0 = (qtiles - 1 - i / heads) * BQ;
     const int h = i % heads;
     const int row0 = q0 + cw * 64 + (t / 32) * 16 + lane / 4;
-    const uint32_t qa = base + (n & 1) * 2 * Gm::Q_BYTES + cw * 64 * 128;
+    const uint32_t qa = base + (n % QB) * 2 * Gm::Q_BYTES + cw * 64 * 128;
     const uint32_t da = qa + Gm::Q_BYTES;
     float l2[2], dl[2];
 #pragma unroll
@@ -271,7 +282,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     float acc[Gm::DQ_FRAG];
 #pragma unroll
     for (int r = 0; r < Gm::DQ_FRAG; ++r) acc[r] = 0.f;
-    mbar_wait(qfull0 + 8 * (n & 1), (n >> 1) & 1);
+    mbar_wait(qfull0 + 8 * (n % QB), (n / QB) & 1);
 
     for (int kt = t_lo; kt <= t_hi; ++kt, ++it) {
       const int st = it % STAGES;
@@ -312,7 +323,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         // keys 16 kk.. of K: 16 rows of 128 bytes; LBO the atom columns of
-        // hd 128, SBO the 1 KB between 8-key groups
+        // hd 128 and 192, SBO the 1 KB between 8-key groups
         const uint64_t db = desc(ks + kk * 16 * 128, Gm::KV_HALF, 1024);
         wgmma_rs<HD>(acc, dsa[kk][0], db);
         wgmma_rs<HD>(acc, dsa[kk][1], db);
@@ -324,7 +335,7 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
     }
     // every product of the item has read its (Q, dO) buffer
-    if (lane == 0) mbar_arrive(qempty0 + 8 * (n & 1));
+    if (lane == 0) mbar_arrive(qempty0 + 8 * (n % QB));
 
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -335,6 +346,133 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<float2*>(op + 8 * j) =
             make_float2(acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+// One dk/dv consumer warpgroup's walk over its block's items: the dK sum of
+// its 64 keys when DK, the dV sum when DV (both at hd 64 and 128; at hd 192
+// consumer 0 takes DV and consumer 1 DK, so each holds 96 accumulators and
+// the two never share a code path). key_off: its keys' offset within an
+// item; rows: each stage's lse log2e and delta.
+template <int HD, bool DK, bool DV>
+__device__ __forceinline__ void dkdv_consumer(uint32_t base, uint32_t st0, uint32_t kvfull,
+                                              uint32_t kvempty, uint32_t full0,
+                                              uint32_t empty0, float (*rows)[2][BQS],
+                                              float* __restrict__ dk, float* __restrict__ dv,
+                                              int S, int G, int kv_heads, int items,
+                                              int window, float scale, int key_off) {
+  using Gm = BwdGeo<HD>;
+  constexpr int STAGES = Gm::KV_STAGES;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const float c = scale * LOG2E;
+  const uint32_t ka = base + key_off * 128;
+  const uint32_t va = ka + Gm::K_BYTES;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int i = item_of(n, blockIdx.x, gridDim.x);
+    if (i >= items) break;
+    const int k0 = (i / kv_heads) * Gm::BKEY;
+    const int kvh = i % kv_heads;
+    const int kc = k0 + key_off;
+    const int key0 = kc + (t / 32) * 16 + lane / 4;
+    float dka[DK ? HD / 2 : 1], dva[DV ? HD / 2 : 1];
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r) {
+      if constexpr (DK) dka[r] = 0.f;
+      if constexpr (DV) dva[r] = 0.f;
+    }
+    int t_lo, t_hi;
+    query_tiles(k0, Gm::BKEY, S, window, t_lo, t_hi);
+    mbar_wait(kvfull, n & 1);
+
+    for (int g = 0; g < G; ++g) {
+      for (int qt = t_lo; qt <= t_hi; ++qt, ++it) {
+        const int st = it % STAGES;
+        const uint32_t qs = st0 + st * 2 * Gm::S_BYTES;
+        const uint32_t ds = qs + Gm::S_BYTES;
+        const int q0 = qt * BQS;
+        // wait even on a skipped stage: its release must follow the
+        // producer's refill, or it would count toward the previous round
+        mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
+        const int kind = stage_kind(kc, q0, S, window);
+        if (kind != 0) {
+          float s[32], dp[32];
+#pragma unroll
+          for (int r = 0; r < 32; ++r) s[r] = dp[r] = 0.f;
+          fence_operands(s);
+          if constexpr (DK) fence_operands(dp);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t koff = (kk / 4) * Gm::K_HALF + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * Gm::S_HALF + (kk % 4) * 32;
+            wgmma_ss<64>(s, desc(ka + koff, 16, 1024), desc(qs + qoff, 16, 1024), 1);
+            if constexpr (DK)
+              wgmma_ss<64>(dp, desc(va + koff, 16, 1024), desc(ds + qoff, 16, 1024), 1);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_operands(s);
+          if constexpr (DK) fence_operands(dp);
+
+          if (kind == 2)
+            p_ds_of_cols<false, DK>(s, dp, rows[st], key0, q0, lane, S, window, c);
+          else
+            p_ds_of_cols<true, DK>(s, dp, rows[st], key0, q0, lane, S, window, c);
+          uint32_t pa[4][2][4], sa[4][2][4];
+          if constexpr (DV) {
+            split_p<64>(s, pa);
+            fence_split(pa);
+            fence_operands(dva);
+          }
+          if constexpr (DK) {
+            split_p<64>(dp, sa);
+            fence_split(sa);
+            fence_operands(dka);
+          }
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            // queries 16 kk.. of dO and Q: MN-major, LBO the atom columns
+            // of hd 128 and 192, SBO the 1 KB between 8-query groups
+            if constexpr (DV) {
+              const uint64_t dbo = desc(ds + kk * 16 * 128, Gm::S_HALF, 1024);
+              wgmma_rs<HD>(dva, pa[kk][0], dbo);
+              wgmma_rs<HD>(dva, pa[kk][1], dbo);
+            }
+            if constexpr (DK) {
+              const uint64_t dbq = desc(qs + kk * 16 * 128, Gm::S_HALF, 1024);
+              wgmma_rs<HD>(dka, sa[kk][0], dbq);
+              wgmma_rs<HD>(dka, sa[kk][1], dbq);
+            }
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          if constexpr (DV) fence_operands(dva);
+          if constexpr (DK) fence_operands(dka);
+        }
+        if (lane == 0) mbar_arrive(empty0 + 8 * st);
+      }
+    }
+    // every product of the item has read its K and V
+    if (lane == 0) mbar_arrive(kvempty);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 8 * hh;
+      if (key >= S) continue;
+      const size_t off = ((size_t)kvh * S + key) * HD + (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if constexpr (DK)
+          *reinterpret_cast<float2*>(dk + off + 8 * j) =
+              make_float2(dka[4 * j + 2 * hh] * scale, dka[4 * j + 2 * hh + 1] * scale);
+        if constexpr (DV)
+          *reinterpret_cast<float2*>(dv + off + 8 * j) =
+              make_float2(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+      }
     }
   }
 }
@@ -388,7 +526,7 @@ swa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_consta
     for (int n = 0;; ++n) {
       const int i = item_of(n, blockIdx.x, gridDim.x);
       if (i >= items) break;
-      const int k0 = (i / kv_heads) * BKEY;
+      const int k0 = (i / kv_heads) * Gm::BKEY;
       const int kvh = i % kv_heads;
       if (pw == 0) {
         mbar_wait(kvempty, (n & 1) ^ 1);
@@ -400,7 +538,7 @@ swa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         }
       }
       int t_lo, t_hi;
-      query_tiles(k0, S, window, t_lo, t_hi);
+      query_tiles(k0, Gm::BKEY, S, window, t_lo, t_hi);
       for (int g = 0; g < G; ++g) {
         const int hq = kvh * G + g;
         for (int qt = t_lo; qt <= t_hi; ++qt, ++it) {
@@ -432,104 +570,20 @@ swa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_consta
   }
 
   // consumers: warpgroup wg - 1 owns keys 64 (wg - 1) .. + 63 of each item
+  // and sums both dK and dV; at hd 192 both own the item's 64 keys, the
+  // first summing dV and the second dK
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int cw = wg - 1;
-  const int t = threadIdx.x % 128;
-  const int lane = t % 32;
-  const float c = scale * LOG2E;
-  int it = 0;
-  for (int n = 0;; ++n) {
-    const int i = item_of(n, blockIdx.x, gridDim.x);
-    if (i >= items) break;
-    const int k0 = (i / kv_heads) * BKEY;
-    const int kvh = i % kv_heads;
-    const int kc = k0 + cw * 64;
-    const int key0 = kc + (t / 32) * 16 + lane / 4;
-    const uint32_t ka = base + cw * 64 * 128;
-    const uint32_t va = ka + Gm::K_BYTES;
-    float dka[HD / 2], dva[HD / 2];
-#pragma unroll
-    for (int r = 0; r < HD / 2; ++r) dka[r] = dva[r] = 0.f;
-    int t_lo, t_hi;
-    query_tiles(k0, S, window, t_lo, t_hi);
-    mbar_wait(kvfull, n & 1);
-
-    for (int g = 0; g < G; ++g) {
-      for (int qt = t_lo; qt <= t_hi; ++qt, ++it) {
-        const int st = it % STAGES;
-        const uint32_t qs = st0 + st * 2 * Gm::S_BYTES;
-        const uint32_t ds = qs + Gm::S_BYTES;
-        const int q0 = qt * BQS;
-        // wait even on a skipped stage: its release must follow the
-        // producer's refill, or it would count toward the previous round
-        mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
-        const int kind = stage_kind(kc, q0, S, window);
-        if (kind != 0) {
-          float s[32], dp[32];
-#pragma unroll
-          for (int r = 0; r < 32; ++r) s[r] = dp[r] = 0.f;
-          fence_operands(s);
-          fence_operands(dp);
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) {
-            const uint32_t koff = (kk / 4) * Gm::K_HALF + (kk % 4) * 32;
-            const uint32_t qoff = (kk / 4) * Gm::S_HALF + (kk % 4) * 32;
-            wgmma_ss<64>(s, desc(ka + koff, 16, 1024), desc(qs + qoff, 16, 1024), 1);
-            wgmma_ss<64>(dp, desc(va + koff, 16, 1024), desc(ds + qoff, 16, 1024), 1);
-          }
-          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-          fence_operands(s);
-          fence_operands(dp);
-
-          if (kind == 2)
-            p_ds_of_cols<false>(s, dp, rows[st], key0, q0, lane, S, window, c);
-          else
-            p_ds_of_cols<true>(s, dp, rows[st], key0, q0, lane, S, window, c);
-          uint32_t pa[4][2][4], sa[4][2][4];
-          split_p<64>(s, pa);
-          split_p<64>(dp, sa);
-          fence_split(pa);
-          fence_split(sa);
-          fence_operands(dva);
-          fence_operands(dka);
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            // queries 16 kk.. of dO and Q: MN-major, LBO the atom columns
-            // of hd 128, SBO the 1 KB between 8-query groups
-            const uint64_t dbo = desc(ds + kk * 16 * 128, Gm::S_HALF, 1024);
-            const uint64_t dbq = desc(qs + kk * 16 * 128, Gm::S_HALF, 1024);
-            wgmma_rs<HD>(dva, pa[kk][0], dbo);
-            wgmma_rs<HD>(dva, pa[kk][1], dbo);
-            wgmma_rs<HD>(dka, sa[kk][0], dbq);
-            wgmma_rs<HD>(dka, sa[kk][1], dbq);
-          }
-          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-          fence_operands(dva);
-          fence_operands(dka);
-        }
-        if (lane == 0) mbar_arrive(empty0 + 8 * st);
-      }
-    }
-    // every product of the item has read its K and V
-    if (lane == 0) mbar_arrive(kvempty);
-
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = key0 + 8 * hh;
-      if (key >= S) continue;
-      const size_t off = ((size_t)kvh * S + key) * HD + (lane & 3) * 2;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<float2*>(dk + off + 8 * j) =
-            make_float2(dka[4 * j + 2 * hh] * scale, dka[4 * j + 2 * hh + 1] * scale);
-        *reinterpret_cast<float2*>(dv + off + 8 * j) =
-            make_float2(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
-      }
-    }
+  if constexpr (Gm::SPLIT) {
+    if (cw == 0)
+      dkdv_consumer<HD, false, true>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S,
+                                     G, kv_heads, items, window, scale, 0);
+    else
+      dkdv_consumer<HD, true, false>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S,
+                                     G, kv_heads, items, window, scale, 0);
+  } else {
+    dkdv_consumer<HD, true, true>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S, G,
+                                  kv_heads, items, window, scale, cw * 64);
   }
 }
 
@@ -582,12 +636,12 @@ int launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dou
                     int kv_heads, int S, int window, float scale, int bkey, int bqs, int blocks,
                     cudaStream_t st) {
   using Gm = BwdGeo<HD>;
-  const long long ktiles = (S + BKEY - 1) / BKEY;
-  if (bkey != BKEY || bqs != BQS || heads % kv_heads || blocks < 1 ||
+  const long long ktiles = (S + Gm::BKEY - 1) / Gm::BKEY;
+  if (bkey != Gm::BKEY || bqs != BQS || heads % kv_heads || blocks < 1 ||
       blocks > ktiles * kv_heads || ktiles * kv_heads > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  int rc = bwd_maps(maps, q, k, v, dout, HD, S, heads, kv_heads, BQS, BKEY);
+  int rc = bwd_maps(maps, q, k, v, dout, HD, S, heads, kv_heads, BQS, Gm::BKEY);
   if (rc) return rc;
   auto kernel = swa_bwd_dkdv_wgmma<HD>;
   const cudaError_t e =

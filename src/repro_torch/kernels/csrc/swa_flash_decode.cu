@@ -62,7 +62,8 @@ constexpr int MAX_SPLITS = 64;   // kernels/swa_attention.py DECODE_MAX_SPLITS
 
 template <int HD>
 struct Tile {
-  static constexpr int T = 4096 / HD;    // slots per tile
+  static constexpr int T = 4096 / HD;    // slots per tile (21 at hd 192: the
+                                         // walk takes any count)
   static constexpr int LD = HD + 4;      // f32 row in shared memory: 16-byte rows,
                                          // float4 reads of 8 rows hit 32 banks
 };
@@ -392,6 +393,7 @@ template <typename TQ, typename TK>
 int launch_hd(const Launch& a, int hd) {
   if (hd == 64) return launch<TQ, TK, 64>(a);
   if (hd == 128) return launch<TQ, TK, 128>(a);
+  if (hd == 192) return launch<TQ, TK, 192>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -424,7 +426,7 @@ extern "C" int swa_flash_decode(const void* q, const void* k, const void* v,
                                 long long s_c, long long sc_b, long long sc_h, long long sc_c,
                                 void* stream) {
   if (G < 1 || G > MAX_G || kvh < 1 || N < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if (hd != 64 && hd != 128 && hd != 192) return (int)cudaErrorInvalidValue;
   const int T = 4096 / hd;
   if (splits < 1 || splits > MAX_SPLITS || per < T || per % T ||
       (long long)(splits - 1) * per >= C || (long long)splits * per < C)

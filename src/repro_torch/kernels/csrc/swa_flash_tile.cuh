@@ -5,14 +5,16 @@
 // swa_flash.cu ((BH, S, hd) layout, output only) each wrap it in their own
 // kernel, which points it at the head's rows.
 //
-// One block of 128 threads per 64-row query tile (blockIdx.x) of one head.
-// Two threads share a query row, each owning half of the head dim in
-// registers (interleaved float4 groups, so the pair reads K/V rows from
-// shared memory without bank conflicts); a score is their two partial dot
-// products joined by one shuffle. The block walks only the 32-key tiles
-// that intersect the causal/window band of its query tile, staging each
-// K/V tile in shared memory as f32, with the online softmax (m, d, acc) in
-// f32 registers. Key j is visible to query i iff i - window < j <= i
+// One block of 128 threads per query tile (blockIdx.x) of one head: 64
+// rows at hd 64 and 128, 32 at hd 192 (Geo<HD>). TPR threads share a query
+// row (2, or 4 at hd 192), each owning HD / TPR of its dims in registers
+// (interleaved float4 groups, so the threads of a row read K/V rows from
+// shared memory without bank conflicts); a score is their partial dot
+// products joined by shuffles. The block walks only the key tiles (32
+// keys, 16 at hd 192, where two 32-row f32 tiles would fill the whole 48 KB
+// of static shared memory) that intersect the causal/window band of its
+// query tile, staging each K/V tile in shared memory as f32, with the
+// online softmax (m, d, acc) in f32 registers. Key j is visible to query i iff i - window < j <= i
 // (window 0: causal); the ragged edge (k_pos < S, q_pos < S) is masked
 // here, so the wrappers pad nothing.
 #pragma once
@@ -21,9 +23,21 @@
 
 namespace swa_tile {
 
-constexpr int BQ = 64;
-constexpr int BK = 32;
 constexpr int NTHREADS = 128;
+
+template <int HD>
+struct Geo {
+  static_assert(HD == 64 || HD == 128 || HD == 192, "head dims 64, 128, 192");
+  static constexpr int TPR = HD == 192 ? 4 : 2;   // threads a query row
+  static constexpr int BQ = NTHREADS / TPR;       // query rows a block
+  static constexpr int BK = HD == 192 ? 16 : 32;  // keys a shared-memory tile
+};
+
+// (bq, bk) is the walk's own (kernels/swa_attention.py walk_geometry)
+template <int HD>
+inline bool geometry(int bq, int bk) {
+  return bq == Geo<HD>::BQ && bk == Geo<HD>::BK;
+}
 
 // q, out: the head's S rows of HD; k, v: the S key/value rows it attends;
 // lse: the head's S entries (written only when LSE).
@@ -32,16 +46,20 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
                                         const T* __restrict__ v, T* __restrict__ out,
                                         float* __restrict__ lse, int S, int window,
                                         float scale) {
-  constexpr int HALF = HD / 2;
-  constexpr int NG = HD / 8;  // float4 groups each thread owns
+  constexpr int TPR = Geo<HD>::TPR;
+  constexpr int BQ = Geo<HD>::BQ;
+  constexpr int BK = Geo<HD>::BK;
+  constexpr int HALF = HD / TPR;             // dims each thread owns
+  constexpr int NG = HALF / 4;               // its float4 groups: TPR i + h
   constexpr int LOADS = BK * HD / NTHREADS;  // elements of a tile per thread
   constexpr int LCH = 8;                     // loads in flight per thread
+  static_assert(LOADS % LCH == 0, "tile loads must batch evenly");
   __shared__ __align__(16) float ks[BK][HD];
   __shared__ __align__(16) float vs[BK][HD];
 
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int h = tid & 1;
+  const int row = tid / TPR;
+  const int h = tid % TPR;
   const int q0 = blockIdx.x * BQ;
   const int qpos = q0 + row;
 
@@ -52,7 +70,7 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
 #pragma unroll
     for (int i = 0; i < NG; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) qr[4 * i + c] = to_f32(qp[8 * i + 4 * h + c]) * scale;
+      for (int c = 0; c < 4; ++c) qr[4 * i + c] = to_f32(qp[4 * (TPR * i + h) + c]) * scale;
   } else {
 #pragma unroll
     for (int c = 0; c < HALF; ++c) qr[c] = 0.f;
@@ -100,11 +118,13 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < NG; ++i) {
-        const float4 kk = kr[2 * i + h];
+        const float4 kk = kr[TPR * i + h];
         part += qr[4 * i] * kk.x + qr[4 * i + 1] * kk.y + qr[4 * i + 2] * kk.z +
                 qr[4 * i + 3] * kk.w;
       }
-      const float sc = part + __shfl_xor_sync(0xffffffffu, part, 1);
+      float sc = part;
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
       const int kp = kt + j;
       const bool vis = kp <= qpos && kp < S && (window <= 0 || kp > qpos - window);
       s[j] = vis ? sc : REPRO_NEG_INF;
@@ -128,7 +148,7 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
 #pragma unroll
       for (int i = 0; i < NG; ++i) {
-        const float4 vv = vr[2 * i + h];
+        const float4 vv = vr[TPR * i + h];
         acc[4 * i] += p * vv.x;
         acc[4 * i + 1] += p * vv.y;
         acc[4 * i + 2] += p * vv.z;
@@ -145,7 +165,7 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
 #pragma unroll
     for (int i = 0; i < NG; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) op[8 * i + 4 * h + c] = from_f32<T>(acc[4 * i + c] * inv);
+      for (int c = 0; c < 4; ++c) op[4 * (TPR * i + h) + c] = from_f32<T>(acc[4 * i + c] * inv);
     if constexpr (LSE) {
       if (h == 0) lse[qpos] = m + logf(den);
     }

@@ -11,9 +11,10 @@
 // the item's tile. The blocks are persistent, one per SM: the producer
 // loads an item's Q tile into one of two buffers (the next item's Q comes
 // in while the consumers finish the current one), then keeps a ring of
-// STAGES K/V tiles in flight through mbarriers (BK keys a tile: 128 at hd
-// 64, 64 at hd 128, so a stage is 32 KB either way), running on from one
-// item into the next. Each consumer warp releases a stage once its products
+// Geo<hd>::ST K/V tiles in flight through mbarriers (BK keys a tile: 128
+// at hd 64, 64 at hd 128 and 192, so a stage is 32 KB at hd 64 and 128,
+// three of them, and 48 KB at hd 192, two of them: three would need 241 KB
+// of the 227 KB a block may have), running on from one item into the next. Each consumer warp releases a stage once its products
 // of that tile are done, and a Q buffer once its item's products are, so
 // no block-wide barrier runs in the loop. The tensor maps are 3-D (hd, S,
 // heads), so rows past S arrive as zeros rather than the next head's rows;
@@ -42,7 +43,8 @@
 //
 // Registers: the producer warpgroup drops to 40 a thread (setmaxnreg) and
 // the consumers rise to 232, so ptxas keeps the scores, the split P and the
-// output accumulators of a 128-key tile in registers with no spill.
+// output accumulators of a 128-key tile in registers with no spill (at hd
+// 192: 96 output accumulators, 32 scores and 32 words of split P).
 //
 // What bounds it: at hd 64 the softmax's f32 instructions (about ten per
 // score) and the tensor cores' work (three products of 2 * 64 * hd
@@ -69,7 +71,6 @@ using namespace hopper;
 
 constexpr int BQ = 128;      // query rows per block: two consumer warpgroups of 64
 constexpr int NT = 384;      // producer warpgroup + two consumer warpgroups
-constexpr int STAGES = 3;    // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x in one MUFU instruction (relative error ~2^-22; results below 2^-126
@@ -82,14 +83,16 @@ __device__ __forceinline__ float exp2_(float x) {
 
 template <int HD>
 struct Geo {
+  static_assert(HD == 64 || HD == 128 || HD == 192, "head dims 64, 128, 192");
   static constexpr int BK = HD == 64 ? 128 : 64;   // keys per tile
+  static constexpr int ST = HD == 192 ? 2 : 3;      // K/V ring depth
   static constexpr int HALVES = HD / 64;            // 64-column (128-byte) atoms of a row
   static constexpr int Q_HALF = BQ * 128;           // one atom column of the Q tile
   static constexpr int KV_HALF = BK * 128;          // of a K or V tile
   static constexpr int Q_BYTES = HALVES * Q_HALF;
   static constexpr int KV_BYTES = HALVES * KV_HALF;
   static constexpr int STAGE = 2 * KV_BYTES;        // K then V
-  static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE + 1024;   // + room to align to 1 KB
+  static constexpr int SMEM = 2 * Q_BYTES + ST * STAGE + 1024;   // + room to align to 1 KB
   static constexpr int SFRAG = BK / 2;   // score accumulators per consumer thread (m64nBK)
   static constexpr int OFRAG = HD / 2;   // output accumulators (m64nHD)
 };
@@ -115,6 +118,7 @@ __device__ __forceinline__ bool interior(int q0, int k0, int window, int bk) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define SWA_D32 SWA_D8(0), SWA_D8(8), SWA_D8(16), SWA_D8(24)
 #define SWA_D64 SWA_D32, SWA_D8(32), SWA_D8(40), SWA_D8(48), SWA_D8(56)
+#define SWA_D96 SWA_D64, SWA_D8(64), SWA_D8(72), SWA_D8(80), SWA_D8(88)
 #define SWA_R32                                                                        \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -122,6 +126,10 @@ __device__ __forceinline__ bool interior(int q0, int k0, int window, int bk) {
   SWA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "   \
           "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "  \
           "%61, %62, %63"
+#define SWA_R96                                                                        \
+  SWA_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
+          "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "  \
+          "%93, %94, %95"
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory;
 // acc 0 overwrites d
@@ -173,11 +181,23 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" SWA_R96
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : SWA_D96
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef SWA_D8
 #undef SWA_D32
 #undef SWA_D64
+#undef SWA_D96
 #undef SWA_R32
 #undef SWA_R64
+#undef SWA_R96
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -288,6 +308,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
                float scale) {
   using Gm = Geo<HD>;
   constexpr int BK = Gm::BK;
+  constexpr int STAGES = Gm::ST;
   const int items = heads * qtiles;
 
   extern __shared__ unsigned char smem_raw[];
@@ -414,7 +435,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         // keys 16 kk.. of V: 16 rows of 128 bytes; LBO the atom columns of
-        // hd 128, SBO the 1 KB between 8-key groups
+        // hd 128 and 192, SBO the 1 KB between 8-key groups
         const uint64_t db = desc(vs + kk * 16 * 128, Gm::KV_HALF, 1024);
         wgmma_rs<HD>(o, pa[kk][0], db);
         wgmma_rs<HD>(o, pa[kk][1], db);
@@ -485,7 +506,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   return 0;
 }
 
-// hd 64 or 128
+// hd 64, 128 or 192
 template <bool LSE>
 int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int heads,
               int kv_heads, int S, int hd, int window, float scale, int bq, int bk, int blocks,
@@ -495,6 +516,9 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse
                            st);
   if (hd == 128)
     return launch<128, LSE>(q, k, v, out, lse, heads, kv_heads, S, window, scale, bq, bk, blocks,
+                            st);
+  if (hd == 192)
+    return launch<192, LSE>(q, k, v, out, lse, heads, kv_heads, S, window, scale, bq, bk, blocks,
                             st);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@
   serving path's prefill shapes.
 * Both run bf16 on the tensor cores (``csrc/swa_flash_wgmma.cuh``:
   persistent blocks taking 128-row query tiles, ``wgmma`` fed by TMA) and
-  f32 on the CUDA cores (``csrc/swa_flash_tile.cuh``). :func:`walk_geometry`,
+  f32 on the CUDA cores (``csrc/swa_flash_tile.cuh``), at head dim 64, 128
+  or 192 (every kernel here; another head dim raises). :func:`walk_geometry`,
   :func:`key_tiles`, :func:`tile_masked`, :func:`walk_blocks` and
   :func:`block_items` mirror the walk; the launch passes its geometry to
   the kernel, which refuses any other.
@@ -29,9 +30,10 @@
   operations at the training path's shapes. bf16 runs both on the tensor
   cores (``csrc/swa_flash_bwd_wgmma.cuh``: persistent blocks, ``wgmma`` fed
   by TMA, P and dS each split in two bf16 terms): dq walks the forward's
-  items (:func:`dq_geometry`), dk/dv takes 128-key items and streams
-  64-query stages (:func:`dkdv_geometry`, :func:`query_tiles`,
-  :func:`stage_kind`). f32 keeps the CUDA-core bodies.
+  items (:func:`dq_geometry`), dk/dv takes 128-key items (64 at hd 192,
+  :func:`tc_bkey`) and streams 64-query stages (:func:`dkdv_geometry`,
+  :func:`query_tiles`, :func:`stage_kind`). f32 keeps the CUDA-core
+  bodies.
 
 Each wrapper takes CUDA tensors only (the plain versions for the CPU are in
 :mod:`repro_torch.kernels.ref`, chosen by :mod:`repro_torch.kernels
@@ -54,10 +56,12 @@ from repro_torch.kernels.common import (counters, on_card, require,
 LAUNCHES: dict[str, int] = {"swa_flash": 0, "swa_flash_fwd": 0,
                             "swa_flash_decode": 0, "swa_flash_bwd_dq": 0,
                             "swa_flash_bwd_dkdv": 0}
+# (kernel name, head dim) -> the same launches, by the head dim they ran at
+LAUNCHES_HD: dict[tuple[str, int], int] = {}
 
 _FWD_DTYPES = (torch.float32, torch.bfloat16)
 _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192)
 MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
 MAX_HEADS = 65535   # csrc/swa_flash.cu MAX_GRID_Y
 # the decode's split-K (csrc/swa_flash_decode.cu MAX_SPLITS): blocks an SM
@@ -67,9 +71,10 @@ DECODE_MAX_SPLITS = 64
 
 # the forward walks' query rows per block and keys per tile: bf16 on the
 # tensor cores (csrc/swa_flash_wgmma.cuh BQ and Geo<hd>::BK), f32 on the
-# CUDA cores (csrc/swa_flash_tile.cuh BQ, BK)
-TC_BQ, TC_BK = 128, {64: 128, 128: 64}
-SIMT_BQ, SIMT_BK = 64, 32
+# CUDA cores (csrc/swa_flash_tile.cuh Geo<hd>::BQ, BK: 2 threads a row, 4
+# at hd 192, and 16-key tiles there to stay in 48 KB of shared memory)
+TC_BQ, TC_BK = 128, {64: 128, 128: 64, 192: 64}
+SIMT_BQ, SIMT_BK = {64: 64, 128: 64, 192: 32}, {64: 32, 128: 32, 192: 16}
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +87,8 @@ def walk_geometry(s: int, hd: int, dtype: torch.dtype
     if dtype == torch.bfloat16:
         bq, bk = TC_BQ, TC_BK[hd]
         return bq, bk, tuple(reversed(range(-(-s // bq))))
-    return SIMT_BQ, SIMT_BK, tuple(range(-(-s // SIMT_BQ)))
+    bq = SIMT_BQ[hd]
+    return bq, SIMT_BK[hd], tuple(range(-(-s // bq)))
 
 
 def key_tiles(qt: int, s: int, window: int, bq: int, bk: int
@@ -106,11 +112,20 @@ def tile_masked(qt: int, kt: int, window: int, bq: int, bk: int) -> bool:
 
 # the backward's tiles. bf16: dq the forward walk's; dk/dv items of
 # TC_BKEY keys (two consumer warpgroups of 64) streaming stages of TC_BQS
-# query rows (csrc/swa_flash_bwd_wgmma.cuh BKEY, BQS). f32 on the CUDA
-# cores: 128 / (hd / 32) rows (dq) or keys (dk/dv) a block, 32-row tiles
-# (csrc/swa_flash_bwd.cu NTHREADS, BKT, BQT).
+# query rows (csrc/swa_flash_bwd_wgmma.cuh BwdGeo<hd>::BKEY, BQS); at hd
+# 192 an item is TC_BKEY_SPLIT keys, one warpgroup summing their dV and
+# the other their dK. f32 on the CUDA cores: 128 / TPR rows (dq) or keys
+# (dk/dv) a block, TPR = hd / 32 threads a row (8 at hd 192), 32-row tiles
+# (16 at hd 192) (csrc/swa_flash_bwd.cu Simt<hd>).
 TC_BKEY, TC_BQS = 128, 64
-SIMT_BWD_TILE = 32
+TC_BKEY_SPLIT = 64
+SIMT_BWD_ROWS = {64: 64, 128: 32, 192: 16}
+SIMT_BWD_TILE = {64: 32, 128: 32, 192: 16}
+
+
+def tc_bkey(hd: int) -> int:
+    """Keys per item of the bf16 dk/dv launch at head dim ``hd``."""
+    return TC_BKEY_SPLIT if hd == 192 else TC_BKEY
 
 
 def dq_geometry(s: int, hd: int, dtype: torch.dtype
@@ -120,8 +135,8 @@ def dq_geometry(s: int, hd: int, dtype: torch.dtype
     (:func:`walk_geometry`), f32 its own blocks in order."""
     if dtype == torch.bfloat16:
         return walk_geometry(s, hd, dtype)
-    bq = 128 // (hd // 32)
-    return bq, SIMT_BWD_TILE, tuple(range(-(-s // bq)))
+    bq = SIMT_BWD_ROWS[hd]
+    return bq, SIMT_BWD_TILE[hd], tuple(range(-(-s // bq)))
 
 
 def dkdv_geometry(s: int, hd: int, dtype: torch.dtype
@@ -130,9 +145,10 @@ def dkdv_geometry(s: int, hd: int, dtype: torch.dtype
     one dk/dv launch. Under causal attention key tile 0 sees every query
     tile, so the bf16 launch takes key tiles in order: longest first."""
     if dtype == torch.bfloat16:
-        return TC_BKEY, TC_BQS, tuple(range(-(-s // TC_BKEY)))
-    bkey = 128 // (hd // 32)
-    return bkey, SIMT_BWD_TILE, tuple(range(-(-s // bkey)))
+        bkey = tc_bkey(hd)
+        return bkey, TC_BQS, tuple(range(-(-s // bkey)))
+    bkey = SIMT_BWD_ROWS[hd]
+    return bkey, SIMT_BWD_TILE[hd], tuple(range(-(-s // bkey)))
 
 
 def query_tiles(kt: int, s: int, window: int, bkey: int, bqs: int
@@ -220,6 +236,12 @@ def _check_aligned(name: str, *ts: torch.Tensor) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_HD.clear()
+
+
+def _count(name: str, hd: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_HD[name, hd] = LAUNCHES_HD.get((name, hd), 0) + 1
 
 
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:
@@ -257,7 +279,7 @@ def swa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
                            stream(q))
     build.check(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, hd)
     return out
 
 
@@ -293,7 +315,7 @@ def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                build.DTYPE_CODES[q.dtype], hd ** -0.5,
                                stream(q))
     build.check(rc, "swa_flash_fwd")
-    LAUNCHES["swa_flash_fwd"] += 1
+    _count("swa_flash_fwd", hd)
     return out, lse
 
 
@@ -383,7 +405,7 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             per, hd ** -0.5, kvh, s_b, s_h, s_c, sc[1], sc[2], sc[3],
             stream(q))
     build.check(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, hd)
     return out
 
 
@@ -438,7 +460,7 @@ def swa_flash_bwd_dq(q, k, v, lse, delta, do, *, window: int = 0):
             *head, dq.data_ptr(), bkv, g, s, hd, int(window), bq, bk, blocks,
             build.DTYPE_CODES[q.dtype], hd ** -0.5, stream(q))
     build.check(rc, "swa_flash_bwd_dq")
-    LAUNCHES["swa_flash_bwd_dq"] += 1
+    _count("swa_flash_bwd_dq", hd)
     return dq
 
 
@@ -459,5 +481,5 @@ def swa_flash_bwd_dkdv(q, k, v, lse, delta, do, *, window: int = 0):
             bkey, bqs, blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
             stream(q))
     build.check(rc, "swa_flash_bwd_dkdv")
-    LAUNCHES["swa_flash_bwd_dkdv"] += 1
+    _count("swa_flash_bwd_dkdv", hd)
     return dk, dv

@@ -15,6 +15,7 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --arch llama3_2_1b --steps 4 \\
         --batch 4 --seq 1024 --full-config          # on the card
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
+    python -m repro_torch.launch.train --device cpu --arch qwen1_5_4b
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
     python -m repro_torch.launch.train --full-config --refresh-chunks 4
@@ -617,12 +618,37 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _refuse_arch(ap, arch: str) -> None:
+    """Stop before anything is built when the loop cannot feed ``arch``:
+    it draws token batches only (``data.synthetic.token_batches``, as
+    ``repro``'s CLI does), so a vision-frontend config, whose batches need
+    ``pixel_embeds``, and the ConvNet, which has its own trainer, are
+    refused with the reason."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+    cfg = get_config(arch)
+    if not isinstance(cfg, ArchConfig):
+        ap.error(f"--arch {arch}: the ConvNet trains through "
+                 f"repro_torch.launch.train_convnet")
+    if cfg.frontend == "vision":
+        ap.error(f"--arch {arch}: its batches need pixel_embeds (the "
+                 f"vision frontend's {cfg.frontend_tokens} patch embeddings "
+                 f"of dim {cfg.frontend_dim}), and this trainer feeds token "
+                 f"batches only (data.synthetic.token_batches, as repro's "
+                 f"CLI does); drive DecoderLM.loss with a batch that "
+                 f"carries pixel_embeds instead")
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(
         description="SP-NGD trainer of repro_torch: on the card unless "
                     "--device cpu (reduced configs unless --full-config)")
-    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--arch", default="llama3_2_1b",
+                    help="a registered text decoder: llama3_2_1b, "
+                         "llama3_2_3b, qwen1_5_4b, musicgen_medium, "
+                         "nemotron_4_340b (llava_next_34b is refused: its "
+                         "batches need pixel_embeds)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -725,6 +751,7 @@ def main(argv=None):
                          "metrics-enabled runs emit for make_report.py's "
                          "overhead-accounting table")
     args = ap.parse_args(argv)
+    _refuse_arch(ap, args.arch)
 
     from repro_torch.models.transformer import resolve_device
     from repro_torch.obs import MetricsLogger, ProfileCapture

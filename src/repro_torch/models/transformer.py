@@ -16,8 +16,12 @@ parameter tree of ``params()`` is the JAX package's, with ``blocks`` a list
 of the L per-layer dicts instead of leaves stacked on a leading axis;
 factor-statistic families keep the stacked ``(L, ...)`` layout. With
 ``cfg.remat`` each block is recomputed in the backward
-(``torch.utils.checkpoint``, non-reentrant). Other block types and the
-legacy ``serve=None`` decode arrive with later slices.
+(``torch.utils.checkpoint``, non-reentrant). With ``cfg.frontend ==
+"vision"`` (the VLM backbone) a ``proj`` site maps the batch's precomputed
+patch embeddings ``pixel_embeds`` (B, frontend_tokens, frontend_dim) to
+``d_model`` and their rows go before the text's; the loss and the logits
+it returns cover the text rows only. Other block types and the legacy
+``serve=None`` decode arrive with later slices.
 """
 
 from __future__ import annotations
@@ -100,6 +104,8 @@ class DecoderLM(nn.Module):
         self.embed = _param_tree({"table": empty(cfg.vocab, d)})
         self.final_norm = _param_tree({"gamma": ones(d)})
         self.head = _param_tree({"w": empty(d, cfg.vocab)})
+        if cfg.frontend == "vision":
+            self.proj = _param_tree({"w": empty(cfg.frontend_dim, d)})
         blocks = []
         for _ in range(cfg.n_layers):
             attn = {"wq": empty(d, h * hd), "wk": empty(d, kv * hd),
@@ -126,8 +132,9 @@ class DecoderLM(nn.Module):
     def init(self, generator: torch.Generator) -> "DecoderLM":
         """Random weights with the JAX package's distributions
         (``transformer.py:141-202``): embedding N(0, 0.02), HeNormal dense
-        weights, unit norm scales, zero biases. Deterministic in the
-        generator's seed (its bits cannot match ``jax.random``)."""
+        weights (the vision projector's too), unit norm scales, zero
+        biases. Deterministic in the generator's seed (its bits cannot
+        match ``jax.random``)."""
         cfg = self.cfg
         g = _device_generator(generator, self.device)
         dev = self.device
@@ -137,6 +144,9 @@ class DecoderLM(nn.Module):
         del table
         self.head["w"].copy_(he_normal(g, (cfg.d_model, cfg.vocab), cfg.dtype,
                                        device=dev))
+        if cfg.frontend == "vision":
+            self.proj["w"].copy_(he_normal(g, (cfg.frontend_dim, cfg.d_model),
+                                           cfg.dtype, device=dev))
         for blk in self.blocks:
             a = blk["attn"]
             for name in ("wq", "wk", "wv", "wo"):
@@ -276,13 +286,25 @@ class DecoderLM(nn.Module):
                        gated=cfg.gated_mlp, spec=self.spec)
 
     def _embed_inputs(self, batch, params=None, fs=None):
-        """Text-only: returns (h (B, S, d), positions (S,), n_front=0)."""
-        table = (params or {"embed": self.embed})["embed"]["table"]
+        """Returns (h (B, S_total, d), positions (S_total,), n_front): the
+        text's embedded tokens, after the projected ``pixel_embeds`` rows
+        (n_front of them) under the vision frontend."""
+        cfg = self.cfg
+        params = params or {"embed": self.embed,
+                            "proj": getattr(self, "proj", None)}
         tok = batch["tokens"].to(self.device, torch.long)
-        h = tagging.embed_site(tok, table,
+        h = tagging.embed_site(tok, params["embed"]["table"],
                                fs.get("embed") if fs else None,
                                self.embed_spec)
-        return h, torch.arange(h.shape[1], device=self.device), 0
+        n_front = 0
+        if cfg.frontend == "vision":
+            pe = batch["pixel_embeds"].to(self.device, cfg.dtype)
+            img = tagging.dense_site(pe, params["proj"]["w"],
+                                     fs.get("proj") if fs else None,
+                                     self.spec)
+            h = torch.cat([img, h], dim=1)
+            n_front = pe.shape[1]
+        return h, torch.arange(h.shape[1], device=self.device), n_front
 
     def _head(self, h, params=None, fs=None):
         params = params or {"final_norm": self.final_norm, "head": self.head}
@@ -293,7 +315,9 @@ class DecoderLM(nn.Module):
 
     def forward(self, batch: dict, fstats: dict | None = None,
                 params: dict | None = None):
-        """batch {"tokens": (B, S)} -> (logits (B, S, V), aux). With
+        """batch {"tokens": (B, S)} (+ "pixel_embeds" (B, Tf, frontend_dim)
+        under the vision frontend) -> (logits (B, Tf + S, V), aux), aux's
+        "n_front" the Tf image rows before the text. With
         ``fstats`` (the accumulators of :meth:`fstats`) every site is tagged;
         ``params`` defaults to the model's own tree (:meth:`params`)."""
         params = params if params is not None else self.params()
@@ -337,14 +361,18 @@ class DecoderLM(nn.Module):
 
     def params(self) -> dict:
         """The parameter tree: plain dicts of the model's own tensors, with
-        ``blocks`` the list of per-layer dicts."""
+        ``blocks`` the list of per-layer dicts (and ``proj`` under the
+        vision frontend)."""
         def tree(m):
             if isinstance(m, nn.ParameterDict):
                 return {k: v for k, v in m.items()}
             return {k: tree(v) for k, v in m.items()}
-        return {"embed": tree(self.embed), "final_norm": tree(self.final_norm),
-                "head": tree(self.head),
-                "blocks": [tree(b) for b in self.blocks]}
+        out = {"embed": tree(self.embed), "final_norm": tree(self.final_norm),
+               "head": tree(self.head)}
+        if self.cfg.frontend == "vision":
+            out["proj"] = tree(self.proj)
+        out["blocks"] = [tree(b) for b in self.blocks]
+        return out
 
     def site_infos(self) -> dict[str, SiteInfo]:
         cfg = self.cfg
@@ -356,6 +384,9 @@ class DecoderLM(nn.Module):
             "head": SiteInfo("dense", "head/w", d, v, self.head_spec),
             "final_norm": SiteInfo("scale_bias", "final_norm/gamma", d, d),
         }
+        if cfg.frontend == "vision":
+            infos["proj"] = SiteInfo("dense", "proj/w", cfg.frontend_dim, d,
+                                     self.spec)
 
         def blk(name, kind, path, d_in, d_out, beta=None):
             infos[f"blk/{name}"] = SiteInfo(
@@ -404,14 +435,26 @@ class DecoderLM(nn.Module):
         return out
 
     def site_counts(self, batch) -> dict:
-        """{family: (n_a, n_g)}: tokens through each site, and the samples
-        the loss averages over."""
+        """{family: (n_a, n_g)}: tokens through each site (the text's
+        through ``embed``, the image rows' through ``proj``, both through
+        every other site), and the samples the loss averages over."""
+        cfg = self.cfg
         tok = batch["tokens"]
         b = tok.shape[0]
         s_text = tok.shape[1] if tok.dim() > 1 else 1
+        n_front = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+        n_total = b * (s_text + n_front)
         mask = batch.get("mask")
         n_loss = float(mask.sum()) if mask is not None else float(b * s_text)
-        return {fam: (b * s_text, n_loss) for fam in self.site_infos()}
+        counts = {}
+        for fam in self.site_infos():
+            if fam == "embed":
+                counts[fam] = (b * s_text, n_loss)
+            elif fam == "proj":
+                counts[fam] = (b * n_front, n_loss)
+            else:
+                counts[fam] = (n_total, n_loss)
+        return counts
 
     # ------------------------------------------------------------------
     # serving: cache init / prefill / single-token decode
@@ -473,7 +516,9 @@ class DecoderLM(nn.Module):
 
     def prefill(self, batch: dict, max_len: int, *, serve=None):
         """Forward over the prompt + cache fill: (logits (B, S, V), cache)
-        with ``len`` = S for every sequence."""
+        with ``len`` = S for every sequence. Under the vision frontend the
+        batch's ``pixel_embeds`` rows come first: S counts them, and so do
+        the logits and ``len``."""
         if serve is None:
             raise NotImplementedError("the legacy serve=None prefill arrives "
                                       "with a later slice")

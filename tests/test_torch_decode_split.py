@@ -59,6 +59,28 @@ def test_splits_cover_the_cache(n, c, hd, sms):
     assert splits <= max(1, min(tiles, want))
 
 
+@settings(deadline=None)
+@given(n=st.integers(1, 600), c=st.integers(1, 70000),
+       sms=st.integers(1, 200))
+def test_splits_cover_the_cache_at_hd_192(n, c, sms):
+    """hd 192: tiles of 4096 // 192 = 21 slots, not a power of two."""
+    assert swa_attention.decode_tile(192) == 21
+    splits, per = swa_attention.decode_splits(n, c, 192, sms)
+    tiles = -(-c // 21)
+    assert per % 21 == 0 and per >= 21
+    assert 1 <= splits <= swa_attention.DECODE_MAX_SPLITS
+    assert (splits - 1) * per < c <= splits * per, "no split empty of slots"
+    want = -(-swa_attention.DECODE_BLOCKS_PER_SM * sms // n)
+    assert splits >= min(tiles, want, swa_attention.DECODE_MAX_SPLITS) // 2
+    assert splits <= max(1, min(tiles, want))
+
+
+def test_splits_at_nemotron_shapes():
+    """nemotron_4_340b's decode: a lane's 8 KV heads over a 4096-slot
+    cache at hd 192 on an H100."""
+    assert swa_attention.decode_splits(8, 4096, 192, H100_SMS) == (49, 84)
+
+
 def test_splits_at_the_serving_shapes():
     """The main path (8 lanes x 8 KV heads over the dense cache of 1024
     slots, hd 64) and the fp8 ring (4 lanes, C 256) on an H100."""
@@ -174,6 +196,9 @@ def _jax(t):
     (16, 64, 512, 0, "bf16", H100_SMS),      # dense bf16, G 16
     (4, 128, 256, 0, "f32", 20),             # several tiles a split
     (2, 64, 512, 512, "bf16", 30),           # ring, several tiles a split
+    (12, 192, 420, 0, "bf16", H100_SMS),     # hd 192, G 12, 21-slot tiles
+    (12, 192, 256, 256, "e4m3", 40),         # ring, hd 192, a ragged tile,
+                                             # several tiles a split
 ])
 def test_split_emulation_matches_repro_and_plain(g, hd, c, window, kind,
                                                  sms):

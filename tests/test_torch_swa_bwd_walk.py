@@ -46,6 +46,12 @@ _spec.loader.exec_module(chip_smoke)
 BWD_REL_TOL = chip_smoke.BWD_REL_TOL
 LOG2E = 1.4426950408889634               # csrc/swa_flash_wgmma.cuh LOG2E
 HALF = swa_attention.TC_BKEY // 2        # keys of one dk/dv consumer
+# a dk/dv item's consumers with keys of their own: two of 64 at hd 64 and
+# 128; at hd 192 both take the item's 64 keys (one sums dV, the other dK)
+
+
+def _consumer_keys(bkey):
+    return range(bkey // HALF)
 
 
 def _visible(rows, keys, window):
@@ -62,7 +68,7 @@ def _visible(rows, keys, window):
 # (a) the geometry
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("window_of", [lambda s: 0, lambda s: 1, lambda s: 7,
                                        lambda s: 127, lambda s: 130,
                                        lambda s: 256, lambda s: s + 5],
@@ -78,7 +84,7 @@ def test_dkdv_walk_visits_every_visible_pair_once(s, window_of, hd):
     query and a consumer's last visible key at a tile's first row."""
     window = window_of(s)
     bkey, bqs, order = swa_attention.dkdv_geometry(s, hd, torch.bfloat16)
-    assert (bkey, bqs) == (128, 64)
+    assert (bkey, bqs) == ({64: 128, 128: 128, 192: 64}[hd], 64)
     assert order == tuple(range(-(-s // bkey)))
     visits = np.zeros((s, s), np.int16)
     work = []
@@ -90,7 +96,7 @@ def test_dkdv_walk_visits_every_visible_pair_once(s, window_of, hd):
             rows = np.arange(qt * bqs, min(qt * bqs + bqs, s))
             assert _visible(rows, block_keys, window).any(), \
                 f"stage ({kt}, {qt}) lies outside the band"
-            for w in range(2):
+            for w in _consumer_keys(bkey):
                 kc = kt * bkey + w * HALF
                 keys = np.arange(kc, min(kc + HALF, s))
                 kind = swa_attention.stage_kind(kc, qt, s, window, bqs)
@@ -119,6 +125,7 @@ def test_dkdv_walk_visits_every_visible_pair_once(s, window_of, hd):
     (1000, 128, 7, 3),
     (517, 64, 0, 4),
     (50, 64, 0, 1),         # fewer items than SMs
+    (4096, 192, 0, 8),      # nemotron_4_340b's attention, batch 1
 ])
 def test_dkdv_persistent_blocks_take_every_item_once(s, hd, window,
                                                      kv_heads):
@@ -156,6 +163,22 @@ def test_bwd_geometry_of_each_body(s, hd):
                                                                blocks)
     assert swa_attention.dkdv_geometry(s, hd, torch.float32) == (rows, 32,
                                                                  blocks)
+
+
+@pytest.mark.parametrize("s", [50, 517, 4096])
+def test_bwd_geometry_of_each_body_at_hd_192(s):
+    """hd 192: bf16 dq the forward walk's items, dk/dv 64-key items; f32
+    8 threads a row (6 would not divide a warp), so 16 query rows (dq) or
+    keys (dk/dv) a block, and 16-row tiles."""
+    assert swa_attention.dq_geometry(s, 192, torch.bfloat16) == \
+        swa_attention.walk_geometry(s, 192, torch.bfloat16)
+    assert swa_attention.dkdv_geometry(s, 192, torch.bfloat16) == (
+        64, 64, tuple(range(-(-s // 64))))
+    blocks = tuple(range(-(-s // 16)))
+    assert swa_attention.dq_geometry(s, 192, torch.float32) == (16, 16,
+                                                                blocks)
+    assert swa_attention.dkdv_geometry(s, 192, torch.float32) == (16, 16,
+                                                                  blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +249,7 @@ def _emulate_dkdv(q, k, v, do, lse, delta, window, p="split", ds="split"):
     dk, dv = torch.empty(kv, s, hd), torch.empty(kv, s, hd)
     for kt in order:
         lo, hi = swa_attention.query_tiles(kt, s, window, bkey, bqs)
-        for w in range(2):
+        for w in _consumer_keys(bkey):
             kc = kt * bkey + w * HALF
             if kc >= s:
                 continue
@@ -285,7 +308,7 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-_CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128)
+_CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128, 192)
           for w in (0, 7, 50)]
 
 

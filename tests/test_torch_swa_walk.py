@@ -60,7 +60,7 @@ def _visible(rows, keys, window):
 # (a) the walk's geometry
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("window_of", [lambda s: 0, lambda s: 1, lambda s: 7,
                                        lambda s: 256, lambda s: s + 5],
                          ids=["causal", "w1", "w7", "w256", "w_past_s"])
@@ -68,7 +68,7 @@ def _visible(rows, keys, window):
 def test_walk_visits_every_visible_pair_once(s, window_of, hd):
     window = window_of(s)
     bq, bk, order = swa_attention.walk_geometry(s, hd, torch.bfloat16)
-    assert (bq, bk) == (128, {64: 128, 128: 64}[hd])
+    assert (bq, bk) == (128, {64: 128, 128: 64, 192: 64}[hd])
     qtiles = -(-s // bq)
     assert sorted(order) == list(range(qtiles))
     visits = np.zeros((s, s), np.int16)
@@ -103,6 +103,7 @@ def test_walk_visits_every_visible_pair_once(s, window_of, hd):
     (32768, 64, 8192, 32),  # swa_path
     (1000, 128, 7, 3),
     (50, 64, 0, 1),         # fewer items than SMs
+    (4096, 192, 0, 96),     # nemotron_4_340b's attention, batch 1
 ])
 def test_persistent_blocks_take_every_item_once(s, hd, window, heads):
     """Item i is query tile order[i // heads], head i % heads; block b of
@@ -132,6 +133,16 @@ def test_walk_geometry_of_the_cuda_core_body():
         64, 32, tuple(range(16)))
     assert swa_attention.walk_geometry(1000, 128, torch.bfloat16)[2] == (
         7, 6, 5, 4, 3, 2, 1, 0)
+
+
+def test_walk_geometry_of_the_cuda_core_body_at_hd_192():
+    """At hd 192 the f32 walk has 4 threads a row, so 32 query rows a
+    block, and 16-key tiles (two f32 tiles of 32 rows of 192 would fill the
+    whole 48 KB of static shared memory)."""
+    assert swa_attention.walk_geometry(1000, 192, torch.float32) == (
+        32, 16, tuple(range(32)))
+    assert swa_attention.walk_geometry(1000, 192, torch.bfloat16) == (
+        128, 64, (7, 6, 5, 4, 3, 2, 1, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +234,7 @@ def _flash_refs(q, k, v, window):
                                                  v.float(), window=window))]
 
 
-_CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128)
+_CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128, 192)
           for w in (0, 7, 50)]
 
 
