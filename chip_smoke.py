@@ -72,10 +72,22 @@ GQA group, a capture and a fast step on the kernels against
 ``backend="ref"``, then served; and llava_next_34b at full width (4
 layers, its vision projector over 2880 image rows): SP-NGD under
 Newton-Schulz, momentum SGD on the same batches, an eigh capture step,
-prefill and decode, and its kernels timed at its shapes. It times all
-thirteen kernels beside their bound, their plain version and the PyTorch
-library call for the same function, and again at the dense family's
-shapes (rows named ``kernel[hd192]`` and ``kernel[llava]``).
+prefill and decode, and its kernels timed at its shapes. Then the MoE
+family (``models/moe.py``, grouped expert sites whose factor sums and
+preconditioning take the expert axis in one launch): factor_syrk and
+block_precond on expert stacks against their plain versions (qwen2_moe's
+and mixtral's shapes, f32, a lead of 1, ragged blocks); each MoE config at
+a route size (mixtral with its 8 experts and G 6, qwen2_moe with its 60
+experts, top-4 and a shared expert), eigh and Newton-Schulz capture and
+fast steps on the kernels against ``backend="ref"`` with equal routing,
+then served (mixtral on the fp8 ring, qwen2_moe on the dense cache);
+mixtral's attention at its own widths (S 8192, window 4096, G 6);
+``qwen2_moe_a2_7b`` at full width (2 layers) trained with Newton-Schulz
+beside momentum SGD and served; and both kernels timed at its expert
+shapes. It times all thirteen kernels beside their bound, their plain
+version and the PyTorch library call for the same function, and again at
+the dense family's and the MoE family's shapes (rows named
+``kernel[hd192]``, ``kernel[llava]`` and ``kernel[moe]``).
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -290,6 +302,11 @@ def main(argv: list[str]) -> int:
     routes = timed(check_dense_routes, torch)
     llava = timed(llava_path, torch)
     llava_times = timed(time_llava_kernels, torch)
+    t_moe = time.perf_counter()
+    moe_errs = timed(check_moe_kernels, torch)
+    timed(check_moe_routes, torch)
+    moe = timed(moe_path, torch)
+    moe_times = timed(time_moe_kernels, torch)
     t_dist = time.perf_counter()
     timed(check_dist_route, torch)
     timed(check_ring_hop, torch)
@@ -301,7 +318,8 @@ def main(argv: list[str]) -> int:
                  f"ConvNet phases {t_fp8 - t_conv:.1f} s, the fp8 "
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
                  f"{t_dense - t_swa:.1f} s, the dense-family phases "
-                 f"{t_dist - t_dense:.1f} s and the multi-GPU phases "
+                 f"{t_moe - t_dense:.1f} s, the MoE phases "
+                 f"{t_dist - t_moe:.1f} s and the multi-GPU phases "
                  f"{t_end - t_dist:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
@@ -327,6 +345,10 @@ def main(argv: list[str]) -> int:
     extra += [(f"{k}[llava]", k, llava_times[k],
                llava_times[k]["max_abs_err"], llava["launches"][k])
               for k in LLAVA_KERNELS]
+    # and at qwen2_moe_a2_7b's expert stacks: the worst error over
+    # check_moe_kernels' cases, moe_path's launches
+    extra += [(f"{k}[moe]", k, moe_times[f"{k}[moe]"], moe_errs[f"{k}[moe]"],
+               moe["launches"][k]) for k in MOE_KERNELS]
     for label, name, t, err, n in extra:
         source, replaces = where[name]
         rows.append({"name": label, "route": "cuda",
@@ -5791,6 +5813,736 @@ def time_llava_kernels(torch) -> dict:
     del qd, kc, vc, got, want
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: mixtral_8x22b and qwen2_moe_a2_7b, whose expert sites sum
+# and precondition (E, ...) stacks in one launch per call
+# ---------------------------------------------------------------------------
+
+# factor_syrk on expert stacks (lead, n, d, max_dim, dtype): qwen2_moe's
+# up/gate A and G at 4,096 tokens (capacity 341 of 60 experts), mixtral's
+# at 4,096 tokens (capacity 1280 of 8: A 6144 in 2 blocks of 3072, the
+# down projection's 16384 in 4 of 4096); f32 with the tokens in chunks; a
+# lead of 1; a ragged last block (2050 in 3 blocks of 684, rows off 16
+# bytes: the element loads)
+MOE_SYRK_CASES = (
+    (60, 341, 2048, 2048, "bfloat16"), (60, 341, 1408, 2048, "bfloat16"),
+    (8, 1280, 6144, 4096, "bfloat16"), (8, 1280, 16384, 4096, "bfloat16"),
+    (4, 20000, 96, 2048, "float32"), (6, 333, 300, 128, "float32"),
+    (1, 4096, 2048, 2048, "bfloat16"), (3, 333, 2050, 1024, "bfloat16"),
+)
+# block_precond on expert stacks (mode, lead, nb, b, dim, other):
+# qwen2_moe's up/gate (d_in 2048, d_out 1408) and down (1408 -> 2048)
+# gradients from both sides; a ragged last block; rows off 16 bytes
+MOE_PRECOND_CASES = (
+    ("left", 60, 1, 2048, 2048, 1408), ("right", 60, 1, 1408, 1408, 2048),
+    ("left", 60, 1, 1408, 1408, 2048), ("right", 60, 1, 2048, 2048, 1408),
+    ("left", 3, 3, 684, 2050, 300), ("right", 3, 3, 684, 2050, 300),
+    ("left", 2, 3, 97, 290, 70),
+)
+
+
+def _launched_once(torch, fn, name):
+    """Call ``fn`` twice; each call must launch kernel ``name`` once (the
+    wrapper's count): the output of the first and whether the second gave
+    the same bits."""
+    from repro_torch.kernels import kfac as kern
+    before = kern.LAUNCHES[name]
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    check(kern.LAUNCHES[name] - before == 2,
+          f"{name}: {kern.LAUNCHES[name] - before} launches for 2 calls")
+    same = torch.equal(got, again)
+    del again
+    return got, same
+
+
+def check_moe_kernels(torch) -> dict:
+    """factor_syrk and block_precond on expert stacks (MOE_SYRK_CASES,
+    MOE_PRECOND_CASES) against the plain versions (which broadcast over the
+    leading axes), at KFAC_REL_TOL of the largest entry; each call one
+    launch, two calls bit-identical; a strided lead (a view of fewer tokens
+    than its matrices hold) and the dispatch ops on a stack (one launch per
+    call). Returns {"factor_syrk[moe]": max|err|, "block_precond[moe]":
+    max|err|}, the worst over the cases."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import kfac as kern
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    worst = {"factor_syrk[moe]": 0.0, "block_precond[moe]": 0.0}
+
+    def syrk_case(x, max_dim, what):
+        got, same = _launched_once(torch, lambda: kern.factor_syrk(x, max_dim),
+                                   "factor_syrk")
+        want = ref.factor_sum_ref(x, max_dim)
+        check(got.shape == want.shape, f"factor_syrk {what}: {got.shape}")
+        check(same, f"factor_syrk {what}: two launches differ")
+        err = _rel_err(torch, got, want)
+        check(err <= KFAC_REL_TOL, f"factor_syrk {what}: rel err {err} > "
+                                   f"{KFAC_REL_TOL}")
+        worst["factor_syrk[moe]"] = max(worst["factor_syrk[moe]"],
+                                        _max_err(torch, got, want))
+        say("moe-kernels", f"factor_syrk {what} -> {tuple(got.shape)}: "
+                           f"max|err| / max|A| = {err:.3e} (tol "
+                           f"{KFAC_REL_TOL}), one launch a call, two "
+                           f"bit-identical")
+
+    for lead, n, d, max_dim, dt in MOE_SYRK_CASES:
+        x = torch.randn((lead, n, d), generator=gen, device="cuda").to(
+            getattr(torch, dt))
+        syrk_case(x, max_dim, f"({lead}, {n}, {d}) max_dim {max_dim} {dt}")
+        del x
+        torch.cuda.empty_cache()
+    x = torch.randn((4, 341, 512), generator=gen, device="cuda").bfloat16()
+    syrk_case(x[:, :300], 2048, "(4, 300 of 341, 512) bf16, strided lead")
+    dispatch.reset_calls()
+    before = kern.LAUNCHES["factor_syrk"]
+    got = dispatch.factor_sum(x, 2048, backend="cuda")
+    check(kern.LAUNCHES["factor_syrk"] - before == 1
+          and dispatch.CALLS == {("factor_sum", "cuda"): 1},
+          f"dispatch.factor_sum on a stack: {dispatch.CALLS}")
+    check(_rel_err(torch, got, ref.factor_sum_ref(x, 2048)) <= KFAC_REL_TOL,
+          "dispatch.factor_sum on a stack")
+    del x, got
+
+    for mode, lead, nb, b, dim, other in MOE_PRECOND_CASES:
+        right = mode == "right"
+        binv = torch.randn((lead, nb, b, b), generator=gen,
+                           device="cuda") / b ** 0.5
+        shape = (lead, other, dim) if right else (lead, dim, other)
+        w = torch.randn(shape, generator=gen, device="cuda")
+        got, same = _launched_once(
+            torch, lambda: kern.block_precond(binv, w, right=right),
+            "block_precond")
+        check(same, f"block_precond {mode} {shape}: two launches differ")
+        want = (dispatch.lookup("block_precond_right", "ref")(w, binv)
+                if right else
+                dispatch.lookup("block_precond_left", "ref")(binv, w))
+        err = _rel_err(torch, got, want)
+        check(got.shape == w.shape and err <= KFAC_REL_TOL,
+              f"block_precond {mode} {shape}: rel err {err} > "
+              f"{KFAC_REL_TOL}")
+        worst["block_precond[moe]"] = max(worst["block_precond[moe]"],
+                                          _max_err(torch, got, want))
+        say("moe-kernels", f"block_precond {mode} binv ({lead}, {nb}, {b}, "
+                           f"{b}) w {shape} f32: max|err| / max|U| = "
+                           f"{err:.3e} (tol {KFAC_REL_TOL}), one launch a "
+                           f"call, two bit-identical")
+        del binv, w, got, want
+        torch.cuda.empty_cache()
+    # the dispatch ops on a fresh state's expanded identity stack, both
+    # sides: one launch each
+    eye = torch.eye(97, device="cuda").expand(2, 3, 97, 97)
+    w = torch.randn((2, 70, 290), generator=gen, device="cuda")
+    before = kern.LAUNCHES["block_precond"]
+    u = dispatch.block_precond_left(eye, w.transpose(1, 2).contiguous(),
+                                    backend="cuda")
+    v = dispatch.block_precond_right(w, eye, backend="cuda")
+    check(kern.LAUNCHES["block_precond"] - before == 2
+          and _rel_err(torch, v, w) <= KFAC_REL_TOL
+          and _rel_err(torch, u, w.transpose(1, 2)) <= KFAC_REL_TOL,
+          "dispatch.block_precond_{left,right} on an identity stack")
+    del eye, w, u, v
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_moe_kernels(torch) -> dict:
+    """factor_syrk and block_precond at qwen2_moe_a2_7b's expert shapes
+    (4,096 tokens, capacity 341 of 60 experts): the SYRK of the up/gate A
+    (60, 341, 2048) -> (60, 1, 2048, 2048) and the left preconditioning of
+    the up/gate gradient (60, 1, 2048, 2048) x (60, 2048, 1408), each
+    beside its bound, its plain version and the library call (torch.bmm,
+    bf16 with f32 output for the SYRK, f32 with TF32 off for the
+    preconditioner). Returns {"factor_syrk[moe]": row, "block_precond[moe]":
+    row}."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import kfac as kern
+    gen = torch.Generator(device="cuda").manual_seed(280)
+    f32 = torch.float32
+    res = {}
+    lead, n, d = 60, 341, 2048
+    x = torch.randn((lead, n, d), generator=gen, device="cuda").bfloat16()
+    ops, nbytes = _syrk_ops_bytes(n, 1, d, d * d * 4)
+    bound, by = _bound(lead * ops, lead * nbytes, x.dtype)
+    res["factor_syrk[moe]"] = {
+        "ms": _time_ms(torch, lambda: kern.factor_syrk(x, 2048), reps=10),
+        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(x, 2048),
+                             reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(
+            x.transpose(1, 2), x, out_dtype=f32), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    say("moe-times", f"factor_syrk ({lead}, {n}, {d}) bf16 -> ({lead}, 1, "
+                     f"{d}, {d}) f32: {res['factor_syrk[moe]']} (library: "
+                     f"torch.bmm, bf16 in, f32 out); {card_note(torch)}")
+    del x
+    torch.cuda.empty_cache()
+    b, m = 2048, 1408
+    binv = torch.randn((lead, 1, b, b), generator=gen, device="cuda") / b ** .5
+    w = torch.randn((lead, b, m), generator=gen, device="cuda")
+    left_ref = dispatch.lookup("block_precond_left", "ref")
+    bound, by = _bound(2 * lead * b * b * m,
+                       (binv.numel() + 2 * w.numel()) * 4, f32,
+                       PEAK_SPLIT_F32_OPS_PER_S)
+    bv = binv.view(lead, b, b)
+    res["block_precond[moe]"] = {
+        "ms": _time_ms(torch, lambda: kern.block_precond(binv, w), reps=10),
+        "plain_ms": _time_ms(torch, lambda: left_ref(binv, w), reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(bv, w), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    say("moe-times", f"block_precond left binv ({lead}, 1, {b}, {b}) w "
+                     f"({lead}, {b}, {m}) f32: {res['block_precond[moe]']} "
+                     f"(library: torch.bmm f32, TF32 off); "
+                     f"{card_note(torch)}")
+    del binv, w, bv
+    torch.cuda.empty_cache()
+    return res
+
+
+# each MoE config at a route size (reduced, f32): mixtral with its 8
+# experts and its own GQA group (48/8 heads: G 6) at hd 128; qwen2_moe with
+# its 60 experts, top-4 and one shared expert, MHA at hd 128
+MOE_ROUTES = {
+    "mixtral_8x22b": dict(n_experts=8, head_dim=128, n_heads=6,
+                          n_kv_heads=1),
+    "qwen2_moe_a2_7b": dict(n_experts=60, top_k=4, n_shared_experts=1,
+                            head_dim=128, n_heads=4, n_kv_heads=4),
+}
+# the MoE serve check's ref arm on a cache of its own (chip_smoke
+# _moe_serve): at most this share of the fp8 ring's codes may sit one e4m3
+# step from the ref arm's (the CPU test met one of 6,144 in reduced
+# mixtral's layer-1 K, f32 rounding of the layer's input), and that arm's
+# logits within this of the kernel arm's (that one code moved reduced
+# mixtral's logits by up to 4.1e-3, 6.7e-4 of their largest, 6.15)
+MOE_CODE_FLIP_FRAC = 1e-3
+MOE_OWN_LOGIT_REL_TOL = 1e-2
+# mixtral's attention at its own widths through the training kernels: a
+# 4,096-token window over 8,192 positions, 48 query heads over 8 KV heads
+MIXTRAL_ATTN = dict(kv=8, g=6, seq=8192, hd=128, window=4096)
+
+
+@contextlib.contextmanager
+def _expert_launches():
+    """The (kernel, lead) of every factor_syrk and block_precond launch
+    with a leading axis (an expert stack), by spies on the wrappers that
+    dispatch calls: yields the list."""
+    from repro_torch.kernels import kfac as kern
+    calls, inner = [], (kern.factor_syrk, kern.block_precond)
+
+    def syrk_spy(x, max_dim):
+        if x.dim() == 3:
+            calls.append(("factor_syrk", x.shape[0]))
+        return inner[0](x, max_dim)
+
+    def precond_spy(binv, w, right=False):
+        if w.dim() == 3:
+            calls.append(("block_precond", w.shape[0]))
+        return inner[1](binv, w, right=right)
+    kern.factor_syrk, kern.block_precond = syrk_spy, precond_spy
+    try:
+        yield calls
+    finally:
+        kern.factor_syrk, kern.block_precond = inner
+
+
+def _check_expert_launches(calls, want: dict, e: int, what: str) -> dict:
+    """Each kernel launched ``want[kernel]`` times with the expert axis,
+    every launch over all ``e`` experts (no loop over them). Returns the
+    counts."""
+    seen = {k: sum(1 for n, _ in calls if n == k) for k in want}
+    check(seen == want and all(ld == e for _, ld in calls),
+          f"{what}: expert-axis launches {seen} (want {want}), leads "
+          f"{sorted({ld for _, ld in calls})}")
+    return seen
+
+
+@contextlib.contextmanager
+def _routes_recorded():
+    """Every router call's top-k indices, as the model routes (a spy on
+    ``models.moe.router_probs``): yields the list, one (T, k) tensor a
+    call."""
+    from repro_torch.models import moe
+    rec, inner = [], moe.router_probs
+
+    def spy(*a, **k):
+        out = inner(*a, **k)
+        rec.append(out[1].detach().clone())
+        return out
+    moe.router_probs = spy
+    try:
+        yield rec
+    finally:
+        moe.router_probs = inner
+
+
+def _moe_serve(torch, model, cfg) -> dict:
+    """2 lanes of a 64-token prompt through DecoderLM.prefill on the kernels
+    and with ServeConfig(backend="ref"), then 4 decode steps in three arms
+    fed the same tokens (the own ref arm's argmax): the kernels on their
+    cache; backend="ref" from a copy of the kernel arm's cache as it stands
+    before each step (the same fp8 codes: "shared", the worst max|err| /
+    max|logit| over the 5 logit tensors, held to F32_LOGIT_REL_TOL); and
+    backend="ref" on a cache of its own, written by its own prefill and
+    steps ("own"). The own arm holds the kernel arm's cache writes: after
+    the prefill and after each step both caches are compared, the fp8 ring
+    code by code (every code within one e4m3 step of the ref arm's, at most
+    MOE_CODE_FLIP_FRAC of them one step off: f32 rounding of a layer's
+    input can put a value on the other side of a rounding boundary, as the
+    CPU test found; the scales within KFAC_REL_TOL), the dense f32 cache
+    within ROUTE_REL_TOL; and its logits within MOE_OWN_LOGIT_REL_TOL.
+    mixtral's window 16 gives the fp8 e4m3 ring, which the 64 + 4
+    positions wrap; qwen2_moe's 0 the dense f32 cache."""
+    from repro_torch.serve import ServeConfig
+    batch = _dense_batch(torch, cfg, 2, 64, index=5)
+    batch.pop("labels")
+    kern_s, ref_s = ServeConfig(), ServeConfig(backend="ref")
+    ring = cfg.sliding_window > 0
+    res = {"shared": 0.0, "own": 0.0, "flips": 0, "codes": 0,
+           "cache_err": 0.0}
+
+    def held(cache, own):
+        """The kernel arm's cache writes against the own ref arm's."""
+        check(bool(torch.equal(cache["len"], own["len"])),
+              f"{cfg.name} cache len")
+        for key in ("k", "v"):
+            if ring:
+                d = (_fp8_ordinal(torch, cache[key])
+                     - _fp8_ordinal(torch, own[key])).abs()
+                check(int(d.max()) <= 1, f"{cfg.name} cache {key}: a code "
+                      f"{int(d.max())} e4m3 steps from the ref arm's")
+                res["flips"] += int((d > 0).sum())
+                res["codes"] += d.numel()
+                err = _rel_err(torch, cache[key + "_scale"],
+                               own[key + "_scale"])
+                check(err <= KFAC_REL_TOL,
+                      f"{cfg.name} cache {key}_scale: {err}")
+            else:
+                err = _rel_err(torch, cache[key], own[key])
+                check(err <= ROUTE_REL_TOL, f"{cfg.name} cache {key}: {err}")
+            res["cache_err"] = max(res["cache_err"], err)
+
+    with torch.no_grad():
+        lk, cache = model.prefill(batch, 68, serve=kern_s)
+        lr, own = model.prefill(batch, 68, serve=ref_s)
+        held(cache, own)
+        triples = [(lk[:, -1], lr[:, -1], lr[:, -1])]
+        tok = lr[:, -1].argmax(-1)
+        for _ in range(4):
+            rcache = {k: v.clone() for k, v in cache.items()}
+            ls, _ = model.decode_step(rcache, tok, serve=ref_s)
+            lo, own = model.decode_step(own, tok, serve=ref_s)
+            lk, cache = model.decode_step(cache, tok, serve=kern_s)
+            held(cache, own)
+            triples.append((lk, ls, lo))
+            tok = lo.argmax(-1)
+    check(ring == (cache["k"].dtype == torch.float8_e4m3fn),
+          f"{cfg.name} serve cache {cache['k'].dtype}")
+    for got, shared, mine in triples:
+        check(bool(torch.isfinite(got).all()), f"{cfg.name} serving logits")
+        res["shared"] = max(res["shared"], _rel_err(torch, got, shared))
+        res["own"] = max(res["own"], _rel_err(torch, got, mine))
+    check(res["shared"] <= F32_LOGIT_REL_TOL,
+          f"{cfg.name} serving logits kernels vs ref: {res['shared']}")
+    check(res["flips"] <= MOE_CODE_FLIP_FRAC * res["codes"],
+          f"{cfg.name} cache: {res['flips']} of {res['codes']} codes one "
+          f"e4m3 step off")
+    check(res["own"] <= MOE_OWN_LOGIT_REL_TOL,
+          f"{cfg.name} serving logits kernels vs ref on its own cache: "
+          f"{res['own']}")
+    return res
+
+
+def check_moe_routes(torch) -> None:
+    """Each MoE config at its route size (MOE_ROUTES: reduced, f32), batch
+    (2, 512): for Stage 4 by eigh and by Newton-Schulz, a capture step
+    (every statistic refreshed) and a fast step from the seed-0 model on
+    the kernels; before each, a second optimizer with backend="ref" takes
+    the kernel run's params and state as they stand and runs the same
+    step. Losses, preconditioners and params after each step within
+    ROUTE_REL_TOL; every router call's indices equal in both arms; the
+    expert sites' factor sums and preconditioning one launch a call over
+    all experts. Then the kernel model serves (_moe_serve). Last,
+    mixtral's attention at its own widths (MIXTRAL_ATTN: BKV 8, G 6, hd
+    128, S 8192, window 4096, bf16) through swa_flash_fwd and the backward
+    pair against the plain versions (one KV head at a time)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fisher import flatten
+    from repro_torch.kernels import ref, swa_attention
+    from repro_torch.launch import train
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    for arch, over in MOE_ROUTES.items():
+        cfg = get_config(arch).reduced(**over)
+        for method in ("eigh", "newton_schulz"):
+            runs = {b: train.build(cfg=cfg, backend=b, device="cuda",
+                                   inverse_method=method)
+                    for b in ("auto", "ref")}
+            steps = {b: (train.make_train_step(m, o),
+                         train.make_fast_step(m, o))
+                     for b, (m, o, _, _) in runs.items()}
+            _, kopt, kparams, kstate = runs["auto"]
+            rparams = runs["ref"][2]
+            flags = {k: True for k in kopt.stat_names()}
+            worst, losses, n_routes = {}, [], 0
+            lead_calls = []          # (kernel, lead) of every expert call
+            for i, kind in enumerate(("capture", "fast")):
+                batch = _dense_batch(torch, cfg, 2, 512, index=i)
+                with torch.no_grad():
+                    for k, v in flatten(kparams).items():
+                        flatten(rparams)[k].copy_(v)
+                rstate = {**kstate, "velocity": {
+                    k: v.clone() for k, v in kstate["velocity"].items()}}
+                got, routes = {}, {}
+                for b, params, state in (("ref", rparams, rstate),
+                                         ("auto", kparams, kstate)):
+                    capture, fast = steps[b]
+                    spied = (_expert_launches() if b == "auto"
+                             else contextlib.nullcontext([]))
+                    with spied as calls, _routes_recorded() as rec:
+                        if kind == "capture":
+                            params, state, m = capture(
+                                params, state, batch, flags, lam, lr, 0.9)
+                        else:
+                            params, state, m = fast(params, state, batch,
+                                                    lam, lr, 0.9)
+                    lead_calls += calls
+                    routes[b] = rec
+                    got[b] = (float(m["loss"]), {
+                        f"{fam}.{k}": v.clone() for fam, c in
+                        state["curv"].items()
+                        for k, v in c["precond"].items()})
+                    if b == "auto":
+                        kparams, kstate = params, state
+                (lk, pk), (lr_, pr) = got["auto"], got["ref"]
+                losses.append((lk, lr_))
+                check(len(routes["auto"]) == len(routes["ref"])
+                      == cfg.n_layers
+                      and all(torch.equal(a, r) for a, r in
+                              zip(routes["auto"], routes["ref"])),
+                      f"{arch} {method} {kind}: routing differs between "
+                      f"the kernels and ref")
+                n_routes += len(routes["auto"])
+                check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+                      f"{arch} {method} {kind} loss {lk} vs ref {lr_}")
+                worst[kind, "precond"] = max(_rel_err(torch, pk[n], pr[n])
+                                             for n in pr)
+                rflat = flatten(rparams)
+                worst[kind, "params"] = max(
+                    _rel_err(torch, v, rflat[n])
+                    for n, v in flatten(kparams).items())
+                for what in ("precond", "params"):
+                    check(worst[kind, what] <= ROUTE_REL_TOL,
+                          f"{arch} {method} {kind} step {what} rel err "
+                          f"{worst[kind, what]} > {ROUTE_REL_TOL}")
+                del got, rstate, pk, pr
+            e = cfg.n_experts
+            # a capture: A and G of 3 expert sites a layer; every step: 2
+            # sides of 3 expert sites a layer; each call all E experts
+            seen = _check_expert_launches(
+                lead_calls, {"factor_syrk": 6 * cfg.n_layers,
+                             "block_precond": 2 * 6 * cfg.n_layers}, e,
+                f"{arch} {method}")
+            say("moe-route", f"{arch} reduced, {e} experts top-{cfg.top_k}"
+                             f" (+{cfg.n_shared_experts} shared), "
+                             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of hd "
+                             f"{cfg.hd}, d {cfg.d_model}, d_ff {cfg.d_ff}, "
+                             f"{cfg.n_layers} layers, f32, batch (2, 512), "
+                             f"Stage 4 {method}: losses (kernels, ref) "
+                             f"{losses}; worst max|err|/max, capture step: "
+                             f"preconditioners "
+                             f"{worst['capture', 'precond']:.3e}, params "
+                             f"{worst['capture', 'params']:.3e}; fast step: "
+                             f"params {worst['fast', 'params']:.3e} (tol "
+                             f"{ROUTE_REL_TOL}); routing equal in both arms "
+                             f"({n_routes} router calls); expert-axis "
+                             f"launches {seen}, each over all {e} experts")
+            if method == "eigh":
+                kmodel = runs["auto"][0]
+                swa_attention.reset_launches()
+                sv = _moe_serve(torch, kmodel, cfg)
+                dec = swa_attention.LAUNCHES["swa_flash_decode"]
+                check(dec == 4 * cfg.n_layers,
+                      f"{arch}: decode launches {dec}")
+                where = (f"fp8 e4m3 ring of {cfg.sliding_window} slots"
+                         if cfg.sliding_window else "dense f32 cache")
+                writes = (f"{sv['flips']} of {sv['codes']} codes one e4m3 "
+                          f"step off (at most {MOE_CODE_FLIP_FRAC:g}), "
+                          f"scales {sv['cache_err']:.3e} (tol "
+                          f"{KFAC_REL_TOL})" if cfg.sliding_window else
+                          f"{sv['cache_err']:.3e} (tol {ROUTE_REL_TOL})")
+                say("moe-route", f"{arch} serving 2 lanes on the {where}, "
+                                 f"prefill of 64 and 4 decode steps, kernels "
+                                 f"vs ref, max|err| / max|logit|: from the "
+                                 f"same cache {sv['shared']:.3e} (tol "
+                                 f"{F32_LOGIT_REL_TOL}), ref on its own "
+                                 f"cache {sv['own']:.3e} (tol "
+                                 f"{MOE_OWN_LOGIT_REL_TOL}); the kernel "
+                                 f"arm's cache writes vs the own arm's: "
+                                 f"{writes}; decode launches {dec}")
+                del kmodel
+            del runs, steps, kopt, kparams, kstate, rparams
+            torch.cuda.empty_cache()
+
+    # mixtral's attention at its own widths, bf16
+    a = MIXTRAL_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(2808)
+    bf16 = torch.bfloat16
+    q = torch.randn((a["kv"], a["g"], a["seq"], a["hd"]), generator=gen,
+                    device="cuda").to(bf16)
+    k, v = (torch.randn((a["kv"], a["seq"], a["hd"]), generator=gen,
+                        device="cuda").to(bf16) for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+    out, lse = swa_attention.swa_flash_fwd(q, k, v, window=a["window"])
+    ro, rl = _fwd_ref_by_kv(torch, ref, q, k, v, a["window"])
+    torch.testing.assert_close(out.float(), ro.float(), **FWD_TOL)
+    torch.testing.assert_close(lse, rl, **LSE_TOL)
+    grads = swa_attention.swa_flash_bwd(q, k, v, ro, rl, do,
+                                        window=a["window"])
+    want = _bwd_ref_by_kv(torch, ref, q, k, v, ro, rl, do, a["window"])
+    rel = [_rel_err(torch, x, y) for x, y in zip(grads, want)]
+    check(max(rel) <= BWD_REL_TOL, f"mixtral attention bwd rel errs {rel}")
+    say("moe-route", f"mixtral attention BKV={a['kv']} G={a['g']} "
+                     f"S={a['seq']} hd={a['hd']} window={a['window']} bf16: "
+                     f"swa_flash_fwd max|out err| "
+                     f"{_max_err(torch, out, ro):.3e} (tol {FWD_TOL}), "
+                     f"max|lse err| {_max_err(torch, lse, rl):.3e}; bwd "
+                     f"max|err|/max|grad| dq {rel[0]:.3e} dk {rel[1]:.3e} "
+                     f"dv {rel[2]:.3e} (tol {BWD_REL_TOL})")
+    del q, k, v, do, out, lse, ro, rl, grads, want
+    torch.cuda.empty_cache()
+
+
+# qwen2_moe_a2_7b at full width (d 2048, 16/16 heads of hd 128, 60 routed
+# experts of d_ff 1408 with top-4, 4 shared (one MLP of 5632), vocab
+# 151936, bf16, remat), depth cut: by count a layer holds 570.5 M
+# parameters (params, grads and velocity 3.42 GB as bf16) and 4.78 GB of
+# factors a copy (4.45 GB of it the experts': A and G of 60 experts at b
+# 2048 and 1408 for each of 3 sites), about 5 copies at a capture step's
+# peak; the embedding and head hold 3.73 GB, the f32 logits 2.49 GB. So 2
+# layers, under 70 GiB. One step is batch 4 x seq 1024 = 4,096 positions
+# (capacity 341 of each expert's 1.25 x 4096 x 4 / 60 assignments); lr and
+# damping those of llava_path, under which its random-weight model trains
+MOE_PATH = dict(layers=2, batch=4, seq=1024, capture=2, fast=4, lr=2e-3,
+                damping=1e-3)
+MOE_SERVE = dict(lanes=4, prompts=(64, 512), decode=16)
+MOE_KERNELS = ("factor_syrk", "block_precond")
+
+
+def _moe_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2_moe_a2_7b"),
+                               n_layers=MOE_PATH["layers"])
+
+
+def moe_path(torch) -> dict:
+    """qwen2_moe_a2_7b at full width (MOE_PATH: 2 layers), random weights
+    from seed 0: SP-NGD with Stage 4 by Newton-Schulz, 2 capture steps
+    (every statistic refreshed) and 4 fast steps (the first a warm-up) on
+    batch 4 x 1024 of the trainer's stream; the fast step profiled and
+    split by SP-NGD stage; momentum SGD on the same model and the fast
+    steps' batches (1 warm-up + 3 timed); then serving through
+    DecoderLM.prefill / decode_step on the dense f32 cache: 4 lanes of a
+    64- and a 512-token prompt, 16 decode steps (capacity 1 at 4 lanes).
+    Checks: finite losses and logits; every factor sum and preconditioning
+    of an expert site one launch over all 60 experts (6 a layer a capture,
+    6 a layer a step); no ref dispatch; every NS block converged or
+    re-solved by eigh as counted; the peak under 70 GiB. Returns the
+    path's launches of MOE_KERNELS."""
+    import math
+    from repro_torch.kernels import dispatch, swa_attention
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    from repro_torch.optim import SGD
+    from repro_torch.serve import ServeConfig
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _moe_cfg()
+    spec = MOE_PATH
+    model, opt, params, state = train.build(
+        cfg=cfg, device="cuda", inverse_method="newton_schulz",
+        damping=spec["damping"])
+    n_params = sum(p.numel() for p in model.parameters())
+    e = cfg.n_experts
+    say("moe-path", f"qwen2_moe_a2_7b full width, {cfg.n_layers} layers "
+                    f"(depth cut), d {cfg.d_model}, {cfg.n_heads}/"
+                    f"{cfg.n_kv_heads} heads of hd {cfg.hd}, {e} experts of "
+                    f"d_ff {cfg.d_ff} top-{cfg.top_k} + "
+                    f"{cfg.n_shared_experts} shared, vocab {cfg.vocab}, "
+                    f"{cfg.dtype}, remat {cfg.remat}: {n_params} params, "
+                    f"{len(opt.stat_names())} statistics, "
+                    f"{sum(opt.stat_bytes().values())} B of statistics a "
+                    f"copy, sym-packed")
+    calls = []                 # (b, trips) of every Newton-Schulz call
+    inner_ns = ns.ns_inverse
+
+    def spy_ns(m, iters, tol):
+        out = inner_ns(m, iters, tol)
+        calls.append((m.shape[-1], out[2].cpu()))
+        return out
+    batches = [_train_batch(torch, cfg.vocab, spec["batch"], spec["seq"],
+                            index=i)
+               for i in range(spec["capture"] + spec["fast"])]
+    capture = train.make_train_step(model, opt)
+    fast = train.make_fast_step(model, opt)
+    flags = {k: True for k in opt.stat_names()}
+    lam, lr, mom = spec["damping"], spec["lr"], 0.9
+    swa_attention.reset_launches()
+    kern.reset_launches()
+    ns.reset_launches()
+    dispatch.reset_calls()
+    recs = []
+    ns.ns_inverse = spy_ns
+    try:
+        with _Stage4Timer(torch) as s4, _expert_launches() as lead_calls:
+            for i, batch in enumerate(batches):
+                kind = "capture" if i < spec["capture"] else "fast"
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if kind == "capture":
+                    params, state, m = capture(params, state, batch, flags,
+                                               lam, lr, mom)
+                else:
+                    params, state, m = fast(params, state, batch, lam, lr,
+                                            mom)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                recs.append({"kind": kind, "loss": loss,
+                             "aux": float(m.get("aux_loss", float("nan"))),
+                             "seconds": time.perf_counter() - t,
+                             "inverse": m.get("inverse_info", {})})
+    finally:
+        ns.ns_inverse = inner_ns
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: kern.LAUNCHES[k] for k in MOE_KERNELS}
+    dcalls = dict(dispatch.CALLS)
+    check(all(math.isfinite(r["loss"]) for r in recs),
+          f"qwen2_moe losses {[r['loss'] for r in recs]}")
+    check(not any(b == "ref" for (_, b) in dcalls),
+          f"ref dispatches: {dcalls}")
+    check(peak < 70 * 2 ** 30, f"qwen2_moe peak {peak / 2 ** 30:.2f} GiB >= "
+                               f"70")
+    n_cap = spec["capture"]
+    seen = _check_expert_launches(
+        lead_calls, {"factor_syrk": 6 * cfg.n_layers * n_cap,
+                     "block_precond": 6 * cfg.n_layers * len(recs)}, e,
+        "qwen2_moe")
+    cap = [r for r in recs if r["kind"] == "capture"]
+    infos = [i for r in cap for i in r["inverse"].values()]
+    check(len(calls) == len(infos), f"NS calls {len(calls)} vs blocked "
+                                    f"statistics {len(infos)}")
+    trips = [x for _, t in calls for x in t.tolist()]
+    fell = sum(int((~i["ns_converged"]).sum()) for i in infos)
+    by_b: dict = {}
+    for b, t in calls:
+        by_b[b] = by_b.get(b, 0) + t.numel()
+    cap_s = [r["seconds"] for r in cap]
+    fast_all = [r["seconds"] for r in recs if r["kind"] == "fast"]
+    fast_med = statistics.median(fast_all[1:])
+    tokens = spec["batch"] * spec["seq"]
+    say("moe-path", f"Newton-Schulz: {n_cap} capture + {spec['fast']} fast "
+                    f"steps at lr {lr}, damping {lam}: losses "
+                    f"{[round(r['loss'], 6) for r in recs]} (aux "
+                    f"{[round(r['aux'], 4) for r in recs]}); capture walls "
+                    f"{[round(x, 3) for x in cap_s]} s, fast walls "
+                    f"{[round(x, 4) for x in fast_all]} s (the first a "
+                    f"warm-up; median {fast_med:.4f} s, "
+                    f"{tokens / fast_med:.1f} tokens/s); Stage 4 "
+                    f"{s4.seconds:.3f} s over {len(cap)} refreshes "
+                    f"({s4.seconds / len(cap):.3f} s a refresh, {s4.blocks} "
+                    f"blocks); NS blocks by size {by_b}, trips min "
+                    f"{min(trips)} median {statistics.median(trips)} max "
+                    f"{max(trips)}, eigh fallback {fell} of {len(trips)} "
+                    f"blocks; peak memory {peak / 2 ** 30:.2f} GiB; "
+                    f"launches {launches}, of them with the expert axis "
+                    f"{seen} (each over all {e} experts); "
+                    f"{card_note(torch)}")
+
+    box = {"p": params, "s": state}
+    pb = batches[-1]
+
+    def fast_step():
+        box["p"], box["s"], _ = fast(box["p"], box["s"], pb, lam, lr, mom)
+    _profile(torch, "qwen2_moe fast step (4096 tokens)", fast_step,
+             warm=False, split=True)
+    params = box["p"]
+    del box, state, opt, capture, fast, m
+    torch.cuda.empty_cache()
+
+    sgd = SGD(model.loss)
+    sstate = sgd.init(params)
+    sgd_s, sgd_l = [], []
+    for batch in batches[n_cap:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, sstate, m = sgd.step(params, sstate, batch, lr, mom)
+        sgd_l.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        sgd_s.append(time.perf_counter() - t)
+    check(all(math.isfinite(x) for x in sgd_l),
+          f"qwen2_moe SGD losses {sgd_l}")
+    sgd_med = statistics.median(sgd_s[1:])
+    say("moe-path", f"momentum SGD on the same model and the fast steps' "
+                    f"batches: losses {[round(x, 6) for x in sgd_l]}, walls "
+                    f"{[round(x, 4) for x in sgd_s]} s (the first a warm-up;"
+                    f" median {sgd_med:.4f} s); the NS fast step median "
+                    f"{fast_med:.4f} s = {fast_med / sgd_med:.3f} x SGD's; "
+                    f"{card_note(torch)}")
+    del sgd, sstate
+    torch.cuda.empty_cache()
+
+    serve = ServeConfig()                   # window 0 -> the dense f32 cache
+    lanes, steps_d = MOE_SERVE["lanes"], MOE_SERVE["decode"]
+    max_len = max(MOE_SERVE["prompts"]) + steps_d
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    swa_attention.reset_launches()
+    dispatch.reset_calls()
+    pre = {}
+    with torch.no_grad():
+        for plen in MOE_SERVE["prompts"]:
+            req = {"tokens": torch.randint(0, cfg.vocab, (lanes, plen),
+                                           generator=gen, device="cuda")}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = model.prefill(req, max_len, serve=serve)
+            torch.cuda.synchronize()
+            pre[plen] = time.perf_counter() - t
+            check(logits.shape == (lanes, plen, cfg.vocab)
+                  and bool(torch.isfinite(logits[:, -1]).all()),
+                  f"qwen2_moe prefill logits {tuple(logits.shape)}")
+        check(cache["k"].dtype == torch.float32 and "k_scale" not in cache,
+              "qwen2_moe serves on the dense f32 cache")
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps_d):
+            out, cache = model.decode_step(cache, tok, serve=serve)
+            tok = out.argmax(-1)
+        torch.cuda.synchronize()
+        dec = time.perf_counter() - t
+        check(bool(torch.isfinite(out).all()), "qwen2_moe decode logits")
+    slaunch = dict(swa_attention.LAUNCHES)
+    check(slaunch["swa_flash_fwd"] == cfg.n_layers * len(pre)
+          and slaunch["swa_flash_decode"] == cfg.n_layers * steps_d,
+          f"qwen2_moe serving launches {slaunch}")
+    check(not any(b == "ref" for (_, b) in dispatch.CALLS),
+          f"ref dispatches: {dispatch.CALLS}")
+    say("moe-path", f"serving {lanes} lanes, dense f32 cache of {max_len} "
+                    f"slots: prefill "
+                    + ", ".join(f"{p}-token prompts {pre[p]:.3f} s "
+                                f"({lanes * p / pre[p]:.1f} tokens/s)"
+                                for p in pre)
+                    + f"; {steps_d} decode steps {dec:.3f} s "
+                    f"({lanes * steps_d / dec:.1f} tokens/s; capacity "
+                    f"{max(1, int(cfg.capacity_factor * lanes * cfg.top_k / e))} "
+                    f"an expert a step); launches {slaunch}; "
+                    f"{card_note(torch)}")
+    del model, params, cache, logits, out
+    torch.cuda.empty_cache()
+    say("moe-path", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
 
 
 if __name__ == "__main__":

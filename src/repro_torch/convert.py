@@ -3,7 +3,9 @@
 The JAX package's ``DecoderLM.init`` returns a tree whose ``blocks`` leaves
 are stacked on a leading ``(L,)`` axis; :func:`params_from_jax` unstacks
 them into :class:`repro_torch.models.transformer.DecoderLM`'s per-layer
-parameter dicts, so that both packages compute the same function::
+parameter dicts (an MoE layer's expert stacks, ``(L, E, d, f)`` in JAX,
+become its ``(E, d, f)`` tensors; the velocity likewise), so that both
+packages compute the same function::
 
     np_params = jax.tree.map(np.asarray, jax_model.init(key))
     model.load_state_dict(params_from_jax(np_params, cfg, "cpu"))
@@ -13,7 +15,9 @@ its conv weights (the only 4-D leaves of either model) are
 ``(kh, kw, cin, cout)`` in JAX and ``(cout, cin, kh, kw)`` in the port, and
 every function here moves a 4-D leaf between the two (its momentum too).
 Factor statistics, ``uw`` and ``uwf`` included, keep the stacked
-``{family: {key: (L, ...)}}`` layout in both packages
+``{family: {key: (L, ...)}}`` layout in both packages (an MoE expert
+family's ``(L, E, nb, b, b)`` too; the model hands each layer its ``(E,
+...)`` view)
 (:func:`stats_from_jax`, :func:`stats_to_jax`); the SP-NGD optimizer state
 differs in its velocity, a stacked params tree in JAX and a flat
 ``{"blocks/3/attn/wq": tensor}`` dict in the port, and in the refresh

@@ -38,8 +38,10 @@ from repro_torch.core.tagging import FactorSpec
 class SiteInfo:
     """Static metadata tying one tagged site to its parameter leaf.
     ``param`` is a '/'-joined path; ``lead`` the leading axes the factor
-    arrays share with the (stacked) parameter, ``(L,)`` for block sites."""
-    kind: str                      # dense | conv | embed | bias | scale_bias
+    arrays share with the (stacked) parameter, ``(L,)`` for block sites,
+    ``(L, E)`` for an MoE block's grouped expert sites."""
+    kind: str                      # dense | grouped | conv | embed | bias |
+                                   # scale_bias
     param: str
     d_in: int = 0
     d_out: int = 0

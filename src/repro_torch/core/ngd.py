@@ -21,7 +21,9 @@ a 1.5 B-parameter model per step would double its memory), and so is the
 momentum. The curvature state keeps the JAX package's layout: one stacked
 ``(L, ...)`` f32 array per statistic of a block family. Block-family
 gradients are per-layer tensors (``fisher.get_path`` returns the list), so
-preconditioning runs once per layer and side. With
+preconditioning runs once per layer and side; an MoE layer's expert stack
+``(E, d_in, d_out)`` (a ``"grouped"`` site, inverses ``(E, nb, b, b)``) is
+one call per side for all its experts. With
 ``factor_dtype="fp8_e4m3"`` (or e5m2) the X_-1/X_-2 history is stored
 encoded (``{"payload", "scale"}``, sym-packed for the blocked factors) and
 decoded on read; wire-format capture (``FactorSpec.wire_fmt``) is decoded
@@ -428,7 +430,9 @@ class SPNGD:
 
     def _precond_one(self, info: SiteInfo, pc: dict, grad, lam, layer):
         path = _layer_path(info.param, layer)
-        if info.kind in ("dense", "embed"):
+        if info.kind in ("dense", "grouped", "embed"):
+            # grouped: the layer's (E, d_in, d_out) expert stack with its
+            # (E, nb, b, b) inverses, every expert in one call per side
             return {path: kfac.precondition(grad(info.param), pc.get("a"),
                                             pc.get("g"),
                                             backend=self.cfg.backend)}
@@ -500,12 +504,17 @@ class SPNGD:
 
         if cfg.weight_rescale:                 # Eq. 24
             for fam, info in self.infos.items():
-                if info.kind not in ("dense", "conv"):
+                if info.kind not in ("dense", "conv", "grouped"):
                     continue
                 layers = range(info.lead[0]) if info.lead else [None]
                 for layer in layers:
                     w = flat_p[_layer_path(info.param, layer)]
-                    norm = torch.sqrt(torch.sum(w.float() ** 2))
+                    if info.kind == "grouped":  # one norm per expert
+                        norm = torch.sqrt(torch.sum(w.float() ** 2,
+                                                    dim=(-2, -1),
+                                                    keepdim=True))
+                    else:
+                        norm = torch.sqrt(torch.sum(w.float() ** 2))
                     target = (2.0 * info.d_out) ** 0.5
                     w.copy_((w * (target / (norm + RESCALE_EPS))
                              ).to(w.dtype))

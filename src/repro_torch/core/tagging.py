@@ -22,7 +22,9 @@ With ``FactorSpec.wire_fmt`` set, a full-kind factor's accumulator is a
 backward returns the fused capture's sym-packed fp8 payload and per-block
 scales as their gradients (``kfac.factor_sum_wire``); the optimizer
 decodes them once. A conv site is im2col patches through the dense site
-(Eq. 10-11). ``grouped_dense_site`` arrives with the MoE slice.
+(Eq. 10-11). A grouped site (an MoE block's experts, ``y[e] = x[e] @
+w[e]``) keeps the expert axis in its factors: ``(E, nb, b, b)``, summed for
+all experts in one ``factor_sum`` call.
 """
 
 from __future__ import annotations
@@ -186,6 +188,49 @@ def dense_site(x: torch.Tensor, w: torch.Tensor, stats: Optional[dict] = None,
         return torch.matmul(x, w)
     return _DenseSite.apply(x, w, *_acc_parts(stats.get("a")),
                             *_acc_parts(stats.get("g")), spec)
+
+
+# ---------------------------------------------------------------------------
+# Grouped dense site (MoE experts): y[e] = x[e] @ w[e]
+#   x (E, n, d_in), w (E, d_in, d_out) -> per-expert factors (E, nb, b, b)
+# ---------------------------------------------------------------------------
+
+class _GroupedSite(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, a_acc, g_acc, spec):
+        ctx.save_for_backward(x, w)
+        ctx.spec = spec
+        ctx.shapes = (_shape(a_acc), _shape(g_acc))
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        spec, (a_shape, g_shape) = ctx.spec, ctx.shapes
+        dx = dw = da = dg = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(gy, w.transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.transpose(-1, -2), gy.to(x.dtype)).to(w.dtype)
+        # factor sums keep the expert axis: (E, n, d) -> (E, nb, b, b), every
+        # expert in the one call
+        if a_shape is not None and ctx.needs_input_grad[2]:
+            da = _stat_sum(x, spec.a_kind, spec, a_shape)[0]
+        if g_shape is not None and ctx.needs_input_grad[3]:
+            dg = _stat_sum(gy.contiguous(), spec.g_kind, spec, g_shape)[0]
+        return dx, dw, da, dg, None
+
+
+def grouped_dense_site(x: torch.Tensor, w: torch.Tensor,
+                       stats: Optional[dict] = None,
+                       spec: FactorSpec = FactorSpec()) -> torch.Tensor:
+    """Tagged per-expert matmul ``y[e] = x[e] @ w[e]``: x (E, n, d_in), w
+    (E, d_in, d_out); ``stats`` the accumulator dict of :func:`make_stats`
+    with ``lead=(E,)`` (None: the plain product). There is no fused fp8
+    capture of expert sites: ``DecoderLM`` refuses ``factor_wire`` with MoE."""
+    if stats is None:
+        return torch.matmul(x, w)
+    return _GroupedSite.apply(x, w, stats.get("a"), stats.get("g"), spec)
 
 
 # ---------------------------------------------------------------------------

@@ -63,8 +63,9 @@ SIGNATURES = {
         "swa_flash_bwd_dkdv": [_P] * 8 + [_I] * 9 + [_F, _P],
     },
     "kfac_factor": {
-        # x, out, ws, arrived, n, ld, d, nb, b, dtype, ctas, stream
-        "factor_syrk": [_P] * 4 + [_I] * 7 + [_P],
+        # x, out, ws, arrived, lead, lstride, n, ld, d, nb, b, dtype, ctas,
+        # stream
+        "factor_syrk": [_P] * 4 + [_I, _L] + [_I] * 7 + [_P],
         # x, scratch, amax, ws, arrived, payload, scale, n, ld, d, nb, b,
         # dtype, ctas, fmt, pow2, inv_max, stream
         "factor_syrk_wire": [_P] * 7 + [_I] * 9 + [_F, _P],
@@ -81,8 +82,9 @@ SIGNATURES = {
         "dequant_rows_attrs": [_P],
     },
     "kfac_precond": {
-        # binv, w, out, b, dim, other, ldw, ldo, nb, right, blocks, stream
-        "block_precond": [_P] * 3 + [_I] * 8 + [_P],
+        # binv, w, out, lead, lb, lw, lo, b, dim, other, ldw, ldo, nb, right,
+        # blocks, stream
+        "block_precond": [_P] * 3 + [_I] + [_L] * 3 + [_I] * 8 + [_P],
     },
     "newton_schulz": {
         # m, x, alt, r, res, trips, g, b, iters, tol, stream

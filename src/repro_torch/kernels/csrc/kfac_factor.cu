@@ -4,13 +4,21 @@
 //
 // Replaces the TPU kernel repro/kernels/kfac_factor.py::factor_syrk
 // (_factor_kernel) with its wrapper repro/kernels/ops.py kfac_factor and
-// the per-block vmap of repro/kernels/dispatch.py _factor_sum_pallas; and
+// the vmap over blocks and leading axes of repro/kernels/dispatch.py
+// _factor_sum_pallas (:120-129); and
 // the TPU kernel ::factor_syrk_wire (_factor_wire_kernel, wrapper
 // ops.kfac_factor_wire, dispatch _factor_sum_wire_pallas).
 //
-//   x   (n, ld) row-major, the first d columns hold the features; block k
-//       covers columns [k*b, k*b + b), the last one ragged
-//   out (nb, b, b) f32, out[k] = sum_t x[t, kb:kb+b]^T x[t, kb:kb+b]
+//   x   (lead, n, ld) row-major, lead matrices lstride elements apart
+//       (the experts of an MoE site; lead 1 for every other site), the
+//       first d columns hold the features; block k covers columns
+//       [k*b, k*b + b), the last one ragged
+//   out (lead, nb, b, b) f32,
+//       out[e, k] = sum_t x[e, t, kb:kb+b]^T x[e, t, kb:kb+b]
+//
+// All lead x nb blocks are one launch: the work below runs over the
+// flattened (matrix, block) index e * nb + k, which is also the block's
+// place in out, so the output side does not see the lead at all.
 //
 // Bound: n*b*(b+1) operations per block against n*d input elements and
 // nb*b*b f32 outputs (the wire variant: nb*b(b+1)/2 fp8 bytes and nb
@@ -57,7 +65,8 @@
 // while the consumers store. At n 4096 on 132 SMs: b 512 (10 tiles) takes
 // 80 blocks of 8 slices (each tile shared by 8), b 2048 nb 1 (136 tiles)
 // 132 blocks of 66 slices; from two tiles per SM on (d 8192 nb 4, 544
-// tiles), one block per tile, in waves, shares nothing.
+// tiles; an MoE site's 60 experts of 341 tokens at d 2048, 8,160 tiles of
+// 6 slices), one block per tile, in waves, shares nothing.
 //
 // f32 inputs (the ConvNet path, the 2-layer f32 route checks) do not take
 // the tensor cores: they keep the CUDA-core tile of simt_tile.cuh, 64 x 64
@@ -67,8 +76,9 @@
 // syrk_f32_split): block (pair, k, z) sums chunk z of one tile pair into a
 // partial in the workspace, and a second launch sums each entry's partials
 // in chunk order, mirrors the off-diagonal tiles and takes the wire
-// variant's amax. A sum over a million rows in one f32 accumulator was
-// off by 4.8e-4 of max|A| (1,048,576 x 27 on an H100); a chunk's is not.
+// variant's amax; grid.y runs over all lead x nb blocks. A sum over a
+// million rows in one f32 accumulator was off by 4.8e-4 of max|A|
+// (1,048,576 x 27 on an H100); a chunk's is not.
 // Below 16,384 rows there is one chunk, which writes the output directly:
 // the single accumulator, whose sums at n 4096 equal those of the plain
 // f32 product (torch.mm on the card) bit for bit.
@@ -126,16 +136,17 @@ template <typename T>
 __global__ void __launch_bounds__(simt::NT)
 factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* __restrict__ amax,
                    float* __restrict__ part, int n, int ld, int d, int b, int tiles,
-                   int rows) {
+                   int rows, int nb, long long lstride) {
   using simt::BK;
   using simt::TILE;
   int ti, tj;
   tile_pair(blockIdx.x, tiles, ti, tj);
   const int t_begin = blockIdx.z * rows;
   const int t_end = min(n, t_begin + rows);
-  const int blk = blockIdx.y;
-  const int col0 = blk * b;
+  const int blk = blockIdx.y;           // e * nb + k: the matrix e, its block k
+  const int col0 = (blk % nb) * b;
   const int valid = min(b, d - col0);   // columns of this block holding data
+  x += (size_t)(blk / nb) * lstride;
   const int i0 = ti * TILE;
   const int j0 = tj * TILE;
 
@@ -316,6 +327,7 @@ __device__ __forceinline__ void load_elements(uint32_t dst, const unsigned short
 // arrive, from their partials, in block order.
 struct Work {
   int pairs, tiles, slices, per, total;
+  int nb;               // blocks per matrix: tile q's block q / pairs is e * nb + k
   __device__ __forceinline__ int first(int q) const { return q * slices / per; }
   __device__ __forceinline__ int last(int q) const { return ((q + 1) * slices - 1) / per; }
   // workspace slot of block w's partial of tile q: 2w for the tile its
@@ -368,7 +380,8 @@ __global__ void __launch_bounds__(NT, 1)
 factor_syrk_tc_kernel(const __grid_constant__ CUtensorMap map,
                       const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
                       unsigned* __restrict__ amax, float* __restrict__ ws,
-                      int* __restrict__ arrived, int n, int ld, int d, int b, Work wk) {
+                      int* __restrict__ arrived, int n, int ld, int d, int b, long long lstride,
+                      Work wk) {
   const int w = blockIdx.x;
   const int g0 = w * wk.per;
   const int g1 = min(wk.total, g0 + wk.per);
@@ -400,9 +413,10 @@ factor_syrk_tc_kernel(const __grid_constant__ CUtensorMap map,
       const int s0 = g - q * wk.slices;
       const int seg = min(g1, (q + 1) * wk.slices) - g;
       const int blk = q / wk.pairs;
+      const int e = blk / wk.nb;
       int ti, tj;
       tile_pair(q - blk * wk.pairs, wk.tiles, ti, tj);
-      const int col0 = blk * b;
+      const int col0 = (blk - e * wk.nb) * b;
       const int ci = col0 + ti * TILE;
       const int cj = col0 + tj * TILE;
       const bool diag = ti == tj;
@@ -418,14 +432,15 @@ factor_syrk_tc_kernel(const __grid_constant__ CUtensorMap map,
           mbar_expect_tx(full, diag ? OPND : STAGE);
           // tokens past n and features past d come in as zeros; features
           // of the next block only feed outputs past b, never stored
-          tma_load(dst, &map, ci, t0, full);
-          tma_load(dst + HALF, &map, ci + 64, t0, full);
+          tma_load(dst, &map, ci, t0, e, full);
+          tma_load(dst + HALF, &map, ci + 64, t0, e, full);
           if (!diag) {
-            tma_load(dst + OPND, &map, cj, t0, full);
-            tma_load(dst + OPND + HALF, &map, cj + 64, t0, full);
+            tma_load(dst + OPND, &map, cj, t0, e, full);
+            tma_load(dst + OPND + HALF, &map, cj + 64, t0, e, full);
           }
         } else {
-          const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+          const unsigned short* xs =
+              reinterpret_cast<const unsigned short*>(x) + (size_t)e * lstride;
           load_elements(dst, xs, ld, col0, ti * TILE, valid, t0, n, lt);
           if (!diag) load_elements(dst + OPND, xs, ld, col0, tj * TILE, valid, t0, n, lt);
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -503,32 +518,39 @@ factor_syrk_tc_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-int encode_map(CUtensorMap* map, const void* x, int n, int ld, int d) {
-  // features (contiguous) by tokens; a box is 64 x 64, read in the
-  // 128-byte swizzle; out of range reads as zero
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)max(n, 1)};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, BK};
-  return hopper::encode_bf16(map, x, 2, dims, strides, box);
+int encode_map(CUtensorMap* map, const void* x, int lead, int n, int ld, int d,
+               long long lstride) {
+  // features (contiguous) by tokens by matrices; a box is 64 x 64 of one
+  // matrix, read in the 128-byte swizzle; out of range reads as zero, so
+  // a slice past a matrix's n tokens never reads the next matrix's rows
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)max(n, 1), (cuuint64_t)lead};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)lstride * 2};
+  const cuuint32_t box[3] = {64, BK, 1};
+  return hopper::encode_bf16(map, x, 3, dims, strides, box);
 }
 
-int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int n, int ld,
-              int d, int nb, int b, int ctas, cudaStream_t st) {
-  // TMA needs a 16-byte aligned base and row stride; b a multiple of 8
-  // keeps every block's first column on a 16-byte boundary too
-  const bool tma =
-      n > 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && ld % 8 == 0 && b % 8 == 0;
+int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int lead,
+              long long lstride, int n, int ld, int d, int nb, int b, int ctas,
+              cudaStream_t st) {
+  // TMA needs a 16-byte aligned base and row and matrix strides (matrices
+  // apart, as a contiguous (lead, n, ld) tensor has them); b a multiple
+  // of 8 keeps every block's first column on a 16-byte boundary too
+  const bool tma = n > 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && ld % 8 == 0 &&
+                   b % 8 == 0 && lstride % 8 == 0 && lstride >= (long long)n * ld;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
   if (tma) {
-    const int rc = encode_map(&map, x, n, ld, d);
+    const int rc = encode_map(&map, x, lead, n, ld, d, lstride);
     if (rc) return rc;
   }
   Work wk;
+  wk.nb = nb;
   wk.tiles = (b + TILE - 1) / TILE;
   wk.pairs = wk.tiles * (wk.tiles + 1) / 2;
   wk.slices = max((n + BK - 1) / BK, 1);
-  wk.total = nb * wk.pairs * wk.slices;
+  const long long total = (long long)lead * nb * wk.pairs * wk.slices;
+  if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  wk.total = (int)total;
   if (ctas < 1 || ctas > wk.total) return (int)cudaErrorInvalidValue;
   wk.per = (wk.total + ctas - 1) / ctas;
   if ((long long)(ctas - 1) * wk.per >= wk.total) return (int)cudaErrorInvalidValue;
@@ -539,7 +561,7 @@ int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived,
   if (e != cudaSuccess) return (int)e;
   kernel<<<ctas, NT, SMEM, st>>>(map, static_cast<const __nv_bfloat16*>(x),
                                  static_cast<float*>(out), amax, static_cast<float*>(ws),
-                                 static_cast<int*>(arrived), n, ld, d, b, wk);
+                                 static_cast<int*>(arrived), n, ld, d, b, lstride, wk);
   return 0;
 }
 
@@ -568,10 +590,12 @@ pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ paylo
 // bf16: ws and arrived are the workspace of the partials of shared tiles
 // (2 * ctas * 64 KB f32) and one zeroed arrival counter per tile (unused
 // when no tile is shared). f32: ctas is the chunk count the wrapper chose
-// and ws holds ctas * nb * b * b f32 partials when it is above 1.
-int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int n, int ld,
-                int d, int nb, int b, int dtype, int ctas, cudaStream_t st) {
-  if (nb < 1 || b < 1 || (long long)(nb - 1) * b >= d || (long long)nb * b < d || ld < d)
+// and ws holds ctas * lead * nb * b * b f32 partials when it is above 1.
+int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int lead,
+                long long lstride, int n, int ld, int d, int nb, int b, int dtype, int ctas,
+                cudaStream_t st) {
+  if (nb < 1 || b < 1 || (long long)(nb - 1) * b >= d || (long long)nb * b < d || ld < d ||
+      lead < 1 || lstride < 0 || (long long)lead * nb > 65535)   // f32's grid y
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case DT_F32: {
@@ -581,20 +605,21 @@ int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrive
       const int chunks = n > rows ? (n + rows - 1) / rows : 1;   // <= ctas
       float* part = chunks > 1 ? static_cast<float*>(ws) : nullptr;
       if (chunks > 1 && !ws) return (int)cudaErrorInvalidValue;
-      const dim3 grid(tiles * (tiles + 1) / 2, nb, chunks);
+      const dim3 grid(tiles * (tiles + 1) / 2, lead * nb, chunks);
       factor_syrk_kernel<float><<<grid, simt::NT, 0, st>>>(
           static_cast<const float*>(x), static_cast<float*>(out), amax, part, n, ld, d, b, tiles,
-          rows);
+          rows, nb, lstride);
       if (chunks > 1) {
         const long long bb = (long long)b * b;
-        const dim3 rgrid((unsigned)((bb + 255) / 256), nb);
+        const dim3 rgrid((unsigned)((bb + 255) / 256), lead * nb);
         syrk_reduce_kernel<<<rgrid, 256, 0, st>>>(part, static_cast<float*>(out), amax, chunks,
-                                                  nb, b);
+                                                  lead * nb, b);
       }
       break;
     }
     case DT_BF16: {
-      const int rc = tc::launch_tc(x, out, amax, ws, arrived, n, ld, d, nb, b, ctas, st);
+      const int rc =
+          tc::launch_tc(x, out, amax, ws, arrived, lead, lstride, n, ld, d, nb, b, ctas, st);
       if (rc) return rc;
       break;
     }
@@ -606,9 +631,11 @@ int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrive
 
 }  // namespace
 
-extern "C" int factor_syrk(const void* x, void* out, void* ws, void* arrived, int n, int ld,
-                           int d, int nb, int b, int dtype, int ctas, void* stream) {
-  return launch_syrk(x, out, nullptr, ws, arrived, n, ld, d, nb, b, dtype, ctas,
+// x (lead, n, ld), matrices lstride elements apart; out (lead, nb, b, b)
+extern "C" int factor_syrk(const void* x, void* out, void* ws, void* arrived, int lead,
+                           long long lstride, int n, int ld, int d, int nb, int b, int dtype,
+                           int ctas, void* stream) {
+  return launch_syrk(x, out, nullptr, ws, arrived, lead, lstride, n, ld, d, nb, b, dtype, ctas,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -620,8 +647,9 @@ extern "C" int factor_syrk_wire(const void* x, void* scratch, void* amax, void* 
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt != DT_E4M3 && fmt != DT_E5M2) return (int)cudaErrorInvalidValue;
-  const int rc = launch_syrk(x, scratch, static_cast<unsigned*>(amax), ws, arrived, n, ld, d, nb,
-                             b, dtype, ctas, st);
+  // one matrix: the wire epilogue's leading axis is a later slice
+  const int rc = launch_syrk(x, scratch, static_cast<unsigned*>(amax), ws, arrived, 1,
+                             (long long)n * ld, n, ld, d, nb, b, dtype, ctas, st);
   if (rc) return rc;
   const dim3 grid((b + 7) / 8, nb);
   pack_quant_kernel<<<grid, 256, 0, st>>>(

@@ -186,7 +186,8 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # factor_sum: blocked A = sum_t x_t x_t^T     (..., n, d) -> (..., nb, b, b)
 # f32 sums from bf16 or f32 inputs; the last block's columns past d are zero.
-# The cuda entry takes one (n, d) matrix (no leading axes).
+# The cuda entry takes the leading axes (an MoE site's experts) into the same
+# one launch, as repro vmaps its SYRK over them (dispatch.py:120-129).
 # ---------------------------------------------------------------------------
 
 def _factor_sum_ref(x, max_dim: int):
@@ -196,18 +197,20 @@ def _factor_sum_ref(x, max_dim: int):
 
 def _factor_sum_cuda(x, max_dim: int):
     from repro_torch.kernels import kfac as kern
-    _one_matrix("factor_sum", x)
     return kern.factor_syrk(x, max_dim)
 
 
 def _one_matrix(op: str, *ts) -> None:
-    """The kernels take one matrix per call: the training path sums and
-    preconditions layer by layer. A leading axis raises rather than loop."""
+    """The wire epilogue (factor_syrk_wire) takes one matrix per call: its
+    leading axis, which an MoE site under fused fp8 capture would need, is
+    a later slice. A leading axis raises rather than loop."""
     for t in ts:
         if t.dim() != 2:
-            raise ValueError(f"{op}[cuda] takes one matrix per call, got a "
-                             f"{t.dim()}-D tensor {tuple(t.shape)}; call it "
-                             "once per leading index or use backend='ref'")
+            raise ValueError(f"{op}[cuda] takes one matrix per call (the "
+                             f"wire epilogue's leading axis is a later "
+                             f"slice), got a {t.dim()}-D tensor "
+                             f"{tuple(t.shape)}; use backend='ref' or the "
+                             f"dense f32 capture")
 
 
 def factor_sum(x: torch.Tensor, max_dim: int, *,
@@ -364,7 +367,10 @@ def ring_hop_unpack(payload: torch.Tensor, scale: torch.Tensor, *,
 #   w (..., m, d), binv (..., nb, b, b) -> (..., m, d) f32
 # w is taken unblocked: the kernel masks the ragged last block where the JAX
 # package pads w to nb*b (block_reshape) and slices the result back. The cuda
-# entries take one w matrix (no leading axes).
+# entries take the leading axes (an MoE site's experts: binv (E, nb, b, b),
+# w (E, d, m)) in one launch, on either side; repro folds its lead into the
+# block axis instead, which covers the left side only when d is a whole
+# number of blocks.
 # ---------------------------------------------------------------------------
 
 def _precond_left_ref(binv, w):
@@ -395,7 +401,6 @@ def _precond_right_cuda(w, binv):
 
 def _precond_cuda(binv, w, right: bool):
     from repro_torch.kernels import kfac as kern
-    _one_matrix(f"block_precond_{'right' if right else 'left'}", w)
     # the identity preconditioners of a fresh state are expanded views
     return kern.block_precond(binv.contiguous(), w, right=right)
 

@@ -16,6 +16,7 @@ is refused with ``accum > 1``.
         --batch 4 --seq 1024 --full-config          # on the card
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
     python -m repro_torch.launch.train --device cpu --arch qwen1_5_4b
+    python -m repro_torch.launch.train --device cpu --arch mixtral_8x22b
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
     python -m repro_torch.launch.train --full-config --refresh-chunks 4
@@ -639,6 +640,20 @@ def _refuse_arch(ap, arch: str) -> None:
                  f"carries pixel_embeds instead")
 
 
+def _refuse_wire(ap, arch: str, fmt: str) -> None:
+    """Stop before anything is built when ``--factor-wire`` meets an MoE
+    config: the fused fp8 capture of its expert sites needs
+    ``factor_sum_wire``'s leading axis, a later slice."""
+    if not fmt:
+        return
+    from repro_torch.configs import get_config
+    if getattr(get_config(arch), "block_type", None) == "moe":
+        ap.error(f"--arch {arch} --factor-wire {fmt}: the fused fp8 capture "
+                 f"of MoE expert sites needs factor_sum_wire's leading axis "
+                 f"(the expert axis), which is not ported yet; run without "
+                 f"--factor-wire (the dense f32 capture)")
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(
@@ -647,7 +662,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3_2_1b",
                     help="a registered text decoder: llama3_2_1b, "
                          "llama3_2_3b, qwen1_5_4b, musicgen_medium, "
-                         "nemotron_4_340b (llava_next_34b is refused: its "
+                         "nemotron_4_340b, the MoE mixtral_8x22b and "
+                         "qwen2_moe_a2_7b (llava_next_34b is refused: its "
                          "batches need pixel_embeds)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -752,6 +768,7 @@ def main(argv=None):
                          "overhead-accounting table")
     args = ap.parse_args(argv)
     _refuse_arch(ap, args.arch)
+    _refuse_wire(ap, args.arch, args.factor_wire)
 
     from repro_torch.models.transformer import resolve_device
     from repro_torch.obs import MetricsLogger, ProfileCapture

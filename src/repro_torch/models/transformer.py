@@ -1,4 +1,4 @@
-"""Config-driven decoder-only LM, dense blocks (counterpart of
+"""Config-driven decoder-only LM, dense and MoE blocks (counterpart of
 ``repro/models/transformer.py``).
 
 Weights keep the JAX package's layout -- dense weights ``(d_in, d_out)``
@@ -20,8 +20,13 @@ factor-statistic families keep the stacked ``(L, ...)`` layout. With
 "vision"`` (the VLM backbone) a ``proj`` site maps the batch's precomputed
 patch embeddings ``pixel_embeds`` (B, frontend_tokens, frontend_dim) to
 ``d_model`` and their rows go before the text's; the loss and the logits
-it returns cover the text rows only. Other block types and the legacy
-``serve=None`` decode arrive with later slices.
+it returns cover the text rows only. An MoE block (``block_type ==
+"moe"``, ``models/moe.py``) takes the MLP's place: per layer ``moe`` holds
+``router (d, E)``, ``we_up``/``we_gate (E, d, f)``, ``we_down (E, f, d)``
+and the shared experts' ``sh_*``; its expert sites' factor families are
+``(L, E, nb, b, b)`` and the blocks' auxiliary losses average into the
+loss. The recurrent block types and the legacy ``serve=None`` decode arrive
+with later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.core import tagging
 from repro_torch.core.fisher import SiteInfo
 from repro_torch.core.tagging import FactorSpec
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_rope, he_normal, layernorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -74,10 +80,15 @@ def _device_generator(generator: torch.Generator,
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.block_type != "dense":
+        if cfg.block_type not in ("dense", "moe"):
             raise NotImplementedError(
-                f"repro_torch ports block_type='dense' only so far; got "
+                f"repro_torch ports block_type 'dense' and 'moe' so far; got "
                 f"{cfg.block_type!r}")
+        if cfg.block_type == "moe" and cfg.factor_wire:
+            raise NotImplementedError(
+                "fused fp8 capture (factor_wire) of MoE expert sites needs "
+                "factor_sum_wire's leading axis, a later slice; use the "
+                "dense f32 capture")
         self.cfg = cfg
         self.device = resolve_device(device)
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -114,10 +125,21 @@ class DecoderLM(nn.Module):
                 attn.update(bq=empty(h * hd), bk=empty(kv * hd),
                             bv=empty(kv * hd))
             p = {"ln1": {"gamma": ones(d)}, "ln2": {"gamma": ones(d)},
-                 "attn": attn,
-                 "mlp": {"up": empty(d, cfg.d_ff), "down": empty(cfg.d_ff, d)}}
-            if cfg.gated_mlp:
-                p["mlp"]["gate"] = empty(d, cfg.d_ff)
+                 "attn": attn}
+            if cfg.block_type == "moe":
+                e, ff = cfg.n_experts, cfg.d_ff
+                p["moe"] = {"router": empty(d, e), "we_up": empty(e, d, ff),
+                            "we_gate": empty(e, d, ff),
+                            "we_down": empty(e, ff, d)}
+                if cfg.n_shared_experts:
+                    sf = cfg.n_shared_experts * ff
+                    p["moe"].update(sh_up=empty(d, sf), sh_gate=empty(d, sf),
+                                    sh_down=empty(sf, d))
+            else:
+                p["mlp"] = {"up": empty(d, cfg.d_ff),
+                            "down": empty(cfg.d_ff, d)}
+                if cfg.gated_mlp:
+                    p["mlp"]["gate"] = empty(d, cfg.d_ff)
             if cfg.norm == "layernorm":
                 p["ln1"]["beta"] = torch.zeros(d, device=self.device)
                 p["ln2"]["beta"] = torch.zeros(d, device=self.device)
@@ -132,9 +154,9 @@ class DecoderLM(nn.Module):
     def init(self, generator: torch.Generator) -> "DecoderLM":
         """Random weights with the JAX package's distributions
         (``transformer.py:141-202``): embedding N(0, 0.02), HeNormal dense
-        weights (the vision projector's too), unit norm scales, zero
-        biases. Deterministic in the generator's seed (its bits cannot
-        match ``jax.random``)."""
+        weights (the vision projector's and the experts' too), unit norm
+        scales, zero biases. Deterministic in the generator's seed (its
+        bits cannot match ``jax.random``)."""
         cfg = self.cfg
         g = _device_generator(generator, self.device)
         dev = self.device
@@ -155,10 +177,16 @@ class DecoderLM(nn.Module):
             for name in ("bq", "bk", "bv"):
                 if name in a:
                     a[name].zero_()
-            m = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.dtype,
-                         device=dev)
+            if cfg.block_type == "moe":
+                m, key = moe_lib.init_moe(g, cfg.d_model, cfg.d_ff,
+                                          cfg.n_experts, cfg.n_shared_experts,
+                                          cfg.dtype, device=dev), "moe"
+            else:
+                m, key = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                  cfg.dtype, device=dev), "mlp"
             for name, w in m.items():
-                blk["mlp"][name].copy_(w)
+                blk[key][name].copy_(w)
+            del m
             for ln in ("ln1", "ln2"):
                 blk[ln]["gamma"].fill_(1.0)
                 if "beta" in blk[ln]:
@@ -277,13 +305,21 @@ class DecoderLM(nn.Module):
 
     def _block(self, x, p, fs=None, *, positions, cache=None,
                cache_len=None, serve=None):
+        """Returns (y, aux): aux the MoE block's auxiliary loss, None for a
+        dense block."""
         h1 = self._norm(x, p["ln1"], "ln1", fs)
         x = x + self._attn(h1, p["attn"], fs, positions=positions,
                            cache_kv=cache, cache_len=cache_len, serve=serve)
         h2 = self._norm(x, p["ln2"], "ln2", fs)
         cfg = self.cfg
+        if cfg.block_type == "moe":
+            y, aux = moe_lib.moe_block(
+                h2, p["moe"], _sub(fs, "moe_"), n_experts=cfg.n_experts,
+                top_k=cfg.top_k, act=cfg.act,
+                capacity_factor=cfg.capacity_factor, spec=self.spec)
+            return x + y, aux
         return x + mlp(h2, p["mlp"], _sub(fs, "mlp_"), act=cfg.act,
-                       gated=cfg.gated_mlp, spec=self.spec)
+                       gated=cfg.gated_mlp, spec=self.spec), None
 
     def _embed_inputs(self, batch, params=None, fs=None):
         """Returns (h (B, S_total, d), positions (S_total,), n_front): the
@@ -317,21 +353,24 @@ class DecoderLM(nn.Module):
                 params: dict | None = None):
         """batch {"tokens": (B, S)} (+ "pixel_embeds" (B, Tf, frontend_dim)
         under the vision frontend) -> (logits (B, Tf + S, V), aux), aux's
-        "n_front" the Tf image rows before the text. With
+        "n_front" the Tf image rows before the text and "aux_loss" the
+        blocks' auxiliary losses over n_layers (zero for dense blocks). With
         ``fstats`` (the accumulators of :meth:`fstats`) every site is tagged;
         ``params`` defaults to the model's own tree (:meth:`params`)."""
         params = params if params is not None else self.params()
         h, positions, n_front = self._embed_inputs(batch, params, fstats)
         per_layer = _blk_stats(fstats, self.cfg.n_layers)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux_loss = torch.zeros((), device=self.device)
         for p, fs_l in zip(params["blocks"], per_layer):
             if remat:
-                h = checkpoint(self._block, h, p, fs_l, positions=positions,
-                               use_reentrant=False)
+                h, a = checkpoint(self._block, h, p, fs_l,
+                                  positions=positions, use_reentrant=False)
             else:
-                h = self._block(h, p, fs_l, positions=positions)
-        aux = {"aux_loss": torch.zeros((), device=self.device),
-               "n_front": n_front}
+                h, a = self._block(h, p, fs_l, positions=positions)
+            if a is not None:
+                aux_loss = aux_loss + a
+        aux = {"aux_loss": aux_loss / self.cfg.n_layers, "n_front": n_front}
         return self._head(h, params, fstats), aux
 
     def loss(self, params: dict, fstats: dict | None, batch: dict):
@@ -388,7 +427,7 @@ class DecoderLM(nn.Module):
             infos["proj"] = SiteInfo("dense", "proj/w", cfg.frontend_dim, d,
                                      self.spec)
 
-        def blk(name, kind, path, d_in, d_out, beta=None):
+        def blk(name, kind, path, d_in, d_out, beta=None, lead=lead):
             infos[f"blk/{name}"] = SiteInfo(
                 kind, f"blocks/{path}", d_in, d_out, self.spec, lead=lead,
                 beta_param=beta)
@@ -406,6 +445,19 @@ class DecoderLM(nn.Module):
             blk("attn_bq", "bias", "attn/bq", 0, h * hd)
             blk("attn_bk", "bias", "attn/bk", 0, kv * hd)
             blk("attn_bv", "bias", "attn/bv", 0, kv * hd)
+        if cfg.block_type == "moe":
+            # the experts' sites are grouped: factors (L, E, nb, b, b)
+            experts = lead + (cfg.n_experts,)
+            blk("moe_router", "dense", "moe/router", d, cfg.n_experts)
+            blk("moe_we_up", "grouped", "moe/we_up", d, ff, lead=experts)
+            blk("moe_we_gate", "grouped", "moe/we_gate", d, ff, lead=experts)
+            blk("moe_we_down", "grouped", "moe/we_down", ff, d, lead=experts)
+            if cfg.n_shared_experts:
+                sf = cfg.n_shared_experts * ff
+                blk("moe_sh_up", "dense", "moe/sh_up", d, sf)
+                blk("moe_sh_gate", "dense", "moe/sh_gate", d, sf)
+                blk("moe_sh_down", "dense", "moe/sh_down", sf, d)
+            return infos
         blk("mlp_up", "dense", "mlp/up", d, ff)
         if cfg.gated_mlp:
             blk("mlp_gate", "dense", "mlp/gate", d, ff)
@@ -418,7 +470,7 @@ class DecoderLM(nn.Module):
         out = {}
         dev = self.device
         for fam, info in self.site_infos().items():
-            if info.kind == "dense":
+            if info.kind in ("dense", "grouped"):
                 out[fam] = tagging.make_stats(info.spec, info.d_in,
                                               info.d_out, lead=info.lead,
                                               device=dev)
@@ -437,7 +489,8 @@ class DecoderLM(nn.Module):
     def site_counts(self, batch) -> dict:
         """{family: (n_a, n_g)}: tokens through each site (the text's
         through ``embed``, the image rows' through ``proj``, both through
-        every other site), and the samples the loss averages over."""
+        every other site, the experts' grouped sites included, as
+        ``repro`` counts them), and the samples the loss averages over."""
         cfg = self.cfg
         tok = batch["tokens"]
         b = tok.shape[0]
@@ -509,8 +562,8 @@ class DecoderLM(nn.Module):
         positions = pos[:, None]                        # (B, 1) per-seq rope
         for layer, p in enumerate(self.blocks):
             sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
-            h = self._block(h, p, positions=positions, cache=sub,
-                            cache_len=pos, serve=serve)
+            h, _ = self._block(h, p, positions=positions, cache=sub,
+                               cache_len=pos, serve=serve)
         cache["len"] = pos + 1
         return self._head(h)[:, 0, :], cache
 
@@ -528,8 +581,8 @@ class DecoderLM(nn.Module):
         len0 = torch.zeros((b,), dtype=torch.int32, device=self.device)
         for layer, p in enumerate(self.blocks):
             sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
-            h = self._block(h, p, positions=positions, cache=sub,
-                            cache_len=len0, serve=serve)
+            h, _ = self._block(h, p, positions=positions, cache=sub,
+                               cache_len=len0, serve=serve)
         cache["len"] = torch.full((b,), h.shape[1], dtype=torch.int32,
                                   device=self.device)
         return self._head(h), cache

@@ -151,7 +151,7 @@ def test_aliases_and_registry_match_repro():
                         ("llava-next-34b", "llava_next_34b")):
         assert get_config(alias) == get_config(name)
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("mixtral_8x22b")
+        get_config("rwkv6_7b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

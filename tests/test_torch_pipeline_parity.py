@@ -13,7 +13,9 @@ step from ``repro``'s state (buffers, raw store and params 1e-4 relative to
 the largest entry of each leaf; the fp8 history within one fp8 step and its
 scales 1e-5, as ``tests/test_torch_fp8_train_parity.py``), and 20 losses
 as the double-buffer test holds them. The full BN Fisher's ``uwf`` unit is
-held the same way on a small ConvNet with ``bn_fisher="full"``.
+held the same way on a small ConvNet with ``bn_fisher="full"``, and the
+expert families' (L, E, ...) units on reduced qwen2_moe_a2_7b, driven by
+Algorithm 2's controller.
 """
 
 import functools
@@ -33,6 +35,10 @@ from repro_torch.core.pipeline import RefreshPipeline
 from repro_torch.core.stale import IntervalController
 from repro_torch.launch import train
 from repro_torch.launch.train import make_fast_step, make_train_step
+import jax_one_cpu
+from test_torch_moe_parity import _jax_side as _moe_jax_side
+from test_torch_moe_parity import _recorded_routes
+from test_torch_moe_parity import _setup as _moe_setup
 from test_torch_train_parity import TINY, _get, _leaves, _rel, _setup
 
 K = 2
@@ -48,6 +54,16 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _moe_child():
+    """repro's side of the MoE controller run (``jax_moe_controlled``), in a
+    process of its own on one CPU, begun with the module: the test that
+    reads it comes late."""
+    child = jax_one_cpu.start(__name__, "jax_moe_controlled")
+    yield child
+    child.close()
 
 
 def _port(**ngd_kw):
@@ -501,6 +517,88 @@ def test_twenty_step_losses_match_repro():
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got[:8], want[:8], rtol=1e-3, atol=1e-3)
     assert max(got[8:]) < 1.0 and max(want[8:]) < 1.0
+
+
+MOE_STEPS = 10
+MOE_KW = {"damping": DAMP, "double_buffer": True, "refresh_chunks": K}
+
+
+def _moe_ctrl(cls, opt):
+    return cls(opt.stat_names(), alpha=0.1, min_interval=K + 1,
+               bytes_per_stat=opt.stat_bytes())
+
+
+def jax_moe_controlled():
+    """repro's side of the MoE controller run (in a process of its own on
+    one CPU, ``jax_one_cpu``): each step's (flags, refresh_inflight, loss,
+    distances), its controller's state and its routing indices."""
+    jm, jopt, jp, js, jb, _ = _moe_jax_side("qwen2_moe_a2_7b", **MOE_KW)
+    jc, out = _moe_ctrl(JController, jopt), []
+    with _recorded_routes() as rec:
+        jstep = jax.jit(jmake_train_step(jm, jopt))
+        jfast = jax.jit(jmake_fast_step(jm, jopt))
+        for t in range(1, MOE_STEPS + 1):
+            flags = jc.flags(t)
+            if any(flags.values()):
+                jflags = {n: jnp.asarray(v) for n, v in flags.items()}
+                jp, js, m = jstep(jp, js, jb, jflags, DAMP, LR, MOM)
+                sims = {n: (float(v[0]), float(v[1]))
+                        for n, v in m["sims"].items()}
+            else:
+                jp, js, m = jfast(jp, js, jb, DAMP, LR, MOM)
+                sims = {}
+            jc.update(t, flags, sims)
+            out.append((flags, int(m["refresh_inflight"]), float(m["loss"]),
+                        sims))
+        jax.effects_barrier()
+    return out, jc.state_dict(), rec["jax"]
+
+
+def test_moe_pipelined_controller_run_matches_repro(_moe_child):
+    """Reduced qwen2_moe_a2_7b (``tests/test_torch_moe_parity.py``'s
+    fixture, this file's damping: at its 1e-3 both packages' double-buffered
+    runs climb back from step 7 on) under the pipeline (K chunks, double
+    buffer) with Algorithm 2's controller on (min interval K + 1), each
+    package's controller fed its own step's distances, as both trainers run
+    it: the LPT schedule and loads over the expert families' (L, E, nb, b,
+    b) units, then at every step the same flags (captures at steps 1, 4, 7
+    and 10, the last one leaving a statistic stale), the same
+    refresh_inflight, distances and losses within 1e-4 and equal routing
+    indices. repro's side is ``jax_moe_controlled``."""
+    (_, jopt, *_), (tm, topt, ts, tb, _) = _moe_setup("qwen2_moe_a2_7b",
+                                                      **MOE_KW)
+    assert topt.pipeline.schedule == jopt.pipeline.schedule
+    assert topt.pipeline.loads == jopt.pipeline.loads
+    assert any(fam.startswith("blk/moe_we_")
+               for chunk in topt.pipeline.schedule for fam, _ in chunk)
+    tc, params, got = _moe_ctrl(IntervalController, topt), tm.params(), []
+    with _recorded_routes() as rec:
+        step, fast = make_train_step(tm, topt), make_fast_step(tm, topt)
+        for t in range(1, MOE_STEPS + 1):
+            flags = tc.flags(t)
+            if any(flags.values()):
+                params, ts, m = step(params, ts, tb, flags, DAMP, LR, MOM)
+            else:
+                params, ts, m = fast(params, ts, tb, DAMP, LR, MOM)
+            tc.update(t, flags, m["sims"])
+            got.append((flags, m["refresh_inflight"], float(m["loss"]),
+                        m["sims"]))
+    want, jstate, jroutes = _moe_child.result()
+    for t, ((jf, ji, jl, jsims), (tf, ti, tl, tsims)) in enumerate(
+            zip(want, got), 1):
+        assert tf == jf and ti == ji, t
+        assert abs(tl - jl) <= 1e-4 * max(1.0, abs(jl)), t
+        assert set(tsims) == set(jsims), t
+        for n, v in jsims.items():
+            np.testing.assert_allclose(tsims[n], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"step {t} {n}")
+    captures = [t for t, (f, *_) in enumerate(got, 1) if any(f.values())]
+    assert captures == [1, 4, 7, 10]
+    assert any(0 < sum(f.values()) < len(f) for f, *_ in got)
+    assert tc.state_dict() == jstate
+    assert len(rec["torch"]) == len(jroutes) == MOE_STEPS * tm.cfg.n_layers
+    for i, (t, j) in enumerate(zip(rec["torch"], jroutes)):
+        np.testing.assert_array_equal(t, j, err_msg=f"router call {i}")
 
 
 # ---------------------------------------------------------------------------

@@ -209,7 +209,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
                                 max_len=8)
     assert batcher.cache["k"].device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        DecoderLM(dataclasses.replace(cfg, block_type="moe"), device="cpu")
+        DecoderLM(dataclasses.replace(cfg, block_type="rwkv"), device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tm.prefill({"tokens": torch.zeros(1, 4, dtype=torch.long)},
                    max_len=8, serve=ServeConfig(kv_dtype="f32",
