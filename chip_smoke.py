@@ -84,10 +84,22 @@ then served (mixtral on the fp8 ring, qwen2_moe on the dense cache);
 mixtral's attention at its own widths (S 8192, window 4096, G 6);
 ``qwen2_moe_a2_7b`` at full width (2 layers) trained with Newton-Schulz
 beside momentum SGD and served; and both kernels timed at its expert
-shapes. It times all thirteen kernels beside their bound, their plain
-version and the PyTorch library call for the same function, and again at
-the dense family's and the MoE family's shapes (rows named
-``kernel[hd192]``, ``kernel[llava]`` and ``kernel[moe]``).
+shapes. Then the recurrent families and the legacy serving path
+(``init_cache`` / ``prefill`` / ``decode_step`` with ``serve=None``):
+``rwkv6_7b`` and ``hymba_1_5b`` reduced (f32, 2 layers), eigh and
+Newton-Schulz capture and fast steps on the kernels against
+``backend="ref"``; the legacy path of rwkv6_7b, hymba_1_5b, llama3_2_1b
+and mixtral_8x22b (whose decode passes its window and takes the
+decode-span clamp), kernels against ref, the prefill through
+swa_flash_fwd and every decode step through swa_flash_decode; both
+families at full width (2 layers) trained with Newton-Schulz beside
+momentum SGD, split by stage with the scan apart, and served on the
+legacy cache; and the kernels timed at their shapes. It times all
+thirteen kernels beside their bound, their plain version and the PyTorch
+library call for the same function, and again at the dense family's, the
+MoE family's and the recurrent families' shapes (rows named
+``kernel[hd192]``, ``kernel[llava]``, ``kernel[moe]``, ``kernel[rwkv]``
+and ``kernel[hymba]``).
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -307,6 +319,10 @@ def main(argv: list[str]) -> int:
     timed(check_moe_routes, torch)
     moe = timed(moe_path, torch)
     moe_times = timed(time_moe_kernels, torch)
+    t_rec = time.perf_counter()
+    timed(check_recurrent_routes, torch)
+    rec = timed(recurrent_path, torch)
+    rec_times, rec_errs = timed(time_recurrent_kernels, torch)
     t_dist = time.perf_counter()
     timed(check_dist_route, torch)
     timed(check_ring_hop, torch)
@@ -319,7 +335,8 @@ def main(argv: list[str]) -> int:
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
                  f"{t_dense - t_swa:.1f} s, the dense-family phases "
                  f"{t_moe - t_dense:.1f} s, the MoE phases "
-                 f"{t_dist - t_moe:.1f} s and the multi-GPU phases "
+                 f"{t_rec - t_moe:.1f} s, the recurrent phases "
+                 f"{t_dist - t_rec:.1f} s and the multi-GPU phases "
                  f"{t_end - t_dist:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
 
@@ -349,6 +366,14 @@ def main(argv: list[str]) -> int:
     # check_moe_kernels' cases, moe_path's launches
     extra += [(f"{k}[moe]", k, moe_times[f"{k}[moe]"], moe_errs[f"{k}[moe]"],
                moe["launches"][k]) for k in MOE_KERNELS]
+    # and at the recurrent families' shapes: recurrent_path's launches
+    extra += [(f"{k}[{fam}]", k, rec_times[f"{k}[{fam}]"],
+               rec_errs[f"{k}[{fam}]"], rec[arch]["launches"][k])
+              for fam, arch, kernels in (
+                  ("rwkv", "rwkv6_7b", MOE_KERNELS),
+                  ("hymba", "hymba_1_5b", MOE_KERNELS + ATTN_KERNELS
+                   + ("swa_flash_decode",)))
+              for k in kernels]
     for label, name, t, err, n in extra:
         source, replaces = where[name]
         rows.append({"name": label, "route": "cuda",
@@ -905,22 +930,6 @@ def time_kernels(torch, main_path, ring) -> dict:
 
 
 
-def _device_us(evt) -> float:
-    """Time of a device-side event (a kernel, a memset or a copy); host-side
-    operator entries count 0, so no kernel is counted twice, and so do the
-    ranges' projections onto the device timeline (gpu_user_annotation)."""
-    from torch.autograd import DeviceType
-    if getattr(evt, "device_type", None) != DeviceType.CUDA:
-        return 0.0
-    if (getattr(evt, "is_user_annotation", False)
-            or evt.key.startswith(RANGE_PREFIXES)):
-        return 0.0
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def _group(name: str) -> str:
     low = name.lower()
     if "swa_bwd" in low:
@@ -943,12 +952,34 @@ def _group(name: str) -> str:
     return "other (elementwise, copies, reductions, memsets)"
 
 
-def _profile(torch, label, fn, warm: bool = True,
-             split: bool = False) -> None:
+def _kineto_device(prof) -> dict:
+    """{kernel name: [device us, events]} from the trace's raw kineto
+    events: kernels, memsets and copies, without the ranges' device
+    projections. One pass over the events; ``key_averages()`` builds the
+    whole operator tree first, about 85 us an event (a 12.5 s wait for a
+    scan loop's 147,490 CPU events)."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        annotation = getattr(e, "is_user_annotation", None)
+        if name.startswith(RANGE_PREFIXES) or (annotation and annotation()):
+            continue
+        rec = out.setdefault(name, [0.0, 0])
+        rec[0] += _ns(e, "duration") / 1e3
+        rec[1] += 1
+    return out
+
+
+def _profile(torch, label, fn, warm: bool = True, split: bool = False):
     """Device time by kernel and by group over ``fn``, and the device's busy
-    share of the wall time (torch.profiler, CUPTI); with ``split``, also by
-    the SP-NGD stage and kernel range each launch fell in
-    (:func:`_stage_split`)."""
+    share of the wall time (torch.profiler, CUPTI, read from the raw kineto
+    events: :func:`_kineto_device`); with ``split``, also by the SP-NGD
+    stage and kernel range each launch fell in (:func:`_stage_split`).
+    Returns the device-busy us (None when the trace holds no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -959,39 +990,41 @@ def _profile(torch, label, fn, warm: bool = True,
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
-    total = sum(_device_us(e) for e in evts)
+    evts = [(name, us, n) for name, (us, n) in _kineto_device(prof).items()]
+    total = sum(us for _, us, _ in evts)
     if not total:
         say("profile", f"{label}: no device time in the trace (not measured)")
-        return
+        return None
     groups: dict = {}
-    for e in evts:
-        g = _group(e.key)
-        groups[g] = groups.get(g, 0.0) + _device_us(e)
-    top = sorted(evts, key=_device_us, reverse=True)[:6]
+    for name, us, _ in evts:
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    top = sorted(evts, key=lambda e: -e[1])[:6]
     say("profile", f"{label}: wall {wall_us:.0f} us (profiled), device "
                    f"busy {total:.0f} us ({total / wall_us:.3f} of wall, "
-                   f"{sum(e.count for e in evts)} device events); by group "
+                   f"{sum(n for _, _, n in evts)} device events); by group "
                    + ", ".join(f"{g} {v:.0f} us ({v / total:.3f})"
                                for g, v in sorted(groups.items(),
                                                   key=lambda kv: -kv[1]))
                    + f"; {card_note(torch)}")
-    for e in top:
-        say("profile", f"  {_device_us(e):9.0f} us  {e.count:5d} x  "
-                       f"{e.key[:90]}")
+    for name, us, n in top:
+        say("profile", f"  {us:9.0f} us  {n:5d} x  {name[:90]}")
     if split:
         _stage_split(torch, label, prof, total)
+    return total
 
 
-# the observability ranges (repro_torch.obs.tracing): stage and kernel
-RANGE_PREFIXES = ("spngd.", "repro.kernels.")
+# the observability ranges (repro_torch.obs.tracing): stage, kernel, and
+# the recurrent scans' forward (a loop of torch ops, no kernel range)
+RANGE_PREFIXES = ("spngd.", "repro.kernels.", "repro.scan.")
 # host API records of a launch, copy or memset (CUDA runtime and CUDA
 # driver API calls: cudaLaunchKernel, cudaLaunchKernelExC, cuLaunchKernel,
 # cudaMemcpyAsync, ...)
 LAUNCH_PREFIX = "cu"
 UNSCOPED_BEFORE = "unscoped, before the first precond range"
 UNSCOPED_AFTER = "unscoped, between and after the precond ranges"
-# the split must account for the device busy time of key_averages
+# the stage split must hold a trace's device time, and at most this share
+# of it may lack its launch record
 SPLIT_REL_TOL = 0.01
 
 
@@ -1022,9 +1055,10 @@ def _stage_split(torch, label, prof, busy_us) -> None:
     their windows. Outside every stage range it goes to the
     forward/backward side (before the first ``spngd.stage4.precond``) or
     the update side (between and after them). Inside each bucket the time
-    is split by the ``repro.kernels.*[cuda]`` range holding the launch, the
-    rest by kernel group. The buckets must sum to ``busy_us``
-    (key_averages) within SPLIT_REL_TOL."""
+    is split by the ``repro.kernels.*[cuda]`` or ``repro.scan.*`` range
+    holding the launch (with its launch count), the rest by kernel group.
+    The buckets must sum to ``busy_us`` (the device events' sum) within
+    SPLIT_REL_TOL."""
     from torch.autograd import DeviceType
     from repro_torch.obs import tracing
     launch, stages, kranges, dev = {}, [], [], []
@@ -1044,7 +1078,7 @@ def _stage_split(torch, label, prof, busy_us) -> None:
             win = (start, start + _ns(e, "duration"), name)
             if name.startswith("spngd."):
                 stages.append(win)
-            elif name.endswith("[cuda]"):
+            elif name.endswith("[cuda]") or name.startswith("repro.scan."):
                 kranges.append(win)
     stages.sort()
     kranges.sort()
@@ -1054,6 +1088,7 @@ def _stage_split(torch, label, prof, busy_us) -> None:
     first_precond = min(precond) if precond else None
     buckets: dict = {}
     by_range: dict = {}
+    range_n: dict = {}
     launch_names = set()
     for name, us, corr in dev:
         rec = launch.get(corr)
@@ -1076,19 +1111,20 @@ def _stage_split(torch, label, prof, busy_us) -> None:
         if kr is not None:
             b["ranges"][kr[2]] = b["ranges"].get(kr[2], 0.0) + us
             by_range[kr[2]] = by_range.get(kr[2], 0.0) + us
+            range_n[kr[2]] = range_n.get(kr[2], 0) + 1
         else:
             g = _group(name)
             b["groups"][g] = b["groups"].get(g, 0.0) + us
     split = sum(b["us"] for b in buckets.values())
     say("stage-split", f"{label}: {split:.0f} us of device work by launch "
-                       f"window against {busy_us:.0f} us busy in "
-                       f"key_averages ({split / busy_us:.4f}); {len(stages)} "
+                       f"window against {busy_us:.0f} us busy "
+                       f"({split / busy_us:.4f}); {len(stages)} "
                        f"stage and {len(kranges)} kernel ranges; launch "
                        f"records {sorted(launch_names)}; "
                        f"{card_note(torch)}")
     say("stage-split", "  by kernel range: " + ", ".join(
-        f"{k} {v:.0f} us" for k, v in sorted(by_range.items(),
-                                             key=lambda kv: -kv[1])))
+        f"{k} {v:.0f} us ({range_n[k]} device events)"
+        for k, v in sorted(by_range.items(), key=lambda kv: -kv[1])))
     for bucket, b in sorted(buckets.items(), key=lambda kv: -kv[1]["us"]):
         say("stage-split", f"  {bucket}: {b['us']:.0f} us "
                            f"({b['us'] / busy_us:.3f}); in kernel ranges "
@@ -1099,7 +1135,7 @@ def _stage_split(torch, label, prof, busy_us) -> None:
                            + ", ".join(f"{g} {v:.0f}" for g, v in sorted(
                                b["groups"].items(), key=lambda kv: -kv[1])))
     check(abs(split - busy_us) <= SPLIT_REL_TOL * busy_us,
-          f"{label}: the stage split holds {split:.0f} us, key_averages "
+          f"{label}: the stage split holds {split:.0f} us, the trace "
           f"{busy_us:.0f} us busy")
     lost = buckets.get("launch not found", {"us": 0.0})["us"]
     check(lost <= SPLIT_REL_TOL * busy_us,
@@ -5843,17 +5879,18 @@ MOE_PRECOND_CASES = (
 )
 
 
-def _launched_once(torch, fn, name):
+def _launched_once(torch, fn, name, counts=None):
     """Call ``fn`` twice; each call must launch kernel ``name`` once (the
-    wrapper's count): the output of the first and whether the second gave
-    the same bits."""
+    wrapper's count in ``counts``, by default ``kernels/kfac.py``'s): the
+    output of the first and whether the second gave the same bits."""
     from repro_torch.kernels import kfac as kern
-    before = kern.LAUNCHES[name]
+    counts = kern.LAUNCHES if counts is None else counts
+    before = counts[name]
     got = fn()
     again = fn()
     torch.cuda.synchronize()
-    check(kern.LAUNCHES[name] - before == 2,
-          f"{name}: {kern.LAUNCHES[name] - before} launches for 2 calls")
+    check(counts[name] - before == 2,
+          f"{name}: {counts[name] - before} launches for 2 calls")
     same = torch.equal(got, again)
     del again
     return got, same
@@ -6543,6 +6580,766 @@ def moe_path(torch) -> dict:
     torch.cuda.empty_cache()
     say("moe-path", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (rwkv6_7b, hymba_1_5b) and the legacy serving path
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("rwkv6_7b", "hymba_1_5b")
+# the recurrent route checks: reduced widths (f32, 2 layers), batch 2 x 64,
+# a capture and two fast steps on the kernels against backend="ref" on the
+# same card, losses, preconditioners and params within ROUTE_REL_TOL of the
+# largest entry (rwkv's Newton-Schulz preconditioners sit 1.3e-5 from
+# ref's: the iteration stops at its 1e-4 residual in either arm)
+RECURRENT_ROUTE_BATCH = (2, 64)
+# the legacy serving path (init_cache / prefill / decode_step, serve=None)
+# of every block type, reduced and f32: a prompt, then decode steps past
+# mixtral's reduced window of 16 (the decode-span clamp); the kernel arm's
+# logits and caches within LEGACY_TOL of the ref arm's
+LEGACY_ARCHS = ("rwkv6_7b", "hymba_1_5b", "llama3_2_1b", "mixtral_8x22b")
+LEGACY_ROUTE = dict(lanes=2, prompt=64, decode=24)
+LEGACY_TOL = 1e-4
+# the full-width recurrent path. By count, rwkv6_7b's layer holds 218 M
+# parameters (params, grads and momentum 1.75 GB) and 0.77 GB of factors a
+# copy; its embedding and head 4.3 GB; the WKV loop's backward keeps three
+# (4, 64, 64, 64) f32 tensors a token, 12.6 GB for one layer of 4,096
+# positions under remat; hymba_1_5b's layer holds 48 M parameters. Both
+# fit 4 layers (rwkv peaked at 30.45 GiB, hymba 8.84). The depth is cut by
+# the phase's time instead: the scans are host-bound loops, ~1.6 s a layer
+# a fast step at 4,096 positions, and 4 layers of both families took 585 s
+# with 2 capture + 4 fast + 4 SGD steps each. So 2 layers. NS at the lr
+# and damping of PRs 27-28's paths
+RECURRENT_PATH = dict(layers=2, batch=4, seq=1024, capture=2, fast=4,
+                      lr=2e-3, damping=1e-3, sgd=4)
+RECURRENT_SERVE = dict(lanes=4, prompt=512, decode=32)
+# hymba's attention at its own widths: 4 lanes x 5 KV heads, G 5 (its 25
+# query heads), S 1024, hd 64
+HYMBA_ATTN = dict(lanes=4, kv=5, g=5, seq=1024, hd=64)
+
+
+def _legacy_serve(torch, kmodel, rmodel, spec) -> dict:
+    """The legacy path in two arms with the same weights: ``kmodel`` on the
+    kernels, ``rmodel`` with backend="ref"; a prompt of ``spec["prompt"]``
+    tokens, then ``spec["decode"]`` decode steps fed the ref arm's argmax.
+    After the prefill and after each step the kernel arm's logits and every
+    cache leaf within LEGACY_TOL of the ref arm's, ``len`` equal. Returns
+    the worst errors and the kernel arm's attention launches (prefill,
+    decode)."""
+    from repro_torch.kernels import swa_attention
+    cfg = kmodel.cfg
+    lanes, plen, steps = spec["lanes"], spec["prompt"], spec["decode"]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    toks = torch.randint(0, cfg.vocab, (lanes, plen), generator=gen,
+                         device="cuda")
+    res = {"logits": 0.0, "cache": 0.0}
+
+    def held(lk, lr_, kc, rc, what):
+        check(bool(torch.isfinite(lk).all()), f"{cfg.name} {what} logits")
+        res["logits"] = max(res["logits"], _rel_err(torch, lk, lr_))
+        check(set(kc) == set(rc) and torch.equal(kc["len"], rc["len"]),
+              f"{cfg.name} {what}: cache keys or len")
+        for key in rc:
+            if key != "len":
+                res["cache"] = max(res["cache"],
+                                   _rel_err(torch, kc[key], rc[key]))
+
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        lk, kc = kmodel.prefill({"tokens": toks}, plen + steps)
+        pre = dict(swa_attention.LAUNCHES)
+        lr_, rc = rmodel.prefill({"tokens": toks}, plen + steps)
+        held(lk, lr_, kc, rc, "prefill")
+        tok = lr_[:, -1].argmax(-1)
+        for i in range(steps):
+            lk, kc = kmodel.decode_step(kc, tok)
+            lr_, rc = rmodel.decode_step(rc, tok)
+            held(lk, lr_, kc, rc, f"decode step {i}")
+            tok = lr_.argmax(-1)
+    dec = dict(swa_attention.LAUNCHES)
+    check(int(kc["len"]) == plen + steps and kc["len"].dim() == 0,
+          f"{cfg.name} legacy len {kc['len']}")
+    for what in ("logits", "cache"):
+        check(res[what] <= LEGACY_TOL, f"{cfg.name} legacy {what} kernels "
+                                       f"vs ref: {res[what]}")
+    res["launches"] = (pre["swa_flash_fwd"], dec["swa_flash_decode"])
+    return res
+
+
+def check_recurrent_routes(torch) -> None:
+    """rwkv6_7b and hymba_1_5b reduced (f32, 2 layers), batch 2 x 64: for
+    Stage 4 by eigh and by Newton-Schulz, a capture step (every statistic
+    refreshed) and two fast steps from the seed-0 model on the kernels;
+    before each, a second optimizer with backend="ref" takes the kernel
+    run's params and state as they stand and runs the same step. Losses,
+    preconditioners and params after each within ROUTE_REL_TOL; the
+    factor-sum kernel launched on the capture step and block_precond on
+    every step, hymba's three training attention kernels on every step.
+    Then the legacy serving path of rwkv6_7b, hymba_1_5b, llama3_2_1b and
+    mixtral_8x22b (_legacy_serve, LEGACY_ROUTE), the kernel arm against
+    the ref arm, swa_flash_fwd once a layer on the prefill and
+    swa_flash_decode once a layer a decode step (the decode kernel on the
+    legacy cache's span view, launched once a call, twice bit-identical,
+    by _launched_once)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.fisher import flatten
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import DecoderLM
+    lam, lr = TRAIN["damping"], TRAIN["lr"]
+    served = {}
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch).reduced()
+        for method in ("eigh", "newton_schulz"):
+            runs = {b: train.build(cfg=cfg, backend=b, device="cuda",
+                                   inverse_method=method)
+                    for b in ("auto", "ref")}
+            steps = {b: (train.make_train_step(m, o),
+                         train.make_fast_step(m, o))
+                     for b, (m, o, _, _) in runs.items()}
+            kmodel, kopt, kparams, kstate = runs["auto"]
+            rparams = runs["ref"][2]
+            flags = {k: True for k in kopt.stat_names()}
+            worst, losses, launched = {}, [], []
+            for i, kind in enumerate(("capture", "fast", "fast")):
+                batch = _dense_batch(torch, cfg, *RECURRENT_ROUTE_BATCH,
+                                     index=i)
+                with torch.no_grad():
+                    for k, v in flatten(kparams).items():
+                        flatten(rparams)[k].copy_(v)
+                rstate = {**kstate, "velocity": {
+                    k: v.clone() for k, v in kstate["velocity"].items()}}
+                got = {}
+                for b, params, state in (("ref", rparams, rstate),
+                                         ("auto", kparams, kstate)):
+                    capture, fast = steps[b]
+                    kern.reset_launches()
+                    swa_attention.reset_launches()
+                    if kind == "capture":
+                        params, state, m = capture(params, state, batch,
+                                                   flags, lam, lr, 0.9)
+                    else:
+                        params, state, m = fast(params, state, batch, lam,
+                                                lr, 0.9)
+                    got[b] = (float(m["loss"]), {
+                        f"{fam}.{k}": v.clone() for fam, c in
+                        state["curv"].items()
+                        for k, v in c["precond"].items()})
+                    if b == "auto":
+                        kparams, kstate = params, state
+                        launched.append({**kern.LAUNCHES,
+                                         **swa_attention.LAUNCHES})
+                (lk, pk), (lr_, pr) = got["auto"], got["ref"]
+                losses.append((lk, lr_))
+                check(abs(lk - lr_) <= ROUTE_REL_TOL * abs(lr_),
+                      f"{arch} {method} {kind} {i} loss {lk} vs ref {lr_}")
+                w_pre = max(_rel_err(torch, pk[n], pr[n]) for n in pr)
+                rflat = flatten(rparams)
+                w_par = max(_rel_err(torch, v, rflat[n])
+                            for n, v in flatten(kparams).items())
+                worst[f"{kind} {i}"] = (w_pre, w_par)
+                check(max(w_pre, w_par) <= ROUTE_REL_TOL,
+                      f"{arch} {method} {kind} step {i}: preconditioners "
+                      f"{w_pre}, params {w_par} > {ROUTE_REL_TOL}")
+                del got, rstate, pk, pr
+            attn = ("swa_flash_fwd", "swa_flash_bwd_dq", "swa_flash_bwd_dkdv")
+            for i, n in enumerate(launched):
+                check((n["factor_syrk"] > 0) == (i == 0)
+                      and n["block_precond"] > 0
+                      and all((n[a] > 0) == (arch == "hymba_1_5b")
+                              for a in attn),
+                      f"{arch} {method} step {i} launches {n}")
+            say("recurrent-route",
+                f"{arch} reduced, d {cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads of hd {cfg.hd}, d_ff {cfg.d_ff}, "
+                f"ssm_state {cfg.ssm_state}, {cfg.n_layers} layers, f32, "
+                f"batch {RECURRENT_ROUTE_BATCH}, Stage 4 {method}: losses "
+                f"(kernels, ref) {losses}; worst max|err|/max "
+                f"(preconditioners, params) "
+                + ", ".join(f"{k} ({a:.3e}, {b:.3e})"
+                            for k, (a, b) in worst.items())
+                + f" (tol {ROUTE_REL_TOL}); kernel launches by step "
+                + str([{k: v for k, v in n.items() if v} for n in launched]))
+            if method == "eigh":
+                served[arch] = kmodel
+            del runs, steps, kopt, kparams, kstate, rparams
+            torch.cuda.empty_cache()
+    for arch in LEGACY_ARCHS[2:]:
+        served[arch] = train.build(cfg=get_config(arch).reduced(),
+                                   device="cuda")[0]
+    for arch in LEGACY_ARCHS:
+        kmodel = served.pop(arch)
+        cfg = kmodel.cfg
+        rmodel = DecoderLM(dataclasses.replace(cfg, backend="ref"),
+                           device="cuda")
+        rmodel.load_state_dict(kmodel.state_dict())
+        sv = _legacy_serve(torch, kmodel, rmodel, LEGACY_ROUTE)
+        n, steps_d = cfg.n_layers, LEGACY_ROUTE["decode"]
+        want = (0, 0) if cfg.block_type == "rwkv" else (n, n * steps_d)
+        check(sv["launches"] == want,
+              f"{arch} legacy launches (swa_flash_fwd on the prefill, "
+              f"swa_flash_decode on the steps) {sv['launches']}, want {want}")
+        win, m = cfg.sliding_window, LEGACY_ROUTE["prompt"] + steps_d
+        span = (f"the clamped span of {win} slots" if 0 < win < m else
+                f"the whole cache of {m} slots" if cfg.block_type != "rwkv"
+                else "no attention: the WKV state and token shifts")
+        say("recurrent-route",
+            f"{arch} legacy serving (serve=None), reduced f32, "
+            f"{LEGACY_ROUTE['lanes']} lanes, prompt {LEGACY_ROUTE['prompt']}, "
+            f"{steps_d} decode steps over {span}: kernels vs ref max|err| / "
+            f"max, logits {sv['logits']:.3e}, caches {sv['cache']:.3e} (tol "
+            f"{LEGACY_TOL}); launches (swa_flash_fwd, swa_flash_decode) "
+            f"{sv['launches']}")
+        del kmodel, rmodel
+        torch.cuda.empty_cache()
+    # the decode kernel on a legacy cache's span view, as the path calls it
+    gen = torch.Generator(device="cuda").manual_seed(291)
+    b, m, kv, g, hd = 2, 88, 1, 4, 64
+    ck, cv = (torch.randn((b, m, kv, hd), generator=gen, device="cuda")
+              for _ in range(2))
+    q = torch.randn((b * kv, g, hd), generator=gen, device="cuda")
+    start, n = 72, 87                         # window 16, len 87: clamped
+    pos = torch.full((b * kv,), n - start, dtype=torch.int32, device="cuda")
+    kview = ck[:, start:start + 16].permute(0, 2, 1, 3)
+    vview = cv[:, start:start + 16].permute(0, 2, 1, 3)
+    got, same = _launched_once(
+        torch, lambda: swa_attention.swa_flash_decode(q, kview, vview, pos),
+        "swa_flash_decode", swa_attention.LAUNCHES)
+    from repro_torch.kernels import ref
+    want = ref.swa_decode_ref(q, kview.reshape(b * kv, 16, hd),
+                              vview.reshape(b * kv, 16, hd), pos)
+    err = _max_err(torch, got, want)
+    check(same and err <= DEC_TOL["atol"] + DEC_TOL["rtol"] * float(
+        want.abs().max()), f"swa_flash_decode on a span view: {err}")
+    say("recurrent-route", f"swa_flash_decode on the legacy cache's span "
+                           f"view (B 2, slots {start}..{start + 15} of {m}, "
+                           f"pos {n - start}): max|err| {err:.3e}, one launch "
+                           f"a call, two bit-identical")
+    del ck, cv, q, kview, vview, got, want
+
+
+def _busy(torch, fn) -> tuple:
+    """(device-busy us, device events, wall us) of one call of ``fn``
+    under torch.profiler (the raw kineto events, :func:`_kineto_device`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e6
+    evts = _kineto_device(prof).values()
+    return (sum(us for us, _ in evts), sum(n for _, n in evts), wall)
+
+
+def _scan_cost(torch, arch, cfg, batch, seq) -> dict:
+    """One layer's recurrent scan at the path's shapes, alone: its forward
+    (no grad) and its forward + backward, each the device-busy us, device
+    events (launches) and wall us. A remat'd layer runs the forward twice
+    and the backward once a training step."""
+    from repro_torch.models import rwkv, ssm
+    gen = torch.Generator(device="cuda").manual_seed(292)
+
+    def rand(*shape, lo=None):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        if lo is not None:
+            t = lo + 0.5 * torch.rand(shape, generator=gen, device="cuda")
+        return t.requires_grad_()
+    if arch == "rwkv6_7b":
+        h, hd = cfg.d_model // cfg.hd, cfg.hd
+        ins = [rand(batch, seq, h, hd) for _ in range(3)]
+        ins += [rand(batch, seq, h, hd, lo=0.45), rand(h, hd)]
+        st0 = torch.zeros((batch, h, hd, hd), device="cuda")
+
+        def run():
+            return rwkv._wkv_scan(*ins, st0)[1]
+    else:
+        di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        ins = [rand(batch, seq, di), rand(batch, seq, di, lo=0.01),
+               rand(batch, seq, n), rand(batch, seq, n), rand(di, n, lo=-1.0)]
+        h0 = torch.zeros((batch, di, n), device="cuda")
+
+        def run():
+            return ssm._ssm_scan(*ins, h0)[1]
+
+    def fwd():
+        with torch.no_grad():
+            run()
+
+    def fwd_bwd():
+        y = run()
+        torch.autograd.grad(y.sum(), ins)
+    out = {"fwd": _busy(torch, fwd), "fwd_bwd": _busy(torch, fwd_bwd)}
+    del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recurrent_cfg(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               n_layers=RECURRENT_PATH["layers"])
+
+
+def recurrent_path(torch) -> dict:
+    """rwkv6_7b and hymba_1_5b at full width (RECURRENT_PATH: 2 layers,
+    bf16, remat), random weights from seed 0, one after the other: SP-NGD
+    with Stage 4 by Newton-Schulz, 2 capture steps (every statistic
+    refreshed) and 4 fast steps (the first a warm-up) on batch 4 x 1024 of
+    the trainer's stream; the fast step profiled and split by SP-NGD stage
+    (the scan's forward under its repro.scan range), and one layer's scan
+    alone (forward, forward + backward: device time and launches);
+    momentum SGD on the same model and the fast steps' batches (1 warm-up
+    + 3 timed); then the legacy serving path at 4 lanes: a 512-token
+    prompt, 32 decode steps. Checks: finite losses and logits; no ref
+    dispatch; the kernels launched (hymba's attention kernels on every
+    step and on serving); the peak under 70 GiB. Returns {arch:
+    {"launches": {kernel: launches on the path}}}."""
+    import math
+    from repro_torch.kernels import dispatch, swa_attention
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.launch import train
+    from repro_torch.optim import SGD
+    spec = RECURRENT_PATH
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = _recurrent_cfg(arch)
+        model, opt, params, state = train.build(
+            cfg=cfg, device="cuda", inverse_method="newton_schulz",
+            damping=spec["damping"])
+        n_params = sum(p.numel() for p in model.parameters())
+        say("recurrent-path",
+            f"{arch} full width, {cfg.n_layers} layers (depth cut), d "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of hd "
+            f"{cfg.hd}, d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}, vocab "
+            f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}: {n_params} "
+            f"params, {len(opt.stat_names())} statistics, "
+            f"{sum(opt.stat_bytes().values())} B of statistics a copy, "
+            f"sym-packed")
+        batches = [_train_batch(torch, cfg.vocab, spec["batch"],
+                                spec["seq"], index=i)
+                   for i in range(spec["capture"] + spec["fast"])]
+        capture = train.make_train_step(model, opt)
+        fast = train.make_fast_step(model, opt)
+        flags = {k: True for k in opt.stat_names()}
+        lam, lr, mom = spec["damping"], spec["lr"], 0.9
+        swa_attention.reset_launches()
+        kern.reset_launches()
+        ns.reset_launches()
+        dispatch.reset_calls()
+        recs = []
+        with _Stage4Timer(torch) as s4:
+            for i, batch in enumerate(batches):
+                kind = "capture" if i < spec["capture"] else "fast"
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if kind == "capture":
+                    params, state, m = capture(params, state, batch, flags,
+                                               lam, lr, mom)
+                else:
+                    params, state, m = fast(params, state, batch, lam, lr,
+                                            mom)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                recs.append({"kind": kind, "loss": loss,
+                             "seconds": time.perf_counter() - t})
+        peak = torch.cuda.max_memory_allocated()
+        launches = {**{k: kern.LAUNCHES[k] for k in MOE_KERNELS},
+                    **{k: ns.LAUNCHES[k] for k in NS_KERNELS},
+                    **{k: swa_attention.LAUNCHES[k] for k in ATTN_KERNELS}}
+        dcalls = dict(dispatch.CALLS)
+        check(all(math.isfinite(r["loss"]) for r in recs),
+              f"{arch} losses {[r['loss'] for r in recs]}")
+        check(not any(b == "ref" for (_, b) in dcalls),
+              f"ref dispatches: {dcalls}")
+        check(launches["factor_syrk"] > 0 and launches["block_precond"] > 0
+              and all((launches[k] > 0) == (arch == "hymba_1_5b")
+                      for k in ATTN_KERNELS),
+              f"{arch} launches {launches}")
+        check(peak < 70 * 2 ** 30, f"{arch} peak {peak / 2 ** 30:.2f} GiB "
+                                   f">= 70")
+        cap_s = [r["seconds"] for r in recs if r["kind"] == "capture"]
+        fast_all = [r["seconds"] for r in recs if r["kind"] == "fast"]
+        fast_med = statistics.median(fast_all[1:])
+        tokens = spec["batch"] * spec["seq"]
+        say("recurrent-path",
+            f"{arch} Newton-Schulz: {spec['capture']} capture + "
+            f"{spec['fast']} fast steps at lr {lr}, damping {lam}: losses "
+            f"{[round(r['loss'], 6) for r in recs]}; capture walls "
+            f"{[round(x, 3) for x in cap_s]} s, fast walls "
+            f"{[round(x, 4) for x in fast_all]} s (the first a warm-up; "
+            f"median {fast_med:.4f} s, {tokens / fast_med:.1f} tokens/s); "
+            f"Stage 4 {s4.seconds:.3f} s over {len(cap_s)} refreshes "
+            f"({s4.blocks} blocks); peak memory {peak / 2 ** 30:.2f} GiB; "
+            f"launches {launches}; {card_note(torch)}")
+
+        box = {"p": params, "s": state}
+        pb = batches[-1]
+
+        def fast_step():
+            box["p"], box["s"], _ = fast(box["p"], box["s"], pb, lam, lr,
+                                         mom)
+        busy = _profile(torch, f"{arch} fast step ({tokens} tokens)",
+                        fast_step, warm=False, split=True)
+        params = box["p"]
+        del box, state, opt, capture, fast, m
+        torch.cuda.empty_cache()
+
+        sgd = SGD(model.loss)
+        sstate = sgd.init(params)
+        sgd_s, sgd_l = [], []
+        for batch in batches[:spec["sgd"]]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, sstate, m = sgd.step(params, sstate, batch, lr, mom)
+            sgd_l.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            sgd_s.append(time.perf_counter() - t)
+        check(all(math.isfinite(x) for x in sgd_l),
+              f"{arch} SGD losses {sgd_l}")
+        sgd_med = statistics.median(sgd_s[1:])
+        say("recurrent-path",
+            f"{arch} momentum SGD on the same model: losses "
+            f"{[round(x, 6) for x in sgd_l]}, walls "
+            f"{[round(x, 4) for x in sgd_s]} s (the first a warm-up; median "
+            f"{sgd_med:.4f} s, {tokens / sgd_med:.1f} tokens/s); the NS fast "
+            f"step median {fast_med:.4f} s = {fast_med / sgd_med:.3f} x "
+            f"SGD's; {card_note(torch)}")
+        del sgd, sstate
+        torch.cuda.empty_cache()
+
+        sv = RECURRENT_SERVE
+        lanes, steps_d = sv["lanes"], sv["decode"]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        req = {"tokens": torch.randint(0, cfg.vocab, (lanes, sv["prompt"]),
+                                       generator=gen, device="cuda")}
+        swa_attention.reset_launches()
+        dispatch.reset_calls()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = model.prefill(req, sv["prompt"] + steps_d)
+            torch.cuda.synchronize()
+            pre = time.perf_counter() - t
+            check(bool(torch.isfinite(logits[:, -1]).all()),
+                  f"{arch} prefill logits")
+            tok = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps_d):
+                lg, cache = model.decode_step(cache, tok)
+                tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            dec = time.perf_counter() - t
+            check(bool(torch.isfinite(lg).all()), f"{arch} decode logits")
+        slaunch = dict(swa_attention.LAUNCHES)
+        want = ((0, 0) if arch == "rwkv6_7b"
+                else (cfg.n_layers, cfg.n_layers * steps_d))
+        check((slaunch["swa_flash_fwd"], slaunch["swa_flash_decode"]) == want
+              and not any(b == "ref" for (_, b) in dispatch.CALLS),
+              f"{arch} serving launches {slaunch}, calls {dispatch.CALLS}")
+        launches["swa_flash_decode"] = slaunch["swa_flash_decode"]
+        cache_b = sum(v.numel() * v.element_size() for v in cache.values())
+        say("recurrent-path",
+            f"{arch} legacy serving {lanes} lanes, cache of "
+            f"{sv['prompt'] + steps_d} positions ({cache_b} B, "
+            f"{sorted(k for k in cache if k != 'len')}): prefill of "
+            f"{sv['prompt']} tokens {pre:.3f} s ({lanes * sv['prompt'] / pre:.1f}"
+            f" tokens/s); {steps_d} decode steps {dec:.3f} s "
+            f"({lanes * steps_d / dec:.1f} tokens/s); launches "
+            f"{ {k: v for k, v in slaunch.items() if v} }; "
+            f"{card_note(torch)}")
+        del model, params, cache, logits, lg
+        torch.cuda.empty_cache()
+
+        sc = _scan_cost(torch, arch, cfg, spec["batch"], spec["seq"])
+        (f_us, f_n, f_wall), (b_us, b_n, b_wall) = sc["fwd"], sc["fwd_bwd"]
+        step_us = cfg.n_layers * (f_us + b_us)
+        share = f"{step_us / busy:.3f}" if busy else "not measured"
+        say("recurrent-path",
+            f"{arch} the {'WKV' if arch == 'rwkv6_7b' else 'SSM'} scan alone, "
+            f"one layer at ({spec['batch']}, {spec['seq']}): forward "
+            f"{f_us:.0f} us of device work in {f_n} launches (wall "
+            f"{f_wall:.0f} us); forward + backward {b_us:.0f} us in {b_n} "
+            f"launches (wall {b_wall:.0f} us); a remat'd training step runs "
+            f"{cfg.n_layers} x (forward + forward + backward) = "
+            f"{step_us:.0f} us, {share} of the fast step's device-busy "
+            f"time, {cfg.n_layers * (f_n + b_n)} launches; "
+            f"{card_note(torch)}")
+        say("recurrent-path", f"{arch} phase "
+                              f"{time.perf_counter() - t_phase:.1f} s")
+        out[arch] = {"launches": launches}
+    return out
+
+
+def _attn_rows(torch, spec, gen) -> tuple:
+    """swa_flash_fwd and the backward pair at ``spec`` (BKV = lanes x KV,
+    G, S, hd, bf16, causal) against their plain versions, each timed beside
+    its bound, the plain version and SDPA (the whole backward for the
+    pair). Returns (rows, errs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention
+    nb, kvh = spec["lanes"], spec["kv"]
+    bkv, g, s, hd = nb * kvh, spec["g"], spec["seq"], spec["hd"]
+    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, bkv, g, s, hd,
+                                              torch.bfloat16)
+    out, lse_k = swa_attention.swa_flash_fwd(q, k, v)
+    torch.testing.assert_close(out.float(), o.float(), **FWD_TOL)
+    torch.testing.assert_close(lse_k, lse, **LSE_TOL)
+    dq, dk, dv = swa_attention.swa_flash_bwd(q, k, v, o, lse, do)
+    rq, rk, rv = ref.swa_attention_bwd_ref(q, k, v, o, lse, do)
+    rel = [_rel_err(torch, a, b) for a, b in ((dq, rq), (dk, rk), (dv, rv))]
+    check(max(rel) <= BWD_REL_TOL, f"hymba attention bwd rel errs {rel}")
+    errs = {"swa_flash_fwd": _max_err(torch, out, o),
+            "swa_flash_bwd_dq": _max_err(torch, dq, rq),
+            "swa_flash_bwd_dkdv": max(_max_err(torch, dk, rk),
+                                      _max_err(torch, dv, rv))}
+    pairs = bkv * g * s * (s + 1) // 2
+    row_bytes = bkv * g * s * 4
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    q4 = q.reshape(nb, kvh * g, s, hd)
+    k4, v4 = k.reshape(nb, kvh, s, hd), v.reshape(nb, kvh, s, hd)
+    qs = q4.detach().requires_grad_()
+    ks_, vs_ = k4.detach().requires_grad_(), v4.detach().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(qs, ks_, vs_, is_causal=True,
+                                             enable_gqa=True)
+    gout = do.reshape(nb, kvh * g, s, hd)
+    lib = _time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qs, ks_, vs_), gout, retain_graph=True))
+    plain = _time_ms(torch, lambda: ref.swa_attention_bwd_ref(
+        q, k, v, o, lse, do), reps=5)
+    rows = {}
+    b_fwd, by_fwd = _bound(4 * hd * pairs, 2 * (2 * q.numel() + k.numel()
+                                                + v.numel()) + row_bytes,
+                           q.dtype)
+    rows["swa_flash_fwd"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v)),
+        "plain_ms": _time_ms(torch, lambda: ref.swa_attention_fwd_res_ref(
+            q, k, v), reps=5),
+        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)),
+        "bound_ms": b_fwd, "bound_by": by_fwd}
+    b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
+                         + q.numel() * 4, q.dtype)
+    b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
+                         + 2 * k.numel() * 4, q.dtype)
+    rows["swa_flash_bwd_dq"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
+        "bound_by": by_dq}
+    rows["swa_flash_bwd_dkdv"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
+            q, k, v, lse, delta, do)),
+        "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
+        "bound_by": by_kv}
+    say("recurrent-times",
+        f"hymba attention BKV={bkv} G={g} S={s} hd={hd} bf16 causal: fwd "
+        f"{rows['swa_flash_fwd']}, dq {rows['swa_flash_bwd_dq']}, dkdv "
+        f"{rows['swa_flash_bwd_dkdv']} (plain and library of the pair: the "
+        f"whole backward); max|err| {errs}, bwd max|err|/max {rel} (tol "
+        f"{BWD_REL_TOL}); {card_note(torch)}")
+    del q, k, v, do, o, lse, qs, ks_, vs_, lib_out, gout
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def time_recurrent_kernels(torch) -> tuple:
+    """The kernels at the recurrent families' shapes, each against its
+    plain version (max|err|) and timed beside its bound, its plain version
+    and a PyTorch library call: factor_syrk at rwkv6_7b's cm_wk G side
+    (4,096 tokens x 14,336 bf16 -> (7, 2048, 2048)) and block_precond on
+    its gradient from the G side (f32, (4096, 14336) x (7, 2048, 2048));
+    at hymba_1_5b's odd blocks, the pair of each (ssm_xdb's G, 132 wide,
+    and ssm_dt_proj's A, 100 wide: factor_syrk on 4,096 bf16 rows of each;
+    block_precond on the (3200, 132) gradient from the G side and the
+    (100, 3200) gradient from the A side); hymba's three training
+    attention kernels (HYMBA_ATTN: BKV 4 x 5, G 5, S 1024, hd 64); and
+    swa_flash_decode over hymba's bf16 legacy cache (4 lanes, 544 slots,
+    5 KV heads, the (B, KV, C, hd) view, the path's last step). Returns
+    ({row name: times}, {row name: max|err|})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch, ref, swa_attention
+    from repro_torch.kernels import kfac as kern
+    gen = torch.Generator(device="cuda").manual_seed(293)
+    f32 = torch.float32
+    rows, errs = {}, {}
+    left_ref = dispatch.lookup("block_precond_left", "ref")
+    right_ref = dispatch.lookup("block_precond_right", "ref")
+
+    # rwkv: cm_wk's G side
+    n, d, bs = 4096, 14336, 2048
+    nb = d // bs
+    x = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+    got, same = _launched_once(torch, lambda: kern.factor_syrk(x, bs),
+                               "factor_syrk")
+    want = ref.factor_sum_ref(x, bs)
+    err = _rel_err(torch, got, want)
+    check(same and err <= KFAC_REL_TOL, f"factor_syrk[rwkv]: {err}")
+    errs["factor_syrk[rwkv]"] = _max_err(torch, got, want)
+    ops, nbytes = _syrk_ops_bytes(n, nb, bs, nb * bs * bs * 4)
+    bound, by = _bound(ops, nbytes, x.dtype)
+    xb = x.view(n, nb, bs).transpose(0, 1)
+    rows["factor_syrk[rwkv]"] = {
+        "ms": _time_ms(torch, lambda: kern.factor_syrk(x, bs), reps=10),
+        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(x, bs),
+                             reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(
+            xb.transpose(1, 2), xb, out_dtype=f32), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    say("recurrent-times", f"factor_syrk[rwkv] ({n}, {d}) bf16 -> ({nb}, "
+                           f"{bs}, {bs}) f32: {rows['factor_syrk[rwkv]']}, "
+                           f"max|err|/max {err:.3e} (library: torch.bmm over "
+                           f"the blocks, bf16 in, f32 out); "
+                           f"{card_note(torch)}")
+    del x, xb, got, want
+    binv = torch.randn((nb, bs, bs), generator=gen, device="cuda") / bs ** .5
+    w = torch.randn((n, d), generator=gen, device="cuda")
+    got, same = _launched_once(
+        torch, lambda: kern.block_precond(binv, w, right=True),
+        "block_precond")
+    want = right_ref(w, binv)
+    err = _rel_err(torch, got, want)
+    check(same and err <= KFAC_REL_TOL, f"block_precond[rwkv]: {err}")
+    errs["block_precond[rwkv]"] = _max_err(torch, got, want)
+    bound, by = _bound(2 * n * d * bs, (binv.numel() + 2 * w.numel()) * 4,
+                       f32, PEAK_SPLIT_F32_OPS_PER_S)
+    wb = w.view(n, nb, bs).transpose(0, 1)
+    rows["block_precond[rwkv]"] = {
+        "ms": _time_ms(torch, lambda: kern.block_precond(binv, w, right=True),
+                       reps=10),
+        "plain_ms": _time_ms(torch, lambda: right_ref(w, binv), reps=5),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(wb, binv), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    say("recurrent-times", f"block_precond[rwkv] right w ({n}, {d}) binv "
+                           f"({nb}, {bs}, {bs}) f32: "
+                           f"{rows['block_precond[rwkv]']}, max|err|/max "
+                           f"{err:.3e} (library: torch.bmm over the blocks, "
+                           f"f32, TF32 off); {card_note(torch)}")
+    del binv, w, wb, got, want
+    torch.cuda.empty_cache()
+
+    # hymba: ssm_xdb's G (132) and ssm_dt_proj's A (100)
+    gx = torch.randn((n, 132), generator=gen, device="cuda").bfloat16()
+    xa = torch.randn((n, 100), generator=gen, device="cuda").bfloat16()
+    worst = 0.0
+    for t in (gx, xa):
+        got, same = _launched_once(torch, lambda: kern.factor_syrk(t, 2048),
+                                   "factor_syrk")
+        want = ref.factor_sum_ref(t, 2048)
+        err = _rel_err(torch, got, want)
+        check(same and got.shape == (1, t.shape[1], t.shape[1])
+              and err <= KFAC_REL_TOL,
+              f"factor_syrk[hymba] {tuple(t.shape)}: {err}")
+        worst = max(worst, _max_err(torch, got, want))
+    errs["factor_syrk[hymba]"] = worst
+    ops = sum(_syrk_ops_bytes(n, 1, t.shape[1], t.shape[1] ** 2 * 4)[0]
+              for t in (gx, xa))
+    nbytes = sum(_syrk_ops_bytes(n, 1, t.shape[1], t.shape[1] ** 2 * 4)[1]
+                 for t in (gx, xa))
+    bound, by = _bound(ops, nbytes, gx.dtype)
+    rows["factor_syrk[hymba]"] = {
+        "ms": _time_ms(torch, lambda: (kern.factor_syrk(gx, 2048),
+                                       kern.factor_syrk(xa, 2048))),
+        "plain_ms": _time_ms(torch, lambda: (ref.factor_sum_ref(gx, 2048),
+                                             ref.factor_sum_ref(xa, 2048))),
+        "library_ms": _time_ms(torch, lambda: (
+            torch.mm(gx.t(), gx, out_dtype=f32),
+            torch.mm(xa.t(), xa, out_dtype=f32))),
+        "bound_ms": bound, "bound_by": by}
+    say("recurrent-times", f"factor_syrk[hymba] the pair ({n}, 132) and "
+                           f"({n}, 100) bf16 -> (1, 132, 132), (1, 100, 100) "
+                           f"f32: {rows['factor_syrk[hymba]']}, max|err| "
+                           f"{worst:.3e} (library: torch.mm, bf16 in, f32 "
+                           f"out); {card_note(torch)}")
+    del gx, xa
+    bg = torch.randn((1, 132, 132), generator=gen, device="cuda") / 132 ** .5
+    wg = torch.randn((3200, 132), generator=gen, device="cuda")
+    ba = torch.randn((1, 100, 100), generator=gen, device="cuda") / 10.0
+    wa = torch.randn((100, 3200), generator=gen, device="cuda")
+    worst = 0.0
+    for right, bi, wt in ((True, bg, wg), (False, ba, wa)):
+        got, same = _launched_once(
+            torch, lambda: kern.block_precond(bi, wt, right=right),
+            "block_precond")
+        want = right_ref(wt, bi) if right else left_ref(bi, wt)
+        err = _rel_err(torch, got, want)
+        check(same and err <= KFAC_REL_TOL,
+              f"block_precond[hymba] {tuple(wt.shape)}: {err}")
+        worst = max(worst, _max_err(torch, got, want))
+    errs["block_precond[hymba]"] = worst
+    bound, by = _bound(2 * 3200 * 132 * 132 + 2 * 100 * 100 * 3200,
+                       (bg.numel() + ba.numel() + 2 * wg.numel()
+                        + 2 * wa.numel()) * 4, f32, PEAK_SPLIT_F32_OPS_PER_S)
+    rows["block_precond[hymba]"] = {
+        "ms": _time_ms(torch, lambda: (kern.block_precond(bg, wg, right=True),
+                                       kern.block_precond(ba, wa))),
+        "plain_ms": _time_ms(torch, lambda: (right_ref(wg, bg),
+                                             left_ref(ba, wa))),
+        "library_ms": _time_ms(torch, lambda: (torch.mm(wg, bg[0]),
+                                               torch.mm(ba[0], wa))),
+        "bound_ms": bound, "bound_by": by}
+    say("recurrent-times", f"block_precond[hymba] the pair right w (3200, "
+                           f"132) binv (1, 132, 132) and left binv (1, 100, "
+                           f"100) w (100, 3200) f32: "
+                           f"{rows['block_precond[hymba]']}, max|err| "
+                           f"{worst:.3e} (library: torch.mm f32, TF32 off); "
+                           f"{card_note(torch)}")
+    del bg, wg, ba, wa
+
+    attn, aerr = _attn_rows(torch, HYMBA_ATTN, gen)
+    for k in attn:
+        rows[f"{k}[hymba]"] = attn[k]
+        errs[f"{k}[hymba]"] = aerr[k]
+
+    # the decode over hymba's bf16 legacy cache: 4 lanes x 5 KV heads, G 5,
+    # the path's last step (pos 543 of 544 slots)
+    b, c, kv, g, hd = 4, 544, 5, 5, 64
+    cache_k, cache_v = (torch.randn((b, c, kv, hd), generator=gen,
+                                    device="cuda").bfloat16()
+                        for _ in range(2))
+    kview, vview = cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3)
+    qd = torch.randn((b * kv, g, hd), generator=gen, device="cuda").bfloat16()
+    pos = torch.full((b * kv,), c - 1, dtype=torch.int32, device="cuda")
+    got, same = _launched_once(
+        torch, lambda: swa_attention.swa_flash_decode(qd, kview, vview, pos),
+        "swa_flash_decode", swa_attention.LAUNCHES)
+    kf, vf = kview.reshape(b * kv, c, hd), vview.reshape(b * kv, c, hd)
+    want = ref.swa_decode_ref(qd.float(), kf, vf, pos)
+    err = _max_err(torch, got, want)
+    check(same and err <= DEC_TOL["atol"] + DEC_TOL["rtol"] * float(
+        want.abs().max()), f"swa_flash_decode[hymba]: {err}")
+    errs["swa_flash_decode[hymba]"] = err
+    nbytes = 2 * b * kv * c * hd * 2 + qd.numel() * 2 + qd.numel() * 4 \
+        + 4 * b * kv
+    bound, by = _bound(4 * hd * g * b * kv * c, nbytes, cache_k.dtype)
+    qsd = qd.view(b, kv * g, 1, hd)
+    rows["swa_flash_decode[hymba]"] = {
+        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_decode(
+            qd, kview, vview, pos)),
+        "plain_ms": _time_ms(torch, lambda: ref.swa_decode_ref(
+            qd, kview.reshape(b * kv, c, hd), vview.reshape(b * kv, c, hd),
+            pos)),
+        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qsd, kview, vview, enable_gqa=True)),
+        "bound_ms": bound, "bound_by": by}
+    say("recurrent-times", f"swa_flash_decode[hymba] N={b * kv} G={g} "
+                           f"hd={hd} over the bf16 legacy cache C={c} "
+                           f"((B, KV, C, hd) view), pos {c - 1}: "
+                           f"{rows['swa_flash_decode[hymba]']}, max|err| "
+                           f"{err:.3e} (library: SDPA with enable_gqa, every "
+                           f"slot visible); {card_note(torch)}")
+    del cache_k, cache_v, kview, vview, qd, got, want, kf, vf
+    torch.cuda.empty_cache()
+    return rows, errs
 
 
 if __name__ == "__main__":

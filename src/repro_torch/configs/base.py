@@ -1,16 +1,18 @@
 """Architecture configuration schema + registry (counterpart of
 ``repro/configs/base.py``), with ``dtype`` as a torch dtype.
 
-Only the families the ported paths run are registered: the dense
-decoders ``llama3_2_1b``, ``llama3_2_3b``, ``qwen1_5_4b``,
-``musicgen_medium`` (audio: EnCodec token ids in, no frontend code),
-``nemotron_4_340b`` and ``llava_next_34b`` (a VLM: the ``proj`` site maps
-precomputed patch embeddings to ``d_model``); the MoE decoders
-``mixtral_8x22b`` (8 experts, top-2, sliding window 4096) and
-``qwen2_moe_a2_7b`` (60 routed experts, top-4, 4 shared); each an
-:class:`ArchConfig` with only the fields those blocks, their frontend, the
-SP-NGD training step and its fp8 factor capture read (the SSM fields
-arrive with the slice that reads them); and ``resnet50`` (a
+Every family of the JAX package is registered: the dense decoders
+``llama3_2_1b``, ``llama3_2_3b``, ``qwen1_5_4b``, ``musicgen_medium``
+(audio: EnCodec token ids in, no frontend code), ``nemotron_4_340b`` and
+``llava_next_34b`` (a VLM: the ``proj`` site maps precomputed patch
+embeddings to ``d_model``); the MoE decoders ``mixtral_8x22b`` (8
+experts, top-2, sliding window 4096) and ``qwen2_moe_a2_7b`` (60 routed
+experts, top-4, 4 shared); the recurrent ``rwkv6_7b`` (RWKV-6 time and
+channel mix, attention-free) and ``hymba_1_5b`` (attention and a selective
+SSM in parallel in every block); each an :class:`ArchConfig` with the
+fields those blocks, their frontend, the SP-NGD training step and its fp8
+factor capture read (the JAX package's tensor-parallel alignment fields
+have no meaning on one device and are not taken); and ``resnet50`` (a
 ``repro_torch.models.resnet.ConvNetConfig``)."""
 
 from __future__ import annotations
@@ -38,17 +40,15 @@ def check_backend(backend: str | None) -> None:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str               # dense | moe | vlm | audio (the
-                                 # families ported so far)
+    arch_type: str               # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
-    n_heads: int
+    n_heads: int                 # 0 for attention-free
     n_kv_heads: int
     d_ff: int
     vocab: int
     head_dim: int = 0            # 0 -> d_model // n_heads
-    block_type: str = "dense"    # dense | moe (DecoderLM refuses the
-                                 # others)
+    block_type: str = "dense"    # dense | moe | hymba | rwkv
     act: str = "silu"
     gated_mlp: bool = True
     qkv_bias: bool = False
@@ -60,6 +60,9 @@ class ArchConfig:
                                  # n_shared_experts * d_ff
     top_k: int = 0               # experts a token is routed to
     capacity_factor: float = 1.25  # expert buffer: cf * tokens * top_k / E
+    # SSM / hybrid
+    ssm_state: int = 0           # selective-SSM state size N (hymba)
+    ssm_expand: int = 2          # SSM inner width d_inner = expand * d_model
     # attention
     sliding_window: int = 0      # 0 = full causal
     # frontend stubs (vlm / audio)
@@ -77,6 +80,9 @@ class ArchConfig:
                                  # per-block scale) sums for full-kind
                                  # factors (kernels.dispatch.factor_sum_wire)
     head_g_kind: str = "diag"    # vocab-side factor of the LM head
+    scan_chunk: int = 0          # >0: the recurrent scans (rwkv/ssm) run in
+                                 # chunks of `scan_chunk` tokens, each
+                                 # recomputed in the backward
     # numerics / memory
     dtype: Any = torch.bfloat16
     remat: bool = True           # recompute each block in the backward
@@ -91,24 +97,27 @@ class ArchConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     def validate(self) -> None:
-        """Dense and MoE blocks (every family registered here: decoders,
-        the VLM backbone, the audio decoder) need whole GQA groups; MoE
-        blocks need experts and a top-k."""
-        assert self.n_heads > 0 and self.n_heads % self.n_kv_heads == 0
+        """Blocks with attention (dense, moe, hymba) need whole GQA groups;
+        MoE blocks need experts and a top-k."""
+        if self.block_type in ("dense", "moe", "hymba"):
+            assert self.n_heads > 0 and self.n_heads % self.n_kv_heads == 0
         if self.block_type == "moe":
             assert self.n_experts > 0 and self.top_k > 0
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Smoke-test variant: same family, tiny dims (2 layers, d<=512,
         at most 4 experts, 1 shared, top-2, at most 8 frontend tokens of
-        dim 64), f32, factor blocks of at most 128, no remat."""
+        dim 64, an SSM state of at most 8), f32, factor blocks of at most
+        128, no remat. An attention-free config keeps no heads and at most
+        128 of width."""
         hd = min(self.hd, 64)
-        n_heads = max(2, min(4, self.n_heads))
+        n_heads = max(2, min(4, self.n_heads)) if self.n_heads else 0
         n_kv = max(1, min(n_heads, max(1, self.n_kv_heads * n_heads
-                                       // self.n_heads)))
+                                       // max(self.n_heads, 1))))
         kw = dict(
             n_layers=2,
-            d_model=min(self.d_model, hd * n_heads),
+            d_model=min(self.d_model,
+                        hd * max(n_heads, 2) if n_heads else 128),
             n_heads=n_heads,
             n_kv_heads=n_kv,
             head_dim=hd,
@@ -120,6 +129,7 @@ class ArchConfig:
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
             frontend_tokens=min(self.frontend_tokens, 8) if self.frontend_tokens else 0,
             frontend_dim=min(self.frontend_dim, 64) if self.frontend_dim else 0,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
             kfac_max_dim=128,
             dtype=torch.float32,
             remat=False,
@@ -128,13 +138,13 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCHS = ["qwen1_5_4b", "musicgen_medium", "llama3_2_1b", "mixtral_8x22b",
-         "qwen2_moe_a2_7b", "llava_next_34b", "nemotron_4_340b",
-         "llama3_2_3b", "resnet50"]
+ARCHS = ["qwen1_5_4b", "hymba_1_5b", "musicgen_medium", "llama3_2_1b",
+         "mixtral_8x22b", "qwen2_moe_a2_7b", "llava_next_34b",
+         "nemotron_4_340b", "rwkv6_7b", "llama3_2_3b", "resnet50"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
-_ALIASES.update({"qwen1.5-4b": "qwen1_5_4b", "llama3.2-1b": "llama3_2_1b",
-                 "llama3.2-3b": "llama3_2_3b",
+_ALIASES.update({"qwen1.5-4b": "qwen1_5_4b", "hymba-1.5b": "hymba_1_5b",
+                 "llama3.2-1b": "llama3_2_1b", "llama3.2-3b": "llama3_2_3b",
                  "qwen2-moe-a2.7b": "qwen2_moe_a2_7b"})
 
 
@@ -147,8 +157,8 @@ def get_config(name: str):
     ``ConvNetConfig`` of ``resnet50`` as it is."""
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
-        raise KeyError(f"architecture {name!r} is not ported yet; "
-                       f"repro_torch has {ARCHS}")
+        raise KeyError(f"unknown architecture {name!r}; repro_torch has "
+                       f"{ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     cfg = mod.CONFIG
     if isinstance(cfg, ArchConfig):

@@ -17,11 +17,18 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
     python -m repro_torch.launch.train --device cpu --arch qwen1_5_4b
     python -m repro_torch.launch.train --device cpu --arch mixtral_8x22b
+    python -m repro_torch.launch.train --device cpu --arch rwkv6_7b
+    python -m repro_torch.launch.train --device cpu --arch hymba_1_5b
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
     python -m repro_torch.launch.train --full-config --double-buffer
     python -m repro_torch.launch.train --full-config --refresh-chunks 4
     python -m repro_torch.launch.train --device cpu --steps 6 \
         --metrics-jsonl experiments/metrics_torch.jsonl --profile-dir trace
+
+``make_serve_step(model)`` and ``make_prefill_step(model)`` are ``repro``'s
+serving steps: one decode position against the legacy cache
+(``serve_step(params, cache, tokens) -> (logits, cache)``) and the forward's
+logits over a prompt (``prefill_step(params, batch) -> logits``).
 
 ``make_dist_train_step`` / ``make_dist_fast_step`` are the multi-rank
 steps (``repro``'s ``make_shardmap_{train,fast}_step``) over a
@@ -126,6 +133,21 @@ def make_fast_step(model, opt: SPNGD, accum: int = 1) -> Callable:
                            loss / accum, {}, {}, extra=extra)
 
     return fast_step
+
+
+def make_serve_step(model) -> Callable:
+    """Single-token decode against a persistent cache (the legacy
+    ``serve=None`` layout of ``model.init_cache`` / ``model.prefill``)."""
+    def serve_step(params, cache, tokens):
+        return model.decode_step(cache, tokens, params=params)
+    return serve_step
+
+
+def make_prefill_step(model) -> Callable:
+    def prefill_step(params, batch):
+        logits, _ = model.forward(batch, None, params)
+        return logits
+    return prefill_step
 
 
 def _local_rows(batch: dict, reducer) -> dict:
@@ -663,7 +685,8 @@ def main(argv=None):
                     help="a registered text decoder: llama3_2_1b, "
                          "llama3_2_3b, qwen1_5_4b, musicgen_medium, "
                          "nemotron_4_340b, the MoE mixtral_8x22b and "
-                         "qwen2_moe_a2_7b (llava_next_34b is refused: its "
+                         "qwen2_moe_a2_7b, the recurrent rwkv6_7b and "
+                         "hymba_1_5b (llava_next_34b is refused: its "
                          "batches need pixel_embeds)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,5 +1,5 @@
-"""Config-driven decoder-only LM, dense and MoE blocks (counterpart of
-``repro/models/transformer.py``).
+"""Config-driven decoder-only LM: dense, MoE, hybrid attention + SSM
+(hymba) and RWKV-6 blocks (counterpart of ``repro/models/transformer.py``).
 
 Weights keep the JAX package's layout -- dense weights ``(d_in, d_out)``
 applied as ``x @ w``, per-layer trees ``ln1/ln2/attn/mlp`` -- held as
@@ -25,8 +25,19 @@ it returns cover the text rows only. An MoE block (``block_type ==
 ``router (d, E)``, ``we_up``/``we_gate (E, d, f)``, ``we_down (E, f, d)``
 and the shared experts' ``sh_*``; its expert sites' factor families are
 ``(L, E, nb, b, b)`` and the blocks' auxiliary losses average into the
-loss. The recurrent block types and the legacy ``serve=None`` decode arrive
-with later slices.
+loss. A hymba block (``models/ssm.py``) runs attention and a selective
+SSM side by side on the same normed input and adds their mean; an RWKV
+block (``models/rwkv.py``) has no attention: LayerNorm (with a beta
+whatever ``cfg.norm`` says), the time mix, LayerNorm, the channel mix.
+
+Without a ``serve`` config the cache is the JAX package's legacy layout
+(``init_cache(serve=None)``): a 0-d ``len``, dense ``(L, B, max_len, KV,
+hd)`` K/V in ``cfg.dtype`` for the blocks with attention, and the
+recurrent state (``ssm_h``, ``conv``; ``tm_x``, ``cm_x``, ``wkv``). It is
+written in place too. On the card its attention runs the hand-written
+kernels: the prompt's causal(-window) attention through the training
+forward kernel, and each decode step's query through the single-query
+decode kernel over the span of the cache a windowed query can see.
 """
 
 from __future__ import annotations
@@ -42,10 +53,13 @@ from repro_torch.core.fisher import SiteInfo
 from repro_torch.core.tagging import FactorSpec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_rope, he_normal, layernorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp
 
 _KV_KEYS = ("k", "v", "k_scale", "v_scale")
+BLOCK_TYPES = ("dense", "moe", "hymba", "rwkv")
 
 
 def resolve_device(device) -> torch.device:
@@ -80,10 +94,10 @@ def _device_generator(generator: torch.Generator,
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.block_type not in ("dense", "moe"):
+        if cfg.block_type not in BLOCK_TYPES:
             raise NotImplementedError(
-                f"repro_torch ports block_type 'dense' and 'moe' so far; got "
-                f"{cfg.block_type!r}")
+                f"unknown block_type {cfg.block_type!r}; repro_torch has "
+                f"{BLOCK_TYPES}")
         if cfg.block_type == "moe" and cfg.factor_wire:
             raise NotImplementedError(
                 "fused fp8 capture (factor_wire) of MoE expert sites needs "
@@ -117,17 +131,26 @@ class DecoderLM(nn.Module):
         self.head = _param_tree({"w": empty(d, cfg.vocab)})
         if cfg.frontend == "vision":
             self.proj = _param_tree({"w": empty(cfg.frontend_dim, d)})
+        f32 = torch.float32
+        bt, ff = cfg.block_type, cfg.d_ff
         blocks = []
         for _ in range(cfg.n_layers):
-            attn = {"wq": empty(d, h * hd), "wk": empty(d, kv * hd),
-                    "wv": empty(d, kv * hd), "wo": empty(h * hd, d)}
-            if cfg.qkv_bias:
-                attn.update(bq=empty(h * hd), bk=empty(kv * hd),
-                            bv=empty(kv * hd))
-            p = {"ln1": {"gamma": ones(d)}, "ln2": {"gamma": ones(d)},
-                 "attn": attn}
-            if cfg.block_type == "moe":
-                e, ff = cfg.n_experts, cfg.d_ff
+            p = {"ln1": {"gamma": ones(d)}, "ln2": {"gamma": ones(d)}}
+            if cfg.norm == "layernorm" or bt == "rwkv":
+                p["ln1"]["beta"] = torch.zeros(d, device=self.device)
+                p["ln2"]["beta"] = torch.zeros(d, device=self.device)
+            if bt in ("dense", "moe", "hymba"):
+                p["attn"] = {"wq": empty(d, h * hd), "wk": empty(d, kv * hd),
+                             "wv": empty(d, kv * hd), "wo": empty(h * hd, d)}
+                if cfg.qkv_bias:
+                    p["attn"].update(bq=empty(h * hd), bk=empty(kv * hd),
+                                     bv=empty(kv * hd))
+            if bt in ("dense", "hymba"):
+                p["mlp"] = {"up": empty(d, ff), "down": empty(ff, d)}
+                if cfg.gated_mlp:
+                    p["mlp"]["gate"] = empty(d, ff)
+            if bt == "moe":
+                e = cfg.n_experts
                 p["moe"] = {"router": empty(d, e), "we_up": empty(e, d, ff),
                             "we_gate": empty(e, d, ff),
                             "we_down": empty(e, ff, d)}
@@ -135,14 +158,28 @@ class DecoderLM(nn.Module):
                     sf = cfg.n_shared_experts * ff
                     p["moe"].update(sh_up=empty(d, sf), sh_gate=empty(d, sf),
                                     sh_down=empty(sf, d))
-            else:
-                p["mlp"] = {"up": empty(d, cfg.d_ff),
-                            "down": empty(cfg.d_ff, d)}
-                if cfg.gated_mlp:
-                    p["mlp"]["gate"] = empty(d, cfg.d_ff)
-            if cfg.norm == "layernorm":
-                p["ln1"]["beta"] = torch.zeros(d, device=self.device)
-                p["ln2"]["beta"] = torch.zeros(d, device=self.device)
+            if bt == "hymba":
+                di, n = cfg.ssm_expand * d, cfg.ssm_state
+                r = max(1, d // 16)
+                p["ssm"] = {"in_proj": empty(d, 2 * di),
+                            "conv_w": empty(ssm_lib.CONV_K, di),
+                            "xdb": empty(di, r + 2 * n),
+                            "dt_proj": empty(r, di), "dt_bias": empty(di),
+                            "a_log": empty(di, n, dtype=f32),
+                            "d_skip": empty(di, dtype=f32),
+                            "out_proj": empty(di, d)}
+            if bt == "rwkv":
+                lr = rwkv_lib.LORA_R
+                p["tm"] = {f"mu_{n}": empty(d) for n in "rkvwg"}
+                p["tm"].update({n: empty(d, d)
+                                for n in ("wr", "wk", "wv", "wg", "wo")})
+                p["tm"].update(w0=empty(d, dtype=f32),
+                               w_lora_a=empty(d, lr), w_lora_b=empty(lr, d),
+                               u_bonus=empty(d // hd, hd, dtype=f32),
+                               ln_scale=empty(d, dtype=f32))
+                p["cm"] = {"mu_k": empty(d), "mu_r": empty(d),
+                           "wk": empty(d, ff), "wv": empty(ff, d),
+                           "wr": empty(d, d)}
             blocks.append(_param_tree(p))
         self.blocks = nn.ModuleList(blocks)
 
@@ -155,8 +192,10 @@ class DecoderLM(nn.Module):
         """Random weights with the JAX package's distributions
         (``transformer.py:141-202``): embedding N(0, 0.02), HeNormal dense
         weights (the vision projector's and the experts' too), unit norm
-        scales, zero biases. Deterministic in the generator's seed (its
-        bits cannot match ``jax.random``)."""
+        scales, zero biases, and the recurrent branches' own
+        (``models/ssm.py init_ssm``, ``models/rwkv.py init_rwkv_tm`` /
+        ``init_rwkv_cm``). Deterministic in the generator's seed (its bits
+        cannot match ``jax.random``)."""
         cfg = self.cfg
         g = _device_generator(generator, self.device)
         dev = self.device
@@ -169,24 +208,37 @@ class DecoderLM(nn.Module):
         if cfg.frontend == "vision":
             self.proj["w"].copy_(he_normal(g, (cfg.frontend_dim, cfg.d_model),
                                            cfg.dtype, device=dev))
+        d, bt = cfg.d_model, cfg.block_type
         for blk in self.blocks:
-            a = blk["attn"]
-            for name in ("wq", "wk", "wv", "wo"):
-                a[name].copy_(he_normal(g, tuple(a[name].shape), cfg.dtype,
-                                        device=dev))
-            for name in ("bq", "bk", "bv"):
-                if name in a:
-                    a[name].zero_()
-            if cfg.block_type == "moe":
-                m, key = moe_lib.init_moe(g, cfg.d_model, cfg.d_ff,
-                                          cfg.n_experts, cfg.n_shared_experts,
-                                          cfg.dtype, device=dev), "moe"
-            else:
-                m, key = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                                  cfg.dtype, device=dev), "mlp"
-            for name, w in m.items():
-                blk[key][name].copy_(w)
-            del m
+            if "attn" in blk:
+                a = blk["attn"]
+                for name in ("wq", "wk", "wv", "wo"):
+                    a[name].copy_(he_normal(g, tuple(a[name].shape),
+                                            cfg.dtype, device=dev))
+                for name in ("bq", "bk", "bv"):
+                    if name in a:
+                        a[name].zero_()
+            parts = []
+            if bt in ("dense", "hymba"):
+                parts.append(("mlp", init_mlp(g, d, cfg.d_ff, cfg.gated_mlp,
+                                              cfg.dtype, device=dev)))
+            if bt == "moe":
+                parts.append(("moe", moe_lib.init_moe(
+                    g, d, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
+                    cfg.dtype, device=dev)))
+            if bt == "hymba":
+                parts.append(("ssm", ssm_lib.init_ssm(
+                    g, d, cfg.ssm_state, cfg.dtype, expand=cfg.ssm_expand,
+                    device=dev)))
+            if bt == "rwkv":
+                parts.append(("tm", rwkv_lib.init_rwkv_tm(
+                    g, d, cfg.hd, cfg.dtype, device=dev)))
+                parts.append(("cm", rwkv_lib.init_rwkv_cm(
+                    g, d, cfg.d_ff, cfg.dtype, device=dev)))
+            for key, m in parts:
+                for name, w in m.items():
+                    blk[key][name].copy_(w)
+            del parts
             for ln in ("ln1", "ln2"):
                 blk[ln]["gamma"].fill_(1.0)
                 if "beta" in blk[ln]:
@@ -225,17 +277,68 @@ class DecoderLM(nn.Module):
         k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
         v = v.reshape(b, s, kv, hd)
         win = cfg.sliding_window if window is None else window
-        if cache_kv is not None:
-            if serve is None:
-                raise NotImplementedError("the legacy serve=None cache path "
-                                          "arrives with a later slice")
+        if cache_kv is not None and serve is not None:
             out = self._attn_serve(q, k, v, cache_kv, cache_len, serve,
                                    serve.resolved_window(cfg))
+        elif cache_kv is not None:
+            out = self._attn_legacy(q, k, v, cache_kv, cache_len, win)
         else:
             out = attn_lib.attention(q, k, v, causal=True, window=win,
                                      backend=cfg.backend)
         return tagging.dense_site(out.reshape(b, s, h * hd), p["wo"], g("wo"),
                                   sp)
+
+    def _attn_legacy(self, q, k, v, cache_kv, cache_len: int, win: int):
+        """The legacy dense cache (``transformer.py:238-264`` of the JAX
+        package). q (B, S, H, hd); k/v (B, S, KV, hd); ``cache_kv`` this
+        layer's (B, M, KV, hd) views in ``cfg.dtype``, written IN PLACE;
+        ``cache_len`` the host int of the positions already cached. The
+        step's k/v go into slots [len, len + S) (the start clamped so they
+        fit, as ``dynamic_update_slice`` clamps); a windowed decode query
+        (S == 1, 0 < win < M) sees the span of ``win`` slots from ``start =
+        clip(len + 1 - win, 0, M - win)``, rebased into the span.
+
+        Where the backend resolves to ``"cuda"``: a prefill (len 0, S > 1)
+        runs the prompt's own k/v through the forward kernel (the cache's
+        keys past S are masked in the plain path, so this is the same
+        function); a decode step (S == 1) runs the decode kernel over the
+        span as a (B, KV, span, hd) view, at ``pos = len - start``, window
+        0; any other call raises. Elsewhere the plain attention with
+        ``q_offset`` and ``kv_len``, as the JAX package computes it."""
+        from repro_torch.kernels import dispatch
+        cfg = self.cfg
+        b, s, h, hd = q.shape
+        kv = k.shape[2]
+        ck, cv = cache_kv["k"], cache_kv["v"]
+        m = ck.shape[1]
+        at = max(0, min(cache_len, m - s))
+        ck[:, at:at + s] = k.to(ck.dtype)
+        cv[:, at:at + s] = v.to(cv.dtype)
+        start, span = 0, m
+        if s == 1 and win and win < m:
+            start = max(0, min(cache_len + 1 - win, m - win))
+            span = win
+        if dispatch.resolve(cfg.backend, q.device) == "cuda":
+            if cache_len == 0 and s > 1:
+                return attn_lib._kernel_attention(q, k, v, win)
+            if s != 1:
+                raise NotImplementedError(
+                    f"no CUDA kernel for a legacy-cache call of {s} tokens "
+                    f"after {cache_len} cached (the kernels cover a prefill "
+                    f"from an empty cache and one-token decode steps); pass "
+                    f"backend='ref' for the plain path")
+            pos = torch.full((b * kv,), cache_len - start, dtype=torch.int32,
+                             device=q.device)
+            og = dispatch.swa_decode(
+                q[:, 0].reshape(b * kv, h // kv, hd).contiguous(),
+                ck[:, start:start + span].permute(0, 2, 1, 3),
+                cv[:, start:start + span].permute(0, 2, 1, 3), pos,
+                window=0, backend=cfg.backend)
+            return og.reshape(b, h, hd)[:, None].to(q.dtype)
+        return attn_lib.attention(
+            q, ck[:, start:start + span], cv[:, start:start + span],
+            causal=True, window=win, q_offset=cache_len - start,
+            kv_len=cache_len + s - start, backend=cfg.backend)
 
     def _attn_serve(self, q, k, v, cache_kv, cache_len, serve, win):
         """Serving cache paths: ring (fp8 or f32 payload) or the dense-f32
@@ -305,13 +408,34 @@ class DecoderLM(nn.Module):
 
     def _block(self, x, p, fs=None, *, positions, cache=None,
                cache_len=None, serve=None):
-        """Returns (y, aux): aux the MoE block's auxiliary loss, None for a
-        dense block."""
-        h1 = self._norm(x, p["ln1"], "ln1", fs)
-        x = x + self._attn(h1, p["attn"], fs, positions=positions,
-                           cache_kv=cache, cache_len=cache_len, serve=serve)
-        h2 = self._norm(x, p["ln2"], "ln2", fs)
+        """Returns (y, aux): aux the MoE block's auxiliary loss, None for
+        the other blocks. ``cache`` is this layer's cache views, written IN
+        PLACE (its K/V and, for the recurrent blocks, their state)."""
         cfg = self.cfg
+        if cfg.block_type == "rwkv":
+            return self._rwkv_block(x, p, fs, cache), None
+        h1 = self._norm(x, p["ln1"], "ln1", fs)
+        kv_cache = (None if cache is None else
+                    {k: cache[k] for k in _KV_KEYS if k in cache})
+        attn_out = self._attn(h1, p["attn"], fs, positions=positions,
+                              cache_kv=kv_cache, cache_len=cache_len,
+                              serve=serve)
+        if cfg.block_type == "hymba":
+            out = ssm_lib.ssm_branch(
+                h1, p["ssm"], _sub(fs, "ssm_"), state=cfg.ssm_state,
+                spec=self.spec, chunk=cfg.scan_chunk,
+                init_state=None if cache is None else cache["ssm_h"],
+                conv_cache=None if cache is None else cache["conv"],
+                return_state=cache is not None)
+            if cache is not None:
+                out, (new_h, new_conv) = out
+                cache["ssm_h"].copy_(new_h)
+                cache["conv"].copy_(new_conv)
+            # parallel heads: the mean of the two branches (Hymba)
+            x = x + 0.5 * (attn_out + out)
+        else:
+            x = x + attn_out
+        h2 = self._norm(x, p["ln2"], "ln2", fs)
         if cfg.block_type == "moe":
             y, aux = moe_lib.moe_block(
                 h2, p["moe"], _sub(fs, "moe_"), n_experts=cfg.n_experts,
@@ -320,6 +444,32 @@ class DecoderLM(nn.Module):
             return x + y, aux
         return x + mlp(h2, p["mlp"], _sub(fs, "mlp_"), act=cfg.act,
                        gated=cfg.gated_mlp, spec=self.spec), None
+
+    def _rwkv_block(self, x, p, fs, cache):
+        """LayerNorm, time mix, LayerNorm, channel mix, each mix added to
+        the residual; with ``cache`` the mixes start from its state
+        (``tm_x``, ``wkv``, ``cm_x``) and write theirs back."""
+        cfg = self.cfg
+        h1 = self._norm(x, p["ln1"], "ln1", fs)
+        out = rwkv_lib.time_mix(
+            h1, p["tm"], _sub(fs, "tm_"), head_dim=cfg.hd, spec=self.spec,
+            last_x=None if cache is None else cache["tm_x"],
+            wkv_state=None if cache is None else cache["wkv"],
+            chunk=cfg.scan_chunk, return_state=cache is not None)
+        if cache is not None:
+            out, (new_last, new_wkv) = out
+            cache["tm_x"].copy_(new_last)
+            cache["wkv"].copy_(new_wkv)
+        x = x + out
+        h2 = self._norm(x, p["ln2"], "ln2", fs)
+        out = rwkv_lib.channel_mix(
+            h2, p["cm"], _sub(fs, "cm_"), spec=self.spec,
+            last_x=None if cache is None else cache["cm_x"],
+            return_state=cache is not None)
+        if cache is not None:
+            out, new_last = out
+            cache["cm_x"].copy_(new_last)
+        return x + out
 
     def _embed_inputs(self, batch, params=None, fs=None):
         """Returns (h (B, S_total, d), positions (S_total,), n_front): the
@@ -432,20 +582,27 @@ class DecoderLM(nn.Module):
                 kind, f"blocks/{path}", d_in, d_out, self.spec, lead=lead,
                 beta_param=beta)
 
-        layernorm_ = cfg.norm == "layernorm"
+        bt = cfg.block_type
+        beta = cfg.norm == "layernorm" or bt == "rwkv"
         blk("ln1", "scale_bias", "ln1/gamma", d, d,
-            beta="blocks/ln1/beta" if layernorm_ else None)
+            beta="blocks/ln1/beta" if beta else None)
         blk("ln2", "scale_bias", "ln2/gamma", d, d,
-            beta="blocks/ln2/beta" if layernorm_ else None)
-        blk("attn_wq", "dense", "attn/wq", d, h * hd)
-        blk("attn_wk", "dense", "attn/wk", d, kv * hd)
-        blk("attn_wv", "dense", "attn/wv", d, kv * hd)
-        blk("attn_wo", "dense", "attn/wo", h * hd, d)
-        if cfg.qkv_bias:
-            blk("attn_bq", "bias", "attn/bq", 0, h * hd)
-            blk("attn_bk", "bias", "attn/bk", 0, kv * hd)
-            blk("attn_bv", "bias", "attn/bv", 0, kv * hd)
-        if cfg.block_type == "moe":
+            beta="blocks/ln2/beta" if beta else None)
+        if bt in ("dense", "moe", "hymba"):
+            blk("attn_wq", "dense", "attn/wq", d, h * hd)
+            blk("attn_wk", "dense", "attn/wk", d, kv * hd)
+            blk("attn_wv", "dense", "attn/wv", d, kv * hd)
+            blk("attn_wo", "dense", "attn/wo", h * hd, d)
+            if cfg.qkv_bias:
+                blk("attn_bq", "bias", "attn/bq", 0, h * hd)
+                blk("attn_bk", "bias", "attn/bk", 0, kv * hd)
+                blk("attn_bv", "bias", "attn/bv", 0, kv * hd)
+        if bt in ("dense", "hymba"):
+            blk("mlp_up", "dense", "mlp/up", d, ff)
+            if cfg.gated_mlp:
+                blk("mlp_gate", "dense", "mlp/gate", d, ff)
+            blk("mlp_down", "dense", "mlp/down", ff, d)
+        if bt == "moe":
             # the experts' sites are grouped: factors (L, E, nb, b, b)
             experts = lead + (cfg.n_experts,)
             blk("moe_router", "dense", "moe/router", d, cfg.n_experts)
@@ -457,11 +614,25 @@ class DecoderLM(nn.Module):
                 blk("moe_sh_up", "dense", "moe/sh_up", d, sf)
                 blk("moe_sh_gate", "dense", "moe/sh_gate", d, sf)
                 blk("moe_sh_down", "dense", "moe/sh_down", sf, d)
-            return infos
-        blk("mlp_up", "dense", "mlp/up", d, ff)
-        if cfg.gated_mlp:
-            blk("mlp_gate", "dense", "mlp/gate", d, ff)
-        blk("mlp_down", "dense", "mlp/down", ff, d)
+        if bt == "hymba":
+            di, r = cfg.ssm_expand * d, max(1, d // 16)
+            blk("ssm_in_proj", "dense", "ssm/in_proj", d, 2 * di)
+            blk("ssm_xdb", "dense", "ssm/xdb", di, r + 2 * cfg.ssm_state)
+            blk("ssm_dt_proj", "dense", "ssm/dt_proj", r, di)
+            blk("ssm_out_proj", "dense", "ssm/out_proj", di, d)
+        if bt == "rwkv":
+            for nm in ("wr", "wk", "wv", "wg", "wo"):
+                blk(f"tm_{nm}", "dense", f"tm/{nm}", d, d)
+            blk("tm_w_lora_a", "dense", "tm/w_lora_a", d, rwkv_lib.LORA_R)
+            blk("tm_w_lora_b", "dense", "tm/w_lora_b", rwkv_lib.LORA_R, d)
+            for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
+                blk(f"tm_{nm}", "scale_bias", f"tm/{nm}", d, d)
+            blk("tm_ln_scale", "scale_bias", "tm/ln_scale", d, d)
+            blk("cm_wk", "dense", "cm/wk", d, ff)
+            blk("cm_wv", "dense", "cm/wv", ff, d)
+            blk("cm_wr", "dense", "cm/wr", d, d)
+            blk("cm_cm_mu_k", "scale_bias", "cm/mu_k", d, d)
+            blk("cm_cm_mu_r", "scale_bias", "cm/mu_r", d, d)
         return infos
 
     def fstats(self) -> dict:
@@ -515,18 +686,47 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None, *,
                    serve=None) -> dict:
-        if serve is None:
-            raise NotImplementedError("the legacy serve=None cache arrives "
-                                      "with a later slice")
-        return self._init_serve_cache(batch_size, max_len, serve)
+        """With ``serve``, the serving cache (:meth:`_init_serve_cache`);
+        without, the legacy layout (``transformer.py:511-532`` of the JAX
+        package): ``len`` a 0-d int32, K/V ``(L, B, max_len, KV, hd)`` in
+        ``dtype`` (default ``cfg.dtype``) for the blocks with attention;
+        hymba's ``ssm_h`` (L, B, di, N) f32 and ``conv`` (L, B, 3, di);
+        rwkv's ``tm_x`` / ``cm_x`` (L, B, 1, d) and ``wkv`` (L, B, h, hd,
+        hd) f32. On the model's device."""
+        if serve is not None:
+            return self._init_serve_cache(batch_size, max_len, serve)
+        cfg = self.cfg
+        dtype = dtype or cfg.dtype
+        n, b, d, hd = cfg.n_layers, batch_size, cfg.d_model, cfg.hd
+
+        def zeros(*shape, dtype=dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        c = {"len": zeros(dtype=torch.int32)}
+        if cfg.block_type in ("dense", "moe", "hymba"):
+            c["k"] = zeros(n, b, max_len, cfg.n_kv_heads, hd)
+            c["v"] = zeros(n, b, max_len, cfg.n_kv_heads, hd)
+        if cfg.block_type == "hymba":
+            di = cfg.ssm_expand * d
+            c["ssm_h"] = zeros(n, b, di, cfg.ssm_state, dtype=torch.float32)
+            c["conv"] = zeros(n, b, ssm_lib.CONV_K - 1, di)
+        if cfg.block_type == "rwkv":
+            c["tm_x"] = zeros(n, b, 1, d)
+            c["cm_x"] = zeros(n, b, 1, d)
+            c["wkv"] = zeros(n, b, d // hd, hd, hd, dtype=torch.float32)
+        return c
 
     def _init_serve_cache(self, b: int, max_len: int, serve) -> dict:
         """Ring buffer sized to the window (fp8 payload + per-row f32
         scales, or f32), or the dense-f32 fallback when the resolved window
-        is 0. ``len`` is a per-sequence (B,) position vector."""
+        is 0. ``len`` is a per-sequence (B,) position vector. Attention-only
+        blocks (dense, moe) only, as the JAX package's."""
         from repro_torch.quant import quant
         from repro_torch.serve import cache as cache_lib
         cfg = self.cfg
+        if cfg.block_type not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"serve caches cover attention-only blocks (dense/moe); "
+                f"got block_type={cfg.block_type!r}")
         win = serve.resolved_window(cfg)
         ring = serve.is_ring(cfg)
         if not ring and win:
@@ -549,42 +749,46 @@ class DecoderLM(nn.Module):
                                        device=dev)
         return c
 
-    def decode_step(self, cache: dict, tokens: torch.Tensor, *, serve=None):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, *, serve=None,
+                    params: dict | None = None):
         """tokens (B,) -> (logits (B, V), cache). One decode position; the
         cache is updated IN PLACE (and returned), so a step never copies it.
-        """
-        if serve is None:
-            raise NotImplementedError("the legacy serve=None decode arrives "
-                                      "with a later slice")
+        With ``serve`` the cache is the serving layout (per-sequence ``len``
+        (B,)); without it the legacy layout (0-d ``len``, read to the host
+        once a step). ``params`` defaults to the model's own tree."""
+        params = params if params is not None else self.params()
         tok = tokens.to(self.device, torch.long)[:, None]
-        h = tagging.embed_site(tok, self.embed["table"])
+        h = tagging.embed_site(tok, params["embed"]["table"])
         pos = cache["len"]
-        positions = pos[:, None]                        # (B, 1) per-seq rope
-        for layer, p in enumerate(self.blocks):
-            sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
+        if serve is not None:
+            positions, cache_len = pos[:, None], pos    # (B, 1) per-seq rope
+        else:
+            positions = pos + torch.arange(1, device=self.device)
+            cache_len = int(pos)
+        for layer, p in enumerate(params["blocks"]):
+            sub = {k: t[layer] for k, t in cache.items() if k != "len"}
             h, _ = self._block(h, p, positions=positions, cache=sub,
-                               cache_len=pos, serve=serve)
+                               cache_len=cache_len, serve=serve)
         cache["len"] = pos + 1
-        return self._head(h)[:, 0, :], cache
+        return self._head(h, params)[:, 0, :], cache
 
     def prefill(self, batch: dict, max_len: int, *, serve=None):
         """Forward over the prompt + cache fill: (logits (B, S, V), cache)
         with ``len`` = S for every sequence. Under the vision frontend the
         batch's ``pixel_embeds`` rows come first: S counts them, and so do
-        the logits and ``len``."""
-        if serve is None:
-            raise NotImplementedError("the legacy serve=None prefill arrives "
-                                      "with a later slice")
+        the logits and ``len``. Without ``serve`` the legacy cache, its
+        ``len`` a 0-d S."""
         b = batch["tokens"].shape[0]
         cache = self.init_cache(b, max_len, serve=serve)
         h, positions, _ = self._embed_inputs(batch)
-        len0 = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        len0 = (torch.zeros((b,), dtype=torch.int32, device=self.device)
+                if serve is not None else 0)
         for layer, p in enumerate(self.blocks):
-            sub = {k: cache[k][layer] for k in _KV_KEYS if k in cache}
+            sub = {k: t[layer] for k, t in cache.items() if k != "len"}
             h, _ = self._block(h, p, positions=positions, cache=sub,
                                cache_len=len0, serve=serve)
-        cache["len"] = torch.full((b,), h.shape[1], dtype=torch.int32,
-                                  device=self.device)
+        slen = torch.tensor(h.shape[1], dtype=torch.int32, device=self.device)
+        cache["len"] = slen.expand(b).clone() if serve is not None else slen
         return self._head(h), cache
 
 

@@ -23,6 +23,10 @@ every SP-NGD stage the name it has in ``repro``'s traces:
 * :func:`kernel_scope` -- the range the kernel dispatch opens around every
   op call, ``repro.kernels.<op>[<backend>]`` with the backend ``ref`` or
   ``cuda``, so an A/B of the two lines up by name.
+* :func:`scan_scope` -- the range around a recurrent scan's forward (the
+  WKV and SSM loops of torch ops), ``repro.scan.<name>``: the loop has no
+  kernel, so no dispatch range holds its launches. Its backward runs on
+  autograd's thread after the range has closed.
 * :class:`ProfileCapture` -- the opt-in ``--profile-dir`` window: a
   ``torch.profiler`` trace of the first N steps, written as Chrome-trace
   JSON.
@@ -69,6 +73,14 @@ def kernel_scope(op: str, which: str):
     if not torch.autograd._profiler_enabled():
         return contextlib.nullcontext()
     return torch.profiler.record_function(f"repro.kernels.{op}[{which}]")
+
+
+def scan_scope(name: str):
+    """The range of one recurrent scan's forward, ``repro.scan.<name>``,
+    while a profiler records (else a null context)."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(f"repro.scan.{name}")
 
 
 @dataclasses.dataclass

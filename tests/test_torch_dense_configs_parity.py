@@ -48,6 +48,8 @@ from test_torch_train_parity import _get, _leaves, _rel
 
 ARCHS = ["llama3_2_3b", "qwen1_5_4b", "musicgen_medium", "nemotron_4_340b",
          "llava_next_34b"]
+# the config-field and template checks take the recurrent families too
+CONFIG_ARCHS = ARCHS + ["rwkv6_7b", "hymba_1_5b"]
 DAMP, LR, MOM = 1e-3, 5e-3, 0.9
 BATCH = (4, 16)
 STEPS = 8
@@ -127,7 +129,7 @@ def _runs(arch):
     return (jlosses, jfirst), (tlosses, tfirst)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_reduced_config_matches_repro(arch):
     """Every field the port's ArchConfig has equals repro's, full and
     reduced; dtype is torch's float32 where repro's is jnp.float32."""
@@ -143,18 +145,23 @@ def test_reduced_config_matches_repro(arch):
 
 
 def test_aliases_and_registry_match_repro():
+    """The port registers repro's architectures, in repro's order, and
+    resolves its aliases (``hymba-1.5b`` too); an unknown name raises."""
     from repro.configs.base import ARCHS as JARCHS
     from repro_torch.configs.base import ARCHS as TARCHS
-    assert set(ARCHS) <= set(TARCHS) <= set(JARCHS)
+    assert TARCHS == JARCHS
+    assert set(CONFIG_ARCHS) <= set(TARCHS)
     for alias, name in (("qwen1.5-4b", "qwen1_5_4b"),
                         ("llama3.2-3b", "llama3_2_3b"),
-                        ("llava-next-34b", "llava_next_34b")):
+                        ("llava-next-34b", "llava_next_34b"),
+                        ("hymba-1.5b", "hymba_1_5b"),
+                        ("rwkv6-7b", "rwkv6_7b")):
         assert get_config(alias) == get_config(name)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("rwkv6_7b")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gpt5")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_stat_names_and_templates_match_repro(arch):
     (jm, jopt, *_), (tm, topt, *_) = _shared(arch)
     assert topt.stat_names() == jopt.stat_names()

@@ -208,8 +208,26 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     batcher = ContinuousBatcher(tm, ServeConfig(kv_dtype="f32"), slots=1,
                                 max_len=8)
     assert batcher.cache["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        DecoderLM(dataclasses.replace(cfg, block_type="rwkv"), device="cpu")
+    assert tm.init_cache(1, 8)["k"].device.type == "cpu"    # legacy cache
+    with pytest.raises(NotImplementedError, match="unknown block_type"):
+        DecoderLM(dataclasses.replace(cfg, block_type="mamba"), device="cpu")
+    # the serving caches cover attention-only blocks, as repro's: its
+    # _init_serve_cache and ContinuousBatcher refuse the recurrent blocks
+    for arch in ("rwkv6_7b", "hymba_1_5b"):
+        rm = DecoderLM(get_config(arch).reduced(), device="cpu")
+        jrm = JDecoderLM(dataclasses.replace(jget_config(arch).reduced(),
+                                             backend="ref"))
+        for serve, make in ((JServeConfig(kv_dtype="f32"),
+                             lambda s: JBatcher(jrm, None, s, slots=1,
+                                                max_len=8)),
+                            (ServeConfig(kv_dtype="f32"),
+                             lambda s: ContinuousBatcher(rm, s, slots=1,
+                                                         max_len=8))):
+            with pytest.raises(NotImplementedError) as e:
+                make(serve)
+            assert str(e.value) == (
+                f"serve caches cover attention-only blocks (dense/moe); "
+                f"got block_type={get_config(arch).block_type!r}")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tm.prefill({"tokens": torch.zeros(1, 4, dtype=torch.long)},
                    max_len=8, serve=ServeConfig(kv_dtype="f32",
