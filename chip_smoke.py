@@ -84,7 +84,14 @@ then served (mixtral on the fp8 ring, qwen2_moe on the dense cache);
 mixtral's attention at its own widths (S 8192, window 4096, G 6);
 ``qwen2_moe_a2_7b`` at full width (2 layers) trained with Newton-Schulz
 beside momentum SGD and served; and both kernels timed at its expert
-shapes. Then the recurrent families and the legacy serving path
+shapes. Then the MoE fused fp8 capture: factor_syrk_wire over all 60
+experts in one launch against quant_rows' plain version on its own sums,
+the b > 1024 wire route over the expert axis, and ``qwen2_moe_a2_7b`` at
+full width trained with ``factor_wire="e4m3"`` (the b > 1024 route at
+kfac_max_dim 2048, the fused kernel at 1024); and the launch layer's dry
+run (``repro_torch.launch.dryrun``) on meta tensors, its argument bytes held
+to the card's allocation of the same state and its Stage-4 report timed on
+the card. Then the recurrent families and the legacy serving path
 (``init_cache`` / ``prefill`` / ``decode_step`` with ``serve=None``):
 ``rwkv6_7b`` and ``hymba_1_5b`` reduced (f32, 2 layers), eigh and
 Newton-Schulz capture and fast steps on the kernels against
@@ -121,19 +128,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {                     # dense, without sparsity
-    "bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
-    "float8_e4m3fn": 1979e12, "float8_e5m2": 1979e12,
-}
-# f32-accurate products on the tensor cores: each f32 operand split in two
-# TF32 parts and three TF32 products (hi hi, hi lo, lo hi) per product at
-# an H100 SXM's 495 TFLOP/s dense (data sheet, 700 W), so 495 / 3 = 165
-# TFLOP/s of f32 work. The bound of the f32 product kernels (block_precond
-# and the three Newton-Schulz kernels), which all run their products that
-# way: the least time the card takes for f32-accurate work
-# (PEAK_OPS_PER_S["float32"], the CUDA cores' fmaf, is 2.5 times slower).
-PEAK_SPLIT_F32_OPS_PER_S = 495e12 / 3
+# the card's peak rates (NVIDIA H100 80GB HBM3, 700 W, data sheet), read
+# from repro_torch/launch/roofline.py by load_rates() (one source): the
+# memory rate, the dense peak by dtype, and f32-accurate products on the
+# tensor cores (each f32 operand split in two TF32 parts, three TF32
+# products at 495 TFLOP/s: 165 TFLOP/s of f32 work), the bound of the f32
+# product kernels (block_precond and the three Newton-Schulz kernels)
+HBM_BYTES_PER_S = PEAK_OPS_PER_S = PEAK_SPLIT_F32_OPS_PER_S = None
+
+
+def load_rates() -> None:
+    """Set the peak rates from ``repro_torch.launch.roofline`` (``src`` on
+    ``sys.path``); main calls it, a script calling phases one by one calls
+    it first."""
+    global HBM_BYTES_PER_S, PEAK_OPS_PER_S, PEAK_SPLIT_F32_OPS_PER_S
+    from repro_torch.launch import roofline
+    HBM_BYTES_PER_S = roofline.HBM_BW
+    PEAK_OPS_PER_S = dict(roofline.PEAK_OPS_PER_S)
+    PEAK_SPLIT_F32_OPS_PER_S = roofline.PEAK_SPLIT_F32_OPS_PER_S
+
 
 # bf16 outputs: one bf16 ulp at |out| <= 2 is 7.8e-3; lse is f32 arithmetic
 # on both sides in another summation order
@@ -224,6 +237,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import torch
+    load_rates()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on the card only",
               file=sys.stderr)
@@ -319,6 +333,9 @@ def main(argv: list[str]) -> int:
     timed(check_moe_routes, torch)
     moe = timed(moe_path, torch)
     moe_times = timed(time_moe_kernels, torch)
+    t_new = time.perf_counter()
+    moe_wire = timed(moe_wire_path, torch)
+    timed(dryrun_path, torch)
     t_rec = time.perf_counter()
     timed(check_recurrent_routes, torch)
     rec = timed(recurrent_path, torch)
@@ -335,7 +352,8 @@ def main(argv: list[str]) -> int:
                  f"phases {t_swa - t_fp8:.1f} s, the swa_attention phases "
                  f"{t_dense - t_swa:.1f} s, the dense-family phases "
                  f"{t_moe - t_dense:.1f} s, the MoE phases "
-                 f"{t_rec - t_moe:.1f} s, the recurrent phases "
+                 f"{t_new - t_moe:.1f} s, the MoE wire and dry-run phases "
+                 f"{t_rec - t_new:.1f} s, the recurrent phases "
                  f"{t_dist - t_rec:.1f} s and the multi-GPU phases "
                  f"{t_end - t_dist:.1f} s of it; by phase ("
                  + ", ".join(f"{k} {v:.1f} s" for k, v in clock.items()) + ")")
@@ -366,6 +384,13 @@ def main(argv: list[str]) -> int:
     # check_moe_kernels' cases, moe_path's launches
     extra += [(f"{k}[moe]", k, moe_times[f"{k}[moe]"], moe_errs[f"{k}[moe]"],
                moe["launches"][k]) for k in MOE_KERNELS]
+    # factor_syrk_wire over the expert axis: the error of check_moe_wire's
+    # one-launch case, the kernel's launches in moe_wire_path's capture step
+    # at kfac_max_dim 1024 (its counts set to 0 just before)
+    extra.append(("factor_syrk_wire[moe]", "factor_syrk_wire",
+                  moe_times["factor_syrk_wire[moe]"],
+                  moe_errs["factor_syrk_wire[moe]"],
+                  moe_wire["launches"]["factor_syrk_wire"]))
     # and at the recurrent families' shapes: recurrent_path's launches
     extra += [(f"{k}[{fam}]", k, rec_times[f"{k}[{fam}]"],
                rec_errs[f"{k}[{fam}]"], rec[arch]["launches"][k])
@@ -3771,6 +3796,75 @@ def _fp8_rows(torch, gen, g, t, zero_rows=(), offset=0):
     return x
 
 
+def _wire_case(torch, worst: dict, key: str, label: str, x, max_dim: int,
+               fmt: str, mode: str, route: str) -> None:
+    """factor_sum_wire on x (..., n, d), its leading axes in the one call:
+    ``route`` "fused" through the kernel with a scratch of its own (the
+    kernel's f32 sums), "dispatch" through the op's b > 1024 route
+    (factor_syrk, sym_pack, quant_rows; its sums factor_syrk's). Payload and
+    scales bit-identical to quant_rows' plain version on those sums, the
+    sums within WIRE_SCALE_REL_TOL of the plain ones, and against the plain
+    composition the payload within one fp8 step and the decode within the
+    format's bound; worst[key] takes the largest decode error."""
+    from repro_torch.core import kfac
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    nb = kfac.num_blocks(x.shape[-1], max_dim)
+    b = kfac.block_size(x.shape[-1], max_dim)
+    if route == "fused":
+        own = torch.empty((*x.shape[:-2], nb, b, b), dtype=torch.float32,
+                          device="cuda")
+        p, sc = qk._factor_syrk_wire(x, max_dim, fmt, mode, own)
+    else:
+        p, sc = dispatch.factor_sum_wire(x, max_dim, fmt=fmt,
+                                         scale_mode=mode, backend="cuda")
+        # the route's own sums: factor_syrk reduces in a fixed order
+        own = kern.factor_syrk(x, max_dim)
+    torch.cuda.synchronize()
+    op, osc = ref.quant_rows_ref(kfac.sym_pack(own), fmt, mode)
+    bad_p = int((p.view(torch.uint8) != op.view(torch.uint8)).sum())
+    bad_s = int((sc.view(torch.int32) != osc.view(torch.int32)).sum())
+    check(bad_p == 0 and bad_s == 0,
+          f"factor_syrk_wire {label}: {bad_p} payload bytes and {bad_s} "
+          f"scales differ from quant_rows on the kernel's own f32 sums")
+    f = ref.factor_sum_ref(x, max_dim)
+    sum_err = _rel_err(torch, own, f)
+    check(sum_err <= WIRE_SCALE_REL_TOL, f"factor_syrk_wire {label}: f32 "
+                                         f"sums rel err {sum_err}")
+    rp, rs = ref.quant_rows_ref(kfac.sym_pack(f), fmt, mode)
+    a = kfac.sym_pack(f)
+    s_err = float(((sc - rs).abs() / rs).max())
+    steps = _fp8_steps(torch, p, rp)
+    dk, dr = ref.dequant_rows_ref(p, sc), ref.dequant_rows_ref(rp, rs)
+    amax = float(a.abs().max())
+    # e4m3 (e5m2): half a step is 2^-4 (2^-3) of the value, 2^-10
+    # (2^-17) of the scale below the normal range; plus the f32 sums'
+    # order
+    rel, sub = (2.0 ** -4, 2.0 ** -10) if fmt == "e4m3" else \
+        (2.0 ** -3, 2.0 ** -17)
+    bound = rel * a.abs() + sub * sc[..., None] + 1e-5 * amax
+    over = int(((dk - a).abs() > bound).sum())
+    check(steps <= 1, f"factor_syrk_wire {label}: payload {steps} fp8 "
+                      f"steps from the plain composition")
+    check(over == 0, f"factor_syrk_wire {label}: {over} decoded entries "
+                     f"outside the {fmt} bound")
+    err = _max_err(torch, dk, dr)
+    worst[key] = max(worst.get(key, 0.0), err)
+    flips = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
+    say("fp8-kernel", f"factor_sum_wire {label} ({route}) -> "
+                      f"{tuple(p.shape)} {fmt} {mode}: payload and scales "
+                      f"bit-identical to quant_rows on the kernel's own "
+                      f"f32 sums, which are within {sum_err:.2e} of the "
+                      f"plain sums (tol {WIRE_SCALE_REL_TOL}); against the "
+                      f"plain composition: scale rel err {s_err:.2e}, "
+                      f"{flips} of {p.numel()} payload bytes one fp8 step "
+                      f"off, max |decode err| {err:.3e} (max|A| "
+                      f"{amax:.3e}); decode within the {fmt} bound of the "
+                      f"f32 sum")
+    del p, sc, f, rp, rs, a, dk, dr, own, op, osc
+
+
 def check_fp8_kernels(torch) -> dict:
     """quant_rows and dequant_rows against their plain versions, bit for
     bit: the history rows of the path (64 x 2,098,176 at b 2048, 32 x
@@ -3879,73 +3973,23 @@ def check_fp8_kernels(torch) -> dict:
                                   attrs.items()))
     torch.cuda.empty_cache()
 
-    def wire_case(label, x, max_dim, fmt, mode, route):
-        nb = kfac.num_blocks(x.shape[-1], max_dim)
-        b = kfac.block_size(x.shape[-1], max_dim)
-        if route == "fused":
-            own = torch.empty((nb, b, b), dtype=torch.float32, device="cuda")
-            p, sc = qk._factor_syrk_wire(x, max_dim, fmt, mode, own)
-        else:
-            p, sc = dispatch.factor_sum_wire(x, max_dim, fmt=fmt,
-                                             scale_mode=mode, backend="cuda")
-            # the route's own sums: factor_syrk reduces in a fixed order
-            own = kern.factor_syrk(x, max_dim)
-        torch.cuda.synchronize()
-        op, osc = ref.quant_rows_ref(kfac.sym_pack(own), fmt, mode)
-        bad_p = int((p.view(torch.uint8) != op.view(torch.uint8)).sum())
-        bad_s = int((sc.view(torch.int32) != osc.view(torch.int32)).sum())
-        check(bad_p == 0 and bad_s == 0,
-              f"factor_syrk_wire {label}: {bad_p} payload bytes and {bad_s} "
-              f"scales differ from quant_rows on the kernel's own f32 sums")
-        f = ref.factor_sum_ref(x, max_dim)
-        sum_err = _rel_err(torch, own, f)
-        check(sum_err <= WIRE_SCALE_REL_TOL, f"factor_syrk_wire {label}: f32 "
-                                             f"sums rel err {sum_err}")
-        rp, rs = ref.quant_rows_ref(kfac.sym_pack(f), fmt, mode)
-        a = kfac.sym_pack(f)
-        s_err = float(((sc - rs).abs() / rs).max())
-        steps = _fp8_steps(torch, p, rp)
-        dk, dr = ref.dequant_rows_ref(p, sc), ref.dequant_rows_ref(rp, rs)
-        amax = float(a.abs().max())
-        # e4m3 (e5m2): half a step is 2^-4 (2^-3) of the value, 2^-10
-        # (2^-17) of the scale below the normal range; plus the f32 sums'
-        # order
-        rel, sub = (2.0 ** -4, 2.0 ** -10) if fmt == "e4m3" else \
-            (2.0 ** -3, 2.0 ** -17)
-        bound = rel * a.abs() + sub * sc[..., None] + 1e-5 * amax
-        over = int(((dk - a).abs() > bound).sum())
-        check(steps <= 1, f"factor_syrk_wire {label}: payload {steps} fp8 "
-                          f"steps from the plain composition")
-        check(over == 0, f"factor_syrk_wire {label}: {over} decoded entries "
-                         f"outside the {fmt} bound")
-        err = _max_err(torch, dk, dr)
-        worst["factor_syrk_wire"] = max(worst["factor_syrk_wire"], err)
-        flips = int((p.view(torch.uint8) != rp.view(torch.uint8)).sum())
-        say("fp8-kernel", f"factor_sum_wire {label} ({route}) -> "
-                          f"{tuple(p.shape)} {fmt} {mode}: payload and scales "
-                          f"bit-identical to quant_rows on the kernel's own "
-                          f"f32 sums, which are within {sum_err:.2e} of the "
-                          f"plain sums (tol {WIRE_SCALE_REL_TOL}); against the "
-                          f"plain composition: scale rel err {s_err:.2e}, "
-                          f"{flips} of {p.numel()} payload bytes one fp8 step "
-                          f"off, max |decode err| {err:.3e} (max|A| "
-                          f"{amax:.3e}); decode within the {fmt} bound of the "
-                          f"f32 sum")
-        del p, sc, f, rp, rs, a, dk, dr, own, op, osc
-
     for b in (512, 1000, 1024):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((4096, b), generator=gen, device="cuda").to(dtype)
-            wire_case(f"n=4096 b={b} {dtype}", x, 2048, "e4m3", "fp32",
-                      "fused")
+            _wire_case(torch, worst, "factor_syrk_wire",
+                       f"n=4096 b={b} {dtype}", x, 2048, "e4m3", "fp32",
+                       "fused")
     x = torch.randn((4000, 2050), generator=gen, device="cuda")
-    wire_case("n=4000 d=2050 max_dim=1024 (3 blocks of 684)", x, 1024,
-              "e5m2", "fp32", "fused")
+    _wire_case(torch, worst, "factor_syrk_wire",
+               "n=4000 d=2050 max_dim=1024 (3 blocks of 684)", x, 1024,
+               "e5m2", "fp32", "fused")
     x = torch.randn((4096, 512), generator=gen, device="cuda").bfloat16()
-    wire_case("n=4096 b=512 bf16", x, 2048, "e4m3", "pow2", "fused")
+    _wire_case(torch, worst, "factor_syrk_wire", "n=4096 b=512 bf16", x,
+               2048, "e4m3", "pow2", "fused")
     x = torch.randn((4096, 8192), generator=gen, device="cuda").bfloat16()
-    wire_case("n=4096 d=8192 bf16 (4 blocks of 2048)", x, 2048, "e4m3",
-              "fp32", "dispatch")
+    _wire_case(torch, worst, "factor_syrk_wire",
+               "n=4096 d=8192 bf16 (4 blocks of 2048)", x, 2048, "e4m3",
+               "fp32", "dispatch")
     del x
     torch.cuda.empty_cache()
     return worst
@@ -4016,10 +4060,12 @@ def _fp8_counts(opt, cfg, recs) -> dict:
     """Launches of the fp8 kernels reckoned from the code for the steps of
     ``recs``. A capture step captures every full-kind statistic through
     factor_sum_wire, one call per layer: factor_syrk_wire where b <= 1024,
-    else factor_syrk + quant_rows. Each refreshed blocked statistic then
-    decodes its wire sums, X_-1 and X_-2 (3 dequant_rows) and encodes the
-    new X_-1 (1 quant_rows); one that does not refresh, in a family that
-    does, decodes X_-1 for the family's inverse (1 dequant_rows)."""
+    else factor_syrk + quant_rows; the embedding's G, which the template
+    keeps dense (as repro's), through factor_sum (factor_syrk). Each
+    refreshed blocked statistic then decodes its wire sums (if wire), X_-1
+    and X_-2 (dequant_rows) and encodes the new X_-1 (1 quant_rows); one
+    that does not refresh, in a family that does, decodes X_-1 for the
+    family's inverse (1 dequant_rows)."""
     import math
     from repro_torch.kernels.dispatch import FACTOR_WIRE_MAX_DIM
     from repro_torch.quant import quant
@@ -4035,16 +4081,21 @@ def _fp8_counts(opt, cfg, recs) -> dict:
             for key, leaf in stats.items():
                 if not opt.sym_stat(fam, key):
                     continue
-                check(quant.is_wire(leaf), f"{fam}.{key} is not wire-captured")
-                calls = math.prod(leaf["payload"].shape[:-2])
-                if quant.tri_rows(leaf["payload"].shape[-1]) <= \
+                wire = quant.is_wire(leaf)
+                check(wire or fam == "embed",
+                      f"{fam}.{key} is not wire-captured")
+                if not wire:
+                    n["factor_syrk"] += math.prod(leaf.shape[:-3])
+                elif quant.tri_rows(leaf["payload"].shape[-1]) <= \
                         FACTOR_WIRE_MAX_DIM:
-                    n["factor_syrk_wire"] += calls
+                    n["factor_syrk_wire"] += math.prod(
+                        leaf["payload"].shape[:-2])
                 else:
+                    calls = math.prod(leaf["payload"].shape[:-2])
                     n["factor_syrk"] += calls
                     n["quant_rows"] += calls
                 if f"{fam}.{key}" in done:
-                    n["dequant_rows"] += 3
+                    n["dequant_rows"] += 3 if wire else 2
                     n["quant_rows"] += 1
                 elif recompute:
                     n["dequant_rows"] += 1
@@ -5896,6 +5947,60 @@ def _launched_once(torch, fn, name, counts=None):
     return got, same
 
 
+def check_moe_wire(torch, gen, worst: dict) -> None:
+    """factor_syrk_wire over the expert axis (_wire_case): qwen2_moe's
+    up/gate A (60, 341, 2048) bf16 at max_dim 1024, 2 blocks of 1024 for
+    each of the 60 experts, in one launch; then the op's b > 1024 route at
+    max_dim 2048 (one factor_syrk launch over the lead, one quant_rows over
+    the flattened rows) on the same stack; then a lead of 65,536 matrices
+    of one block, past the launch's 65,535, refused before any launch."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    x = torch.randn((60, 341, 2048), generator=gen, device="cuda").bfloat16()
+    before = dict(qk.LAUNCHES)
+    _wire_case(torch, worst, "factor_syrk_wire[moe]",
+               "(60, 341, 2048) bf16 max_dim 1024 (60 x 2 blocks of 1024)",
+               x, 1024, "e4m3", "fp32", "fused")
+    wire = qk.LAUNCHES["factor_syrk_wire"] - before["factor_syrk_wire"]
+    check(wire == 1, f"factor_syrk_wire over 60 experts: {wire} launches")
+    before = dict(qk.LAUNCHES)
+    syrk = kern.LAUNCHES["factor_syrk"]
+    dispatch.reset_calls()
+    # held to the same checks; its error is not the kernel's, so it goes
+    # under a key of its own, outside the kernels line
+    _wire_case(torch, worst, "factor_sum_wire[moe, b > 1024]",
+               "(60, 341, 2048) bf16 max_dim 2048 (60 x 1 block of 2048)",
+               x, 2048, "e4m3", "fp32", "dispatch")
+    # the route's factor_syrk and quant_rows, and _wire_case's factor_syrk
+    # of the route's own sums
+    got = (kern.LAUNCHES["factor_syrk"] - syrk,
+           qk.LAUNCHES["quant_rows"] - before["quant_rows"],
+           qk.LAUNCHES["factor_syrk_wire"] - before["factor_syrk_wire"])
+    check(got == (2, 1, 0) and dispatch.CALLS == {("factor_sum_wire",
+                                                    "cuda"): 1},
+          f"the b > 1024 wire route over 60 experts: launches (syrk, quant, "
+          f"wire) {got}, dispatches {dispatch.CALLS}")
+    del x
+    big = torch.zeros((1, 16, 8), device="cuda").bfloat16().expand(
+        65536, 16, 8)
+    before = dict(qk.LAUNCHES)
+    try:
+        qk.factor_syrk_wire(big, 8)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("65535" in refused and qk.LAUNCHES == before,
+          f"factor_syrk_wire over 65,536 matrices: {refused or 'launched'}")
+    say("moe-kernels", f"factor_syrk_wire over the expert axis: one launch "
+                       f"for 60 x 2 blocks (max|err| of the decode "
+                       f"{worst['factor_syrk_wire[moe]']:.3e}), the b > 1024 "
+                       f"route one factor_syrk + one quant_rows launch "
+                       f"({worst['factor_sum_wire[moe, b > 1024]']:.3e}); a "
+                       f"lead of 65,536 refused ({refused})")
+    torch.cuda.empty_cache()
+
+
 def check_moe_kernels(torch) -> dict:
     """factor_syrk and block_precond on expert stacks (MOE_SYRK_CASES,
     MOE_PRECOND_CASES) against the plain versions (which broadcast over the
@@ -5907,7 +6012,8 @@ def check_moe_kernels(torch) -> dict:
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import kfac as kern
     gen = torch.Generator(device="cuda").manual_seed(28)
-    worst = {"factor_syrk[moe]": 0.0, "block_precond[moe]": 0.0}
+    worst = {"factor_syrk[moe]": 0.0, "block_precond[moe]": 0.0,
+             "factor_syrk_wire[moe]": 0.0}
 
     def syrk_case(x, max_dim, what):
         got, same = _launched_once(torch, lambda: kern.factor_syrk(x, max_dim),
@@ -5942,6 +6048,7 @@ def check_moe_kernels(torch) -> dict:
     check(_rel_err(torch, got, ref.factor_sum_ref(x, 2048)) <= KFAC_REL_TOL,
           "dispatch.factor_sum on a stack")
     del x, got
+    check_moe_wire(torch, gen, worst)
 
     for mode, lead, nb, b, dim, other in MOE_PRECOND_CASES:
         right = mode == "right"
@@ -5992,8 +6099,11 @@ def time_moe_kernels(torch) -> dict:
     the up/gate gradient (60, 1, 2048, 2048) x (60, 2048, 1408), each
     beside its bound, its plain version and the library call (torch.bmm,
     bf16 with f32 output for the SYRK, f32 with TF32 off for the
-    preconditioner). Returns {"factor_syrk[moe]": row, "block_precond[moe]":
-    row}."""
+    preconditioner); and factor_syrk_wire over the same stack at max_dim
+    1024 (moe_wire_path's blocks: 60 x 2 of 1024), its bound by count (the
+    sums' operations, x read once, payload and scales written once) beside
+    torch.bmm's f32-out time for the same sums. Returns {"factor_syrk[moe]":
+    row, "block_precond[moe]": row, "factor_syrk_wire[moe]": row}."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import kfac as kern
     gen = torch.Generator(device="cuda").manual_seed(280)
@@ -6033,6 +6143,27 @@ def time_moe_kernels(torch) -> dict:
                      f"(library: torch.bmm f32, TF32 off); "
                      f"{card_note(torch)}")
     del binv, w, bv
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import quant as qk
+    nb, b = 2, 1024
+    t = b * (b + 1) // 2
+    x = torch.randn((lead, n, d), generator=gen, device="cuda").bfloat16()
+    xb = x.view(lead, n, nb, b).permute(0, 2, 1, 3).reshape(lead * nb, n, b)
+    ops, nbytes = _syrk_ops_bytes(n, nb, b, nb * (t + 4))
+    bound, by = _bound(lead * ops, lead * nbytes, x.dtype)
+    res["factor_syrk_wire[moe]"] = {
+        "ms": _time_ms(torch, lambda: qk.factor_syrk_wire(x, 1024), reps=10),
+        "plain_ms": _time_ms(torch, lambda: ref.factor_sum_wire_ref(x, 1024),
+                             reps=3),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(
+            xb.transpose(1, 2), xb, out_dtype=f32), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    say("moe-times", f"factor_syrk_wire ({lead}, {n}, {d}) bf16 max_dim 1024 "
+                     f"-> payload ({lead}, {nb}, {t}) e4m3: "
+                     f"{res['factor_syrk_wire[moe]']} (library: torch.bmm "
+                     f"over the {lead * nb} blocks, bf16 in, f32 out, the "
+                     f"same sums unpacked); {card_note(torch)}")
+    del x, xb
     torch.cuda.empty_cache()
     return res
 
@@ -6580,6 +6711,269 @@ def moe_path(torch) -> dict:
     torch.cuda.empty_cache()
     say("moe-path", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
+
+
+# the MoE fused fp8 capture at full width: moe_path's model and batch with
+# factor_wire e4m3 and Newton-Schulz; 2 capture + 2 fast steps on one batch
+# at kfac_max_dim 2048 (every wire capture but the router's G over 1024:
+# the factor_syrk + sym_pack + quant_rows route, the expert axis in each
+# launch), then one capture step at 1024 (every block <= 1024: one
+# factor_syrk_wire launch a statistic, the experts' over all 60)
+MOE_WIRE_PATH = dict(capture=2, fast=2, max_dims=(2048, 1024))
+
+
+@contextlib.contextmanager
+def _wire_launches():
+    """The leading shape of every factor_syrk_wire and factor_syrk call
+    (spies on the wrappers the dispatch calls): yields [(kernel, lead)]."""
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    calls, inner = [], (qk.factor_syrk_wire, kern.factor_syrk)
+
+    def wire_spy(x, max_dim, fmt="e4m3", scale_mode="fp32"):
+        calls.append(("factor_syrk_wire", tuple(x.shape[:-2])))
+        return inner[0](x, max_dim, fmt, scale_mode)
+
+    def syrk_spy(x, max_dim):
+        calls.append(("factor_syrk", tuple(x.shape[:-2])))
+        return inner[1](x, max_dim)
+    qk.factor_syrk_wire, kern.factor_syrk = wire_spy, syrk_spy
+    try:
+        yield calls
+    finally:
+        qk.factor_syrk_wire, kern.factor_syrk = inner
+
+
+def _wire_expected(opt, cfg) -> dict:
+    """Per capture step, from the template: the wire captures by route
+    (b <= FACTOR_WIRE_MAX_DIM: one factor_syrk_wire launch; above: one
+    factor_syrk and one quant_rows), the expert sites' among them, the
+    wire statistics (one fp8_unpack decode each), and the full-kind
+    statistics captured dense (the embedding's G: one factor_syrk)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.quant import quant
+    out = {"fused": 0, "unfused": 0, "expert": 0, "stats": 0, "dense": 0}
+    for fam, stats in opt.fstats_fn().items():
+        for key, leaf in stats.items():
+            calls = cfg.n_layers if fam.startswith("blk/") else 1
+            if not quant.is_wire(leaf):
+                out["dense"] += calls if opt.sym_stat(fam, key) else 0
+                continue
+            b = quant.tri_rows(leaf["payload"].shape[-1])
+            out["fused" if b <= dispatch.FACTOR_WIRE_MAX_DIM
+                else "unfused"] += calls
+            out["expert"] += calls if leaf["payload"].dim() == 4 else 0
+            out["stats"] += 1
+    return out
+
+
+def moe_wire_path(torch) -> dict:
+    """qwen2_moe_a2_7b at full width (MOE_PATH: 2 layers, batch 4 x 1024,
+    random weights from seed 0) with the fused fp8 capture (factor_wire
+    e4m3) and Stage 4 by Newton-Schulz (MOE_WIRE_PATH): at kfac_max_dim
+    2048, 2 capture + 2 fast steps on one batch; then a fresh model at 1024
+    and one capture step. Checks: finite losses, the last of the four below
+    the first; every wire capture one factor_sum_wire dispatch on the card
+    and the launches its route makes (_wire_expected), the experts' with
+    the lead (60,) in each launch; every wire statistic decoded once (one
+    fp8_unpack, one dequant_rows launch); no ref dispatch; the peak under
+    70 GiB. Returns {"launches": {"factor_syrk_wire": the kernel's count
+    over the 1024 step, set to 0 just before it}, "runs": ...}."""
+    import dataclasses
+    import math
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import kfac as kern
+    from repro_torch.kernels import quant as qk
+    from repro_torch.launch import train
+    spec = MOE_PATH
+    batch = _train_batch(torch, _moe_cfg().vocab, spec["batch"], spec["seq"])
+    lam, lr, mom = spec["damping"], spec["lr"], 0.9
+    out = {}
+    for max_dim in MOE_WIRE_PATH["max_dims"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(_moe_cfg(), factor_wire="e4m3",
+                                  kfac_max_dim=max_dim)
+        model, opt, params, state = train.build(
+            cfg=cfg, device="cuda", inverse_method="newton_schulz",
+            damping=lam)
+        want = _wire_expected(opt, cfg)
+        capture = train.make_train_step(model, opt)
+        fast = train.make_fast_step(model, opt)
+        flags = {k: True for k in opt.stat_names()}
+        n_cap = MOE_WIRE_PATH["capture"] if max_dim == 2048 else 1
+        n_fast = MOE_WIRE_PATH["fast"] if max_dim == 2048 else 0
+        kern.reset_launches()
+        qk.reset_launches()
+        dispatch.reset_calls()
+        losses, walls = [], []
+        with _wire_launches() as calls:
+            for i in range(n_cap + n_fast):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if i < n_cap:
+                    params, state, m = capture(params, state, batch, flags,
+                                               lam, lr, mom)
+                else:
+                    params, state, m = fast(params, state, batch, lam, lr,
+                                            mom)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        dcalls = dict(dispatch.CALLS)
+        check(all(math.isfinite(x) for x in losses),
+              f"moe wire path at {max_dim}: losses {losses}")
+        check(not any(b == "ref" for (_, b) in dcalls),
+              f"moe wire path at {max_dim}: ref dispatches {dcalls}")
+        check(peak < 70 * 2 ** 30, f"moe wire path at {max_dim}: peak "
+                                   f"{peak / 2 ** 30:.2f} GiB")
+        got = {"factor_sum_wire": dcalls.get(("factor_sum_wire", "cuda"), 0),
+               "fp8_unpack": dcalls.get(("fp8_unpack", "cuda"), 0),
+               "factor_syrk_wire": qk.LAUNCHES["factor_syrk_wire"],
+               "factor_syrk": kern.LAUNCHES["factor_syrk"],
+               "quant_rows": qk.LAUNCHES["quant_rows"],
+               "dequant_rows": qk.LAUNCHES["dequant_rows"]}
+        exp = {"factor_sum_wire": n_cap * (want["fused"] + want["unfused"]),
+               "fp8_unpack": n_cap * want["stats"],
+               "factor_syrk_wire": n_cap * want["fused"],
+               "factor_syrk": n_cap * (want["unfused"] + want["dense"]),
+               "quant_rows": n_cap * want["unfused"],
+               "dequant_rows": n_cap * want["stats"]}
+        check(got == exp, f"moe wire path at {max_dim}: dispatches and "
+                          f"launches {got}, want {exp}")
+        e = cfg.n_experts
+        expert = [c for c in calls if c[1] and c[1][0] == e]
+        check(len(expert) == n_cap * want["expert"]
+              and all(c[1] == (e,) for c in expert),
+              f"moe wire path at {max_dim}: expert-axis launches "
+              f"{len(expert)}, want {n_cap * want['expert']}")
+        kind = {k for k, _ in expert}
+        say("moe-wire-path", f"qwen2_moe_a2_7b full width, {cfg.n_layers} "
+                             f"layers, factor_wire e4m3, kfac_max_dim "
+                             f"{max_dim}, NS, lr {lr}, damping {lam}, one "
+                             f"batch {spec['batch']} x {spec['seq']}: "
+                             f"{n_cap} capture + {n_fast} fast steps, losses "
+                             f"{[round(x, 6) for x in losses]}, walls "
+                             f"{[round(x, 3) for x in walls]} s; dispatches "
+                             f"and launches {got} (as the template has them); "
+                             f"{len(expert)} of them over all {e} experts "
+                             f"({sorted(kind)}); peak {peak / 2 ** 30:.2f} "
+                             f"GiB; {card_note(torch)}")
+        out[max_dim] = {"losses": losses, "walls": walls, "peak": peak,
+                        "expert": len(expert),
+                        "wire": got["factor_syrk_wire"]}
+        del model, opt, params, state, capture, fast, m
+    first = out[2048]["losses"]
+    check(first[-1] < first[0], f"moe wire path: loss {first[0]} -> "
+                                f"{first[-1]} does not fall")
+    torch.cuda.empty_cache()
+    return {"launches": {"factor_syrk_wire": out[1024]["wire"]},
+            "runs": out}
+
+
+# the launch layer's dry run (repro_torch.launch.dryrun) on meta: two cases
+# at the production 16x16 mesh; llama3_2_1b at a 1x1 mesh and the training
+# path's batch, held to the card's allocation of the same state
+DRYRUN_CASES = (("llama3_2_1b", "train_4k"), ("qwen2_moe_a2_7b", "train_4k"))
+DRYRUN_ARG_REL_TOL = 0.01
+
+
+def dryrun_path(torch) -> None:
+    """The dry run beside the card. DRYRUN_CASES on the 16x16 mesh (meta
+    tensors, no card): status ok. llama3_2_1b train at a 1x1 mesh and
+    TRAIN's batch (4 x 1024), Newton-Schulz: its argument bytes within
+    DRYRUN_ARG_REL_TOL of torch.cuda.memory_allocated() once the same
+    params, SP-NGD state and batch are built on the card (the state's
+    expanded zero and identity entries materialized, as a step's inputs
+    hold them after the first refreshes); then one capture step on the
+    card, and the dry run's argument plus peak live bytes over the step's
+    max_memory_allocated() printed without a bound (the meta run counts the
+    plain attention, whose scores the kernels never materialize). Last,
+    stage4_report on the card for llama3_2_1b's shardmap case (NS)."""
+    import dataclasses
+    from repro_torch.configs import InputShape
+    from repro_torch.core.fisher import flatten, unflatten
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import sharding as shd
+    for arch, shape in DRYRUN_CASES:
+        rec = dryrun.run_case(arch, shape, False)
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+                                     f"{rec.get('error')}")
+        mem = rec["memory_analysis"]
+        say("dryrun-path", f"{arch} {shape} at {rec['mesh']} on meta: "
+                           f"{rec['label']}, {rec['n_params']} params, "
+                           f"{rec['hlo_flops']:.4g} FLOPs, {rec['hlo_bytes']:.4g} "
+                           f"B (unfused), model FLOPs {rec['model_flops']:.4g}, "
+                           f"argument bytes a device "
+                           f"{mem['argument_size_in_bytes']}, roofline "
+                           f"compute {rec['compute_s']:.4g} s, memory "
+                           f"{rec['memory_s']:.4g} s ({rec['bottleneck']}); "
+                           f"counted in {rec['count_s']} s of "
+                           f"{rec['wall_s']} s")
+    shape = InputShape("train_path", TRAIN["seq"], TRAIN["batch"], "train")
+    rec = dryrun.run_case("llama3_2_1b", "train_4k", mesh="1x1", shape=shape,
+                          inverse_method="newton_schulz")
+    check(rec["status"] == "ok", f"dry run at 1x1: {rec.get('error')}")
+    args = rec["memory_analysis"]["argument_size_in_bytes"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model, opt, params, state = train.build(
+        "llama3_2_1b", full_config=True, device="cuda",
+        inverse_method="newton_schulz")
+    flat = flatten(state["curv"])
+    # an expanded view (no memory of its own) becomes a tensor
+    state["curv"] = unflatten({k: v.contiguous() for k, v in flat.items()},
+                              state["curv"])
+    del flat
+    batch = _train_batch(torch, model.cfg.vocab, TRAIN["batch"],
+                         TRAIN["seq"])
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    rel = abs(args - alloc) / alloc
+    check(rel <= DRYRUN_ARG_REL_TOL,
+          f"dry run at 1x1: argument bytes {args} vs allocated {alloc} "
+          f"(rel {rel:.4f} > {DRYRUN_ARG_REL_TOL})")
+    torch.cuda.reset_peak_memory_stats()
+    step = train.make_train_step(model, opt)
+    flags = {k: True for k in opt.stat_names()}
+    params, state, m = step(params, state, batch, flags, TRAIN["damping"],
+                            TRAIN["lr"], 0.9)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    live = rec["peak_live_bytes"]
+    say("dryrun-path", f"llama3_2_1b at 1x1, batch {TRAIN['batch']} x "
+                       f"{TRAIN['seq']}, NS: argument bytes {args} (dry run) "
+                       f"vs {alloc} allocated on the card for the same "
+                       f"params, state and batch: rel {rel:.2e} (tol "
+                       f"{DRYRUN_ARG_REL_TOL}); a capture step's peak {peak} "
+                       f"B (loss {float(m['loss']):.6f}) vs the dry run's "
+                       f"arguments + peak live {args + live} B: ratio "
+                       f"{(args + live) / peak:.4f}, peak live alone "
+                       f"{live} vs {peak - alloc} above the arguments: "
+                       f"{live / (peak - alloc):.4f} (no bound); "
+                       f"{card_note(torch)}")
+    del model, opt, params, state, batch, m, step
+    torch.cuda.empty_cache()
+    case = dryrun.build_case("llama3_2_1b", "train_4k",
+                             shd.make_mesh("16x16"), schedule="shardmap")
+    t = time.perf_counter()
+    rep = dryrun.stage4_report(case.reducer, False, "newton_schulz",
+                               device="cuda")
+    wall = time.perf_counter() - t
+    check(rep["stats"] and all(v["us_per_layer"] > 0
+                               for v in rep["stats"].values()),
+          f"stage4_report on the card: {rep}")
+    per = {k: round(v["us_per_layer"], 1) for k, v in rep["stats"].items()}
+    say("dryrun-path", f"stage4_report (llama3_2_1b train_4k shardmap at "
+                       f"16x16, NS, on {rep['device']}): us a layer by "
+                       f"statistic {per}; replicated "
+                       f"{sum(v['replicated_us_per_device'] for v in rep['stats'].values()):.1f}"
+                       f" us a device, sharded "
+                       f"{sum(v['sharded_us_per_device'] for v in rep['stats'].values()):.1f}"
+                       f" us; {wall:.1f} s; {card_note(torch)}")
+    del case
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,5 @@
-from repro_torch.configs.base import ArchConfig, get_config, list_archs
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
+                                      get_config, list_archs)
 
-__all__ = ["ArchConfig", "get_config", "list_archs"]
+__all__ = ["INPUT_SHAPES", "ArchConfig", "InputShape", "get_config",
+           "list_archs"]

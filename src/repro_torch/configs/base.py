@@ -138,6 +138,21 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 ARCHS = ["qwen1_5_4b", "hymba_1_5b", "musicgen_medium", "llama3_2_1b",
          "mixtral_8x22b", "qwen2_moe_a2_7b", "llava_next_34b",
          "nemotron_4_340b", "rwkv6_7b", "llama3_2_3b", "resnet50"]

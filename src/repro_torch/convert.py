@@ -26,7 +26,9 @@ pipeline's cursor and ``valid`` latches, 0-d arrays in JAX and host
 :func:`opt_state_to_jax`); so does the momentum-SGD state
 (:func:`sgd_state_from_jax`, :func:`sgd_state_to_jax`).
 
-The ``*_layout`` functions build the JAX layout with CPU tensor leaves; the
+The ``*_layout`` functions build the JAX layout with CPU tensor leaves (a
+meta tensor stays on meta, so the dry run lays out a model that was never
+allocated: ``launch/sharding.py`` keys its specs by this layout); the
 checkpoint module writes those through :func:`tensor_bits` (bf16 and fp8 as
 unsigned-integer bit views) and reads them back through
 :func:`bits_tensor`, so it needs no ``ml_dtypes``. Only :func:`to_numpy`
@@ -142,7 +144,19 @@ def _map(fn, tree):
 
 
 def _cpu(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().cpu()
+    return t.detach() if t.is_meta else t.detach().cpu()
+
+
+def _scalar_device(tree) -> torch.device:
+    """Where the layout's 0-d ``step``/``cursor``/``valid`` go: meta beside
+    meta leaves, else the CPU."""
+    for v in (tree.values() if isinstance(tree, dict) else ()):
+        if isinstance(v, dict):
+            if v:
+                return _scalar_device(v)
+        elif isinstance(v, torch.Tensor):
+            return torch.device("meta" if v.is_meta else "cpu")
+    return torch.device("cpu")
 
 
 def _stack(*xs):
@@ -154,7 +168,7 @@ def _stack(*xs):
 def params_layout(params: dict) -> dict:
     """The port's parameter tree (``DecoderLM.params()``: ``blocks`` a list
     of per-layer dicts; or ``ConvNet.params()``) -> the JAX layout (blocks
-    stacked on (L,), conv weights NHWC), CPU tensor leaves."""
+    stacked on (L,), conv weights NHWC), CPU tensor leaves (meta on meta)."""
     out = {k: _map(_conv_to_jax, v) for k, v in params.items()
            if k != "blocks"}
     if "blocks" in params:
@@ -239,18 +253,22 @@ def _velocity_layout(velocity: dict) -> dict:
 
 def opt_state_layout(state: dict) -> dict:
     """The port's SP-NGD state (single or double buffer, with or without
-    the refresh pipeline) -> the JAX layout, CPU tensor leaves: ``step``
-    and the pipeline's ``cursor`` int32, its ``valid`` latches bool, as
-    the JAX package keeps them."""
-    out = {"step": torch.tensor(state["step"], dtype=torch.int32),
+    the refresh pipeline) -> the JAX layout, CPU tensor leaves (meta on
+    meta): ``step`` and the pipeline's ``cursor`` int32, its ``valid``
+    latches bool, as the JAX package keeps them."""
+    dev = _scalar_device(state["velocity"])
+    out = {"step": torch.tensor(state["step"], dtype=torch.int32,
+                                device=dev),
            "velocity": _velocity_layout(state["velocity"]),
            "curv": _map(_cpu, state["curv"])}
     if "pipeline" in state:
         pipe = state["pipeline"]
         out["pipeline"] = {
-            "cursor": torch.tensor(pipe["cursor"], dtype=torch.int32),
+            "cursor": torch.tensor(pipe["cursor"], dtype=torch.int32,
+                                   device=dev),
             "raw": _map(_cpu, pipe["raw"]),
-            "valid": _map(lambda v: torch.tensor(bool(v)), pipe["valid"])}
+            "valid": _map(lambda v: torch.tensor(bool(v), device=dev),
+                          pipe["valid"])}
     return out
 
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -666,8 +667,12 @@ def _host_sims(dev_sims: dict) -> dict:
     """{name: (d1, d2)} on the host in one transfer, (-1, -1) for a
     statistic that did not refresh (None on the device side)."""
     live = [n for n, v in dev_sims.items() if v is not None]
-    host = (torch.stack([dev_sims[n] for n in live]).tolist()
-            if live else [])
+    host = []
+    if live:
+        stacked = torch.stack([dev_sims[n] for n in live])
+        # the dry run's meta tensors hold no values: NaN
+        host = ([(math.nan, math.nan)] * len(live) if stacked.is_meta
+                else stacked.tolist())
     sims = {n: (-1.0, -1.0) for n in dev_sims}
     sims.update({n: tuple(v) for n, v in zip(live, host)})
     return sims

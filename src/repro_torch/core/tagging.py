@@ -23,8 +23,9 @@ backward returns the fused capture's sym-packed fp8 payload and per-block
 scales as their gradients (``kfac.factor_sum_wire``); the optimizer
 decodes them once. A conv site is im2col patches through the dense site
 (Eq. 10-11). A grouped site (an MoE block's experts, ``y[e] = x[e] @
-w[e]``) keeps the expert axis in its factors: ``(E, nb, b, b)``, summed for
-all experts in one ``factor_sum`` call.
+w[e]``) keeps the expert axis in its factors: ``(E, nb, b, b)`` (or the
+wire pair ``(E, nb, t)``, ``(E, nb)``), summed for all experts in one
+``factor_sum`` or ``factor_sum_wire`` call.
 """
 
 from __future__ import annotations
@@ -197,28 +198,29 @@ def dense_site(x: torch.Tensor, w: torch.Tensor, stats: Optional[dict] = None,
 
 class _GroupedSite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, a_acc, g_acc, spec):
+    def forward(ctx, x, w, a_acc, a_scale, g_acc, g_scale, spec):
         ctx.save_for_backward(x, w)
         ctx.spec = spec
-        ctx.shapes = (_shape(a_acc), _shape(g_acc))
+        ctx.shapes = (_shape(a_acc, a_scale), _shape(g_acc, g_scale))
         return torch.matmul(x, w)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         spec, (a_shape, g_shape) = ctx.spec, ctx.shapes
-        dx = dw = da = dg = None
+        dx = dw = None
+        da = dg = (None, None)
         if ctx.needs_input_grad[0]:
             dx = torch.matmul(gy, w.transpose(-1, -2)).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(x.transpose(-1, -2), gy.to(x.dtype)).to(w.dtype)
-        # factor sums keep the expert axis: (E, n, d) -> (E, nb, b, b), every
-        # expert in the one call
+        # factor sums keep the expert axis: (E, n, d) -> (E, nb, b, b), or
+        # the wire pair (E, nb, t), (E, nb); every expert in the one call
         if a_shape is not None and ctx.needs_input_grad[2]:
-            da = _stat_sum(x, spec.a_kind, spec, a_shape)[0]
-        if g_shape is not None and ctx.needs_input_grad[3]:
-            dg = _stat_sum(gy.contiguous(), spec.g_kind, spec, g_shape)[0]
-        return dx, dw, da, dg, None
+            da = _stat_sum(x, spec.a_kind, spec, a_shape)
+        if g_shape is not None and ctx.needs_input_grad[4]:
+            dg = _stat_sum(gy.contiguous(), spec.g_kind, spec, g_shape)
+        return (dx, dw) + da + dg + (None,)
 
 
 def grouped_dense_site(x: torch.Tensor, w: torch.Tensor,
@@ -226,11 +228,13 @@ def grouped_dense_site(x: torch.Tensor, w: torch.Tensor,
                        spec: FactorSpec = FactorSpec()) -> torch.Tensor:
     """Tagged per-expert matmul ``y[e] = x[e] @ w[e]``: x (E, n, d_in), w
     (E, d_in, d_out); ``stats`` the accumulator dict of :func:`make_stats`
-    with ``lead=(E,)`` (None: the plain product). There is no fused fp8
-    capture of expert sites: ``DecoderLM`` refuses ``factor_wire`` with MoE."""
+    with ``lead=(E,)`` (None: the plain product). With ``spec.wire_fmt``
+    the full-kind factors come back in the wire format with the expert
+    axis, as ``repro``'s ``_grouped_site_bwd``."""
     if stats is None:
         return torch.matmul(x, w)
-    return _GroupedSite.apply(x, w, stats.get("a"), stats.get("g"), spec)
+    return _GroupedSite.apply(x, w, *_acc_parts(stats.get("a")),
+                              *_acc_parts(stats.get("g")), spec)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +359,11 @@ class _EmbedSite(torch.autograd.Function):
         dtable.index_add_(0, flat, g2d.float())
         da, dg = None, (None, None)
         if a_shape is not None and ctx.needs_input_grad[2]:
-            da = torch.bincount(flat, minlength=v).float().reshape(a_shape)
+            if flat.device.type == "meta":   # bincount has no meta kernel
+                da = torch.zeros(a_shape, device=flat.device)
+            else:
+                da = torch.bincount(flat, minlength=v).float().reshape(
+                    a_shape)
         if g_shape is not None and ctx.needs_input_grad[3]:
             dg = _stat_sum(g2d, spec.g_kind, spec, g_shape)
         return (None, dtable.to(tdtype), da) + dg + (None,)
@@ -372,10 +380,12 @@ def embed_site(ids: torch.Tensor, table: torch.Tensor,
 
 def make_embed_stats(vocab: int, d: int, spec: FactorSpec,
                      lead: tuple[int, ...] = (), device=None) -> dict:
+    """The embedding's G factor is captured dense in f32 whatever
+    ``spec.wire_fmt`` says, as ``repro``'s ``make_embed_stats`` makes it."""
     out = {"a": zeros(lead + (vocab,), device)}
     sg = spec.g_shape(d)
     if sg is not None:
-        out["g"] = _factor_zeros(spec, spec.g_kind, sg, lead, device)
+        out["g"] = zeros(lead + sg, device)
     return out
 
 

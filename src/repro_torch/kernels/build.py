@@ -66,9 +66,9 @@ SIGNATURES = {
         # x, out, ws, arrived, lead, lstride, n, ld, d, nb, b, dtype, ctas,
         # stream
         "factor_syrk": [_P] * 4 + [_I, _L] + [_I] * 7 + [_P],
-        # x, scratch, amax, ws, arrived, payload, scale, n, ld, d, nb, b,
-        # dtype, ctas, fmt, pow2, inv_max, stream
-        "factor_syrk_wire": [_P] * 7 + [_I] * 9 + [_F, _P],
+        # x, scratch, amax, ws, arrived, payload, scale, lead, lstride, n,
+        # ld, d, nb, b, dtype, ctas, fmt, pow2, inv_max, stream
+        "factor_syrk_wire": [_P] * 7 + [_I, _L] + [_I] * 9 + [_F, _P],
     },
     "quant_pack": {
         # x, payload, scale, scratch, g, t, fmt, pow2, inv_max, grid, slice,

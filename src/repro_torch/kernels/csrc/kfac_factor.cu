@@ -567,8 +567,8 @@ int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived,
 
 }  // namespace tc
 
-// sym-pack + quantize each block of f (nb, b, b) f32: warp w of block of
-// threads bx handles row r = 8 bx + w, packed positions tri(r) + c for
+// sym-pack + quantize each block of f (lead * nb, b, b) f32 (block blockIdx.y
+// = e * nb + k): warp w of block of threads bx handles row r = 8 bx + w, packed positions tri(r) + c for
 // c <= r, reading f[k][r][c] (the lower triangle; f is symmetric)
 __global__ void __launch_bounds__(256)
 pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ payload,
@@ -583,7 +583,7 @@ pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ paylo
   const float fmax = fp8q::fmt_max(fmt);
   const long long t = (long long)b * (b + 1) / 2;
   const float* row = f + ((size_t)blk * b + r) * b;
-  unsigned char* out = payload + blk * t + (long long)r * (r + 1) / 2;
+  unsigned char* out = payload + (long long)blk * t + (long long)r * (r + 1) / 2;
   for (int c = lane; c <= r; c += 32) out[c] = fp8q::quant_one(row[c], s, fmax, fmt);
 }
 
@@ -639,19 +639,21 @@ extern "C" int factor_syrk(const void* x, void* out, void* ws, void* arrived, in
                      static_cast<cudaStream_t>(stream));
 }
 
-// scratch (nb, b, b) f32 and amax (nb,) u32 (zeroed) are the caller's;
-// payload (nb, b(b+1)/2) fp8, scale (nb,) f32.
+// x (lead, n, ld), matrices lstride elements apart; scratch (lead, nb, b, b)
+// f32 and amax (lead * nb,) u32 (zeroed) are the caller's; payload
+// (lead, nb, b(b+1)/2) fp8, scale (lead, nb) f32. Every (matrix, block) of
+// the lead in the one SYRK launch and the one pack launch (grid y lead * nb,
+// launch_syrk's guard).
 extern "C" int factor_syrk_wire(const void* x, void* scratch, void* amax, void* ws, void* arrived,
-                                void* payload, void* scale, int n, int ld, int d, int nb, int b,
-                                int dtype, int ctas, int fmt, int pow2, float inv_max,
-                                void* stream) {
+                                void* payload, void* scale, int lead, long long lstride, int n,
+                                int ld, int d, int nb, int b, int dtype, int ctas, int fmt,
+                                int pow2, float inv_max, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt != DT_E4M3 && fmt != DT_E5M2) return (int)cudaErrorInvalidValue;
-  // one matrix: the wire epilogue's leading axis is a later slice
-  const int rc = launch_syrk(x, scratch, static_cast<unsigned*>(amax), ws, arrived, 1,
-                             (long long)n * ld, n, ld, d, nb, b, dtype, ctas, st);
+  const int rc = launch_syrk(x, scratch, static_cast<unsigned*>(amax), ws, arrived, lead,
+                             lstride, n, ld, d, nb, b, dtype, ctas, st);
   if (rc) return rc;
-  const dim3 grid((b + 7) / 8, nb);
+  const dim3 grid((b + 7) / 8, lead * nb);
   pack_quant_kernel<<<grid, 256, 0, st>>>(
       static_cast<const float*>(scratch), static_cast<unsigned char*>(payload),
       static_cast<float*>(scale), static_cast<const unsigned*>(amax), b, fmt, pow2, inv_max);

@@ -200,19 +200,6 @@ def _factor_sum_cuda(x, max_dim: int):
     return kern.factor_syrk(x, max_dim)
 
 
-def _one_matrix(op: str, *ts) -> None:
-    """The wire epilogue (factor_syrk_wire) takes one matrix per call: its
-    leading axis, which an MoE site under fused fp8 capture would need, is
-    a later slice. A leading axis raises rather than loop."""
-    for t in ts:
-        if t.dim() != 2:
-            raise ValueError(f"{op}[cuda] takes one matrix per call (the "
-                             f"wire epilogue's leading axis is a later "
-                             f"slice), got a {t.dim()}-D tensor "
-                             f"{tuple(t.shape)}; use backend='ref' or the "
-                             f"dense f32 capture")
-
-
 def factor_sum(x: torch.Tensor, max_dim: int, *,
                backend: str | None = None) -> torch.Tensor:
     """Blocked raw factor sum (the statistics-construction hot spot)."""
@@ -224,11 +211,13 @@ def factor_sum(x: torch.Tensor, max_dim: int, *,
 # factor_sum_wire: fused factor sum + wire-format epilogue
 #   (..., n, d) -> (payload fp8 (..., nb, t=b(b+1)/2), scale f32 (..., nb))
 # ref: the unfused composition factor_sum -> sym_pack -> quantize_rows.
-# cuda, one (n, d) matrix: b <= FACTOR_WIRE_MAX_DIM takes the fused kernel
-# (factor_syrk_wire); a larger b takes the factor_syrk kernel, the sym_pack
-# gather and the quant_rows kernel. That split is the JAX package's
-# (ops.FACTOR_WIRE_MAX_DIM; its larger blocks run the unfused XLA
-# composition), so the same blocks take the fused kernel in both.
+# cuda, over every leading axis (an MoE site's experts) at once: b <=
+# FACTOR_WIRE_MAX_DIM takes one fused kernel launch (factor_syrk_wire); a
+# larger b takes the factor_syrk kernel (its expert axis in one launch), the
+# sym_pack gather and one quant_rows launch over the flattened rows. That
+# split is the JAX package's (ops.FACTOR_WIRE_MAX_DIM; its larger blocks run
+# the unfused composition, dispatch.py:163-164), so the same blocks take the
+# fused kernel in both.
 # ---------------------------------------------------------------------------
 
 FACTOR_WIRE_MAX_DIM = 1024
@@ -243,11 +232,12 @@ def _factor_sum_wire_cuda(x, max_dim: int, fmt: str, scale_mode: str):
     from repro_torch.core import kfac
     from repro_torch.kernels import kfac as kern
     from repro_torch.kernels import quant as qk
-    _one_matrix("factor_sum_wire", x)
     if kfac.block_size(x.shape[-1], max_dim) <= FACTOR_WIRE_MAX_DIM:
         return qk.factor_syrk_wire(x, max_dim, fmt, scale_mode)
-    return qk.quant_rows(kfac.sym_pack(kern.factor_syrk(x, max_dim)), fmt,
-                         scale_mode)
+    rows = kfac.sym_pack(kern.factor_syrk(x, max_dim))   # (..., nb, t)
+    lead, t = rows.shape[:-1], rows.shape[-1]
+    payload, scale = qk.quant_rows(rows.reshape(-1, t), fmt, scale_mode)
+    return payload.reshape(lead + (t,)), scale.reshape(lead)
 
 
 def factor_sum_wire(x: torch.Tensor, max_dim: int, *, fmt: str = "e4m3",
@@ -457,6 +447,14 @@ def _ns_eigh_fallback(f, damping, x, res):
     res = torch.where(diag.amin(-1) > 0, res,
                       torch.full_like(res, float("inf")))
     bad = res > NS_TOL
+    if bad.is_meta:
+        # the dry run cannot read the count: charge the re-solve of every
+        # block, as repro's analyzer walks both branches of its cond
+        d = torch.broadcast_to(torch.as_tensor(damping, dtype=torch.float32,
+                                               device=f.device),
+                               f.shape[:-2])
+        return torch.where(bad[..., None, None],
+                           kfac.damped_inverse(f, d), x), res
     n_bad = int(bad.sum())
     if n_bad:
         _log.warning("damped_inverse[newton_schulz]: %d of %d block(s) "

@@ -17,9 +17,10 @@
 * :func:`factor_syrk_wire` (``csrc/kfac_factor.cu``) replaces
   ``repro/kernels/kfac_factor.py::factor_syrk_wire``: the blocked factor
   sum with the fp8 wire epilogue, emitting the sym-packed payload
-  ``(nb, b(b+1)/2)`` and one scale per block: quant_rows' payload and
+  ``(..., nb, b(b+1)/2)`` and one scale per block: quant_rows' payload and
   scale of the sym-packed f32 sums the kernel leaves in its scratch, bit
-  for bit. Bound by operations.
+  for bit. Its leading axes (an MoE site's experts) go into the same one
+  SYRK launch and one pack launch. Bound by operations.
 
 The scale arithmetic is the JAX package's (``quant.compute_scale``): the
 f32 value of ``FMT_INV_MAX`` is passed to the kernels, the pow2 mode rounds
@@ -33,6 +34,7 @@ current stream and counts the launch in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -255,51 +257,69 @@ def dequant_attrs(device: torch.device) -> dict[str, tuple[int, int]]:
 def factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",
                      scale_mode: str = "fp32"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (n, d) bf16 | f32, rows contiguous -> (payload (nb, b(b+1)/2)
-    fp8, scale (nb,) f32) with nb, b = num_blocks(d, max_dim),
-    block_size(d, max_dim)."""
+    """x (..., n, d) bf16 | f32, rows contiguous -> (payload (..., nb,
+    b(b+1)/2) fp8, scale (..., nb) f32) with nb, b = num_blocks(d,
+    max_dim), block_size(d, max_dim): every matrix over the leading axes
+    (an MoE site's experts) in one launch."""
     from repro_torch.core import kfac
     on_card("factor_syrk_wire", x)
     d = x.shape[-1]
     b = kfac.block_size(d, max_dim)
-    scratch = torch.empty((kfac.num_blocks(d, max_dim), b, b),
+    scratch = torch.empty((*x.shape[:-2], kfac.num_blocks(d, max_dim), b, b),
                           dtype=torch.float32, device=x.device)
     return _factor_syrk_wire(x, max_dim, fmt, scale_mode, scratch)
+
+
+# launch_syrk's guard (csrc/kfac_factor.cu): lead * nb is a grid's y
+SYRK_MAX_BLOCKS = 65535
 
 
 def _factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str,
                       scale_mode: str, scratch: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`factor_syrk_wire` with the caller's (nb, b, b) f32 scratch,
-    which holds the kernel's own f32 sums after the call (the payload and
-    scale are quant_rows' of its sym-pack, bit for bit)."""
+    """:func:`factor_syrk_wire` with the caller's (..., nb, b, b) f32
+    scratch, which holds the kernel's own f32 sums after the call (the
+    payload and scale are quant_rows' of its sym-pack, bit for bit)."""
     from repro_torch.core import kfac
     name = "factor_syrk_wire"
     on_card(name, x, scratch)
-    require(x.dim() == 2, f"{name}: x must be (n, d), got {tuple(x.shape)}")
+    require(x.dim() >= 2, f"{name}: x must be (..., n, d), got "
+                          f"{tuple(x.shape)}")
     require(x.dtype in SYRK_DTYPES, f"{name}: dtype {x.dtype} not in "
                                      f"{SYRK_DTYPES}")
-    require(x.stride(1) == 1 or x.shape[1] == 1,
+    require(x.stride(-1) == 1 or x.shape[-1] == 1,
             f"{name}: rows must be contiguous")
     code, pow2, inv_max = _fmt_args(name, fmt, scale_mode)
-    n, d = x.shape
+    *lead_shape, n, d = x.shape
+    lead = math.prod(lead_shape)
     nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
-    require(scratch.shape == (nb, b, b) and scratch.dtype == torch.float32
-            and scratch.is_contiguous(),
-            f"{name}: scratch must be a contiguous ({nb}, {b}, {b}) f32, got "
-            f"{tuple(scratch.shape)} {scratch.dtype}")
+    require(tuple(scratch.shape) == (*lead_shape, nb, b, b)
+            and scratch.dtype == torch.float32 and scratch.is_contiguous(),
+            f"{name}: scratch must be a contiguous {(*lead_shape, nb, b, b)} "
+            f"f32, got {tuple(scratch.shape)} {scratch.dtype}")
+    require(lead * nb <= SYRK_MAX_BLOCKS,
+            f"{name}: {lead} matrices x {nb} blocks exceed the launch's "
+            f"{SYRK_MAX_BLOCKS} (grid y); no loop over the lead")
     t = b * (b + 1) // 2
-    payload = torch.empty((nb, t), dtype=q.FORMATS[fmt], device=x.device)
-    scale = torch.empty((nb,), dtype=torch.float32, device=x.device)
+    payload = torch.empty((*lead_shape, nb, t), dtype=q.FORMATS[fmt],
+                          device=x.device)
+    scale = torch.empty((*lead_shape, nb), dtype=torch.float32,
+                        device=x.device)
+    if lead == 0:
+        return payload, scale
+    x3 = x.reshape(lead, n, d)        # a view unless the lead is strided
+    ld = max(x3.stride(1), d)
+    lstride = x3.stride(0) if lead > 1 else n * ld
     lib = build.load()["kfac_factor"]
     with torch.cuda.device(x.device):
-        ctas, ws, flags = syrk_buffers(x, b, nb, zeroed=nb)
-        rc = lib.factor_syrk_wire(x.data_ptr(), scratch.data_ptr(),
+        ctas, ws, flags = syrk_buffers(x3, b, nb, zeroed=lead * nb, lead=lead)
+        rc = lib.factor_syrk_wire(x3.data_ptr(), scratch.data_ptr(),
                                   flags.data_ptr(), ws.data_ptr(),
-                                  flags[nb:].data_ptr(), payload.data_ptr(),
-                                  scale.data_ptr(), n, max(x.stride(0), d), d,
-                                  nb, b, build.DTYPE_CODES[x.dtype], ctas,
-                                  code, pow2, inv_max, stream(x))
+                                  flags[lead * nb:].data_ptr(),
+                                  payload.data_ptr(), scale.data_ptr(), lead,
+                                  lstride, n, ld, d, nb, b,
+                                  build.DTYPE_CODES[x.dtype], ctas, code,
+                                  pow2, inv_max, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return payload, scale

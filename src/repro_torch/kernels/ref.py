@@ -188,14 +188,16 @@ def ns_inverse_blocks_ref(m: torch.Tensor, iters: int, tol: float):
     (x (..., b, b), res (...,), trips (...,) int32): res the residual of
     the returned iterate, trips the updates applied -- the kernels'
     contract. Stops once every block is frozen (a frozen iterate never
-    changes, so the output is that of running all ``iters`` trips)."""
+    changes, so the output is that of running all ``iters`` trips). On
+    the meta device (the dry run) no trip can be read: all ``iters`` run,
+    as ``repro``'s trip-weighted count charges a ``while`` body."""
     x = ns_x0(m)
     rnorm = 1.0 / math.sqrt(m.shape[-1])
     trips = torch.zeros(m.shape[:-2], dtype=torch.int32, device=m.device)
     for _ in range(iters):
         r, ss = ns_tiled_residual_ref(m, x)
         live = torch.sqrt(ss) * rnorm > tol
-        if not bool(live.any()):
+        if not live.is_meta and not bool(live.any()):
             break
         x = torch.where(live[..., None, None], ns_tiled_update_ref(x, r), x)
         trips += live

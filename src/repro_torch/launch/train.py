@@ -17,6 +17,8 @@ is refused with ``accum > 1``.
     python -m repro_torch.launch.train --device cpu  # reduced, plain versions
     python -m repro_torch.launch.train --device cpu --arch qwen1_5_4b
     python -m repro_torch.launch.train --device cpu --arch mixtral_8x22b
+    python -m repro_torch.launch.train --device cpu --arch mixtral_8x22b \\
+        --factor-wire e4m3                       # fused fp8 expert capture
     python -m repro_torch.launch.train --device cpu --arch rwkv6_7b
     python -m repro_torch.launch.train --device cpu --arch hymba_1_5b
     python -m repro_torch.launch.train --full-config --factor-dtype fp8_e4m3
@@ -662,20 +664,6 @@ def _refuse_arch(ap, arch: str) -> None:
                  f"carries pixel_embeds instead")
 
 
-def _refuse_wire(ap, arch: str, fmt: str) -> None:
-    """Stop before anything is built when ``--factor-wire`` meets an MoE
-    config: the fused fp8 capture of its expert sites needs
-    ``factor_sum_wire``'s leading axis, a later slice."""
-    if not fmt:
-        return
-    from repro_torch.configs import get_config
-    if getattr(get_config(arch), "block_type", None) == "moe":
-        ap.error(f"--arch {arch} --factor-wire {fmt}: the fused fp8 capture "
-                 f"of MoE expert sites needs factor_sum_wire's leading axis "
-                 f"(the expert axis), which is not ported yet; run without "
-                 f"--factor-wire (the dense f32 capture)")
-
-
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(
@@ -791,7 +779,6 @@ def main(argv=None):
                          "overhead-accounting table")
     args = ap.parse_args(argv)
     _refuse_arch(ap, args.arch)
-    _refuse_wire(ap, args.arch, args.factor_wire)
 
     from repro_torch.models.transformer import resolve_device
     from repro_torch.obs import MetricsLogger, ProfileCapture

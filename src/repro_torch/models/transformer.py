@@ -98,11 +98,6 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 f"unknown block_type {cfg.block_type!r}; repro_torch has "
                 f"{BLOCK_TYPES}")
-        if cfg.block_type == "moe" and cfg.factor_wire:
-            raise NotImplementedError(
-                "fused fp8 capture (factor_wire) of MoE expert sites needs "
-                "factor_sum_wire's leading axis, a later slice; use the "
-                "dense f32 capture")
         self.cfg = cfg
         self.device = resolve_device(device)
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -764,7 +759,10 @@ class DecoderLM(nn.Module):
             positions, cache_len = pos[:, None], pos    # (B, 1) per-seq rope
         else:
             positions = pos + torch.arange(1, device=self.device)
-            cache_len = int(pos)
+            # the dry run's meta cache holds no length: a step at a full
+            # cache, the span repro's static-shape decode attends over
+            cache_len = (cache["k"].shape[2] - 1 if "k" in cache else 0) \
+                if pos.is_meta else int(pos)
         for layer, p in enumerate(params["blocks"]):
             sub = {k: t[layer] for k, t in cache.items() if k != "len"}
             h, _ = self._block(h, p, positions=positions, cache=sub,
@@ -790,6 +788,36 @@ class DecoderLM(nn.Module):
         slen = torch.tensor(h.shape[1], dtype=torch.int32, device=self.device)
         cache["len"] = slen.expand(b).clone() if serve is not None else slen
         return self._head(h), cache
+
+    # ------------------------------------------------------------------
+    # dry-run input stand-ins (transformer.py:751-771 of the JAX package)
+    # ------------------------------------------------------------------
+
+    def input_specs(self, shape) -> dict:
+        """The batch of a ``configs.base.InputShape`` as meta tensors (no
+        allocation), ``repro``'s shapes: train ``tokens``/``labels`` (B, S)
+        int32, prefill ``tokens``, and ``pixel_embeds`` (B, frontend_tokens,
+        frontend_dim) bf16 under the vision frontend; decode one token
+        (B,) and the legacy cache of length S (:meth:`init_cache`, on the
+        model's device: this is meant for a model built on meta)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": _meta((b, s), i32)}
+            if shape.kind == "train":
+                batch["labels"] = _meta((b, s), i32)
+            if cfg.frontend == "vision":
+                batch["pixel_embeds"] = _meta(
+                    (b, cfg.frontend_tokens, cfg.frontend_dim),
+                    torch.bfloat16)
+            return batch
+        return {"tokens": _meta((b,), i32),
+                "cache": self.init_cache(b, s)}
+
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _sub(fs, prefix: str):

@@ -307,12 +307,10 @@ def test_kfac_kernel_wrappers_refuse_cpu_tensors_and_cuda_backend_on_cpu():
 
 
 def test_kfac_cuda_entries_take_one_matrix_per_call():
-    """The cuda factor_sum and block_precond entries take a leading axis
-    (an MoE site's experts: one launch per call on the card, never a loop
-    over it) and, like every kernel wrapper, refuse CPU tensors before any
-    launch; the wire entry, whose epilogue's leading axis is a later
-    slice, still takes one matrix per call and refuses a leading axis
-    before any kernel is reached."""
+    """The cuda factor_sum, factor_sum_wire and block_precond entries take
+    a leading axis (an MoE site's experts: one launch per call on the card,
+    never a loop over it) and, like every kernel wrapper, refuse CPU
+    tensors before any launch."""
     before = dict(kern.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         dispatch.lookup("factor_sum", "cuda")(torch.zeros(2, 8, 4), 4)
@@ -322,9 +320,10 @@ def test_kfac_cuda_entries_take_one_matrix_per_call():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         dispatch.lookup("block_precond_right", "cuda")(
             torch.zeros(2, 3, 4), torch.eye(4).expand(2, 1, 4, 4))
-    with pytest.raises(ValueError, match="one matrix per call"):
-        dispatch.lookup("factor_sum_wire", "cuda")(torch.zeros(2, 8, 4), 4,
-                                                   "e4m3", "fp32")
+    for d in (4, 2050):              # the fused kernel, and the b > 1024 route
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            dispatch.lookup("factor_sum_wire", "cuda")(
+                torch.zeros(2, 8, d), 2048 if d > 4 else 4, "e4m3", "fp32")
     assert kern.LAUNCHES == before
 
 

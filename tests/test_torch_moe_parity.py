@@ -603,8 +603,10 @@ def _state_tree(tm, state_dict):
 def test_cli_trains_reduced_mixtral_and_refuses_the_fp8_capture(capsys):
     """``python -m repro_torch.launch.train --device cpu --arch
     mixtral_8x22b`` trains the reduced config on the plain versions; with
-    ``--factor-wire`` it stops before anything is built, with the
-    reason."""
+    ``--factor-wire`` the fused fp8 capture of the expert sites, which the
+    trainer refused until the wire epilogue took the expert axis, trains
+    too (``tests/test_torch_moe_wire_parity.py`` holds it against
+    repro)."""
     from repro_torch.launch import train
     params, state, recs = train.main(["--device", "cpu", "--arch",
                                       "mixtral_8x22b", "--steps", "3",
@@ -612,15 +614,14 @@ def test_cli_trains_reduced_mixtral_and_refuses_the_fp8_capture(capsys):
     assert len(recs) == 3 and np.isfinite([r["loss"] for r in recs]).all()
     assert params["blocks"][0]["moe"]["we_up"].shape == (4, 256, 256)
     assert state["step"] == 3
-    with pytest.raises(SystemExit) as e:
-        train.main(["--device", "cpu", "--arch", "qwen2_moe_a2_7b",
-                    "--factor-wire", "e4m3"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "factor_sum_wire's leading axis" in err
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DecoderLM(dataclasses.replace(get_config("mixtral_8x22b").reduced(),
+    _, _, recs = train.main(["--device", "cpu", "--arch", "qwen2_moe_a2_7b",
+                             "--factor-wire", "e4m3", "--steps", "1",
+                             "--batch", "2", "--seq", "16"])
+    assert "capture e4m3" in capsys.readouterr().out
+    assert np.isfinite(recs[0]["loss"])
+    m = DecoderLM(dataclasses.replace(get_config("mixtral_8x22b").reduced(),
                                       factor_wire="e4m3"), device="cpu")
+    assert set(m.fstats()["blk/moe_we_up"]["a"]) == {"payload", "scale"}
 
 
 # ---------------------------------------------------------------------------
