@@ -422,6 +422,13 @@ def main(argv: list[str]) -> int:
     extra += [(f"{k}[tp16]", k, tp_times[f"{k}[tp16]"],
                tp_times[f"{k}[tp16]"]["max_abs_err"], tp["launches"][k])
               for k in MOE_KERNELS]
+    # and at the ConvNet path's f32 shapes (the narrow and wide routes):
+    # convnet_path's launches at each (n, b), 32 a capture step in all
+    extra += [(f"factor_syrk[conv {n}x{d}]", "factor_syrk",
+               times[f"factor_syrk[conv {n}x{d}]"],
+               times[f"factor_syrk[conv {n}x{d}]"]["max_abs_err"],
+               conv_walls["f32_launches"].get((n, d), 0))
+              for n, d in CONV_SYRK_TIMED]
     for label, name, t, err, n in extra:
         source, replaces = where[name]
         rows.append({"name": label, "route": "cuda",
@@ -1245,9 +1252,12 @@ def _rel_err(torch, got, want) -> float:
 def check_factor_kernel(torch) -> float:
     """factor_syrk vs the plain blocked einsum at the training path's
     shapes (n 4096 x d 2048 / 8192 / 512 with max_dim 2048), a ragged n and
-    a padded last block, bf16 and f32, and at the ConvNet path's f32 shapes
-    (CONV_SYRK_SHAPES: d 10 .. 576, n up to 1,048,576); each case launched
-    twice, the two outputs identical."""
+    a padded last block, bf16 and f32, at the ConvNet path's f32 shapes
+    (CONV_SYRK_SHAPES: d 10 .. 576, n up to 1,048,576), and on both sides
+    of the f32 bodies' switch at F32_SPLIT_ROWS rows, with nb > 1 and a
+    lead (F32_EDGE_CASES); each case launched twice, the two outputs
+    identical."""
+    from repro_torch.core import kfac as ckfac
     from repro_torch.kernels import kfac, ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
@@ -1272,23 +1282,42 @@ def check_factor_kernel(torch) -> float:
                                  f"{tuple(got.shape)} {dtype}: max|err| / "
                                  f"max|A| = {err:.3e} (tol {KFAC_REL_TOL}), "
                                  f"a second launch identical")
-    for n, d in CONV_SYRK_SHAPES:
-        x = torch.randn((n, d), generator=gen, device="cuda")
-        got = kfac.factor_syrk(x, 2048)
-        check(torch.equal(got, kfac.factor_syrk(x, 2048)),
-              f"factor_syrk conv n={n} d={d}: two launches differ")
-        want = ref.factor_sum_ref(x, 2048)
+    shapes = [((n, d), 2048) for n, d in CONV_SYRK_SHAPES] + F32_EDGE_CASES
+    for shape, max_dim in shapes:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        n, d = shape[-2:]
+        b = ckfac.block_size(d, max_dim)
+        got = kfac.factor_syrk(x, max_dim)
+        check(torch.equal(got, kfac.factor_syrk(x, max_dim)),
+              f"factor_syrk f32 {shape}: two launches differ")
+        want = ref.factor_sum_ref(x, max_dim)
         err = _rel_err(torch, got, want)
-        check(got.shape == (1, d, d) and err <= KFAC_REL_TOL,
-              f"factor_syrk conv n={n} d={d}: {tuple(got.shape)}, rel err "
-              f"{err} > {KFAC_REL_TOL}")
+        check(got.shape == want.shape and err <= KFAC_REL_TOL
+              and torch.equal(got, got.transpose(-1, -2)),
+              f"factor_syrk f32 {shape} max_dim {max_dim}: "
+              f"{tuple(got.shape)}, rel err {err} > {KFAC_REL_TOL} or not "
+              f"symmetric")
         worst = max(worst, _max_err(torch, got, want))
-        say("factor-kernel", f"ConvNet shape n={n} d={d} f32 -> (1, {d}, "
-                             f"{d}): max|err| / max|A| = {err:.3e} (tol "
-                             f"{KFAC_REL_TOL}), a second launch identical")
+        say("factor-kernel", f"f32 {shape} max_dim {max_dim} -> "
+                             f"{tuple(got.shape)} ({kfac.syrk_f32_route(n, b)} "
+                             f"route): max|err| / max|A| = {err:.3e} (tol "
+                             f"{KFAC_REL_TOL}), exactly symmetric, a second "
+                             f"launch identical")
         del x, got, want
     torch.cuda.empty_cache()
     return worst
+
+
+# f32 factor_syrk on both sides of F32_SPLIT_ROWS (16,384 rows) at the
+# stem's A (27, narrow from there) and stage 0's (144, wide), and from there
+# with nb > 1 or a lead: (shape, max_dim)
+F32_EDGE_CASES = [((16383, 27), 2048), ((16384, 27), 2048),
+                  ((16383, 144), 2048), ((16384, 144), 2048),
+                  ((16384, 100), 64),      # nb 2 of 50: narrow, strided rows
+                  ((16384, 2050), 1024),   # nb 3 of 684, ragged, rows off
+                                           # 16 bytes: wide, element loads
+                  ((2, 16384, 144), 2048),   # a lead: wide
+                  ((3, 20000, 27), 2048)]    # a lead: narrow
 
 
 # the ConvNet path's factor sums (resnet50, batch 1024 x 32^2, f32): (pixel
@@ -3525,11 +3554,14 @@ def convnet_path(torch) -> dict:
     scheme's first batch, the im2col copies timed, a capture, a fast and an
     SGD step profiled (the first two by SP-NGD stage), and one capture
     step with ``bn_fisher="full"`` on a fresh model. Prints the walls, the
-    stage split, the fast step over SGD, peak memory and the launches per
-    kernel. Checks: every loss finite, the launches as reckoned, no ref
-    dispatch. Returns the capture and timed fast walls and the peak."""
+    stage split, the fast step over SGD, peak memory, the launches per
+    kernel and the f32 body each factor sum took. Checks: every loss
+    finite, the launches as reckoned, every factor sum counted by its
+    route, no ref dispatch. Returns the capture and timed fast walls, the
+    peak and the factor_syrk launches by (n, b)."""
     import math
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels import kfac as kfac_kern
     from repro_torch.launch import train_convnet
     from repro_torch.optim import SGD
     spec = CONV_PATH
@@ -3565,6 +3597,7 @@ def convnet_path(torch) -> dict:
         fast_s.append(time.perf_counter() - t)
         kinds.append("fast")
     launches = dict(_conv_launches(torch))
+    routes = dict(kfac_kern.F32_ROUTES)
     calls = dict(dispatch.CALLS)
     peak = torch.cuda.max_memory_allocated() - base
     losses = [r["loss"] for r in recs] + fast_losses
@@ -3600,6 +3633,22 @@ def convnet_path(torch) -> dict:
                         f"{card_note(torch)}")
     say("convnet-path", f"launches {got} (reckoned {want}); dispatches "
                         f"{calls}")
+    # the f32 body each factor sum took: from F32_SPLIT_ROWS rows on the
+    # narrow (b <= 64) or the wide route, below it the one-accumulator tile
+    # (the kernels' names in the capture step's profile below show the same)
+    n_cap = kinds.count("capture")
+    by_route = {}
+    for (route, _, _), c in routes.items():
+        by_route[route] = by_route.get(route, 0) + c
+    check(sum(by_route.values()) == launches["factor_syrk"],
+          f"convnet f32 routes {by_route} against {launches['factor_syrk']} "
+          f"factor_syrk launches")
+    say("convnet-path", f"factor_syrk by route over {n_cap} capture steps: "
+                        f"{by_route}, a capture step "
+                        f"{ {k: v // max(n_cap, 1) for k, v in by_route.items()} }"
+                        f" of {launches['factor_syrk'] // max(n_cap, 1)}; by "
+                        f"(route, n, b) a capture step "
+                        f"{ {k: v // max(n_cap, 1) for k, v in sorted(routes.items())} }")
     # the im2col layout copies: stage 0's 3x3 patches (four of the path's
     # sixteen conv sites take this shape) and the stem's
     from repro_torch.core import tagging
@@ -3697,7 +3746,8 @@ def convnet_path(torch) -> dict:
              split=True)
     del model, opt, params, state, box, batch
     torch.cuda.empty_cache()
-    return {"cap_s": cap, "fast_s": fast_s[1:], "peak": peak}
+    return {"cap_s": cap, "fast_s": fast_s[1:], "peak": peak,
+            "f32_launches": {(n, b): c for (_, n, b), c in routes.items()}}
 
 
 def time_ns_kernels(torch) -> dict:
@@ -4372,24 +4422,31 @@ def time_factor_sums(torch) -> dict:
                          f"b 1024) ms {unfused:.6f}; bound_ms {bound:.6f} "
                          f"({by}), library_ms {lib:.6f}; {card_note(torch)}")
         del x
-    # the ConvNet path's f32 sums: the CUDA-core body (one block per pair
-    # of 64 x 64 tiles, no split over tokens) beside cuBLAS's f32 x^T x
-    # (TF32 off: chip_smoke sets allow_tf32 = False) and the bound at the
-    # CUDA cores' f32 rate
+    # the ConvNet path's f32 sums (the rows factor_syrk[conv ...]): the
+    # narrow route (b <= 64) beside its bound by bytes (CUDA-core f32 rate),
+    # the wide one (3xTF32 on the tensor cores) at the split-f32 rate; next
+    # to cuBLAS's f32 x^T x (TF32 off: chip_smoke sets allow_tf32 = False)
     for n, d in CONV_SYRK_TIMED:
         x = torch.randn((n, d), generator=gen, device="cuda")
-        bound, by = _bound(n * d * (d + 1), 4 * (n * d + d * d), f32)
+        route = kern.syrk_f32_route(n, d)
+        bound, by = _bound(n * d * (d + 1), 4 * (n * d + d * d), f32,
+                           PEAK_SPLIT_F32_OPS_PER_S if route == "wide"
+                           else None)
+        want = ref.factor_sum_ref(x, 2048)
+        err = _max_err(torch, kern.factor_syrk(x, 2048), want)
         row = {"ms": _time_ms(torch, lambda: kern.factor_syrk(x, 2048)),
                "plain_ms": _time_ms(torch, lambda: ref.factor_sum_ref(
                    x, 2048)),
                "library_ms": _time_ms(torch, lambda: torch.mm(x.t(), x)),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        res[f"factor_syrk[conv {n}x{d}]"] = row
         say("times", f"factor_syrk ConvNet shape n={n} d={d} f32 -> f32 "
-                     f"(1 block): {row} (library: torch.mm(x.t(), x), "
-                     f"cuBLAS f32); ms/bound {row['ms'] / bound:.2f}, "
-                     f"ms/library {row['ms'] / row['library_ms']:.2f}; "
-                     f"{card_note(torch)}")
-        del x
+                     f"(1 block, {route} route): {row} (library: "
+                     f"torch.mm(x.t(), x), cuBLAS f32; bound at "
+                     f"{'the split-f32 rate' if route == 'wide' else 'the f32 CUDA cores rate'}"
+                     f"); ms/bound {row['ms'] / bound:.2f}, ms/library "
+                     f"{row['ms'] / row['library_ms']:.2f}; {card_note(torch)}")
+        del x, want
     torch.cuda.empty_cache()
     return res
 

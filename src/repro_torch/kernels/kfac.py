@@ -6,9 +6,16 @@
   the ragged last block masked. Bound by operations at the dense sites'
   shapes, by bytes (its f32 output) at an MoE site's few tokens per
   expert. bf16 runs on the tensor cores (``wgmma``, 128 x 128 tiles, the
-  work shared out evenly over the SMs: :func:`syrk_geometry`); f32 stays
-  on the CUDA cores, its tokens split into chunks summed in a fixed order
-  (:func:`syrk_f32_split`).
+  work shared out evenly over the SMs: :func:`syrk_geometry`). f32
+  (:func:`syrk_f32_route`) keeps the one-accumulator CUDA-core tile below
+  F32_SPLIT_ROWS rows (its order is the plain f32 product's at n 4096);
+  from there its tokens split into chunks (:func:`syrk_f32_split`) whose
+  partials a second launch sums in a fixed order: blocks up to
+  F32_NARROW_MAX wide stream x once on the CUDA cores, bound by bytes
+  (:func:`narrow_stage_rows`, :func:`narrow_patches`); wider ones take
+  split TF32 products on the tensor cores over lower tile pairs, the last
+  row tile cut to fit b or, at 16 rows or fewer, joined to the one before
+  (:func:`wide_pairs`, :func:`wide_tile_rows`).
 * :func:`block_precond` (``csrc/kfac_precond.cu``) replaces
   ``repro/kernels/kfac_precond.py::block_precond``: ``Binv[k] @ W[k]`` over
   the row blocks of W (left) or ``W[:, k] @ Binv[k]`` over its column
@@ -46,6 +53,7 @@ SYRK_DTYPES = (torch.float32, torch.bfloat16)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    F32_ROUTES.clear()
 
 
 # csrc/kfac_factor.cu: the tensor-core body's output tile (tc::TILE) and
@@ -101,11 +109,91 @@ def syrk_geometry(n: int, b: int, nb: int, sms: int, lead: int = 1
     return tiles, slices, best[1], best[2]
 
 
-# csrc/simt_tile.cuh: the f32 body's output tile and slice depth
+# csrc/simt_tile.cuh: the f32 body's output tile and slice depth below
+# F32_SPLIT_ROWS rows (one block of threads a tile pair, one accumulator)
 SIMT_TILE, SIMT_BK = 64, 16
-# the f32 body's split over tokens: enough chunks for F32_BLOCKS_PER_SM
-# blocks of threads an SM, each at least F32_MIN_CHUNK rows (but the last)
-F32_BLOCKS_PER_SM, F32_MIN_CHUNK = 4, 8192
+# csrc/kfac_factor.cu: from F32_SPLIT_ROWS rows on the f32 tokens split into
+# chunks whose partials a second launch sums; blocks up to F32_NARROW_MAX
+# wide stream x once on the CUDA cores ("narrow"), wider ones take split
+# TF32 products on the tensor cores ("wide")
+F32_SPLIT_ROWS, F32_NARROW_MAX = 16384, 64
+# a chunk's rows at most: the length of one accumulation
+F32_MAX_CHUNK = 16384
+# narrow: floats a ring stage holds (narrow::STAGE_FLOATS), blocks of
+# threads asked an SM
+NARROW_STAGE_FLOATS, NARROW_CTAS_PER_SM = 4096, 2
+# wide: C tile edge and tokens a stage (wide::TILE, f32g::BK); chunks asked
+# for this many waves of blocks of threads (the items differ in cost, so
+# many waves balance the SMs), each chunk at least WIDE_MIN_CHUNK rows
+WIDE_TILE, WIDE_BK, WIDE_WAVES, WIDE_MIN_CHUNK = 128, 32, 6, 1024
+# the reduce: chunk z in group z mod SYRK_REDUCE_GROUPS (RED_GROUPS)
+SYRK_REDUCE_GROUPS = 8
+
+# f32 launches by (route, n, b) since the last reset_launches()
+F32_ROUTES: dict[tuple[str, int, int], int] = {}
+
+
+def syrk_f32_route(n: int, b: int) -> str:
+    """The body an f32 factor_syrk launch over n tokens in blocks of b
+    takes: "simt" below F32_SPLIT_ROWS rows, then "narrow" up to
+    F32_NARROW_MAX, else "wide"."""
+    if n < F32_SPLIT_ROWS:
+        return "simt"
+    return "narrow" if b <= F32_NARROW_MAX else "wide"
+
+
+def count_f32_route(n: int, b: int) -> None:
+    """Count one f32 launch (made) in :data:`F32_ROUTES`."""
+    key = (syrk_f32_route(n, b), n, b)
+    F32_ROUTES[key] = F32_ROUTES.get(key, 0) + 1
+
+
+def narrow_stage_rows(b: int) -> int:
+    """Rows of a narrow ring stage (narrow::stage_rows): about
+    NARROW_STAGE_FLOATS floats, a multiple of 4 (a flat stage starts on a
+    16-byte boundary)."""
+    return max(4, NARROW_STAGE_FLOATS // b // 4 * 4)
+
+
+def narrow_patches(b: int) -> list[tuple[int, int]]:
+    """The narrow body's lower 4 x 4 patches (pi >= pj) in the kernel's
+    order (narrow::patch_of): thread q of a slot keeps patch q."""
+    p4 = -(-b // 4)
+    return [(pi, pj) for pi in range(p4) for pj in range(pi + 1)]
+
+
+def _wide_absorbs(b: int) -> bool:
+    """wide::absorbs: b leaves 16 rows or fewer after its last full
+    128-row tile, and they join the tile before."""
+    return b > WIDE_TILE and b - (b - 1) // WIDE_TILE * WIDE_TILE <= 16
+
+
+def wide_pairs(b: int) -> list[tuple[int, int]]:
+    """The wide body's lower tile pairs (row tile r >= column tile c) in
+    the kernel's order (wide::pair_of); when the last row tile is
+    absorbed, only its diagonal pair stays, last."""
+    tiles = -(-b // WIDE_TILE)
+    if _wide_absorbs(b):
+        return [(r, c) for r in range(tiles - 1) for c in range(r + 1)] + [
+            (tiles - 1, tiles - 1)]
+    return [(r, c) for r in range(tiles) for c in range(r + 1)]
+
+
+def wide_tile_rows(r: int, b: int) -> int:
+    """C rows of row tile r (wide::tile_rows): 128; 144 for the tile that
+    absorbs the last rows; the last tile the least of 16, 32, 64, 128 that
+    covers what is left of b."""
+    rest = b - r * WIDE_TILE
+    if rest > WIDE_TILE:
+        return 144 if _wide_absorbs(b) and rest <= WIDE_TILE + 16 else 128
+    return 128 if rest > 64 else 64 if rest > 32 else 32 if rest > 16 else 16
+
+
+def _chunks(n: int, asked: int, unit: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) from the chunks asked: the kernel's
+    chunk_rows, a multiple of the route's unit, and the chunks covering n."""
+    rows = -(-(-(-n // asked)) // unit) * unit
+    return rows, -(-n // rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,19 +201,25 @@ def syrk_f32_split(n: int, b: int, nb: int, sms: int, lead: int = 1
                    ) -> tuple[int, int, int]:
     """(chunks asked, rows per chunk, chunks launched) of one f32
     factor_syrk launch over ``lead`` matrices of n tokens, each in nb
-    blocks of b, on ``sms`` SMs: the
-    kernel's ``f32_chunk_rows`` (a multiple of the 16-deep slice) and the
-    chunks that cover n with it, never more than asked. Block (pair, k, z)
-    sums rows [z rows, (z + 1) rows) of one 64 x 64 tile pair; one chunk
-    writes the output directly, more write partials that a second launch
-    sums in chunk order."""
-    tiles = -(-b // SIMT_TILE)
-    pairs = lead * nb * tiles * (tiles + 1) // 2
-    want = -(-F32_BLOCKS_PER_SM * sms // pairs)
-    asked = max(1, min(want, n // F32_MIN_CHUNK, 65535))
-    per = -(-n // asked)
-    rows = max(SIMT_BK, -(-per // SIMT_BK) * SIMT_BK)
-    return asked, rows, (-(-n // rows) if n > rows else 1)
+    blocks of b, on ``sms`` SMs. "simt": one chunk of every row. From
+    F32_SPLIT_ROWS rows each chunk holds at most F32_MAX_CHUNK rows, a
+    multiple of the route's stage. "narrow": enough chunks for
+    NARROW_CTAS_PER_SM blocks of threads an SM, one per (chunk, matrix
+    block). "wide": one block of threads per (chunk, matrix block, lower
+    tile pair), chunks for WIDE_WAVES waves of them, each at least
+    WIDE_MIN_CHUNK rows. Chunk z holds rows [z rows, (z + 1) rows)."""
+    route = syrk_f32_route(n, b)
+    if route == "simt":
+        return 1, max(SIMT_BK, -(-n // SIMT_BK) * SIMT_BK), 1
+    blocks = lead * nb
+    lo = max(1, -(-n // F32_MAX_CHUNK))
+    if route == "narrow":
+        asked = max(lo, -(-NARROW_CTAS_PER_SM * sms // blocks))
+        return (asked, *_chunks(n, asked, narrow_stage_rows(b)))
+    items = blocks * len(wide_pairs(b))
+    asked = max(lo, min(-(-WIDE_WAVES * sms // items),
+                        max(1, n // WIDE_MIN_CHUNK)))
+    return (asked, *_chunks(n, asked, WIDE_BK))
 
 
 def syrk_buffers(x: torch.Tensor, b: int, nb: int, zeroed: int = 0,
@@ -141,8 +235,8 @@ def syrk_buffers(x: torch.Tensor, b: int, nb: int, zeroed: int = 0,
     n = x.shape[-2]
     if x.dtype != torch.bfloat16:
         asked, _, chunks = syrk_f32_split(n, b, nb, sms, lead)
-        if chunks > 1:
-            ws = torch.empty((asked * lead * nb * b * b,),
+        if syrk_f32_route(n, b) != "simt":
+            ws = torch.empty((chunks * lead * nb * b * b,),
                              dtype=torch.float32, device=x.device)
         return asked, ws, torch.zeros((zeroed,), dtype=torch.int32,
                                       device=x.device)
@@ -187,6 +281,8 @@ def factor_syrk(x: torch.Tensor, max_dim: int) -> torch.Tensor:
                              build.DTYPE_CODES[x.dtype], ctas, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
+    if x.dtype == torch.float32:
+        count_f32_route(n, b)
     return out
 
 

@@ -41,7 +41,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (counters, on_card, require,
                                         sm_count, stream)
-from repro_torch.kernels.kfac import SYRK_DTYPES, syrk_buffers
+from repro_torch.kernels.kfac import (SYRK_DTYPES, count_f32_route,
+                                      syrk_buffers)
 from repro_torch.quant import quant as q
 
 # kernel name -> number of launches since the last reset_launches()
@@ -322,4 +323,6 @@ def _factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str,
                                   pow2, inv_max, stream(x))
     build.check(rc, name)
     LAUNCHES[name] += 1
+    if x.dtype == torch.float32:
+        count_f32_route(n, b)
     return payload, scale

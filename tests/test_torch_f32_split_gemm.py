@@ -13,7 +13,9 @@ and their arithmetic are checked through two mirrors:
   (``kernels/newton_schulz.py`` ``resident_tiles``) cover each b x b
   product exactly once for every cluster size the kernel can pick;
 * the arithmetic: a plain-torch emulation of the kernels' split at their
-  stage depth (each f32 operand x as hi = TF32(x), rounded to nearest as
+  stage depth (also ``factor_syrk``'s wide f32 route, ``X^T X`` over its
+  token chunks and the reduce's fixed order, against ``repro``'s factor sum
+  and the f64 one) (each f32 operand x as hi = TF32(x), rounded to nearest as
   ``cvt.rna`` does, plus lo = TF32(x - hi); per 8-deep step the products
   lo_P hi_Q, hi_P lo_Q and hi_P hi_Q summed in f32; a stage's 32 terms
   into a fresh partial that an f32 add folds into the accumulator). The
@@ -29,6 +31,7 @@ and their arithmetic are checked through two mirrors:
   other two.
 """
 
+import contextlib
 import importlib.util
 import math
 from pathlib import Path
@@ -333,3 +336,85 @@ def test_one_tf32_product_misses_the_bounds():
     assert (jres <= NS_TOL).all() and (res <= NS_TOL).all()
     assert trips.tolist() == [18, 18]
     assert (res1 > NS_TOL).all() and (trips1 == NS_ITERS).all()
+
+
+# ---------------------------------------------------------------------------
+# factor_syrk's wide f32 route (csrc/kfac_factor.cu wide::): X^T X on the
+# same split products
+# ---------------------------------------------------------------------------
+
+def _wide_syrk(x: np.ndarray, products: int = 3) -> np.ndarray:
+    """factor_syrk's wide route on one (n, b) block as the kernels sum it:
+    per chunk of the route's geometry (kernels/kfac.py syrk_f32_split), C =
+    Q P with Q = X_z^T and P = X_z through the emulated split product (each
+    32-token stage into a fresh partial); then the reduce: chunk z into
+    group z mod SYRK_REDUCE_GROUPS in chunk order, the groups in order."""
+    n, b = x.shape
+    assert kern.syrk_f32_route(n, b) == "wide"
+    _, rows, chunks = kern.syrk_f32_split(n, b, 1, SMS)
+    xp = np.zeros((chunks * rows, b), np.float32)
+    xp[:n] = x                        # tokens past n: TMA's zeros
+    xz = xp.reshape(chunks, rows, b)
+    parts = _product(np.swapaxes(xz, 1, 2), xz, products)
+    groups = []
+    for g in range(min(kern.SYRK_REDUCE_GROUPS, chunks)):
+        s = torch.zeros((b, b), dtype=torch.float32)
+        for z in range(g, chunks, kern.SYRK_REDUCE_GROUPS):
+            s = s + parts[z]
+        groups.append(s)
+    out = groups[0]
+    for s in groups[1:]:
+        out = out + s
+    return out.numpy()
+
+
+@contextlib.contextmanager
+def _one_torch_thread():
+    """One intra-op thread for the emulation's many small products: the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _repro_factor_sum(x: np.ndarray) -> np.ndarray:
+    return np.asarray(jdispatch.factor_sum(jnp.asarray(x), 2048,
+                                           backend="ref"))[0]
+
+
+@pytest.mark.parametrize("n,b", [(16384, 144), (16384, 288)])
+def test_split_factor_sum_matches_repro(n, b):
+    """The ConvNet's wide widths at the boundary's n: the split sums hold
+    KFAC_REL_TOL against repro's factor sum and the port's plain version
+    with room to spare, and sit at f32 level against the f64 sum."""
+    rng = np.random.default_rng(n + b)
+    x = rng.standard_normal((n, b)).astype(np.float32)
+    with _one_torch_thread():
+        got = _wide_syrk(x)
+    exact = x.astype(np.float64).T @ x.astype(np.float64)
+    plain = ref.factor_sum_ref(torch.from_numpy(x), 2048)[0].numpy()
+    assert got.shape == (b, b)
+    assert _rel(got, _repro_factor_sum(x)) <= KFAC_REL_TOL / 10
+    assert _rel(got, plain) <= KFAC_REL_TOL / 10
+    assert _rel(got, exact) <= 1e-6
+
+
+def test_one_tf32_product_misses_the_factor_sum_bound():
+    """Rows whose entries all round the same way to TF32 (a shared offset
+    of 2^-12 above 1, the noise well inside one TF32 step): hi hi alone is
+    off by ~4.9e-4 of the largest entry, past KFAC_REL_TOL; the split
+    holds it at f32 level."""
+    rng = np.random.default_rng(32)
+    n, b = 16384, 144
+    x = (1 + 2.0 ** -12 + 2.0 ** -14 * rng.uniform(-1, 1, (n, b))).astype(
+        np.float32)
+    want = _repro_factor_sum(x)
+    exact = x.astype(np.float64).T @ x.astype(np.float64)
+    with _one_torch_thread():
+        one, split = _wide_syrk(x, products=1), _wide_syrk(x)
+    assert _rel(one, want) > KFAC_REL_TOL
+    assert _rel(split, want) <= KFAC_REL_TOL / 10
+    assert _rel(split, exact) <= 1e-6

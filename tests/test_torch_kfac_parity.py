@@ -360,52 +360,164 @@ def _segments(n, b, nb, sms):
     return segs, (tiles, slices, ctas, per, total)
 
 
-# the f32 body's split over tokens (kernels/kfac.py syrk_f32_split, the
-# kernel's f32_chunk_rows and chunk count)
+# the f32 bodies' split over tokens (kernels/kfac.py syrk_f32_route,
+# syrk_f32_split: the kernel's chunk_rows and chunk count); below
+# F32_SPLIT_ROWS rows one chunk, from there a multiple of the route's stage
+
+def _f32_unit(route, b):
+    return {"simt": kern.SIMT_BK, "narrow": kern.narrow_stage_rows(b),
+            "wide": kern.WIDE_BK}[route]
+
 
 @pytest.mark.parametrize("n,d", [
     (1048576, 27), (1048576, 16), (1048576, 144),   # the ConvNet's stage 0
     (262144, 288), (65536, 576), (1024, 10),         # stages 1, 2, the head
     (1024, 2048), (4096, 512), (4000, 2050),         # the LM's f32 route
-    (0, 16), (17, 16), (1025, 64)])
+    (0, 16), (17, 16), (1025, 64),
+    (16383, 27), (16384, 27), (16383, 144), (16384, 144)])   # the boundary
 def test_syrk_f32_split_covers_every_row_once(n, d):
     nb, b = kfac.num_blocks(d, 2048), kfac.block_size(d, 2048)
+    route = kern.syrk_f32_route(n, b)
     asked, rows, chunks = kern.syrk_f32_split(n, b, nb, 132)
-    assert 1 <= chunks <= asked <= 65535
-    assert rows % kern.SIMT_BK == 0 and rows >= kern.SIMT_BK
-    # the kernel's f32_chunk_rows from (n, asked), and its chunk count
-    per = -(-n // asked)
-    assert rows == max(16, -(-per // 16) * 16)
+    assert 1 <= chunks <= asked
+    unit = _f32_unit(route, b)
+    assert rows % unit == 0 and rows >= unit
+    if route == "simt":
+        assert n < kern.F32_SPLIT_ROWS and asked == chunks == 1
+        assert rows == max(16, -(-n // 16) * 16)
+    else:
+        # the kernel's chunk_rows from (n, asked), and its chunk count
+        assert rows == -(-(-(-n // asked)) // unit) * unit
+        assert chunks == -(-n // rows) and rows <= kern.F32_MAX_CHUNK
+        assert route == ("narrow" if b <= kern.F32_NARROW_MAX else "wide")
     spans = [(z * rows, min(n, (z + 1) * rows)) for z in range(chunks)]
     if n:
         assert sum(e - s for s, e in spans) == n and spans[-1][1] == n
         assert all(e > s for s, e in spans)
     else:
         assert chunks == 1
-    tiles = -(-b // kern.SIMT_TILE)
-    pairs = nb * tiles * (tiles + 1) // 2
-    if chunks > 1:      # a chunk is never short, and the SMs are filled
-        assert rows >= kern.F32_MIN_CHUNK
-        assert pairs * chunks <= kern.F32_BLOCKS_PER_SM * 132 + pairs
-    # the LM's f32 route (the 2-layer checks) keeps one chunk
-    if (n, d) == (1024, 2048):
-        assert chunks == 1
+    if route == "narrow":       # chunks asked to fill the SMs
+        assert asked * nb >= kern.NARROW_CTAS_PER_SM * 132
+    # the LM's f32 route (the 2-layer checks) and the head keep one chunk
+    if n < 16384:
+        assert route == "simt"
+    else:
+        assert route != "simt"
+
+
+def _f32_partial_writes(n, d, max_dim, lead):
+    """Every (chunk, matrix block, entry) write of the f32 route's first
+    launch, and the reduce's output writes, as the kernels make them."""
+    nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+    route = kern.syrk_f32_route(n, b)
+    asked, rows, chunks = kern.syrk_f32_split(n, b, nb, 132, lead)
+    blocks = lead * nb
+    writes = np.zeros((chunks, blocks, b, b), np.int32)
+    rows_seen = np.zeros((chunks, blocks, n), np.int32)
+    if route == "narrow":
+        s = kern.narrow_stage_rows(b)
+        patches = kern.narrow_patches(b)
+        slots = 256 // len(patches)
+        assert slots >= 1
+        for z in range(chunks):
+            t0, t1 = z * rows, min(n, (z + 1) * rows)
+            for st in range(-(-(t1 - t0) // s)):
+                r0 = t0 + st * s
+                nr = min(s, t1 - r0)
+                # every row of a stage to exactly one slot
+                taken = [r for slot in range(slots)
+                         for r in range(slot, nr, slots)]
+                assert sorted(taken) == list(range(nr))
+                rows_seen[z, :, r0:r0 + nr] += 1
+            for pi, pj in patches:
+                i = np.arange(4 * pi, min(b, 4 * pi + 4))
+                j = np.arange(4 * pj, min(b, 4 * pj + 4))
+                writes[z][:, i[:, None], j[None, :]] += 1
+    else:
+        assert route == "wide" and rows % kern.WIDE_BK == 0
+        pairs = kern.wide_pairs(b)
+        tiles = -(-b // kern.WIDE_TILE)
+        assert all(0 <= c <= r < tiles for r, c in pairs)
+        assert len(set(pairs)) == len(pairs)
+        items = [(z, blk, q) for z in range(chunks) for blk in range(blocks)
+                 for q in range(len(pairs))]
+        # block of threads i takes item i: chunk-major, the pair fastest
+        for i, (z, blk, q) in enumerate(items):
+            assert i // (blocks * len(pairs)) == z
+            assert i % (blocks * len(pairs)) == blk * len(pairs) + q
+            r, c = pairs[q]
+            tn = kern.wide_tile_rows(r, b)
+            assert tn in (16, 32, 64, 128, 144)
+            assert r * kern.WIDE_TILE + tn >= min(b, (r + 1) * kern.WIDE_TILE)
+            t0, t1 = z * rows, min(n, (z + 1) * rows)
+            if q == 0:
+                rows_seen[z, blk, t0:t1] += 1
+            rr = np.arange(r * 128, min(b, r * 128 + tn))
+            cc = np.arange(c * 128, min(b, c * 128 + 128))
+            writes[z, blk][rr[:, None], cc[None, :]] += 1
+    # every row of every (matrix, block) in exactly one chunk
+    assert (rows_seen.sum(0) == 1).all()
+    # every lower entry (i >= j, what the reduce reads) written once by
+    # each chunk's partial of every (matrix, block)
+    low = np.tril(np.ones((b, b), bool))
+    assert (writes[..., low] == 1).all()
+    # the reduce: chunk z to group z mod G in chunk order, then the groups
+    # in order; each output entry written exactly once, from its lower twin
+    order = [z for g in range(kern.SYRK_REDUCE_GROUPS)
+             for z in range(g, chunks, kern.SYRK_REDUCE_GROUPS)]
+    assert sorted(order) == list(range(chunks))
+    out = np.zeros((b, b), np.int32)
+    for e in range(b * b):
+        i, j = divmod(e, b)
+        if j <= i:
+            out[i, j] += 1
+            if i != j:
+                out[j, i] += 1
+    assert (out == 1).all()
+    return route
+
+
+@pytest.mark.parametrize("n,d,max_dim,lead", [
+    (16384, 27, 2048, 1), (16384, 144, 2048, 1), (20000, 16, 2048, 1),
+    (16384, 100, 64, 1),      # nb 2 of 50: the narrow strided loads
+    (16384, 2050, 1024, 1),   # nb 3 of 684, ragged: the wide element loads
+    (16384, 300, 2048, 2),    # a lead, b 300: a last row tile of 64
+    (20000, 27, 2048, 3),     # a lead on the narrow route
+    (17000, 80, 2048, 1),     # b 80: a last row tile of 16
+    (16384, 272, 2048, 1),    # 16 rows absorbed into the second row tile
+    (16384, 129, 2048, 1),    # one row absorbed
+    (65536, 576, 2048, 1), (262144, 288, 2048, 1), (65536, 64, 2048, 1)])
+def test_syrk_f32_routes_write_every_entry_once(n, d, max_dim, lead):
+    """The mirror of the two f32 routes from F32_SPLIT_ROWS rows: the
+    narrow body's slots take every row of a stage once and its lower 4 x 4
+    patches every lower entry once; the wide body's items (chunk, matrix
+    block, lower tile pair) every lower entry once, each chunk's rows read
+    once; the reduce writes every entry of the (b, b) output once, from the
+    lower partials in a fixed order."""
+    nb, b = kfac.num_blocks(d, max_dim), kfac.block_size(d, max_dim)
+    route = _f32_partial_writes(n, d, max_dim, lead)
+    assert route == ("narrow" if b <= kern.F32_NARROW_MAX else "wide")
 
 
 def test_syrk_f32_chunks_bound_the_rounding():
     """The reason for the split, emulated in numpy f32 (a product rounded,
     then added; the kernel fuses them): one accumulator over 262,144 rows
-    drifts from the f64 sum, chunk partials added in order do not."""
+    drifts from the f64 sum, chunk partials (the narrow route's geometry)
+    added in the reduce's order do not."""
     rng = np.random.RandomState(0)
     n, d = 262144, 6
     x = rng.randn(n, d).astype(np.float32)
     exact = x.astype(np.float64).T @ x.astype(np.float64)
     prods = (x[:, :, None] * x[:, None, :]).astype(np.float32)
     one = np.cumsum(prods, axis=0, dtype=np.float32)[-1]
+    assert kern.syrk_f32_route(n, d) == "narrow"
     _, rows, chunks = kern.syrk_f32_split(n, d, 1, 132)
     parts = [np.cumsum(prods[z * rows:(z + 1) * rows], axis=0,
                        dtype=np.float32)[-1] for z in range(chunks)]
-    split = np.cumsum(np.stack(parts), axis=0, dtype=np.float32)[-1]
+    g = kern.SYRK_REDUCE_GROUPS
+    groups = [np.cumsum(np.stack(parts[k::g]), axis=0, dtype=np.float32)[-1]
+              for k in range(min(g, chunks))]
+    split = np.cumsum(np.stack(groups), axis=0, dtype=np.float32)[-1]
     scale = np.abs(exact).max()
     assert chunks > 1
     assert np.abs(split - exact).max() / scale < 1e-6
