@@ -76,8 +76,10 @@ a warm-up and three fast steps) beside ``train_path``'s walls, Stage-4
 seconds and peak, and both kernels timed at the aligned shapes. Before
 those, the dense architecture family: the five attention kernels at head
 dim 192 (nemotron_4_340b's 96/8 heads, S 4096, bf16 and f32) against their
-plain versions and timed beside SDPA, a head dim the kernels lack refused
-on the card; each new config (llama3_2_3b, qwen1_5_4b, musicgen_medium,
+plain versions and timed beside SDPA; the same at public models' other
+widths (check_attention_widths: hd 256, 96, 80 and, through the padded
+copy, 100; the decode at G up to 71), hd 264 refused with no launch; each
+new config (llama3_2_3b, qwen1_5_4b, musicgen_medium,
 nemotron_4_340b, llava_next_34b) at a route size with its own head dim and
 GQA group, a capture and a fast step on the kernels against
 ``backend="ref"``, then served; and llava_next_34b at full width (4
@@ -116,8 +118,12 @@ legacy cache; and the kernels timed at their shapes. It times all
 thirteen kernels beside their bound, their plain version and the PyTorch
 library call for the same function, and again at the dense family's, the
 MoE family's, the recurrent families' and the aligned blocks' shapes
-(rows named ``kernel[hd192]``, ``kernel[llava]``, ``kernel[moe]``,
-``kernel[rwkv]``, ``kernel[hymba]`` and ``kernel[tp16]``).
+(rows named ``kernel[hd192]``, ``kernel[hd256]``, ``kernel[hd96]``,
+``kernel[hd80]``, ``kernel[g48]``, ``kernel[g71]``, ``kernel[llava]``,
+``kernel[moe]``, ``kernel[rwkv]``, ``kernel[hymba]`` and
+``kernel[tp16]``). factor_syrk (bf16, f32 and the fp8 wire),
+ns_inverse_blocks and block_precond each run one case past 65,535
+blocks in one launch.
 Every failed check raises, so the exit code is nonzero. Without a CUDA
 device, or outside a checkout, it exits nonzero and prints no result.
 
@@ -130,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -338,6 +345,7 @@ def main(argv: list[str]) -> int:
     times.update(timed(time_swa_kernel, torch))
     t_dense = time.perf_counter()
     hd192 = timed(check_attention_hd192, torch)
+    widths = timed(check_attention_widths, torch)
     routes = timed(check_dense_routes, torch)
     llava = timed(llava_path, torch)
     llava_times = timed(time_llava_kernels, torch)
@@ -395,6 +403,14 @@ def main(argv: list[str]) -> int:
     extra = [(f"{k}[hd192]", k, hd192["times"][k], hd192["errs"][k],
               {**nem, **hd192["launches"]}.get((k, HD192["hd"]), 0))
              for k in hd192["times"]]
+    # and at public models' other widths (check_attention_widths: hd 256,
+    # 96 and 80, the decode at G 48 and 71), the launches of its checks at
+    # those widths, by the true hd
+    extra += [(f"{k}[{label}]", k, widths["times"][label][k],
+               widths["errs"][label][k],
+               widths["launches"].get((k, WIDTHS[name][2]), 0))
+              for label, (name, kernels) in WIDTH_ROWS.items()
+              for k in kernels]
     extra += [(f"{k}[llava]", k, llava_times[k],
                llava_times[k]["max_abs_err"], llava["launches"][k])
               for k in LLAVA_KERNELS]
@@ -438,6 +454,15 @@ def main(argv: list[str]) -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # the decode past 16 query heads or at an hd that is not an instance's
+    # runs the general instances, built from their own source
+    for r in rows:
+        label = r["name"].partition("[")[2].rstrip("]")
+        if r["name"].startswith("swa_flash_decode[") and label in WIDTH_ROWS:
+            heads, kv, hd = WIDTHS[WIDTH_ROWS[label][0]]
+            if heads // kv > 16 or hd not in (64, 128, 192, 256):
+                r["source"] = ("src/repro_torch/kernels/csrc/"
+                               "swa_flash_decode_wide.cu")
     check(all(r["launches"] > 0 for r in rows),
           f"kernels with no launch on their path: "
           f"{[r['name'] for r in rows if not r['launches']]}")
@@ -1304,8 +1329,59 @@ def check_factor_kernel(torch) -> float:
                              f"{KFAC_REL_TOL}), exactly symmetric, a second "
                              f"launch identical")
         del x, got, want
+    # past grid y's 65,535 (matrix, block) items in one launch (each grid
+    # folds them into x): the bf16 body and f32's one-accumulator tile at
+    # 66,000 matrices, f32's narrow route and its reduce at 66,000 blocks
+    # of one column, and the fp8 wire's SYRK and pack at 66,000 matrices
+    for shape, max_dim, dt in MANY_BLOCKS_SYRK:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        n, d = shape[-2:]
+        b = ckfac.block_size(d, max_dim)
+        blocks = math.prod(shape[:-2]) * ckfac.num_blocks(d, max_dim)
+        kfac.reset_launches()
+        got = kfac.factor_syrk(x, max_dim)
+        check(kfac.LAUNCHES["factor_syrk"] == 1, "factor_syrk: one launch")
+        check(torch.equal(got, kfac.factor_syrk(x, max_dim)),
+              f"factor_syrk {dtype} {shape}: two launches differ")
+        want = ref.factor_sum_ref(x, max_dim)
+        err = _rel_err(torch, got, want)
+        check(got.shape == want.shape and err <= KFAC_REL_TOL
+              and torch.equal(got, got.transpose(-1, -2)),
+              f"factor_syrk {dtype} {shape} max_dim {max_dim}: rel err {err} "
+              f"> {KFAC_REL_TOL} or not symmetric")
+        worst = max(worst, _max_err(torch, got, want))
+        route = kfac.syrk_f32_route(n, b) if dtype == torch.float32 else "tc"
+        say("factor-kernel", f"{dtype} {shape} max_dim {max_dim}: {blocks} "
+                             f"blocks of {b} in one launch ({route} route): "
+                             f"max|err| / max|A| = {err:.3e} (tol "
+                             f"{KFAC_REL_TOL}), exactly symmetric, a second "
+                             f"launch identical")
+        del got, want
+        if len(shape) == 3:
+            wire = {}
+            _wire_case(torch, wire, "many", f"{shape} {dtype}, {blocks} "
+                       f"blocks", x, max_dim, "e4m3", "fp32", "fused")
+            check(torch.equal(*(_wire_bytes(torch, x, max_dim)
+                                for _ in range(2))),
+                  f"factor_syrk_wire {dtype} {shape}: two launches differ")
+        del x
     torch.cuda.empty_cache()
     return worst
+
+
+def _wire_bytes(torch, x, max_dim):
+    """factor_syrk_wire's payload bytes and scales as one u8 tensor."""
+    from repro_torch.kernels import quant as qk
+    p, sc = qk.factor_syrk_wire(x, max_dim)
+    return torch.cat([p.view(torch.uint8).flatten(),
+                      sc.view(torch.uint8).flatten()])
+
+
+# factor_syrk past 65,535 (matrix, block) items: (shape, max_dim, dtype)
+MANY_BLOCKS_SYRK = [((66000, 64, 16), 2048, "bf16"),
+                    ((66000, 64, 16), 2048, "f32"),
+                    ((16384, 66000), 1, "f32")]
 
 
 # f32 factor_syrk on both sides of F32_SPLIT_ROWS (16,384 rows) at the
@@ -1356,6 +1432,9 @@ def check_precond_kernel(torch) -> float:
               ("right", 4, 2048, 8192, 2048), ("right", 1, 512, 512, 2048),
               ("left", 3, 684, 2050, 300), ("right", 3, 684, 2050, 300)]
     cases += list(CONV_PRECOND_CASES)
+    # past 65,535 blocks: the persistent walk over (block, tile) items was
+    # never bound by a grid's y (66,000 blocks of 4)
+    cases += [("left", 66000, 4, 264000, 16), ("right", 66000, 4, 264000, 16)]
     for mode, nb, b, dim, other in cases:
         binv = torch.randn((nb, b, b), generator=gen, device="cuda") / b ** 0.5
         shape = (dim, other) if mode == "left" else (other, dim)
@@ -2196,6 +2275,49 @@ def check_ns_kernels(torch) -> dict:
     whole("ragged", 4, 1100, 1.0, 1e-3, True)
     whole("unaligned", 4, 250, 1.0, 1e-3, True)
     whole("unaligned", 2, 1030, 1.0, 1e-3, True)
+
+    # past grid y's 65,535 factor blocks: 66,000 blocks of 8 in one launch
+    # of 66,000 clusters (folded into grid x), bit for bit the launches of
+    # its slices below the old limit, and against the plain iteration
+    g = 66000
+    _, _, m = _ns_factors(torch, gen, g, 8, 1.0, 1e-3)
+    ns.reset_launches()
+    got = ns.ns_inverse_blocks(m, iters, tol)
+    check(ns.LAUNCHES["ns_inverse_blocks"] == 1, "ns_inverse_blocks: one "
+                                                 "launch")
+    check(all(torch.equal(u, v) for u, v in
+              zip(got, ns.ns_inverse_blocks(m, iters, tol))),
+          f"NS ({g}, 8, 8): two launches differ")
+    parts = [ns.ns_inverse_blocks(m[i:i + 33000].contiguous(), iters, tol)
+             for i in (0, 33000)]
+    check(all(torch.equal(torch.cat([p[j] for p in parts]), got[j])
+              for j in range(3)),
+          f"NS ({g}, 8, 8): one launch differs from two of 33,000 blocks")
+    want = ref.ns_inverse_blocks_ref(m, iters, tol)
+    # a block whose residual lands within the flag band of tol on either
+    # side may stop a trip apart (the band is checked on the kernel's
+    # residual too: at 66,000 blocks some reach 0.9990 tol, where the
+    # plain iteration reads just above tol and takes one more trip)
+    borderline = (((want[1] - tol).abs() <= NS_FLAG_BAND * tol)
+                  | ((got[1] - tol).abs() <= NS_FLAG_BAND * tol))
+    check(bool(((got[2] == want[2]) | borderline).all()),
+          f"NS ({g}, 8, 8): trips differ from the plain iteration's off the "
+          f"flag band")
+    same = (got[2] == want[2]) & (got[1] <= tol) & (want[1] <= tol)
+    err = _rel_err(torch, got[0][same], want[0][same])
+    check(err <= NS_REL_TOL, f"NS ({g}, 8, 8): rel err {err} > {NS_REL_TOL}")
+    worst["ns_inverse_blocks"] = max(worst["ns_inverse_blocks"],
+                                     _max_err(torch, got[0][same],
+                                              want[0][same]))
+    say("ns-kernel", f"NS ({g}, 8, 8) in one launch of {g} clusters, bit "
+                     f"for bit two launches of 33,000 and a twin: trips "
+                     f"{int(got[2].min())}-{int(got[2].max())}, "
+                     f"{int((got[2] != want[2]).sum())} a trip apart from "
+                     f"the plain iteration's, each with a residual within "
+                     f"{NS_FLAG_BAND:.0%} of tol; {int(same.sum())} alike "
+                     f"and converged: max|err|/max {err:.3e} (tol "
+                     f"{NS_REL_TOL})")
+    del m, got, want, parts
 
     # one residual and one update launch at the w1/w3 G family's shape, with
     # every fourth block frozen
@@ -5526,6 +5648,253 @@ def _fwd_ref_by_kv(torch, ref, q, k, v, window=0):
     return torch.cat([x[0] for x in outs]), torch.cat([x[1] for x in outs])
 
 
+def _twice(torch, name, fn, label):
+    """fn's result, after a second call on the same inputs gave the same
+    bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    flat = (lambda x: x if isinstance(x, tuple) else (x,))
+    check(all(torch.equal(x, y) for x, y in zip(flat(a), flat(b))),
+          f"{name} {label}: two launches on the same inputs differ")
+    return a
+
+
+def _rnd(torch, gen, dt, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+
+def _attn_fwd_bwd(torch, gen, errs, phase, bkv, g, s, hd, window, dt,
+                  by_kv=False):
+    """swa_flash_fwd, then swa_flash_bwd from the plain forward's
+    residuals, against their plain versions: the forward at FWD_TOL (bf16;
+    lse at LSE_TOL) or SWA_F32_TOL (f32), the gradients at BWD_REL_TOL
+    (bf16) or BWD_F32_REL_TOL (f32); bf16 calls twice, bit-identical.
+    errs takes each kernel's largest error."""
+    from repro_torch.kernels import ref, swa_attention
+    bf16 = torch.bfloat16
+    label = f"BKV={bkv} G={g} S={s} hd={hd} window={window} {dt}"
+    q = _rnd(torch, gen, dt, bkv, g, s, hd)
+    k, v = _rnd(torch, gen, dt, bkv, s, hd), _rnd(torch, gen, dt, bkv, s, hd)
+    fn = (lambda: swa_attention.swa_flash_fwd(q, k, v, window=window))
+    out, lse = _twice(torch, "swa_flash_fwd", fn, label) if dt == bf16 \
+        else fn()
+    torch.cuda.synchronize()
+    ro, rl = (_fwd_ref_by_kv(torch, ref, q, k, v, window) if by_kv else
+              ref.swa_attention_fwd_res_ref(q, k, v, window=window))
+    tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
+    torch.testing.assert_close(out.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rl, **(LSE_TOL if dt == bf16
+                                           else SWA_F32_TOL))
+    err = _max_err(torch, out, ro)
+    errs["swa_flash_fwd"] = max(errs["swa_flash_fwd"], err)
+    do = _rnd(torch, gen, dt, bkv, g, s, hd)
+    fn = (lambda: swa_attention.swa_flash_bwd(q, k, v, ro, rl, do,
+                                              window=window))
+    got = _twice(torch, "swa_flash_bwd", fn, label) if dt == bf16 else fn()
+    torch.cuda.synchronize()
+    want = (_bwd_ref_by_kv(torch, ref, q, k, v, ro, rl, do, window)
+            if by_kv else ref.swa_attention_bwd_ref(q, k, v, ro, rl, do,
+                                                    window=window))
+    rel = [_rel_err(torch, a, b) for a, b in zip(got, want)]
+    btol = BWD_REL_TOL if dt == bf16 else BWD_F32_REL_TOL
+    check(max(rel) <= btol, f"attention bwd {label}: rel errs {rel} > "
+                            f"{btol}")
+    errs["swa_flash_bwd_dq"] = max(errs["swa_flash_bwd_dq"],
+                                   _max_err(torch, got[0], want[0]))
+    errs["swa_flash_bwd_dkdv"] = max(errs["swa_flash_bwd_dkdv"],
+                                     _max_err(torch, got[1], want[1]),
+                                     _max_err(torch, got[2], want[2]))
+    say(phase, f"swa_flash_fwd {label}: max|out err| {err:.3e} (tol "
+               f"{tol}), max|lse err| {_max_err(torch, lse, rl):.3e}; "
+               f"bwd max|err|/max|grad| dq {rel[0]:.3e} dk {rel[1]:.3e} "
+               f"dv {rel[2]:.3e} (tol {btol})"
+               + ("; bf16 calls twice, identical" if dt == bf16 else ""))
+    del q, k, v, out, lse, ro, rl, do, got, want
+
+
+def _attn_flash(torch, gen, errs, phase, bh, s, hd, window, dt,
+                per_head=False):
+    """swa_flash against its plain version (8 heads a call when
+    ``per_head``), at FWD_TOL (bf16, twice, bit-identical) or SWA_F32_TOL."""
+    from repro_torch.kernels import ref, swa_attention
+    bf16 = torch.bfloat16
+    label = f"BH={bh} S={s} hd={hd} window={window} {dt}"
+    q = _rnd(torch, gen, dt, bh, s, hd)
+    k, v = _rnd(torch, gen, dt, bh, s, hd), _rnd(torch, gen, dt, bh, s, hd)
+    fn = (lambda: swa_attention.swa_flash(q, k, v, window=window))
+    out = _twice(torch, "swa_flash", fn, label) if dt == bf16 else fn()
+    torch.cuda.synchronize()
+    tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
+    err = 0.0
+    step = 8 if per_head else bh
+    for i in range(0, bh, step):
+        want = ref.swa_attention_ref(q[i:i + step], k[i:i + step],
+                                     v[i:i + step], window=window)
+        torch.testing.assert_close(out[i:i + step].float(), want.float(),
+                                   **tol)
+        err = max(err, _max_err(torch, out[i:i + step], want))
+    errs["swa_flash"] = max(errs["swa_flash"], err)
+    say(phase, f"swa_flash {label}: max|err| {err:.3e} (tol {tol})")
+
+
+def _attn_decode(torch, gen, errs, phase, n, g, hd, kind, window, cap,
+                 rounds=3):
+    """swa_flash_decode against its plain version at DEC_TOL over ``rounds``
+    rounds of n positions on both sides of its split boundaries (and one
+    lap on for the ring), 0 and C - 1; every call twice, bit-identical."""
+    from repro_torch.kernels import ref, swa_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, per = swa_attention.decode_splits(n, cap, hd, sms)
+    edges = [0, cap - 1] + [e for b in range(per, cap, per)
+                            for e in (b - 1, b)]
+    if window:
+        edges += [cap + e for e in edges]
+    order = torch.randperm(len(edges), generator=gen, device="cuda")
+    picks = [edges[0], edges[1]] + [edges[i] for i in order.tolist()
+                                    if i > 1][:rounds * n - 2]
+    q, kc, vc, ks, vs = _decode_case(torch, gen, n, g, hd, cap, kind)
+    err = 0.0
+    for r in range(0, len(picks), n):
+        chunk = (picks[r:r + n] + [cap - 1] * n)[:n]
+        pos = torch.tensor(chunk, dtype=torch.int32, device="cuda")
+        fn = (lambda: swa_attention.swa_flash_decode(
+            q, kc, vc, pos, window=window, k_scale=ks, v_scale=vs))
+        got = _twice(torch, "swa_flash_decode", fn, f"{kind} C={cap}")
+        want = ref.swa_decode_ref(q, kc, vc, pos, window=window,
+                                  k_scale=ks, v_scale=vs)
+        torch.testing.assert_close(got, want, **DEC_TOL)
+        err = max(err, _max_err(torch, got, want))
+    errs["swa_flash_decode"] = max(errs["swa_flash_decode"], err)
+    say(phase, f"swa_flash_decode N={n} G={g} hd={hd} "
+               f"{'ring' if window else 'dense'} {kind} C={cap}, {splits} "
+               f"splits of {per} slots, {len(picks)} positions on split "
+               f"boundaries, 0 and C - 1: max|err| {err:.3e} (tol "
+               f"{DEC_TOL}); every call twice, identical")
+    del q, kc, vc, ks, vs
+
+
+def _attn_times(torch, gen, phase, kv, g, s, hd, kernels) -> dict:
+    """The bf16 forwards and backward pair at (BKV kv, G g, S s, hd),
+    causal, timed beside their bound (at this hd), their plain version and
+    SDPA: swa_flash_fwd, swa_flash_bwd_dq, swa_flash_bwd_dkdv and swa_flash
+    (on the KV repeated to every head), those of ``kernels``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention
+    bf16 = torch.bfloat16
+    times = {}
+    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, kv, g, s, hd, bf16)
+    del o
+    pairs = kv * g * s * (s + 1) // 2
+    row_bytes = kv * g * s * 4
+    q4 = q.reshape(1, kv * g, s, hd)
+    k4, v4 = k.reshape(1, kv, s, hd), v.reshape(1, kv, s, hd)
+    if "swa_flash_fwd" in kernels:
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + row_bytes
+        bound, by = _bound(4 * hd * pairs, nbytes, bf16)
+        lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True))
+        times["swa_flash_fwd"] = {
+            "ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v),
+                           reps=10),
+            "plain_ms": _time_ms(torch, lambda: _fwd_ref_by_kv(
+                torch, ref, q, k, v), reps=2, warmup=1),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        say(phase, f"swa_flash_fwd BKV={kv} G={g} S={s} hd={hd} bf16 "
+                   f"causal: {times['swa_flash_fwd']} (plain: one KV head at "
+                   f"a time; library: {why}, is_causal, enable_gqa); "
+                   f"{card_note(torch)}")
+    if "swa_flash_bwd_dq" in kernels:
+        in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+        b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
+                             + q.numel() * 4, bf16)
+        b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
+                             + 2 * k.numel() * 4, bf16)
+        ro, rl = swa_attention.swa_flash_fwd(q, k, v)
+        plain = _time_ms(torch, lambda: _bwd_ref_by_kv(
+            torch, ref, q, k, v, ro, rl, do), reps=2, warmup=1)
+        qg = q4.detach().requires_grad_()
+        kg, vg = k4.detach().requires_grad_(), v4.detach().requires_grad_()
+        lib = None
+        try:
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 enable_gqa=True)
+            gout = do.reshape(1, kv * g, s, hd)
+            lib = _time_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), gout, retain_graph=True), reps=10,
+                warmup=2)
+            why = "SDPA's whole backward"
+        except RuntimeError as e:
+            why = f"SDPA raised: {str(e).splitlines()[0][:120]}"
+        times["swa_flash_bwd_dq"] = {
+            "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
+                q, k, v, lse, delta, do), reps=10),
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
+            "bound_by": by_dq}
+        times["swa_flash_bwd_dkdv"] = {
+            "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
+                q, k, v, lse, delta, do), reps=10),
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
+            "bound_by": by_kv}
+        say(phase, f"swa_flash_bwd BKV={kv} G={g} S={s} hd={hd} bf16 "
+                   f"causal: dq {times['swa_flash_bwd_dq']}, dkdv "
+                   f"{times['swa_flash_bwd_dkdv']} (plain and library the "
+                   f"whole backward; library: {why}); {card_note(torch)}")
+        del qg, kg, vg, ro, rl
+    if "swa_flash" in kernels:
+        # on the KV repeated to every head: (kv g, S, hd)
+        qf = q.reshape(kv * g, s, hd).contiguous()
+        kf = k.repeat_interleave(g, 0)
+        vf = v.repeat_interleave(g, 0)
+        bound, by = _swa_bound(kv * g, s, hd, 0, bf16)
+        lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+            qf[None], kf[None], vf[None], is_causal=True))
+        times["swa_flash"] = {
+            "ms": _time_ms(torch, lambda: swa_attention.swa_flash(qf, kf, vf),
+                           reps=10),
+            "plain_ms": _time_ms(torch, lambda: [ref.swa_attention_ref(
+                qf[i:i + 8], kf[i:i + 8], vf[i:i + 8])
+                for i in range(0, kv * g, 8)], reps=2, warmup=1),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        say(phase, f"swa_flash BH={kv * g} S={s} hd={hd} bf16 causal: "
+                   f"{times['swa_flash']} (plain: 8 heads a call; library: "
+                   f"{why}, is_causal); {card_note(torch)}")
+        del qf, kf, vf
+    del q, k, v, do, lse, delta, q4, k4, v4
+    torch.cuda.empty_cache()
+    return times
+
+
+def _decode_times(torch, gen, phase, n, g, hd, c) -> dict:
+    """swa_flash_decode over n (lane, KV head) rows of G g query heads and a
+    dense bf16 cache of c slots at its last position, beside its bound (the
+    bytes of the cache, q and out), the plain version and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention
+    bf16 = torch.bfloat16
+    qd = _rnd(torch, gen, bf16, n, g, hd)
+    kd, vd = _rnd(torch, gen, bf16, n, c, hd), _rnd(torch, gen, bf16, n, c, hd)
+    pos = torch.full((n,), c - 1, dtype=torch.int32, device="cuda")
+    nbytes = 2 * n * c * hd * 2 + qd.numel() * 2 + qd.numel() * 4 + 4 * n
+    bound, by = _bound(4 * hd * g * n * c, nbytes, bf16)
+    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd.view(1, n * g, 1, hd), kd.view(1, n, c, hd), vd.view(1, n, c, hd),
+        enable_gqa=True))
+    t = {"ms": _time_ms(torch, lambda: swa_attention.swa_flash_decode(
+             qd, kd, vd, pos)),
+         "plain_ms": _time_ms(torch, lambda: ref.swa_decode_ref(qd, kd, vd,
+                                                                pos)),
+         "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    say(phase, f"swa_flash_decode N={n} G={g} hd={hd} dense bf16 C={c}, pos "
+               f"{c - 1}: {t} (library: {why}, enable_gqa); "
+               f"{card_note(torch)}")
+    del qd, kd, vd
+    return t
+
+
+ATTN5 = ("swa_flash", "swa_flash_fwd", "swa_flash_decode", "swa_flash_bwd_dq",
+         "swa_flash_bwd_dkdv")
+
+
 def check_attention_hd192(torch) -> dict:
     """The five attention kernels at head dim 192 against their plain
     versions: first small cases (ragged S, windows, f32 and bf16, G 1-12),
@@ -5536,171 +5905,42 @@ def check_attention_hd192(torch) -> dict:
     f32, bf16 and e4m3 at DEC_TOL; every bf16 call twice, bit-identical.
     Then the bf16 kernels timed at those widths beside their bound, their
     plain version and SDPA. Returns {"errs", "times"} keyed by kernel."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref, swa_attention
+    from repro_torch.kernels import dispatch, swa_attention
     gen = torch.Generator(device="cuda").manual_seed(27)
     f32, bf16 = torch.float32, torch.bfloat16
     hd = HD192["hd"]
-    errs = {k: 0.0 for k in ("swa_flash", "swa_flash_fwd", "swa_flash_decode",
-                              "swa_flash_bwd_dq", "swa_flash_bwd_dkdv")}
+    errs = {k: 0.0 for k in ATTN5}
     swa_attention.reset_launches()
-
-    def rnd(dt, *shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-    def twice(name, fn, label):
-        a, b = fn(), fn()
-        torch.cuda.synchronize()
-        flat = (lambda x: x if isinstance(x, tuple) else (x,))
-        check(all(torch.equal(x, y) for x, y in zip(flat(a), flat(b))),
-              f"{name} {label}: two launches on the same inputs differ")
-        return a
-
-    def fwd_case(bkv, g, s, window, dt, by_kv=False):
-        label = f"BKV={bkv} G={g} S={s} hd={hd} window={window} {dt}"
-        q, k, v = rnd(dt, bkv, g, s, hd), rnd(dt, bkv, s, hd), rnd(dt, bkv, s, hd)
-        fn = (lambda: swa_attention.swa_flash_fwd(q, k, v, window=window))
-        out, lse = twice("swa_flash_fwd", fn, label) if dt == bf16 else fn()
-        torch.cuda.synchronize()
-        ro, rl = (_fwd_ref_by_kv(torch, ref, q, k, v, window) if by_kv else
-                  ref.swa_attention_fwd_res_ref(q, k, v, window=window))
-        tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
-        torch.testing.assert_close(out.float(), ro.float(), **tol)
-        torch.testing.assert_close(lse, rl, **(LSE_TOL if dt == bf16
-                                               else SWA_F32_TOL))
-        err = _max_err(torch, out, ro)
-        errs["swa_flash_fwd"] = max(errs["swa_flash_fwd"], err)
-        # the backward from the plain forward's residuals
-        do = rnd(dt, bkv, g, s, hd)
-        fn = (lambda: swa_attention.swa_flash_bwd(q, k, v, ro, rl, do,
-                                                  window=window))
-        got = twice("swa_flash_bwd", fn, label) if dt == bf16 else fn()
-        torch.cuda.synchronize()
-        want = (_bwd_ref_by_kv(torch, ref, q, k, v, ro, rl, do, window)
-                if by_kv else ref.swa_attention_bwd_ref(q, k, v, ro, rl, do,
-                                                        window=window))
-        rel = [_rel_err(torch, a, b) for a, b in zip(got, want)]
-        btol = BWD_REL_TOL if dt == bf16 else BWD_F32_REL_TOL
-        check(max(rel) <= btol, f"attention bwd {label}: rel errs {rel} > "
-                                f"{btol}")
-        errs["swa_flash_bwd_dq"] = max(errs["swa_flash_bwd_dq"],
-                                       _max_err(torch, got[0], want[0]))
-        errs["swa_flash_bwd_dkdv"] = max(errs["swa_flash_bwd_dkdv"],
-                                         _max_err(torch, got[1], want[1]),
-                                         _max_err(torch, got[2], want[2]))
-        say("hd192", f"swa_flash_fwd {label}: max|out err| {err:.3e} (tol "
-                     f"{tol}), max|lse err| {_max_err(torch, lse, rl):.3e}; "
-                     f"bwd max|err|/max|grad| dq {rel[0]:.3e} dk {rel[1]:.3e} "
-                     f"dv {rel[2]:.3e} (tol {btol})"
-                     + ("; bf16 calls twice, identical" if dt == bf16 else ""))
-
-    def flash_case(bh, s, window, dt, per_head=False):
-        label = f"BH={bh} S={s} hd={hd} window={window} {dt}"
-        q, k, v = rnd(dt, bh, s, hd), rnd(dt, bh, s, hd), rnd(dt, bh, s, hd)
-        fn = (lambda: swa_attention.swa_flash(q, k, v, window=window))
-        out = twice("swa_flash", fn, label) if dt == bf16 else fn()
-        torch.cuda.synchronize()
-        tol = FWD_TOL if dt == bf16 else SWA_F32_TOL
-        err = 0.0
-        step = 8 if per_head else bh
-        for i in range(0, bh, step):
-            want = ref.swa_attention_ref(q[i:i + step], k[i:i + step],
-                                         v[i:i + step], window=window)
-            torch.testing.assert_close(out[i:i + step].float(), want.float(),
-                                       **tol)
-            err = max(err, _max_err(torch, out[i:i + step], want))
-        errs["swa_flash"] = max(errs["swa_flash"], err)
-        say("hd192", f"swa_flash {label}: max|err| {err:.3e} (tol {tol})")
 
     # small cases: ragged S, windows, every group size of the family
     for bkv, g, s, window, dt in [(2, 3, 1000, 0, bf16), (2, 3, 517, 64, bf16),
                                   (1, 12, 300, 0, bf16), (2, 1, 130, 7, bf16),
                                   (2, 3, 517, 64, f32), (1, 12, 300, 0, f32)]:
-        fwd_case(bkv, g, s, window, dt)
+        _attn_fwd_bwd(torch, gen, errs, "hd192", bkv, g, s, hd, window, dt)
     for bh, s, window, dt in [(4, 50, 0, bf16), (4, 1000, 7, bf16),
                               (4, 1000, 1005, bf16), (4, 1000, 7, f32),
                               (4, 50, 0, f32)]:
-        flash_case(bh, s, window, dt)
+        _attn_flash(torch, gen, errs, "hd192", bh, s, hd, window, dt)
     # nemotron's widths
     kv, g, s = HD192["kv"], HD192["heads"] // HD192["kv"], HD192["seq"]
     for dt in (bf16, f32):
-        fwd_case(kv, g, s, 0, dt, by_kv=True)
-        flash_case(kv * g, s, 0, dt, per_head=True)
+        _attn_fwd_bwd(torch, gen, errs, "hd192", kv, g, s, hd, 0, dt,
+                      by_kv=True)
+        _attn_flash(torch, gen, errs, "hd192", kv * g, s, hd, 0, dt,
+                    per_head=True)
         torch.cuda.empty_cache()
 
     # the decode at N 8 (a lane's 8 KV heads), G 12, a 4096-slot cache
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n, c = kv, s
-    for kind, window, cap in (("f32", 0, c), ("bf16", 0, c), ("e4m3", 0, c),
+    for kind, window, cap in (("f32", 0, s), ("bf16", 0, s), ("e4m3", 0, s),
                               ("e4m3", 512, 512)):
-        splits, per = swa_attention.decode_splits(n, cap, hd, sms)
-        # positions on both sides of split boundaries (and one lap on for
-        # the ring), 0 and C - 1: three rounds of n
-        edges = [0, cap - 1] + [e for b in range(per, cap, per)
-                                for e in (b - 1, b)]
-        if window:
-            edges += [cap + e for e in edges]
-        order = torch.randperm(len(edges), generator=gen, device="cuda")
-        picks = [edges[0], edges[1]] + [edges[i] for i in order.tolist()
-                                        if i > 1][:3 * n - 2]
-        q, kc, vc, ks, vs = _decode_case(torch, gen, n, g, hd, cap, kind)
-        err = 0.0
-        for r in range(0, len(picks), n):
-            chunk = (picks[r:r + n] + [cap - 1] * n)[:n]
-            pos = torch.tensor(chunk, dtype=torch.int32, device="cuda")
-            fn = (lambda: swa_attention.swa_flash_decode(
-                q, kc, vc, pos, window=window, k_scale=ks, v_scale=vs))
-            got = twice("swa_flash_decode", fn, f"{kind} C={cap}")
-            want = ref.swa_decode_ref(q, kc, vc, pos, window=window,
-                                      k_scale=ks, v_scale=vs)
-            torch.testing.assert_close(got, want, **DEC_TOL)
-            err = max(err, _max_err(torch, got, want))
-        errs["swa_flash_decode"] = max(errs["swa_flash_decode"], err)
-        say("hd192", f"swa_flash_decode N={n} G={g} hd={hd} "
-                     f"{'ring' if window else 'dense'} {kind} C={cap}, "
-                     f"{splits} splits of {per} slots, {len(picks)} "
-                     f"positions on split boundaries, 0 and C - 1: max|err| "
-                     f"{err:.3e} (tol {DEC_TOL}); every call twice, "
-                     f"identical")
+        _attn_decode(torch, gen, errs, "hd192", kv, g, hd, kind, window, cap)
     torch.cuda.empty_cache()
-
-    # a head dim the kernels lack raises on a CUDA tensor, through every
-    # wrapper and through dispatch under "auto": no plain version, no SDPA
-    from repro_torch.kernels import dispatch
-    x3, x4 = rnd(bf16, 2, 64, 96), rnd(bf16, 2, 2, 64, 96)
-    refused = []
-    for label, fn in (
-            ("swa_flash", lambda: swa_attention.swa_flash(x3, x3, x3)),
-            ("swa_flash_fwd", lambda: swa_attention.swa_flash_fwd(x4, x3,
-                                                                  x3)),
-            ("swa_flash_bwd", lambda: swa_attention.swa_flash_bwd(
-                x4, x3, x3, x4, x4[..., 0].float(), x4)),
-            ("swa_flash_decode", lambda: swa_attention.swa_flash_decode(
-                x4[0].reshape(2, 64, 96)[:, :4].contiguous(), x3, x3,
-                torch.zeros(2, dtype=torch.int32, device="cuda"))),
-            ("dispatch.swa_attention", lambda: dispatch.swa_attention(
-                x3, x3, x3)),
-            ("dispatch.swa_attention_fwd_res",
-             lambda: dispatch.swa_attention_fwd_res(x4, x3, x3))):
-        swa_attention.reset_launches()
-        try:
-            fn()
-        except ValueError as e:
-            check("head dim 96" in str(e), f"{label}: {e}")
-            refused.append(label)
-        else:
-            raise AssertionError(f"{label} took head dim 96 on the card")
-        check(not any(swa_attention.LAUNCHES.values()),
-              f"{label}: launches at hd 96 {swa_attention.LAUNCHES}")
-    say("hd192", f"head dim 96 on CUDA tensors raises (no fallback): "
-                 f"{', '.join(refused)}")
-    del x3, x4
 
     # one dispatch.swa_attention call at nemotron's widths, KV repeated to
     # every head: the op's path at hd 192 (its launch is the row's count)
-    qp = rnd(bf16, kv * g, s, hd)
-    kp = rnd(bf16, kv, s, hd).repeat_interleave(g, 0)
-    vp = rnd(bf16, kv, s, hd).repeat_interleave(g, 0)
+    qp = _rnd(torch, gen, bf16, kv * g, s, hd)
+    kp = _rnd(torch, gen, bf16, kv, s, hd).repeat_interleave(g, 0)
+    vp = _rnd(torch, gen, bf16, kv, s, hd).repeat_interleave(g, 0)
     swa_attention.reset_launches()
     dispatch.reset_calls()
     outp = dispatch.swa_attention(qp, kp, vp)
@@ -5714,105 +5954,136 @@ def check_attention_hd192(torch) -> dict:
     del qp, kp, vp, outp
 
     # times at nemotron's widths, bf16
-    times = {}
-    q, k, v, do, o, lse, delta = _attn_inputs(torch, gen, kv, g, s, hd, bf16)
-    del o
-    pairs = kv * g * s * (s + 1) // 2
-    row_bytes = kv * g * s * 4
-    q4 = q.reshape(1, kv * g, s, hd)
-    k4, v4 = k.reshape(1, kv, s, hd), v.reshape(1, kv, s, hd)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + row_bytes
-    bound, by = _bound(4 * hd * pairs, nbytes, bf16)
-    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True))
-    times["swa_flash_fwd"] = {
-        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_fwd(q, k, v),
-                       reps=10),
-        "plain_ms": _time_ms(torch, lambda: _fwd_ref_by_kv(torch, ref, q, k,
-                                                           v), reps=2,
-                             warmup=1),
-        "library_ms": lib, "bound_ms": bound, "bound_by": by}
-    say("hd192-times", f"swa_flash_fwd BKV={kv} G={g} S={s} hd={hd} bf16 "
-                       f"causal: {times['swa_flash_fwd']} (plain: one KV head "
-                       f"at a time; library: {why}, is_causal, enable_gqa); "
-                       f"{card_note(torch)}")
-    in_bytes = 2 * (2 * q.numel() + 2 * k.numel())
-    b_dq, by_dq = _bound(6 * hd * pairs, in_bytes + 2 * row_bytes
-                         + q.numel() * 4, bf16)
-    b_kv, by_kv = _bound(8 * hd * pairs, in_bytes + 2 * row_bytes
-                         + 2 * k.numel() * 4, bf16)
-    ro, rl = swa_attention.swa_flash_fwd(q, k, v)
-    plain = _time_ms(torch, lambda: _bwd_ref_by_kv(torch, ref, q, k, v, ro,
-                                                   rl, do), reps=2, warmup=1)
-    qg = q4.detach().requires_grad_()
-    kg, vg = k4.detach().requires_grad_(), v4.detach().requires_grad_()
-    lib = None
-    try:
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             enable_gqa=True)
-        gout = do.reshape(1, kv * g, s, hd)
-        lib = _time_ms(torch, lambda: torch.autograd.grad(
-            out, (qg, kg, vg), gout, retain_graph=True), reps=10, warmup=2)
-        why = "SDPA's whole backward"
-    except RuntimeError as e:
-        why = f"SDPA raised: {str(e).splitlines()[0][:120]}"
-    times["swa_flash_bwd_dq"] = {
-        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dq(
-            q, k, v, lse, delta, do), reps=10),
-        "plain_ms": plain, "library_ms": lib, "bound_ms": b_dq,
-        "bound_by": by_dq}
-    times["swa_flash_bwd_dkdv"] = {
-        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_bwd_dkdv(
-            q, k, v, lse, delta, do), reps=10),
-        "plain_ms": plain, "library_ms": lib, "bound_ms": b_kv,
-        "bound_by": by_kv}
-    say("hd192-times", f"swa_flash_bwd BKV={kv} G={g} S={s} hd={hd} bf16 "
-                       f"causal: dq {times['swa_flash_bwd_dq']}, dkdv "
-                       f"{times['swa_flash_bwd_dkdv']} (plain and library "
-                       f"the whole backward; library: {why}); "
-                       f"{card_note(torch)}")
-    del qg, kg, vg, ro, rl
-    # swa_flash on the KV repeated to every head: (96, S, 192)
-    qf = q.reshape(kv * g, s, hd).contiguous()
-    kf = k.repeat_interleave(g, 0)
-    vf = v.repeat_interleave(g, 0)
-    bound, by = _swa_bound(kv * g, s, hd, 0, bf16)
-    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
-        qf[None], kf[None], vf[None], is_causal=True))
-    times["swa_flash"] = {
-        "ms": _time_ms(torch, lambda: swa_attention.swa_flash(qf, kf, vf),
-                       reps=10),
-        "plain_ms": _time_ms(torch, lambda: [ref.swa_attention_ref(
-            qf[i:i + 8], kf[i:i + 8], vf[i:i + 8]) for i in range(0, kv * g,
-                                                              8)],
-            reps=2, warmup=1),
-        "library_ms": lib, "bound_ms": bound, "bound_by": by}
-    say("hd192-times", f"swa_flash BH={kv * g} S={s} hd={hd} bf16 causal: "
-                       f"{times['swa_flash']} (plain: 8 heads a call; "
-                       f"library: {why}, is_causal); {card_note(torch)}")
-    del q, k, v, do, lse, delta, qf, kf, vf, q4, k4, v4
-    # the decode: 8 lanes' KV head rows... one lane's 8 KV heads over a
-    # dense bf16 cache of 4096 slots, the last position
-    qd = rnd(bf16, n, g, hd)
-    kd, vd = rnd(bf16, n, c, hd), rnd(bf16, n, c, hd)
-    pos = torch.full((n,), c - 1, dtype=torch.int32, device="cuda")
-    nbytes = 2 * n * c * hd * 2 + qd.numel() * 2 + qd.numel() * 4 + 4 * n
-    bound, by = _bound(4 * hd * g * n * c, nbytes, bf16)
-    lib, why = _sdpa_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd.view(1, n * g, 1, hd), kd.view(1, n, c, hd), vd.view(1, n, c, hd),
-        enable_gqa=True))
-    times["swa_flash_decode"] = {
-        "ms": _time_ms(torch, lambda: swa_attention.swa_flash_decode(
-            qd, kd, vd, pos)),
-        "plain_ms": _time_ms(torch, lambda: ref.swa_decode_ref(qd, kd, vd,
-                                                               pos)),
-        "library_ms": lib, "bound_ms": bound, "bound_by": by}
-    say("hd192-times", f"swa_flash_decode N={n} G={g} hd={hd} dense bf16 "
-                       f"C={c}, pos {c - 1}: {times['swa_flash_decode']} "
-                       f"(library: {why}, enable_gqa); {card_note(torch)}")
-    del qd, kd, vd
+    times = _attn_times(torch, gen, "hd192-times", kv, g, s, hd, ATTN5)
+    times["swa_flash_decode"] = _decode_times(torch, gen, "hd192-times", kv,
+                                              g, hd, s)
     torch.cuda.empty_cache()
     return {"errs": errs, "times": times, "launches": path_launches}
+
+
+# public models' attention widths, run as shapes only (none is a registered
+# config): name -> (query heads, KV heads, hd), from each model's
+# config.json (google/gemma-7b, google/gemma-2b,
+# microsoft/Phi-3-mini-4k-instruct, microsoft/phi-2, bigcode/starcoder,
+# tiiuae/falcon-7b); causal at S 4096, batch 1, the decode over a 4096-slot
+# cache
+WIDTHS = {"gemma_7b": (16, 16, 256), "gemma_2b": (8, 1, 256),
+          "phi3_mini": (32, 32, 96), "phi_2": (32, 32, 80),
+          "starcoder": (48, 1, 128), "falcon_7b": (71, 1, 64)}
+WIDTHS_SEQ = 4096
+# the kernels line's rows at those widths: label -> (width, kernels)
+WIDTH_ROWS = {"hd256": ("gemma_7b", ATTN5), "hd96": ("phi3_mini", ATTN5),
+              "hd80": ("phi_2", ATTN5),
+              "g48": ("starcoder", ("swa_flash_decode",)),
+              "g71": ("falcon_7b", ("swa_flash_decode",))}
+
+
+def check_attention_widths(torch) -> dict:
+    """The five attention kernels at head dims other than 64, 128 and 192
+    and the decode past 16 query heads per KV head, against their plain
+    versions at the tolerances of check_attention_hd192. Small cases first:
+    ragged S, windows, f32 and bf16 at hd 80, 96, 100 (bf16 through the
+    wrapper's zero-padded copy) and 256, the decode at G 1 to 71 on f32,
+    bf16 and e4m3 caches; then the public widths of WIDTHS (the forwards
+    and backward in bf16, gemma_2b's also in f32; the decode on a bf16
+    cache, starcoder's and falcon_7b's on all three), whose launches are the
+    rows' counts; then hd 264 refused with no launch; then the WIDTH_ROWS
+    timed beside their bound at the true hd, their plain version and SDPA.
+    Every bf16 call twice, bit-identical. Returns {"errs", "times",
+    "launches"}, errs and times keyed by row label and kernel."""
+    from repro_torch.kernels import dispatch, swa_attention
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    f32, bf16 = torch.float32, torch.bfloat16
+    s = WIDTHS_SEQ
+    errs = {label: {k: 0.0 for k in ATTN5} for label in WIDTH_ROWS}
+    by_hd = {256: errs["hd256"], 96: errs["hd96"], 80: errs["hd80"],
+             128: errs["g48"], 64: errs["g71"]}
+
+    # small cases
+    for hd in (80, 96, 100, 256):
+        e = by_hd.get(hd, {k: 0.0 for k in ATTN5})
+        for bkv, g, ss, window, dt in [(2, 3, 517, 64, bf16),
+                                       (1, 5, 300, 0, bf16),
+                                       (2, 1, 130, 7, bf16),
+                                       (2, 3, 517, 64, f32)]:
+            _attn_fwd_bwd(torch, gen, e, "widths", bkv, g, ss, hd, window, dt)
+        for bh, ss, window, dt in [(4, 50, 0, bf16), (4, 1000, 7, bf16),
+                                   (4, 1000, 7, f32)]:
+            _attn_flash(torch, gen, e, "widths", bh, ss, hd, window, dt)
+        for g, kind in ((1, "f32"), (17, "bf16"), (71, "e4m3")):
+            _attn_decode(torch, gen, e, "widths", 2, g, hd, kind, 0, 1000,
+                         rounds=1)
+        _attn_decode(torch, gen, e, "widths", 2, 33, hd, "e4m3", 512, 512,
+                     rounds=1)
+    torch.cuda.empty_cache()
+
+    # the public widths: their launches are the rows' counts
+    swa_attention.reset_launches()
+    for name in ("gemma_7b", "gemma_2b", "phi3_mini", "phi_2"):
+        heads, kv, hd = WIDTHS[name]
+        e = by_hd[hd]
+        dts = (bf16, f32) if name == "gemma_2b" else (bf16,)
+        for dt in dts:
+            _attn_fwd_bwd(torch, gen, e, f"widths {name}", kv, heads // kv,
+                          s, hd, 0, dt, by_kv=True)
+            _attn_flash(torch, gen, e, f"widths {name}", heads, s, hd, 0, dt,
+                        per_head=True)
+            torch.cuda.empty_cache()
+        _attn_decode(torch, gen, e, f"widths {name}", kv, heads // kv, hd,
+                     "bf16", 0, s, rounds=1)
+    for name in ("starcoder", "falcon_7b"):
+        heads, kv, hd = WIDTHS[name]
+        for kind in ("f32", "bf16", "e4m3"):
+            _attn_decode(torch, gen, by_hd[hd], f"widths {name}", kv, heads,
+                         hd, kind, 0, s, rounds=4)
+    torch.cuda.synchronize()
+    launches = dict(swa_attention.LAUNCHES_HD)
+    say("widths", f"launches at the public widths by (kernel, hd): "
+                  f"{launches}")
+    torch.cuda.empty_cache()
+
+    # above hd 256 every wrapper, and dispatch under "auto", raises before
+    # any launch: no plain version, no SDPA
+    x3, x4 = _rnd(torch, gen, bf16, 2, 64, 264), _rnd(torch, gen, bf16, 2, 2,
+                                                        64, 264)
+    refused = []
+    for label, fn in (
+            ("swa_flash", lambda: swa_attention.swa_flash(x3, x3, x3)),
+            ("swa_flash_fwd", lambda: swa_attention.swa_flash_fwd(x4, x3,
+                                                                  x3)),
+            ("swa_flash_bwd", lambda: swa_attention.swa_flash_bwd(
+                x4, x3, x3, x4, x4[..., 0].float(), x4)),
+            ("swa_flash_decode", lambda: swa_attention.swa_flash_decode(
+                x4[0].reshape(2, 64, 264)[:, :4].contiguous(), x3, x3,
+                torch.zeros(2, dtype=torch.int32, device="cuda"))),
+            ("dispatch.swa_attention", lambda: dispatch.swa_attention(
+                x3, x3, x3)),
+            ("dispatch.swa_attention_fwd_res",
+             lambda: dispatch.swa_attention_fwd_res(x4, x3, x3))):
+        swa_attention.reset_launches()
+        try:
+            fn()
+        except ValueError as err:
+            check("head dim 264" in str(err), f"{label}: {err}")
+            refused.append(label)
+        else:
+            raise AssertionError(f"{label} took head dim 264 on the card")
+        check(not any(swa_attention.LAUNCHES.values()),
+              f"{label}: launches at hd 264 {swa_attention.LAUNCHES}")
+    say("widths", f"head dim 264 on CUDA tensors raises with no launch: "
+                  f"{', '.join(refused)}")
+    del x3, x4
+
+    times = {}
+    for label, (name, kernels) in WIDTH_ROWS.items():
+        heads, kv, hd = WIDTHS[name]
+        times[label] = _attn_times(torch, gen, "widths-times", kv,
+                                   heads // kv, s, hd, kernels)
+        if "swa_flash_decode" in kernels:
+            times[label]["swa_flash_decode"] = _decode_times(
+                torch, gen, "widths-times", kv, heads // kv, hd, s)
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "launches": launches}
 
 
 
@@ -6511,7 +6782,8 @@ def check_moe_wire(torch, gen, worst: dict) -> None:
     each of the 60 experts, in one launch; then the op's b > 1024 route at
     max_dim 2048 (one factor_syrk launch over the lead, one quant_rows over
     the flattened rows) on the same stack; then a lead of 65,536 matrices
-    of one block, past the launch's 65,535, refused before any launch."""
+    of one block, past grid y's 65,535 (which refused it until the blocks
+    were folded into grid x), in one launch."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import kfac as kern
     from repro_torch.kernels import quant as qk
@@ -6540,22 +6812,23 @@ def check_moe_wire(torch, gen, worst: dict) -> None:
           f"the b > 1024 wire route over 60 experts: launches (syrk, quant, "
           f"wire) {got}, dispatches {dispatch.CALLS}")
     del x
-    big = torch.zeros((1, 16, 8), device="cuda").bfloat16().expand(
-        65536, 16, 8)
+    big = torch.randn((65536, 16, 8), generator=gen,
+                      device="cuda").bfloat16()
     before = dict(qk.LAUNCHES)
-    try:
-        qk.factor_syrk_wire(big, 8)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    check("65535" in refused and qk.LAUNCHES == before,
-          f"factor_syrk_wire over 65,536 matrices: {refused or 'launched'}")
+    _wire_case(torch, worst, "factor_sum_wire[moe, lead 65536]",
+               "(65536, 16, 8) bf16 max_dim 8 (65,536 x 1 block of 8)", big,
+               8, "e4m3", "fp32", "fused")
+    wire = qk.LAUNCHES["factor_syrk_wire"] - before["factor_syrk_wire"]
+    check(wire == 1, f"factor_syrk_wire over 65,536 matrices: {wire} "
+                     f"launches")
     say("moe-kernels", f"factor_syrk_wire over the expert axis: one launch "
                        f"for 60 x 2 blocks (max|err| of the decode "
                        f"{worst['factor_syrk_wire[moe]']:.3e}), the b > 1024 "
                        f"route one factor_syrk + one quant_rows launch "
                        f"({worst['factor_sum_wire[moe, b > 1024]']:.3e}); a "
-                       f"lead of 65,536 refused ({refused})")
+                       f"lead of 65,536 in one launch ("
+                       f"{worst['factor_sum_wire[moe, lead 65536]']:.3e})")
+    del big
     torch.cuda.empty_cache()
 
 

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -53,6 +55,11 @@ SIGNATURES = {
         # window, q_dtype, kv_dtype, splits, per, scale, kvh, s_b, s_h, s_c,
         # sc_b, sc_h, sc_c, stream
         "swa_flash_decode": [_P] * 9 + [_I] * 9 + [_F, _I] + [_L] * 6 + [_P],
+    },
+    "swa_flash_decode_wide": {
+        # the same arguments: any G, any hd up to 256
+        "swa_flash_decode_wide": [_P] * 9 + [_I] * 9 + [_F, _I] + [_L] * 6
+        + [_P],
     },
     "swa_flash_bwd": {
         # q, k, v, lse, delta, do, dq, bkv, G, S, hd, window, bq, bk,
@@ -134,29 +141,38 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc(cmd: list[str]) -> tuple[int, str, float]:
+    """(exit code, output, seconds) of one nvcc run."""
+    t = time.perf_counter()
+    run = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    return run.returncode, run.stdout, time.perf_counter() - t
+
+
 def build(verbose: bool = False) -> dict[str, Path]:
     """Compile every source whose library is missing, all in parallel;
     returns {library name: path}. With ``verbose``, each library compiled
     here prints its kernels' registers, shared memory, spills, any
-    compiler warning and any wgmma serialization ptxas reports; a cached
-    library prints nothing."""
+    compiler warning and any wgmma serialization ptxas reports, and the
+    seconds its nvcc took; a cached library prints nothing."""
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {p.stem: out_dir / f"lib{p.stem}.so" for p in _sources()}
-    procs = []
+    jobs = []
     for src in _sources():
         dst = libs[src.stem]
         if dst.exists():
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs.append((src, dst, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append((src, dst, tmp, cmd))
+    # one nvcc per source, all started together, each timed on its own
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        runs = list(pool.map(_nvcc, [cmd for *_, cmd in jobs]))
     failed = []
-    for src, dst, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
+    for (src, dst, tmp, _), (returncode, log, secs) in zip(jobs, runs):
+        if returncode:
             failed.append(f"{src.name}:\n{log}")
             continue
         if verbose:
@@ -170,6 +186,7 @@ def build(verbose: bool = False) -> dict[str, Path]:
                                            "Performance Loss")):
                     print(f"[nvcc {src.name}] {entry}: {line.strip()}",
                           flush=True)
+            print(f"[nvcc {src.name}] built in {secs:.1f} s", flush=True)
         os.replace(tmp, dst)
     if failed:
         raise RuntimeError("nvcc failed to build the repro_torch kernels:\n"

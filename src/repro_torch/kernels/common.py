@@ -54,3 +54,19 @@ def counters(t: torch.Tensor, n: int) -> torch.Tensor:
         buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=t.device)
         _COUNTERS[key] = buf
     return buf
+
+
+# a launch's grid x at most; the (matrix, block) items of factor_syrk,
+# factor_syrk_wire, ns_inverse_blocks and the f32 attention walks are
+# folded into it, where grid y would stop at 65,535
+GRID_X_MAX = 2**31 - 1
+
+
+def fold_grid(inner: int, items: int) -> list[tuple[int, int]]:
+    """(position within the item, item) of each block of a launch whose
+    ``items`` items of ``inner`` blocks each are folded into grid x, in
+    block order: block x is ``(x % inner, x // inner)``, as the kernels
+    take it."""
+    require(inner * items <= GRID_X_MAX,
+            f"{inner} x {items} blocks exceed grid x's {GRID_X_MAX}")
+    return [(x % inner, x // inner) for x in range(inner * items)]

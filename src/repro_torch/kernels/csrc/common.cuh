@@ -7,6 +7,8 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // Finite on purpose (as in the JAX package): exp(m_prev - m_new) never
 // becomes exp(-inf + inf) while a row has seen no visible key yet.
 #define REPRO_NEG_INF (-1e30f)
@@ -25,6 +27,26 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// The attention kernels' head-dim instance for rows of hd: the smallest of
+// 64, 128, 192 and 256 that holds them, 0 where none does
+// (kernels/swa_attention.py head_dim_instance)
+inline int hd_instance(int hd) {
+  return hd < 1 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 192 ? 192 : hd <= 256 ? 256 : 0;
+}
+
+// f(std::integral_constant<int, HD>{}) at hd's instance HD, or
+// cudaErrorInvalidValue where there is none
+template <typename F>
+int by_instance(int hd, F&& f) {
+  switch (hd_instance(hd)) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -224,16 +224,18 @@ constexpr int F32_SPLIT_ROWS = 16384;   // kernels/kfac.py F32_SPLIT_ROWS
 constexpr int NARROW_MAX_B = 64;        // kernels/kfac.py F32_NARROW_MAX
 
 // block (pair, k): every token of one 64 x 64 tile pair of block k, written
-// to out with its mirror, its max |A| folded into the wire variant's amax
+// to out with its mirror, its max |A| folded into the wire variant's amax;
+// grid x is pair + pairs * (e * nb + k), any number of blocks
 template <typename T>
 __global__ void __launch_bounds__(simt::NT)
 factor_syrk_kernel(const T* __restrict__ x, float* __restrict__ out, unsigned* __restrict__ amax,
                    int n, int ld, int d, int b, int tiles, int nb, long long lstride) {
   using simt::BK;
   using simt::TILE;
+  const int pairs = tiles * (tiles + 1) / 2;
   int ti, tj;
-  tile_pair(blockIdx.x, tiles, ti, tj);
-  const int blk = blockIdx.y;           // e * nb + k: the matrix e, its block k
+  tile_pair(blockIdx.x % pairs, tiles, ti, tj);
+  const int blk = blockIdx.x / pairs;   // e * nb + k: the matrix e, its block k
   const int col0 = (blk % nb) * b;
   const int valid = min(b, d - col0);   // columns of this block holding data
   x += (size_t)(blk / nb) * lstride;
@@ -358,12 +360,12 @@ __device__ __forceinline__ void wait_groups() {
 __global__ void __launch_bounds__(NT)
 factor_syrk_narrow_kernel(const float* __restrict__ x, float* __restrict__ part, int n, int ld,
                           int d, int b, int nb, int blocks, long long lstride, int rows,
-                          int flat) {
+                          int chunks, int flat) {
   extern __shared__ __align__(16) float sm[];
   const int S = stage_rows(b);
   const int sstride = S * b + 4;   // a multiple of 4: every stage 16-byte aligned
-  const int z = blockIdx.x;
-  const int blk = blockIdx.y;
+  const int z = blockIdx.x % chunks;   // grid x: z + chunks * (matrix, block)
+  const int blk = blockIdx.x / chunks;
   const int e = blk / nb;
   const int col0 = (blk - e * nb) * b;
   const int valid = min(b, d - col0);
@@ -469,9 +471,9 @@ int launch(const float* x, float* part, int lead, long long lstride, int n, int 
   const cudaError_t e = cudaFuncSetAttribute(
       factor_syrk_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(chunks, lead * nb);
-  factor_syrk_narrow_kernel<<<grid, NT, smem, st>>>(x, part, n, ld, d, b, nb, lead * nb, lstride,
-                                                    rows, flat);
+  if ((long long)chunks * lead * nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  factor_syrk_narrow_kernel<<<(unsigned)(chunks * lead * nb), NT, smem, st>>>(
+      x, part, n, ld, d, b, nb, lead * nb, lstride, rows, chunks, flat);
   return 0;
 }
 
@@ -807,7 +809,8 @@ int launch(const float* x, float* part, int lead, long long lstride, int n, int 
 // the chunks' partials summed: chunk z into group z mod RED_GROUPS in chunk
 // order, the groups then in group order (a fixed order, so every launch
 // gives the same bits). A block of threads takes 32 consecutive entries of
-// one (matrix, block) blockIdx.y, its warp g group g; the lower entries (i
+// one (matrix, block) (grid x: the entry run + runs * (matrix, block)), its
+// warp g group g; the lower entries (i
 // >= j, the ones every route's partial holds) are read, written at (i, j)
 // and (j, i), and their max |A| folded into the wire variant's amax (the
 // entries its pack reads).
@@ -815,13 +818,14 @@ constexpr int RED_GROUPS = 8;   // kernels/kfac.py SYRK_REDUCE_GROUPS
 
 __global__ void __launch_bounds__(32 * RED_GROUPS)
 factor_syrk_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                          unsigned* __restrict__ amax, int chunks, int blocks, int b) {
+                          unsigned* __restrict__ amax, int chunks, int blocks, int b,
+                          int runs) {
   __shared__ float red[RED_GROUPS][33];
-  const int blk = blockIdx.y;
+  const int blk = blockIdx.x / runs;
   const long long bb = (long long)b * b;
   const int tx = threadIdx.x % 32;
   const int ty = threadIdx.x / 32;
-  const long long e = (long long)blockIdx.x * 32 + tx;
+  const long long e = (long long)(blockIdx.x % runs) * 32 + tx;
   const int i = (int)(e / b);
   const int j = (int)(e - (long long)i * b);
   const bool low = e < bb && j <= i;
@@ -1172,18 +1176,21 @@ int launch_tc(const void* x, void* out, unsigned* amax, void* ws, void* arrived,
 
 }  // namespace tc
 
-// sym-pack + quantize each block of f (lead * nb, b, b) f32 (block blockIdx.y
-// = e * nb + k): warp w of block of threads bx handles row r = 8 bx + w, packed positions tri(r) + c for
-// c <= r, reading f[k][r][c] (the lower triangle; f is symmetric)
+// sym-pack + quantize each block of f (lead * nb, b, b) f32 (block blk = e *
+// nb + k; grid x bx + (b + 7) / 8 * blk): warp w of block of threads bx
+// handles row r = 8 bx + w, packed positions tri(r) + c for c <= r, reading
+// f[k][r][c] (the lower triangle; f is symmetric)
 __global__ void __launch_bounds__(256)
 pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ payload,
                   float* __restrict__ scale, const unsigned* __restrict__ amax, int b, int fmt,
                   int pow2, float inv_max) {
-  const int blk = blockIdx.y;
-  const int r = blockIdx.x * 8 + threadIdx.x / 32;
+  const int rows8 = (b + 7) / 8;
+  const int bx = blockIdx.x % rows8;
+  const int blk = blockIdx.x / rows8;
+  const int r = bx * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const float s = fp8q::scale_of(__uint_as_float(amax[blk]), inv_max, pow2);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale[blk] = s;
+  if (bx == 0 && threadIdx.x == 0) scale[blk] = s;
   if (r >= b) return;
   const float fmax = fp8q::fmt_max(fmt);
   const long long t = (long long)b * (b + 1) / 2;
@@ -1200,8 +1207,10 @@ pack_quant_kernel(const float* __restrict__ f, unsigned char* __restrict__ paylo
 int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrived, int lead,
                 long long lstride, int n, int ld, int d, int nb, int b, int dtype, int ctas,
                 cudaStream_t st) {
+  // every grid folds the (matrix, block) index into x, so only x's 2^31 - 1
+  // bounds the blocks (each launch checks its own product)
   if (nb < 1 || b < 1 || (long long)(nb - 1) * b >= d || (long long)nb * b < d || ld < d ||
-      lead < 1 || lstride < 0 || (long long)lead * nb > 65535)   // grid y
+      lead < 1 || lstride < 0 || (long long)lead * nb > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case DT_F32: {
@@ -1209,9 +1218,10 @@ int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrive
       float* o = static_cast<float*>(out);
       if (n < F32_SPLIT_ROWS) {
         const int tiles = (b + simt::TILE - 1) / simt::TILE;
-        const dim3 grid(tiles * (tiles + 1) / 2, lead * nb);
-        factor_syrk_kernel<float><<<grid, simt::NT, 0, st>>>(xf, o, amax, n, ld, d, b, tiles, nb,
-                                                             lstride);
+        const long long grid = (long long)tiles * (tiles + 1) / 2 * lead * nb;
+        if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+        factor_syrk_kernel<float><<<(unsigned)grid, simt::NT, 0, st>>>(xf, o, amax, n, ld, d, b,
+                                                                       tiles, nb, lstride);
         break;
       }
       if (ctas < 1 || !ws) return (int)cudaErrorInvalidValue;
@@ -1221,10 +1231,10 @@ int launch_syrk(const void* x, void* out, unsigned* amax, void* ws, void* arrive
                          ? narrow::launch(xf, part, lead, lstride, n, ld, d, nb, b, ctas, st, chunks)
                          : wide::launch(xf, part, lead, lstride, n, ld, d, nb, b, ctas, st, chunks);
       if (rc) return rc;
-      const long long bb = (long long)b * b;
-      const dim3 rgrid((unsigned)((bb + 31) / 32), lead * nb);
-      factor_syrk_reduce_kernel<<<rgrid, 32 * RED_GROUPS, 0, st>>>(part, o, amax, chunks, lead * nb,
-                                                                    b);
+      const long long runs = ((long long)b * b + 31) / 32;
+      if (runs * lead * nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      factor_syrk_reduce_kernel<<<(unsigned)(runs * lead * nb), 32 * RED_GROUPS, 0, st>>>(
+          part, o, amax, chunks, lead * nb, b, (int)runs);
       break;
     }
     case DT_BF16: {
@@ -1252,8 +1262,8 @@ extern "C" int factor_syrk(const void* x, void* out, void* ws, void* arrived, in
 // x (lead, n, ld), matrices lstride elements apart; scratch (lead, nb, b, b)
 // f32 and amax (lead * nb,) u32 (zeroed) are the caller's; payload
 // (lead, nb, b(b+1)/2) fp8, scale (lead, nb) f32. Every (matrix, block) of
-// the lead in the one SYRK launch and the one pack launch (grid y lead * nb,
-// launch_syrk's guard).
+// the lead in the one SYRK launch and the one pack launch (folded into grid
+// x, as every launch of launch_syrk).
 extern "C" int factor_syrk_wire(const void* x, void* scratch, void* amax, void* ws, void* arrived,
                                 void* payload, void* scale, int lead, long long lstride, int n,
                                 int ld, int d, int nb, int b, int dtype, int ctas, int fmt,
@@ -1263,8 +1273,9 @@ extern "C" int factor_syrk_wire(const void* x, void* scratch, void* amax, void* 
   const int rc = launch_syrk(x, scratch, static_cast<unsigned*>(amax), ws, arrived, lead,
                              lstride, n, ld, d, nb, b, dtype, ctas, st);
   if (rc) return rc;
-  const dim3 grid((b + 7) / 8, lead * nb);
-  pack_quant_kernel<<<grid, 256, 0, st>>>(
+  const long long grid = (long long)(b + 7) / 8 * lead * nb;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  pack_quant_kernel<<<(unsigned)grid, 256, 0, st>>>(
       static_cast<const float*>(scratch), static_cast<unsigned char*>(payload),
       static_cast<float*>(scale), static_cast<const unsigned*>(amax), b, fmt, pow2, inv_max);
   return (int)cudaGetLastError();

@@ -282,8 +282,10 @@ __device__ __forceinline__ void trips_of(const Maps& maps, Iterates v, float* re
   cluster.sync();                  // no block leaves while others read its `part`
 }
 
-// Launched with a cluster of csize (1..MAX_CLUSTER) blocks along x, one
-// cluster per factor block along y (see pick_cluster).
+// Launched with clusters of csize (1..MAX_CLUSTER) blocks along x, one
+// cluster per factor block, the factor blocks folded into x too (cluster
+// g is blocks g csize .. g csize + csize - 1), so any number of them is one
+// launch (see pick_cluster).
 template <bool TMA>
 __global__ void __launch_bounds__(NT, 1)
 ns_inverse_blocks_kernel(const __grid_constant__ Maps maps, const float* __restrict__ m_all,
@@ -296,7 +298,7 @@ ns_inverse_blocks_kernel(const __grid_constant__ Maps maps, const float* __restr
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
-  const int g = blockIdx.y;
+  const int g = blockIdx.x / csize;
   const size_t off = (size_t)g * b * b;
   const Iterates v{m_all + off, x_all + off, alt_all + off, r_all + off};
   const Ring<TN> ring = ring_init<TN>(smem_raw, bars, TMA);
@@ -588,7 +590,7 @@ int launch(const void* q, const void* p, const void* active, void* c, void* part
 cudaLaunchConfig_t resident_config(int csize, int g, cudaStream_t stream,
                                    cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize, g);
+  cfg.gridDim = dim3((unsigned)(csize * g));
   cfg.blockDim = dim3(res::NT);
   cfg.dynamicSmemBytes = res::G::SMEM;
   cfg.stream = stream;
@@ -668,7 +670,8 @@ extern "C" int ns_resident_cluster(int g, int b) {
 extern "C" int ns_inverse_blocks(const void* m, void* x, void* alt, void* r, void* res,
                                  void* trips, int g, int b, int iters, float tol,
                                  void* stream) {
-  if (g < 1 || b < 1 || iters < 0 || g > 65535) return (int)cudaErrorInvalidValue;
+  if (g < 1 || b < 1 || iters < 0 || (long long)g * MAX_CLUSTER > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   int cs = 0;
   const int err = pick_cluster(g, b, &cs);
   if (err) return err;

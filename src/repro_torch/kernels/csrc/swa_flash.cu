@@ -30,32 +30,40 @@
 // 1.95; the CUDA-core walk 103.2) and 0.0278 ms causal at S 1024 (SDPA
 // 0.0284; the CUDA-core walk 0.487). f32 keeps the CUDA-core walk of
 // swa_flash_tile.cuh: one block of 128 threads per (query tile of 64 rows,
-// 32 at hd 192; head), f32 FMAs.
+// 32 at hd 192 and 256; head), f32 FMAs, the heads folded into grid x.
+// Both take any hd from 1 to 256 on the smallest of their instances 64,
+// 128, 192 and 256 that holds it (swa_flash_wgmma.cuh, swa_flash_tile.cuh).
 
 #include "swa_flash_tile.cuh"
 #include "swa_flash_wgmma.cuh"
 
 namespace {
 
-constexpr int MAX_GRID_Y = 65535;  // the f32 walk's heads ride on gridDim.y
-
-template <int HD>
+// one block per (query tile, head), the heads folded into grid x (any
+// number of them: a 65,535 bound on grid y would cap BH)
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(swa_tile::NTHREADS)
 swa_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S, int window,
-                 float scale) {
-  const size_t rows = (size_t)blockIdx.y * S;
-  swa_tile::forward<float, HD, false>(q + rows * HD, k + rows * HD, v + rows * HD,
-                                      out + rows * HD, nullptr, S, window, scale);
+                 const float* __restrict__ v, float* __restrict__ out, int qtiles, int S,
+                 int width, int window, float scale) {
+  const int hd = PAD ? width : HD;   // the rows' width
+  const int qt = blockIdx.x % qtiles;
+  const size_t rows = (size_t)(blockIdx.x / qtiles) * S;
+  swa_tile::forward<float, HD, false, PAD>(q + rows * hd, k + rows * hd, v + rows * hd,
+                                      out + rows * hd, nullptr, qt, S, hd, window, scale);
 }
 
 template <int HD>
-void launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int S,
-                int window, float scale, cudaStream_t stream) {
-  const dim3 grid((S + swa_tile::Geo<HD>::BQ - 1) / swa_tile::Geo<HD>::BQ, bh);
-  swa_flash_kernel<HD><<<grid, swa_tile::NTHREADS, 0, stream>>>(
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, int S, int hd,
+               int window, float scale, int bq, int bk, cudaStream_t stream) {
+  if (!swa_tile::geometry<HD>(bq, bk)) return (int)cudaErrorInvalidValue;
+  const long long qtiles = (S + swa_tile::Geo<HD>::BQ - 1) / swa_tile::Geo<HD>::BQ;
+  if (qtiles * bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = hd < HD ? swa_flash_kernel<HD, true> : swa_flash_kernel<HD, false>;
+  kernel<<<(unsigned)(qtiles * bh), swa_tile::NTHREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, window, scale);
+      static_cast<float*>(out), (int)qtiles, S, hd, window, scale);
+  return 0;
 }
 
 }  // namespace
@@ -65,20 +73,15 @@ void launch_f32(const void* q, const void* k, const void* v, void* out, int bh, 
 extern "C" int swa_flash(const void* q, const void* k, const void* v, void* out, int bh,
                          int S, int hd, int window, int bq, int bk, int blocks, int dtype,
                          float scale, void* stream) {
-  if (bh < 1 || bh > MAX_GRID_Y || S < 1 || window < 0) return (int)cudaErrorInvalidValue;
+  if (bh < 1 || S < 1 || window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (dtype) {
     case DT_F32:
-      if (hd == 64 && swa_tile::geometry<64>(bq, bk))
-        launch_f32<64>(q, k, v, out, bh, S, window, scale, st);
-      else if (hd == 128 && swa_tile::geometry<128>(bq, bk))
-        launch_f32<128>(q, k, v, out, bh, S, window, scale, st);
-      else if (hd == 192 && swa_tile::geometry<192>(bq, bk))
-        launch_f32<192>(q, k, v, out, bh, S, window, scale, st);
-      else
-        return (int)cudaErrorInvalidValue;
-      rc = 0;
+      rc = by_instance(hd, [&](auto inst) {
+        return launch_f32<decltype(inst)::value>(q, k, v, out, bh, S, hd, window, scale, bq, bk,
+                                                 st);
+      });
       break;
     case DT_BF16:
       rc = swa_tc::launch_hd<false>(q, k, v, out, nullptr, bh, bh, S, hd, window, scale, bq, bk,

@@ -38,18 +38,20 @@
 // with q scaled by HD^-0.5 as it is read (exact enough in f32):
 // dq: one block of 128 threads per (query tile, group head, KV head); TPR
 // threads share a query row (HD/32 at hd 64 and 128, 8 at hd 192, where 6
-// would not divide a warp), each owning HD/TPR of its dims (interleaved
+// would not divide a warp, and 256), each owning HD/TPR of its dims (interleaved
 // float4 groups) in registers, and a dot product is their partial sums
 // joined by shuffles. The block walks only the key tiles (32 keys, 16 at
-// hd 192, so that two f32 tiles stay inside 48 KB of static shared memory)
+// hd 192 and 256, so that two f32 tiles stay inside 48 KB of static shared memory)
 // that meet the band of its query tile, staging K and V in shared memory.
 // dkdv: one block per (key tile, KV head), the key rows and their dk/dv
 // sums in registers. It walks the G query heads and, for each, the query
-// tiles (32 rows, 16 at hd 192) that can see its keys, so the sum over the group stays a
+// tiles (32 rows, 16 at hd 192 and 256) that can see its keys, so the sum over the group stays a
 // register sum: no atomics and no second pass. Query rows past S are
 // masked explicitly (the TPU wrapper pads S and relies on zero-padded
 // do/delta), as are key rows past S. These f32 products run on the CUDA
-// cores.
+// cores. Head dims as in the forward: instances at HD = 64, 128, 192 and
+// 256, rows of any hd <= HD on the smallest that holds them, columns past
+// hd zero in registers and shared memory and not stored.
 
 #include "swa_flash_bwd_wgmma.cuh"
 
@@ -63,11 +65,12 @@ constexpr int LCH = 8;    // loads in flight per thread while staging a tile
 // query rows (dkdv) a shared-memory tile
 template <int HD>
 struct Simt {
-  static_assert(HD == 64 || HD == 128 || HD == 192, "head dims 64, 128, 192");
-  static constexpr int TPR = HD == 192 ? 8 : HD / 32;
+  static_assert(HD == 64 || HD == 128 || HD == 192 || HD == 256,
+                "head dim instances 64, 128, 192, 256");
+  static constexpr int TPR = HD >= 192 ? 8 : HD / 32;
   static constexpr int NGR = HD / TPR / 4;
   static constexpr int ROWS = NTHREADS / TPR;
-  static constexpr int TILE = HD == 192 ? 16 : 32;
+  static constexpr int TILE = HD >= 192 ? 16 : 32;
 };
 
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int window) {
@@ -83,10 +86,11 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [r0, r0 + ROWS) of a (S, HD) matrix into dst as f32 (rows past
-// S read 0), optionally scaled; LCH loads in flight per thread.
+// Stage rows [r0, r0 + ROWS) of a (S, hd) matrix into dst as f32 (rows past
+// S and columns past hd read 0), optionally scaled; LCH loads in flight
+// per thread.
 template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, int S,
+__device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, int S, int hd,
                                       float mul) {
   constexpr int LOADS = ROWS * HD / NTHREADS;
   static_assert(LOADS % LCH == 0, "tile loads must batch evenly");
@@ -98,7 +102,8 @@ __device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, in
     for (int u = 0; u < LCH; ++u) {
       const int e = tid + (c0 + u) * NTHREADS;
       const int r = r0 + e / HD;
-      val[u] = r < S ? to_f32(src[(size_t)r * HD + e % HD]) * mul : 0.f;
+      const int col = e % HD;
+      val[u] = r < S && col < hd ? to_f32(src[(size_t)r * hd + col]) * mul : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < LCH; ++u) {
@@ -108,13 +113,17 @@ __device__ __forceinline__ void stage(float (*dst)[HD], const T* src, int r0, in
   }
 }
 
-// Load this thread's 4 NGR dims of one row (dims (i*TPR + h)*4 + c).
+// Load this thread's 4 NGR dims of one row (dims (i*TPR + h)*4 + c; 0 past hd).
 template <typename T, int TPR, int NGR>
-__device__ __forceinline__ void load_row(float (&r)[4 * NGR], const T* src, int h, float mul) {
+__device__ __forceinline__ void load_row(float (&r)[4 * NGR], const T* src, int h, int hd,
+                                         float mul) {
 #pragma unroll
   for (int i = 0; i < NGR; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) r[4 * i + c] = to_f32(src[(i * TPR + h) * 4 + c]) * mul;
+    for (int c = 0; c < 4; ++c) {
+      const int col = (i * TPR + h) * 4 + c;
+      r[4 * i + c] = col < hd ? to_f32(src[col]) * mul : 0.f;
+    }
 }
 
 template <int TPR, int NGR>
@@ -142,12 +151,15 @@ __device__ __forceinline__ void axpy(float (&acc)[4 * NGR], float a, const float
   }
 }
 
-template <typename T, int HD>
+// PAD: hd < HD (rows on a wider instance); rows that fill the instance take
+// its constant width, which spares the registers a runtime width costs
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(NTHREADS)
 swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  const T* __restrict__ dout, float* __restrict__ dq, int G, int S,
+                  const T* __restrict__ dout, float* __restrict__ dq, int G, int S, int width,
                   int window, float scale) {
+  const int hd = PAD ? width : HD;   // the rows' width
   constexpr int TPR = Simt<HD>::TPR;
   constexpr int NGR = Simt<HD>::NGR;
   constexpr int DPT = 4 * NGR;   // dims a thread
@@ -168,8 +180,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   float qr[DPT], dor[DPT], acc[DPT];
   float l = 0.f, dl = 0.f;
   if (qpos < S) {
-    load_row<T, TPR, NGR>(qr, q + (rows + qpos) * HD, h, scale);
-    load_row<T, TPR, NGR>(dor, dout + (rows + qpos) * HD, h, 1.f);
+    load_row<T, TPR, NGR>(qr, q + (rows + qpos) * hd, h, hd, scale);
+    load_row<T, TPR, NGR>(dor, dout + (rows + qpos) * hd, h, hd, 1.f);
     l = lse[rows + qpos];
     dl = delta[rows + qpos];
   } else {
@@ -181,12 +193,12 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   const int q_hi = min(q0 + BQ - 1, S - 1);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const T* kb = k + (size_t)b * S * HD;
-  const T* vb = v + (size_t)b * S * HD;
+  const T* kb = k + (size_t)b * S * hd;
+  const T* vb = v + (size_t)b * S * hd;
   for (int kt = (k_lo / BKT) * BKT; kt <= q_hi; kt += BKT) {
     __syncthreads();
-    stage<T, HD, BKT>(ks, kb, kt, S, 1.f);
-    stage<T, HD, BKT>(vs, vb, kt, S, 1.f);
+    stage<T, HD, BKT>(ks, kb, kt, S, hd, 1.f);
+    stage<T, HD, BKT>(vs, vb, kt, S, hd, 1.f);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < BKT; ++j) {
@@ -198,21 +210,23 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 
   if (qpos < S) {
-    float* o = dq + (rows + qpos) * HD;
+    float* o = dq + (rows + qpos) * hd;
 #pragma unroll
     for (int i = 0; i < NGR; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[(i * TPR + h) * 4 + c] = acc[4 * i + c] * scale;
+      for (int c = 0; c < 4; ++c)
+        if ((i * TPR + h) * 4 + c < hd) o[(i * TPR + h) * 4 + c] = acc[4 * i + c] * scale;
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(NTHREADS)
 swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ lse,
                     const float* __restrict__ delta, const T* __restrict__ dout,
-                    float* __restrict__ dk, float* __restrict__ dv, int G, int S,
+                    float* __restrict__ dk, float* __restrict__ dv, int G, int S, int width,
                     int window, float scale) {
+  const int hd = PAD ? width : HD;   // the rows' width
   constexpr int TPR = Simt<HD>::TPR;
   constexpr int NGR = Simt<HD>::NGR;
   constexpr int DPT = 4 * NGR;   // dims a thread
@@ -233,8 +247,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
   if (kpos < S) {
-    load_row<T, TPR, NGR>(kr, k + krow * HD, h, 1.f);
-    load_row<T, TPR, NGR>(vr, v + krow * HD, h, 1.f);
+    load_row<T, TPR, NGR>(kr, k + krow * hd, h, hd, 1.f);
+    load_row<T, TPR, NGR>(vr, v + krow * hd, h, hd, 1.f);
   } else {
 #pragma unroll
     for (int c = 0; c < DPT; ++c) kr[c] = vr[c] = 0.f;
@@ -249,8 +263,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t base = (size_t)(b * G + g) * S;
     for (int qt = (k0 / BQT) * BQT; qt < q_end; qt += BQT) {
       __syncthreads();
-      stage<T, HD, BQT>(qs, q + base * HD, qt, S, scale);
-      stage<T, HD, BQT>(dos, dout + base * HD, qt, S, 1.f);
+      stage<T, HD, BQT>(qs, q + base * hd, qt, S, hd, scale);
+      stage<T, HD, BQT>(dos, dout + base * hd, qt, S, hd, 1.f);
       if (tid < BQT) {
         const int r = qt + tid;
         ls[tid] = r < S ? lse[base + r] : 0.f;
@@ -269,41 +283,18 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (kpos < S) {
-    float* ok = dk + krow * HD;
-    float* ov = dv + krow * HD;
+    float* ok = dk + krow * hd;
+    float* ov = dv + krow * hd;
 #pragma unroll
     for (int i = 0; i < NGR; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        ok[(i * TPR + h) * 4 + c] = dka[4 * i + c];
-        ov[(i * TPR + h) * 4 + c] = dva[4 * i + c];
+        const int col = (i * TPR + h) * 4 + c;
+        if (col >= hd) continue;
+        ok[col] = dka[4 * i + c];
+        ov[col] = dva[4 * i + c];
       }
   }
-}
-
-template <typename T, int HD>
-void launch_dq(const void* q, const void* k, const void* v, const void* lse,
-               const void* delta, const void* dout, void* dq, int bkv, int G, int S,
-               int window, float scale, cudaStream_t st) {
-  constexpr int BQ = Simt<HD>::ROWS;
-  const dim3 grid((S + BQ - 1) / BQ, G, bkv);
-  swa_bwd_dq_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const T*>(dout), static_cast<float*>(dq), G, S, window, scale);
-}
-
-template <typename T, int HD>
-void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
-                 const void* delta, const void* dout, void* dk, void* dv, int bkv, int G,
-                 int S, int window, float scale, cudaStream_t st) {
-  constexpr int BKEY = Simt<HD>::ROWS;
-  const dim3 grid((S + BKEY - 1) / BKEY, bkv);
-  swa_bwd_dkdv_kernel<T, HD><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const T*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), G,
-      S, window, scale);
 }
 
 // the f32 bodies' geometry: query rows (dq) or keys (dkdv) per block, and
@@ -312,6 +303,38 @@ void launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
 template <int HD>
 inline bool simt_geometry(int rows, int tile) {
   return rows == Simt<HD>::ROWS && tile == Simt<HD>::TILE;
+}
+
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* lse, const void* delta,
+              const void* dout, void* dq, int bkv, int G, int S, int hd, int window,
+              float scale, int bq, int bk, cudaStream_t st) {
+  if (!simt_geometry<HD>(bq, bk)) return (int)cudaErrorInvalidValue;
+  constexpr int BQ = Simt<HD>::ROWS;
+  const dim3 grid((S + BQ - 1) / BQ, G, bkv);
+  auto kernel = hd < HD ? swa_bwd_dq_kernel<float, HD, true> : swa_bwd_dq_kernel<float, HD, false>;
+  kernel<<<grid, NTHREADS, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(dout), static_cast<float*>(dq), G, S, hd, window, scale);
+  return 0;
+}
+
+template <int HD>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
+                const void* delta, const void* dout, void* dk, void* dv, int bkv, int G, int S,
+                int hd, int window, float scale, int bkey, int bqs, cudaStream_t st) {
+  if (!simt_geometry<HD>(bkey, bqs)) return (int)cudaErrorInvalidValue;
+  constexpr int BKEY = Simt<HD>::ROWS;
+  const dim3 grid((S + BKEY - 1) / BKEY, bkv);
+  auto kernel =
+      hd < HD ? swa_bwd_dkdv_kernel<float, HD, true> : swa_bwd_dkdv_kernel<float, HD, false>;
+  kernel<<<grid, NTHREADS, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), G, S,
+      hd, window, scale);
+  return 0;
 }
 
 }  // namespace
@@ -327,29 +350,20 @@ extern "C" int swa_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   int rc = 0;
+  float* dqf = static_cast<float*>(dq);
   switch (dtype) {
     case DT_F32:
-      if (hd == 64 && simt_geometry<64>(bq, bk))
-        launch_dq<float, 64>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
-      else if (hd == 128 && simt_geometry<128>(bq, bk))
-        launch_dq<float, 128>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
-      else if (hd == 192 && simt_geometry<192>(bq, bk))
-        launch_dq<float, 192>(q, k, v, lse, delta, dout, dq, bkv, G, S, window, scale, st);
-      else
-        return (int)cudaErrorInvalidValue;
+      rc = by_instance(hd, [&](auto inst) {
+        return launch_dq<decltype(inst)::value>(q, k, v, lse, delta, dout, dq, bkv, G, S, hd,
+                                                window, scale, bq, bk, st);
+      });
       break;
     case DT_BF16:
-      if (hd == 64)
-        rc = swa_tc::launch_bwd_dq<64>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G, bkv,
-                                       S, window, scale, bq, bk, blocks, st);
-      else if (hd == 128)
-        rc = swa_tc::launch_bwd_dq<128>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G,
-                                        bkv, S, window, scale, bq, bk, blocks, st);
-      else if (hd == 192)
-        rc = swa_tc::launch_bwd_dq<192>(q, k, v, dout, l, d, static_cast<float*>(dq), bkv * G,
-                                        bkv, S, window, scale, bq, bk, blocks, st);
-      else
-        rc = (int)cudaErrorInvalidValue;
+      rc = by_instance(hd, [&](auto inst) {
+        return swa_tc::launch_bwd_dq<decltype(inst)::value>(q, k, v, dout, l, d, dqf, bkv * G, bkv,
+                                                            S, hd, window, scale, bq, bk, blocks,
+                                                            st);
+      });
       break;
     default:
       rc = (int)cudaErrorInvalidValue;
@@ -374,27 +388,17 @@ extern "C" int swa_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   int rc = 0;
   switch (dtype) {
     case DT_F32:
-      if (hd == 64 && simt_geometry<64>(bkey, bqs))
-        launch_dkdv<float, 64>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
-      else if (hd == 128 && simt_geometry<128>(bkey, bqs))
-        launch_dkdv<float, 128>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
-      else if (hd == 192 && simt_geometry<192>(bkey, bqs))
-        launch_dkdv<float, 192>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S, window, scale, st);
-      else
-        return (int)cudaErrorInvalidValue;
+      rc = by_instance(hd, [&](auto inst) {
+        return launch_dkdv<decltype(inst)::value>(q, k, v, lse, delta, dout, dk, dv, bkv, G, S,
+                                                  hd, window, scale, bkey, bqs, st);
+      });
       break;
     case DT_BF16:
-      if (hd == 64)
-        rc = swa_tc::launch_bwd_dkdv<64>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
-                                         scale, bkey, bqs, blocks, st);
-      else if (hd == 128)
-        rc = swa_tc::launch_bwd_dkdv<128>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
-                                          scale, bkey, bqs, blocks, st);
-      else if (hd == 192)
-        rc = swa_tc::launch_bwd_dkdv<192>(q, k, v, dout, l, d, dkf, dvf, bkv * G, bkv, S, window,
-                                          scale, bkey, bqs, blocks, st);
-      else
-        rc = (int)cudaErrorInvalidValue;
+      rc = by_instance(hd, [&](auto inst) {
+        return swa_tc::launch_bwd_dkdv<decltype(inst)::value>(q, k, v, dout, l, d, dkf, dvf,
+                                                              bkv * G, bkv, S, hd, window, scale,
+                                                              bkey, bqs, blocks, st);
+      });
       break;
     default:
       rc = (int)cudaErrorInvalidValue;

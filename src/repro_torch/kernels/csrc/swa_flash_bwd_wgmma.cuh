@@ -18,10 +18,11 @@
 // dq (swa_bwd_dq_wgmma): a work item is one 128-row query tile of one query
 // head -- the forward's item and walk (kernels/swa_attention.py
 // walk_geometry, key_tiles, tile_masked, block_items). Q, dO (the item's
-// rows, double-buffered across items; one buffer at hd 192, where two
-// would need 289 KB of shared memory) and each row's lse and delta stay
-// resident; a ring of DQ_STAGES K/V stages (BK keys: 128 at hd 64, 64 at
-// hd 128 and 192) streams through mbarriers. Two stages in each ring
+// rows, double-buffered across items; one buffer at hd 192 and 256, where
+// two would need 289 and 385 KB of shared memory) and each row's lse and
+// delta stay resident; a ring of DQ_STAGES K/V stages (BK keys: 128 at hd
+// 64, 64 at hd 128 and 192, 32 at hd 256, where 64-key stages beside the
+// 128 KB of Q and dO would leave room for one) streams through mbarriers. Two stages in each ring
 // measured as fast as three or four. Per key tile, consumer w (rows
 // 64w..64w+63):
 //   S  = Q K^T    wgmma_ss m64nBK, both K-major; P = exp2(S c - lse log2e)
@@ -36,10 +37,11 @@
 //
 // dk/dv (swa_bwd_dkdv_wgmma): a work item is one 128-key tile of one KV
 // head; consumer w owns its keys 64w..64w+63. At hd 192 the dK and dV
-// accumulators of 64 keys alone are 192 registers a thread, so an item is
-// one 64-key tile and its two consumers split the work instead: consumer
-// 0 sums dV (S^T, P^T, dV += P^T dO), consumer 1 dK (S^T and dP^T again,
-// dS^T, dK += dS^T Q), each holding 96 accumulators; S^T is computed by
+// accumulators of 64 keys alone are 192 registers a thread (256 at hd
+// 256), so an item is one 64-key tile and its two consumers split the
+// work instead: consumer 0 sums dV (S^T, P^T, dV += P^T dO), consumer 1
+// dK (S^T and dP^T again, dS^T, dK += dS^T Q), each holding 96
+// accumulators (128 at hd 256); S^T is computed by
 // both, 7 products where one consumer would do 6. The producer loads the item's
 // K and V once (one buffer: a second, to load the next item's K and V
 // early, measured no faster), then streams a ring of KV_STAGES stages of
@@ -74,6 +76,11 @@
 // operations) and the f32 instructions that rebuild P and dS (about a
 // dozen per score, more on masked tiles) are of one order, as in the
 // forward walk.
+//
+// Head dims as in the forward walk: instances at HD = 64, 128, 192 and
+// 256, rows of hd <= HD (a multiple of 8) on the smallest that holds them,
+// the columns past hd read as zeros through the tensor maps and not
+// stored.
 #pragma once
 
 #include "swa_flash_wgmma.cuh"
@@ -86,18 +93,18 @@ template <int HD>
 struct BwdGeo {
   static constexpr int HALVES = HD / 64;   // 64-column (128-byte) atoms of a row
   // dq: resident Q and dO of BQ rows, K/V stages of BK keys
-  static constexpr int BK = Geo<HD>::BK;
+  static constexpr int BK = HD == 256 ? 32 : Geo<HD>::BK;
   static constexpr int Q_HALF = BQ * 128;
   static constexpr int Q_BYTES = HALVES * Q_HALF;       // one of Q, dO
   static constexpr int KV_HALF = BK * 128;
   static constexpr int KV_BYTES = HALVES * KV_HALF;     // one of K, V
   static constexpr int DQ_STAGES = 2;
-  static constexpr int Q_BUFS = HD == 192 ? 1 : 2;      // (Q, dO) buffers
+  static constexpr int Q_BUFS = HD >= 192 ? 1 : 2;      // (Q, dO) buffers
   static constexpr int DQ_SMEM = Q_BUFS * 2 * Q_BYTES + DQ_STAGES * 2 * KV_BYTES + 1024;
   static constexpr int DQ_FRAG = HD / 2;                // dQ accumulators per thread
   // dk/dv: resident K and V of BKEY rows, Q/dO stages of BQS rows; at hd
-  // 192 consumer 0 sums dV and consumer 1 dK of the same 64 keys
-  static constexpr bool SPLIT = HD == 192;
+  // 192 and 256 consumer 0 sums dV and consumer 1 dK of the same 64 keys
+  static constexpr bool SPLIT = HD >= 192;
   static constexpr int BKEY = SPLIT ? 64 : 128;         // keys per item
   static constexpr int K_HALF = BKEY * 128;
   static constexpr int K_BYTES = HALVES * K_HALF;       // one of K, V
@@ -178,13 +185,13 @@ __device__ __forceinline__ void p_ds_of_cols(float (&s)[32], float (&dp)[32],
 }
 
 // q/do maps (hd, S, query heads), k/v maps (hd, S, KV heads); query head h
-// reads KV head h / G; lse, delta (heads, S) f32; dq (heads, S, HD) f32
+// reads KV head h / G; lse, delta (heads, S) f32; dq (heads, S, hd) f32
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int S, int G, int heads, int qtiles, int window,
+             float* __restrict__ dq, int S, int hd, int G, int heads, int qtiles, int window,
              float scale) {
   using Gm = BwdGeo<HD>;
   constexpr int BK = Gm::BK;
@@ -341,11 +348,12 @@ swa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row0 + 8 * hh;
       if (row >= S) continue;
-      float* op = dq + ((size_t)h * S + row) * HD + (lane & 3) * 2;
+      float* op = dq + ((size_t)h * S + row) * hd + (lane & 3) * 2;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<float2*>(op + 8 * j) =
-            make_float2(acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+        if (8 * j + (lane & 3) * 2 < hd)
+          *reinterpret_cast<float2*>(op + 8 * j) =
+              make_float2(acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
     }
   }
 }
@@ -360,7 +368,7 @@ __device__ __forceinline__ void dkdv_consumer(uint32_t base, uint32_t st0, uint3
                                               uint32_t kvempty, uint32_t full0,
                                               uint32_t empty0, float (*rows)[2][BQS],
                                               float* __restrict__ dk, float* __restrict__ dv,
-                                              int S, int G, int kv_heads, int items,
+                                              int S, int hd, int G, int kv_heads, int items,
                                               int window, float scale, int key_off) {
   using Gm = BwdGeo<HD>;
   constexpr int STAGES = Gm::KV_STAGES;
@@ -463,9 +471,10 @@ __device__ __forceinline__ void dkdv_consumer(uint32_t base, uint32_t st0, uint3
     for (int hh = 0; hh < 2; ++hh) {
       const int key = key0 + 8 * hh;
       if (key >= S) continue;
-      const size_t off = ((size_t)kvh * S + key) * HD + (lane & 3) * 2;
+      const size_t off = ((size_t)kvh * S + key) * hd + (lane & 3) * 2;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
+        if (8 * j + (lane & 3) * 2 >= hd) continue;
         if constexpr (DK)
           *reinterpret_cast<float2*>(dk + off + 8 * j) =
               make_float2(dka[4 * j + 2 * hh] * scale, dka[4 * j + 2 * hh + 1] * scale);
@@ -479,13 +488,13 @@ __device__ __forceinline__ void dkdv_consumer(uint32_t base, uint32_t st0, uint3
 
 // q/do maps (hd, S, query heads), k/v maps (hd, S, KV heads); KV head c
 // serves query heads c G .. c G + G - 1; lse, delta (heads, S) f32; dk, dv
-// (kv_heads, S, HD) f32
+// (kv_heads, S, hd) f32
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 swa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int S, int G, int kv_heads,
+               float* __restrict__ dk, float* __restrict__ dv, int S, int hd, int G, int kv_heads,
                int ktiles, int window, float scale) {
   using Gm = BwdGeo<HD>;
   constexpr int STAGES = Gm::KV_STAGES;
@@ -570,20 +579,20 @@ swa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_consta
   }
 
   // consumers: warpgroup wg - 1 owns keys 64 (wg - 1) .. + 63 of each item
-  // and sums both dK and dV; at hd 192 both own the item's 64 keys, the
-  // first summing dV and the second dK
+  // and sums both dK and dV; at hd 192 and 256 both own the item's 64
+  // keys, the first summing dV and the second dK
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int cw = wg - 1;
   if constexpr (Gm::SPLIT) {
     if (cw == 0)
       dkdv_consumer<HD, false, true>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S,
-                                     G, kv_heads, items, window, scale, 0);
+                                     hd, G, kv_heads, items, window, scale, 0);
     else
       dkdv_consumer<HD, true, false>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S,
-                                     G, kv_heads, items, window, scale, 0);
+                                     hd, G, kv_heads, items, window, scale, 0);
   } else {
-    dkdv_consumer<HD, true, true>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S, G,
-                                  kv_heads, items, window, scale, cw * 64);
+    dkdv_consumer<HD, true, true>(base, st0, kvfull, kvempty, full0, empty0, rows, dk, dv, S, hd,
+                                  G, kv_heads, items, window, scale, cw * 64);
   }
 }
 
@@ -603,28 +612,30 @@ inline int bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const 
   return rc;
 }
 
-// 0 or a CUDA error code. q, do (heads, S, HD), k, v (kv_heads, S, HD), all
+// 0 or a CUDA error code. q, do (heads, S, hd), k, v (kv_heads, S, hd), all
 // bf16 on 16-byte aligned bases; (bq, bk, blocks) the caller's geometry
 // (kernels/swa_attention.py dq_geometry and walk_blocks), refused unless
 // (bq, bk) is this kernel's and 1 <= blocks <= the work items.
 template <int HD>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, float* dq, int heads, int kv_heads,
-                  int S, int window, float scale, int bq, int bk, int blocks, cudaStream_t st) {
+                  int S, int hd, int window, float scale, int bq, int bk, int blocks,
+                  cudaStream_t st) {
   using Gm = BwdGeo<HD>;
   const long long qtiles = (S + BQ - 1) / BQ;
   if (bq != BQ || bk != Gm::BK || heads % kv_heads || blocks < 1 ||
-      blocks > qtiles * heads || qtiles * heads > (1LL << 30))
+      blocks > qtiles * heads || qtiles * heads > (1LL << 30) || !instance_of<HD>(hd))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  int rc = bwd_maps(maps, q, k, v, dout, HD, S, heads, kv_heads, BQ, Gm::BK);
+  int rc = bwd_maps(maps, q, k, v, dout, hd, S, heads, kv_heads, BQ, Gm::BK);
   if (rc) return rc;
   auto kernel = swa_bwd_dq_wgmma<HD>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, NT, Gm::DQ_SMEM, st>>>(maps[0], maps[1], maps[2], maps[3], lse, delta, dq, S,
-                                          heads / kv_heads, heads, (int)qtiles, window, scale);
+                                          hd, heads / kv_heads, heads, (int)qtiles, window,
+                                          scale);
   return 0;
 }
 
@@ -633,22 +644,22 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
 template <int HD>
 int launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, float* dk, float* dv, int heads,
-                    int kv_heads, int S, int window, float scale, int bkey, int bqs, int blocks,
-                    cudaStream_t st) {
+                    int kv_heads, int S, int hd, int window, float scale, int bkey, int bqs,
+                    int blocks, cudaStream_t st) {
   using Gm = BwdGeo<HD>;
   const long long ktiles = (S + Gm::BKEY - 1) / Gm::BKEY;
   if (bkey != Gm::BKEY || bqs != BQS || heads % kv_heads || blocks < 1 ||
-      blocks > ktiles * kv_heads || ktiles * kv_heads > (1LL << 30))
+      blocks > ktiles * kv_heads || ktiles * kv_heads > (1LL << 30) || !instance_of<HD>(hd))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  int rc = bwd_maps(maps, q, k, v, dout, HD, S, heads, kv_heads, BQS, Gm::BKEY);
+  int rc = bwd_maps(maps, q, k, v, dout, hd, S, heads, kv_heads, BQS, Gm::BKEY);
   if (rc) return rc;
   auto kernel = swa_bwd_dkdv_wgmma<HD>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::KV_SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, NT, Gm::KV_SMEM, st>>>(maps[0], maps[1], maps[2], maps[3], lse, delta, dk, dv,
-                                          S, heads / kv_heads, kv_heads, (int)ktiles, window,
+                                          S, hd, heads / kv_heads, kv_heads, (int)ktiles, window,
                                           scale);
   return 0;
 }

@@ -29,33 +29,43 @@
 // the training call, BKV 32 (SDPA 0.0637).
 // f32 (the 2-layer f32 route checks) keeps the CUDA-core walk of
 // swa_flash_tile.cuh: one block of 128 threads per (query tile of 64 rows,
-// 32 at hd 192; group head, KV head), f32 FMAs.
+// 32 at hd 192 and 256; group head, KV head), f32 FMAs, folded into grid
+// x. Both take any hd from 1 to 256 on the smallest of their instances
+// 64, 128, 192 and 256 that holds it.
 
 #include "swa_flash_tile.cuh"
 #include "swa_flash_wgmma.cuh"
 
 namespace {
 
-template <int HD>
+// one block per (query tile, group head, KV head), folded into grid x
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(swa_tile::NTHREADS)
 swa_flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int G, int S, int window, float scale) {
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rows = (size_t)(b * G + g) * S;
-  const size_t kv = (size_t)b * S;
-  swa_tile::forward<float, HD, true>(q + rows * HD, k + kv * HD, v + kv * HD, out + rows * HD,
-                                     lse + rows, S, window, scale);
+                     float* __restrict__ lse, int qtiles, int G, int S, int width,
+                     int window, float scale) {
+  const int hd = PAD ? width : HD;   // the rows' width
+  const int qt = blockIdx.x % qtiles;
+  const int head = blockIdx.x / qtiles;   // b * G + g
+  const size_t rows = (size_t)head * S;
+  const size_t kv = (size_t)(head / G) * S;
+  swa_tile::forward<float, HD, true, PAD>(q + rows * hd, k + kv * hd, v + kv * hd, out + rows * hd,
+                                     lse + rows, qt, S, hd, window, scale);
 }
 
 template <int HD>
-void launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bkv,
-                int G, int S, int window, float scale, cudaStream_t stream) {
-  const dim3 grid((S + swa_tile::Geo<HD>::BQ - 1) / swa_tile::Geo<HD>::BQ, G, bkv);
-  swa_flash_fwd_kernel<HD><<<grid, swa_tile::NTHREADS, 0, stream>>>(
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bkv,
+               int G, int S, int hd, int window, float scale, int bq, int bk,
+               cudaStream_t stream) {
+  if (!swa_tile::geometry<HD>(bq, bk)) return (int)cudaErrorInvalidValue;
+  const long long qtiles = (S + swa_tile::Geo<HD>::BQ - 1) / swa_tile::Geo<HD>::BQ;
+  if (qtiles * G * bkv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = hd < HD ? swa_flash_fwd_kernel<HD, true> : swa_flash_fwd_kernel<HD, false>;
+  kernel<<<(unsigned)(qtiles * G * bkv), swa_tile::NTHREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), G, S, window, scale);
+      static_cast<float*>(out), static_cast<float*>(lse), (int)qtiles, G, S, hd, window, scale);
+  return 0;
 }
 
 }  // namespace
@@ -70,15 +80,10 @@ extern "C" int swa_flash_fwd(const void* q, const void* k, const void* v, void* 
   int rc;
   switch (dtype) {
     case DT_F32:
-      if (hd == 64 && swa_tile::geometry<64>(bq, bk))
-        launch_f32<64>(q, k, v, out, lse, bkv, G, S, window, scale, st);
-      else if (hd == 128 && swa_tile::geometry<128>(bq, bk))
-        launch_f32<128>(q, k, v, out, lse, bkv, G, S, window, scale, st);
-      else if (hd == 192 && swa_tile::geometry<192>(bq, bk))
-        launch_f32<192>(q, k, v, out, lse, bkv, G, S, window, scale, st);
-      else
-        return (int)cudaErrorInvalidValue;
-      rc = 0;
+      rc = by_instance(hd, [&](auto inst) {
+        return launch_f32<decltype(inst)::value>(q, k, v, out, lse, bkv, G, S, hd, window, scale,
+                                                 bq, bk, st);
+      });
       break;
     case DT_BF16:
       rc = swa_tc::launch_hd<true>(q, k, v, out, static_cast<float*>(lse), bkv * G, bkv, S, hd,

@@ -9,17 +9,28 @@
 // threads is a producer warpgroup, of which one thread issues every TMA
 // load, and two consumer warpgroups, consumer w owning rows 64w..64w+63 of
 // the item's tile. The blocks are persistent, one per SM: the producer
-// loads an item's Q tile into one of two buffers (the next item's Q comes
-// in while the consumers finish the current one), then keeps a ring of
-// Geo<hd>::ST K/V tiles in flight through mbarriers (BK keys a tile: 128
-// at hd 64, 64 at hd 128 and 192, so a stage is 32 KB at hd 64 and 128,
-// three of them, and 48 KB at hd 192, two of them: three would need 241 KB
-// of the 227 KB a block may have), running on from one item into the next. Each consumer warp releases a stage once its products
+// loads an item's Q tile into one of Geo<HD>::QB buffers (with two, the
+// next item's Q comes in while the consumers finish the current one), then
+// keeps a ring of Geo<HD>::ST K/V tiles in flight through mbarriers (BK
+// keys a tile: 128 at hd 64, 64 from hd 128, so a stage is 32 KB at hd 64
+// and 128, three of them, 48 KB at hd 192, two of them: three would need
+// 241 KB of the 227 KB a block may have, and 64 KB at hd 256, two of them
+// beside one 64 KB Q buffer: a second would need 257 KB), running on from
+// one item into the next. Each consumer warp releases a stage once its products
 // of that tile are done, and a Q buffer once its item's products are, so
 // no block-wide barrier runs in the loop. The tensor maps are 3-D (hd, S,
 // heads), so rows past S arrive as zeros rather than the next head's rows;
 // keys past S are masked and queries past S are not stored, so the
 // wrappers pad nothing.
+//
+// Head dims: the kernel is instanced at HD = 64, 128, 192 and 256, and
+// rows of hd <= HD take the smallest instance that holds them
+// (kernels/swa_attention.py head_dim_instance). The tensor maps span the
+// rows' own hd columns, so a box's columns past hd arrive as zeros (TMA
+// fills what lies outside the tensor), add nothing to a score and make
+// zero output columns, which are not stored; the scale is the caller's
+// hd^-0.5 at the true hd. TMA needs rows on 16-byte strides, so bf16 rows
+// of hd % 8 != 0 come as the wrapper's zero-padded copy.
 //
 // Per key tile, each consumer warpgroup:
 //   S = Q K^T   wgmma m64nBKk16 .f32.bf16.bf16, Q and K both K-major (hd
@@ -44,7 +55,8 @@
 // Registers: the producer warpgroup drops to 40 a thread (setmaxnreg) and
 // the consumers rise to 232, so ptxas keeps the scores, the split P and the
 // output accumulators of a 128-key tile in registers with no spill (at hd
-// 192: 96 output accumulators, 32 scores and 32 words of split P).
+// 192: 96 output accumulators, 32 scores and 32 words of split P; at hd
+// 256: 128, 32 and 32).
 //
 // What bounds it: at hd 64 the softmax's f32 instructions (about ten per
 // score) and the tensor cores' work (three products of 2 * 64 * hd
@@ -83,16 +95,18 @@ __device__ __forceinline__ float exp2_(float x) {
 
 template <int HD>
 struct Geo {
-  static_assert(HD == 64 || HD == 128 || HD == 192, "head dims 64, 128, 192");
+  static_assert(HD == 64 || HD == 128 || HD == 192 || HD == 256,
+                "head dim instances 64, 128, 192, 256");
   static constexpr int BK = HD == 64 ? 128 : 64;   // keys per tile
-  static constexpr int ST = HD == 192 ? 2 : 3;      // K/V ring depth
+  static constexpr int ST = HD >= 192 ? 2 : 3;      // K/V ring depth
+  static constexpr int QB = HD == 256 ? 1 : 2;      // Q buffers
   static constexpr int HALVES = HD / 64;            // 64-column (128-byte) atoms of a row
   static constexpr int Q_HALF = BQ * 128;           // one atom column of the Q tile
   static constexpr int KV_HALF = BK * 128;          // of a K or V tile
   static constexpr int Q_BYTES = HALVES * Q_HALF;
   static constexpr int KV_BYTES = HALVES * KV_HALF;
   static constexpr int STAGE = 2 * KV_BYTES;        // K then V
-  static constexpr int SMEM = 2 * Q_BYTES + ST * STAGE + 1024;   // + room to align to 1 KB
+  static constexpr int SMEM = QB * Q_BYTES + ST * STAGE + 1024;   // + room to align to 1 KB
   static constexpr int SFRAG = BK / 2;   // score accumulators per consumer thread (m64nBK)
   static constexpr int OFRAG = HD / 2;   // output accumulators (m64nHD)
 };
@@ -119,6 +133,9 @@ __device__ __forceinline__ bool interior(int q0, int k0, int window, int bk) {
 #define SWA_D32 SWA_D8(0), SWA_D8(8), SWA_D8(16), SWA_D8(24)
 #define SWA_D64 SWA_D32, SWA_D8(32), SWA_D8(40), SWA_D8(48), SWA_D8(56)
 #define SWA_D96 SWA_D64, SWA_D8(64), SWA_D8(72), SWA_D8(80), SWA_D8(88)
+#define SWA_D128 SWA_D96, SWA_D8(96), SWA_D8(104), SWA_D8(112), SWA_D8(120)
+#define SWA_D16 SWA_D8(0), SWA_D8(8)
+#define SWA_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define SWA_R32                                                                        \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -130,11 +147,25 @@ __device__ __forceinline__ bool interior(int q0, int k0, int window, int bk) {
   SWA_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
           "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "  \
           "%93, %94, %95"
+#define SWA_R128                                                                       \
+  SWA_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "  \
+          "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+          "%122, %123, %124, %125, %126, %127"
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory;
 // acc 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" SWA_R16
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SWA_D16
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -191,13 +222,28 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" SWA_R128
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SWA_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef SWA_D8
+#undef SWA_D16
 #undef SWA_D32
 #undef SWA_D64
 #undef SWA_D96
+#undef SWA_D128
+#undef SWA_R16
 #undef SWA_R32
 #undef SWA_R64
 #undef SWA_R96
+#undef SWA_R128
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -299,16 +345,17 @@ __device__ __forceinline__ int item_of(int r, int b, int blocks) {
 }
 
 // q map (hd, S, query heads), k/v maps (hd, S, KV heads); query head h
-// reads KV head h / G; out (heads, S, HD) bf16; lse (heads, S) when LSE
+// reads KV head h / G; out (heads, S, hd) bf16; lse (heads, S) when LSE
 template <int HD, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-               float* __restrict__ lse, int S, int G, int heads, int qtiles, int window,
+               float* __restrict__ lse, int S, int hd, int G, int heads, int qtiles, int window,
                float scale) {
   using Gm = Geo<HD>;
   constexpr int BK = Gm::BK;
   constexpr int STAGES = Gm::ST;
+  constexpr int QB = Gm::QB;
   const int items = heads * qtiles;
 
   extern __shared__ unsigned char smem_raw[];
@@ -319,7 +366,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   const uint32_t qempty0 = qfull0 + 16;
   const uint32_t full0 = qfull0 + 32;
   const uint32_t empty0 = full0 + 8 * STAGES;
-  const uint32_t kv0 = base + 2 * Gm::Q_BYTES;   // after the two Q buffers
+  const uint32_t kv0 = base + QB * Gm::Q_BYTES;   // after the Q buffers
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -335,7 +382,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   __syncthreads();
 
   if (wg == 0) {
-    // producer: per item, its Q tile into buffer n % 2 once the consumers
+    // producer: per item, its Q tile into buffer n % QB once the consumers
     // are done with that buffer's previous item, then K/V tile `it` into
     // stage it % STAGES once the consumers have released its previous round
     // its warpgroup gives registers back for the consumers' (40 + 2 x 232
@@ -349,9 +396,9 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       const int q0 = (qtiles - 1 - i / heads) * BQ;
       const int h = i % heads;
       const int kvh = h / G;
-      const uint32_t qf = qfull0 + 8 * (n & 1);
-      const uint32_t qs = base + (n & 1) * Gm::Q_BYTES;
-      mbar_wait(qempty0 + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+      const uint32_t qf = qfull0 + 8 * (n % QB);
+      const uint32_t qs = base + (n % QB) * Gm::Q_BYTES;
+      mbar_wait(qempty0 + 8 * (n % QB), ((n / QB) & 1) ^ 1);
       mbar_expect_tx(qf, Gm::Q_BYTES);
 #pragma unroll
       for (int a = 0; a < Gm::HALVES; ++a) tma_load(qs + a * Gm::Q_HALF, &qmap, 64 * a, q0, h, qf);
@@ -386,7 +433,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     const int q0 = (qtiles - 1 - i / heads) * BQ;
     const int h = i % heads;
     const int row0 = q0 + cw * 64 + (t / 32) * 16 + lane / 4;
-    const uint32_t qa = base + (n & 1) * Gm::Q_BYTES + cw * 64 * 128;
+    const uint32_t qa = base + (n % QB) * Gm::Q_BYTES + cw * 64 * 128;
     int t_lo, t_hi;
     key_tiles(q0, S, window, BK, t_lo, t_hi);
     float o[Gm::OFRAG];
@@ -394,7 +441,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     for (int r = 0; r < Gm::OFRAG; ++r) o[r] = 0.f;
     float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
     float d[2] = {0.f, 0.f};
-    mbar_wait(qfull0 + 8 * (n & 1), (n >> 1) & 1);
+    mbar_wait(qfull0 + 8 * (n % QB), (n / QB) & 1);
 
     for (int kt = t_lo; kt <= t_hi; ++kt, ++it) {
       const int st = it % STAGES;
@@ -447,7 +494,7 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
     }
     // every product of the item has read its Q buffer
-    if (lane == 0) mbar_arrive(qempty0 + 8 * (n & 1));
+    if (lane == 0) mbar_arrive(qempty0 + 8 * (n % QB));
 
     // epilogue: the four threads of a row join their partial denominators
 #pragma unroll
@@ -461,9 +508,11 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       if (row >= S) continue;
       const float den = fmaxf(d[hh], 1e-30f);
       const float inv = 1.f / den;
-      __nv_bfloat16* op = out + ((size_t)h * S + row) * HD + (lane & 3) * 2;
+      __nv_bfloat16* op = out + ((size_t)h * S + row) * hd + (lane & 3) * 2;
+      // columns 8 j + 2 (lane mod 4) and the next; hd is even, so both or none are < hd
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
+        if (8 * j + (lane & 3) * 2 >= hd) continue;
         const __nv_bfloat162 v =
             __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = v;
@@ -473,18 +522,26 @@ forward_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   }
 }
 
-// 0 or a CUDA error code. q (heads, S, HD), k/v (kv_heads, S, HD), all
-// bf16 on 16-byte aligned bases; (bq, bk, blocks) the caller's geometry
-// (kernels/swa_attention.py walk_geometry and walk_blocks), refused
-// unless (bq, bk) is this kernel's and 1 <= blocks <= the work items.
+// rows of hd (a multiple of 8, TMA's 16-byte pitch) on the instance HD:
+// the smallest that holds them
+template <int HD>
+inline bool instance_of(int hd) {
+  return hd % 8 == 0 && hd <= HD && hd > HD - 64;
+}
+
+// 0 or a CUDA error code. q (heads, S, hd), k/v (kv_heads, S, hd), all
+// bf16 on 16-byte aligned bases, hd a multiple of 8 that HD holds; (bq,
+// bk, blocks) the caller's geometry (kernels/swa_attention.py
+// walk_geometry and walk_blocks), refused unless (bq, bk) is this
+// kernel's and 1 <= blocks <= the work items.
 template <int HD, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int heads,
-           int kv_heads, int S, int window, float scale, int bq, int bk, int blocks,
+           int kv_heads, int S, int hd, int window, float scale, int bq, int bk, int blocks,
            cudaStream_t st) {
   using Gm = Geo<HD>;
   const long long qtiles = (S + BQ - 1) / BQ;
   if (bq != BQ || bk != Gm::BK || heads % kv_heads || blocks < 1 ||
-      blocks > qtiles * heads || qtiles * heads > (1LL << 30)) {
+      blocks > qtiles * heads || qtiles * heads > (1LL << 30) || !instance_of<HD>(hd)) {
     return (int)cudaErrorInvalidValue;
   }
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -492,35 +549,29 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   memset(maps, 0, sizeof(maps));
-  int rc = encode_rows(&maps[0], q, HD, S, heads, BQ);
-  if (!rc) rc = encode_rows(&maps[1], k, HD, S, kv_heads, Gm::BK);
-  if (!rc) rc = encode_rows(&maps[2], v, HD, S, kv_heads, Gm::BK);
+  int rc = encode_rows(&maps[0], q, hd, S, heads, BQ);
+  if (!rc) rc = encode_rows(&maps[1], k, hd, S, kv_heads, Gm::BK);
+  if (!rc) rc = encode_rows(&maps[2], v, hd, S, kv_heads, Gm::BK);
   if (rc) return rc;
   auto kernel = forward_kernel<HD, LSE>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, NT, Gm::SMEM, st>>>(maps[0], maps[1], maps[2],
-                                       static_cast<__nv_bfloat16*>(out), lse, S,
+                                       static_cast<__nv_bfloat16*>(out), lse, S, hd,
                                        heads / kv_heads, heads, (int)qtiles, window, scale);
   return 0;
 }
 
-// hd 64, 128 or 192
+// hd from 1 to 256 (a multiple of 8) on the smallest instance that holds it
 template <bool LSE>
 int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int heads,
               int kv_heads, int S, int hd, int window, float scale, int bq, int bk, int blocks,
               cudaStream_t st) {
-  if (hd == 64)
-    return launch<64, LSE>(q, k, v, out, lse, heads, kv_heads, S, window, scale, bq, bk, blocks,
-                           st);
-  if (hd == 128)
-    return launch<128, LSE>(q, k, v, out, lse, heads, kv_heads, S, window, scale, bq, bk, blocks,
-                            st);
-  if (hd == 192)
-    return launch<192, LSE>(q, k, v, out, lse, heads, kv_heads, S, window, scale, bq, bk, blocks,
-                            st);
-  return (int)cudaErrorInvalidValue;
+  return by_instance(hd, [&](auto inst) {
+    return launch<decltype(inst)::value, LSE>(q, k, v, out, lse, heads, kv_heads, S, hd, window,
+                                              scale, bq, bk, blocks, st);
+  });
 }
 
 }  // namespace swa_tc

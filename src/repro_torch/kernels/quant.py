@@ -271,10 +271,6 @@ def factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str = "e4m3",
     return _factor_syrk_wire(x, max_dim, fmt, scale_mode, scratch)
 
 
-# launch_syrk's guard (csrc/kfac_factor.cu): lead * nb is a grid's y
-SYRK_MAX_BLOCKS = 65535
-
-
 def _factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str,
                       scale_mode: str, scratch: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -298,9 +294,6 @@ def _factor_syrk_wire(x: torch.Tensor, max_dim: int, fmt: str,
             and scratch.dtype == torch.float32 and scratch.is_contiguous(),
             f"{name}: scratch must be a contiguous {(*lead_shape, nb, b, b)} "
             f"f32, got {tuple(scratch.shape)} {scratch.dtype}")
-    require(lead * nb <= SYRK_MAX_BLOCKS,
-            f"{name}: {lead} matrices x {nb} blocks exceed the launch's "
-            f"{SYRK_MAX_BLOCKS} (grid y); no loop over the lead")
     t = b * (b + 1) // 2
     payload = torch.empty((*lead_shape, nb, t), dtype=q.FORMATS[fmt],
                           device=x.device)

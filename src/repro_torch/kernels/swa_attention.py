@@ -11,18 +11,29 @@
   serving path's prefill shapes.
 * Both run bf16 on the tensor cores (``csrc/swa_flash_wgmma.cuh``:
   persistent blocks taking 128-row query tiles, ``wgmma`` fed by TMA) and
-  f32 on the CUDA cores (``csrc/swa_flash_tile.cuh``), at head dim 64, 128
-  or 192 (every kernel here; another head dim raises). :func:`walk_geometry`,
+  f32 on the CUDA cores (``csrc/swa_flash_tile.cuh``). :func:`walk_geometry`,
   :func:`key_tiles`, :func:`tile_masked`, :func:`walk_blocks` and
   :func:`block_items` mirror the walk; the launch passes its geometry to
   the kernel, which refuses any other.
+* Head dims: every kernel here takes any hd from 1 to 256 (above, it
+  raises before any launch). The kernels are instanced at 64, 128, 192 and
+  256, and rows of hd run on the smallest instance that holds them
+  (:func:`head_dim_instance`), the columns past hd zero (TMA fills the
+  boxes past a row's end with zeros; the CUDA-core bodies mask their
+  loads) and not stored; the scale is hd^-0.5 at the true hd. TMA needs
+  16-byte row strides, so bf16 rows of hd % 8 != 0 go through a
+  zero-padded copy to the next multiple of 8 (:func:`_stored`), made here
+  and followed by the kernel all the same.
 * :func:`swa_flash_decode` (``csrc/swa_flash_decode.cu``) replaces
   ``repro/kernels/swa_attention.py::swa_flash_decode``: single-query flash
   decode over a dense or ring cache in its stored dtype, fp8 dequantized on
   read. Bound by the bytes of the visible cache rows. Split-K: the cache's
   slots are cut into :func:`decode_splits`, a block each, and the last
   block of a row to arrive merges the partials in split order, in the same
-  launch.
+  launch. Any G: a block walks its query rows in chunks of
+  :data:`DECODE_CHUNK` against each staged tile (past 16 rows, or at an hd
+  that is not an instance's, the general instances of
+  ``csrc/swa_flash_decode_wide.cu``).
 * :func:`swa_flash_bwd` (``csrc/swa_flash_bwd.cu``) replaces
   ``repro/kernels/swa_attention.py::swa_flash_bwd_dq`` and
   ``::swa_flash_bwd_dkdv``: the training backward from the forward's
@@ -61,20 +72,41 @@ LAUNCHES_HD: dict[tuple[str, int], int] = {}
 
 _FWD_DTYPES = (torch.float32, torch.bfloat16)
 _CACHE_DTYPES = _FWD_DTYPES + (torch.float8_e4m3fn, torch.float8_e5m2)
-_HEAD_DIMS = (64, 128, 192)
-MAX_GROUP = 16      # csrc/swa_flash_decode.cu MAX_G
-MAX_HEADS = 65535   # csrc/swa_flash.cu MAX_GRID_Y
+# the kernels' head-dim instances (csrc: Geo<HD>, Simt<HD>, Tile<HD>)
+HEAD_DIM_INSTANCES = (64, 128, 192, 256)
+MAX_HEAD_DIM = HEAD_DIM_INSTANCES[-1]
 # the decode's split-K (csrc/swa_flash_decode.cu MAX_SPLITS): blocks an SM
 # it aims for, and the most splits one merge reads
 DECODE_BLOCKS_PER_SM = 4
 DECODE_MAX_SPLITS = 64
+# query rows the decode takes against a staged tile at a time (GC)
+DECODE_CHUNK = 16
 
-# the forward walks' query rows per block and keys per tile: bf16 on the
-# tensor cores (csrc/swa_flash_wgmma.cuh BQ and Geo<hd>::BK), f32 on the
-# CUDA cores (csrc/swa_flash_tile.cuh Geo<hd>::BQ, BK: 2 threads a row, 4
-# at hd 192, and 16-key tiles there to stay in 48 KB of shared memory)
-TC_BQ, TC_BK = 128, {64: 128, 128: 64, 192: 64}
-SIMT_BQ, SIMT_BK = {64: 64, 128: 64, 192: 32}, {64: 32, 128: 32, 192: 16}
+# the forward walks' query rows per block and keys per tile, by instance:
+# bf16 on the tensor cores (csrc/swa_flash_wgmma.cuh BQ and Geo<HD>::BK),
+# f32 on the CUDA cores (csrc/swa_flash_tile.cuh Geo<HD>::BQ, BK: 2
+# threads a row, 4 from hd 192, and 16-key tiles there to stay in 48 KB of
+# shared memory)
+TC_BQ, TC_BK = 128, {64: 128, 128: 64, 192: 64, 256: 64}
+SIMT_BQ = {64: 64, 128: 64, 192: 32, 256: 32}
+SIMT_BK = {64: 32, 128: 32, 192: 16, 256: 16}
+
+
+def head_dim_instance(hd: int) -> int:
+    """The kernel instance that runs rows of head dim ``hd``: the smallest
+    of :data:`HEAD_DIM_INSTANCES` that holds them (the C side's
+    ``instance``). Raises above :data:`MAX_HEAD_DIM`."""
+    require(1 <= hd <= MAX_HEAD_DIM,
+            f"head dim {hd} not in [1, {MAX_HEAD_DIM}]: the attention "
+            f"kernels are instanced up to hd {MAX_HEAD_DIM}")
+    return next(i for i in HEAD_DIM_INSTANCES if hd <= i)
+
+
+def stored_head_dim(hd: int, dtype: torch.dtype) -> int:
+    """The row width a launch reads: bf16 rows on TMA need 16-byte strides,
+    so hd rounds up to a multiple of 8 there; f32 rows (element loads) keep
+    their own."""
+    return -(-hd // 8) * 8 if dtype == torch.bfloat16 else hd
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,11 +116,12 @@ def walk_geometry(s: int, hd: int, dtype: torch.dtype
     of one forward launch over S rows of head dim ``hd``. The tensor-core
     walk (bf16) launches its query tiles longest first, the last tile
     first; the CUDA-core walk (f32) in order."""
+    inst = head_dim_instance(hd)
     if dtype == torch.bfloat16:
-        bq, bk = TC_BQ, TC_BK[hd]
+        bq, bk = TC_BQ, TC_BK[inst]
         return bq, bk, tuple(reversed(range(-(-s // bq))))
-    bq = SIMT_BQ[hd]
-    return bq, SIMT_BK[hd], tuple(range(-(-s // bq)))
+    bq = SIMT_BQ[inst]
+    return bq, SIMT_BK[inst], tuple(range(-(-s // bq)))
 
 
 def key_tiles(qt: int, s: int, window: int, bq: int, bk: int
@@ -110,33 +143,39 @@ def tile_masked(qt: int, kt: int, window: int, bq: int, bk: int) -> bool:
                 and (window <= 0 or k0 > q0 + bq - 1 - window))
 
 
-# the backward's tiles. bf16: dq the forward walk's; dk/dv items of
-# TC_BKEY keys (two consumer warpgroups of 64) streaming stages of TC_BQS
-# query rows (csrc/swa_flash_bwd_wgmma.cuh BwdGeo<hd>::BKEY, BQS); at hd
-# 192 an item is TC_BKEY_SPLIT keys, one warpgroup summing their dV and
-# the other their dK. f32 on the CUDA cores: 128 / TPR rows (dq) or keys
-# (dk/dv) a block, TPR = hd / 32 threads a row (8 at hd 192), 32-row tiles
-# (16 at hd 192) (csrc/swa_flash_bwd.cu Simt<hd>).
+# the backward's tiles, by instance. bf16: dq the forward walk's items,
+# with K/V stages of TC_BK keys (TC_DQ_BK at hd 256, where the resident Q
+# and dO take 128 KB); dk/dv items of TC_BKEY keys (two consumer
+# warpgroups of 64) streaming stages of TC_BQS query rows
+# (csrc/swa_flash_bwd_wgmma.cuh BwdGeo<HD>::BK, BKEY, BQS); from hd 192
+# an item is TC_BKEY_SPLIT keys, one warpgroup summing their dV and the
+# other their dK. f32 on the CUDA cores: 128 / TPR rows (dq) or keys
+# (dk/dv) a block, TPR = hd / 32 threads a row (8 from hd 192), 32-row
+# tiles (16 from hd 192) (csrc/swa_flash_bwd.cu Simt<HD>).
 TC_BKEY, TC_BQS = 128, 64
 TC_BKEY_SPLIT = 64
-SIMT_BWD_ROWS = {64: 64, 128: 32, 192: 16}
-SIMT_BWD_TILE = {64: 32, 128: 32, 192: 16}
+TC_DQ_BK = {**TC_BK, 256: 32}
+SIMT_BWD_ROWS = {64: 64, 128: 32, 192: 16, 256: 16}
+SIMT_BWD_TILE = {64: 32, 128: 32, 192: 16, 256: 16}
 
 
 def tc_bkey(hd: int) -> int:
     """Keys per item of the bf16 dk/dv launch at head dim ``hd``."""
-    return TC_BKEY_SPLIT if hd == 192 else TC_BKEY
+    return TC_BKEY_SPLIT if head_dim_instance(hd) >= 192 else TC_BKEY
 
 
 def dq_geometry(s: int, hd: int, dtype: torch.dtype
                 ) -> tuple[int, int, tuple[int, ...]]:
     """(query rows per item, keys per tile, query tiles in launch order) of
-    one dq launch: bf16 walks the forward's tiles longest first
-    (:func:`walk_geometry`), f32 its own blocks in order."""
+    one dq launch: bf16 walks the forward's items longest first
+    (:func:`walk_geometry`) in key tiles of TC_DQ_BK, f32 its own blocks
+    in order."""
+    inst = head_dim_instance(hd)
     if dtype == torch.bfloat16:
-        return walk_geometry(s, hd, dtype)
-    bq = SIMT_BWD_ROWS[hd]
-    return bq, SIMT_BWD_TILE[hd], tuple(range(-(-s // bq)))
+        bq, _, order = walk_geometry(s, hd, dtype)
+        return bq, TC_DQ_BK[inst], order
+    bq = SIMT_BWD_ROWS[inst]
+    return bq, SIMT_BWD_TILE[inst], tuple(range(-(-s // bq)))
 
 
 def dkdv_geometry(s: int, hd: int, dtype: torch.dtype
@@ -147,8 +186,9 @@ def dkdv_geometry(s: int, hd: int, dtype: torch.dtype
     if dtype == torch.bfloat16:
         bkey = tc_bkey(hd)
         return bkey, TC_BQS, tuple(range(-(-s // bkey)))
-    bkey = SIMT_BWD_ROWS[hd]
-    return bkey, SIMT_BWD_TILE[hd], tuple(range(-(-s // bkey)))
+    inst = head_dim_instance(hd)
+    bkey = SIMT_BWD_ROWS[inst]
+    return bkey, SIMT_BWD_TILE[inst], tuple(range(-(-s // bkey)))
 
 
 def query_tiles(kt: int, s: int, window: int, bkey: int, bqs: int
@@ -197,8 +237,15 @@ def block_items(b: int, blocks: int, items: int) -> list[int]:
 
 def decode_tile(hd: int) -> int:
     """Cache slots a decode block stages in shared memory at a time
-    (``csrc/swa_flash_decode.cu`` Tile<HD>::T): 16 KB of f32 K rows."""
-    return 4096 // hd
+    (``csrc/swa_flash_decode.cu`` Tile<HD>::T): 16 KB of f32 K rows of the
+    instance's width."""
+    return 4096 // head_dim_instance(hd)
+
+
+def decode_chunks(g: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each chunk of a decode block's ``g`` query
+    rows, in the order the kernel takes them against every staged tile."""
+    return [(g0, min(DECODE_CHUNK, g - g0)) for g0 in range(0, g, DECODE_CHUNK)]
 
 
 def decode_splits(n: int, c: int, hd: int, sms: int) -> tuple[int, int]:
@@ -223,6 +270,22 @@ def _blocks(q: torch.Tensor, heads: int, tiles: int) -> int:
     if q.dtype != torch.bfloat16:
         return 0
     return walk_blocks(heads * tiles, sm_count(q.device.index))
+
+
+def _stored(ts: tuple[torch.Tensor, ...]) -> tuple[tuple[torch.Tensor, ...], int]:
+    """The operands as the launch reads them and their row width: bf16 rows
+    of hd % 8 != 0 as zero-padded copies (:func:`stored_head_dim`), else
+    the operands themselves."""
+    hd = ts[0].shape[-1]
+    w = stored_head_dim(hd, ts[0].dtype)
+    if w == hd:
+        return ts, hd
+    return tuple(torch.nn.functional.pad(t, (0, w - hd)) for t in ts), w
+
+
+def _trim(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """An output of a padded launch cut back to its rows' hd columns."""
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
@@ -263,24 +326,24 @@ def swa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
             and v.dtype == q.dtype,
             f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    head_dim_instance(hd)
     require(window >= 0, f"{name}: window must be >= 0")
-    require(bh <= MAX_HEADS, f"{name}: BH {bh} > {MAX_HEADS}")
-    out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return torch.empty_like(q)
+    (q, k, v), w = _stored((q, k, v))
     _check_aligned(name, q, k, v)
+    out = torch.empty_like(q)
     bq, bk, order = walk_geometry(s, hd, q.dtype)
     blocks = _blocks(q, bh, len(order))
     lib = build.load()[name]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), bh, s, hd, int(window), bq, bk,
+                           out.data_ptr(), bh, s, w, int(window), bq, bk,
                            blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
                            stream(q))
     build.check(rc, name)
     _count(name, hd)
-    return out
+    return _trim(out, hd)
 
 
 def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -297,26 +360,26 @@ def swa_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require(q.dtype in _FWD_DTYPES and k.dtype == q.dtype
             and v.dtype == q.dtype,
             f"swa_flash_fwd: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    require(hd in _HEAD_DIMS, f"swa_flash_fwd: head dim {hd} not in "
-                              f"{_HEAD_DIMS}")
+    head_dim_instance(hd)
     require(window >= 0, "swa_flash_fwd: window must be >= 0")
-    out = torch.empty_like(q)
     lse = torch.empty((bkv, g, s), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return out, lse
+        return torch.empty_like(q), lse
+    (q, k, v), w = _stored((q, k, v))
     _check_aligned("swa_flash_fwd", q, k, v)
+    out = torch.empty_like(q)
     bq, bk, order = walk_geometry(s, hd, q.dtype)
     blocks = _blocks(q, bkv * g, len(order))
     lib = build.load()["swa_flash_fwd"]
     with torch.cuda.device(q.device):
         rc = lib.swa_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), lse.data_ptr(), bkv, g, s, hd,
+                               out.data_ptr(), lse.data_ptr(), bkv, g, s, w,
                                int(window), bq, bk, blocks,
                                build.DTYPE_CODES[q.dtype], hd ** -0.5,
                                stream(q))
     build.check(rc, "swa_flash_fwd")
     _count("swa_flash_fwd", hd)
-    return out, lse
+    return _trim(out, hd), lse
 
 
 def _cache_strides(name: str, t: torch.Tensor, n: int, c: int, hd: int):
@@ -346,7 +409,9 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (N, G, hd); k/v (N, C, hd) or a (B, KV, C, hd) view of the serving
     cache (N = B * KV), stored dtype; pos (N,) i32; optional k_scale/v_scale
     (N, C) or (B, KV, C) f32. ``window > 0`` is the ring with C == window,
-    0 the dense cache. Returns (N, G, hd) f32."""
+    0 the dense cache. Returns (N, G, hd) f32. Any G and any hd up to
+    256; rows that are not whole 16-byte chunks take the kernel's element
+    loads (no copy of the cache)."""
     name = "swa_flash_decode"
     scales = [t for t in (k_scale, v_scale) if t is not None]
     for t in (q, k, v, pos, *scales):
@@ -378,8 +443,8 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(q.dtype in _FWD_DTYPES, f"{name}: q dtype {q.dtype}")
     require(k.dtype in _CACHE_DTYPES and v.dtype == k.dtype,
             f"{name}: cache dtypes {k.dtype}/{v.dtype}")
-    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
-    require(1 <= g <= MAX_GROUP, f"{name}: group {g} not in [1, {MAX_GROUP}]")
+    head_dim_instance(hd)
+    require(g >= 1, f"{name}: empty query group")
     require(window >= 0, f"{name}: window must be >= 0")
     if window:
         require(c == window, f"ring decode needs k.shape[-2] == window; got "
@@ -393,9 +458,13 @@ def swa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part = torch.empty((n, splits, g * hd + 2 * g), dtype=torch.float32,
                        device=q.device)
     arrived = counters(q, n)
-    lib = build.load()["swa_flash_decode"]
+    # G <= 16 at an instance's own hd: csrc/swa_flash_decode.cu; any other
+    # G or hd: the same kernel's general instances, swa_flash_decode_wide.cu
+    wide = g > DECODE_CHUNK or hd not in HEAD_DIM_INSTANCES
+    entry = "swa_flash_decode_wide" if wide else "swa_flash_decode"
+    fn = getattr(build.load()[entry], entry)
     with torch.cuda.device(q.device):
-        rc = lib.swa_flash_decode(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
@@ -429,7 +498,7 @@ def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and v.dtype == q.dtype and do.dtype == q.dtype,
             f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
     require(lse.dtype == torch.float32, f"{name}: lse must be float32")
-    require(hd in _HEAD_DIMS, f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    head_dim_instance(hd)
     require(window >= 0, f"{name}: window must be >= 0")
     delta = (do.float() * o.float()).sum(-1)
     return (swa_flash_bwd_dq(q, k, v, lse, delta, do, window=window),
@@ -437,49 +506,55 @@ def swa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_args(q, k, v, lse, delta, do):
+    """The pointers of a backward launch and the row width it reads."""
     require(delta.shape == lse.shape and delta.dtype == torch.float32
             and delta.is_cuda and delta.is_contiguous(),
             "swa_flash_bwd: delta must be a contiguous f32 (BKV, G, S)")
+    head_dim_instance(q.shape[-1])
+    (q, k, v, do), w = _stored((q, k, v, do))
     _check_aligned("swa_flash_bwd", q, k, v, do)
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), do.data_ptr())
+    # the padded copies are returned too: they must outlive the launch call
+    # (once it is enqueued, the allocator's stream order keeps them safe)
+    return (q, k, v, do), (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           lse.data_ptr(), delta.data_ptr(), do.data_ptr()), w
 
 
 def swa_flash_bwd_dq(q, k, v, lse, delta, do, *, window: int = 0):
     """dq (BKV, G, S, hd) f32 from the residuals and ``delta`` (the dq
     kernel alone; :func:`swa_flash_bwd` checks the operands)."""
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return dq
+        return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     bkv, g, s, hd = q.shape
-    head = _bwd_args(q, k, v, lse, delta, do)
+    keep, head, w = _bwd_args(q, k, v, lse, delta, do)
+    dq = torch.empty((bkv, g, s, w), dtype=torch.float32, device=q.device)
     bq, bk, order = dq_geometry(s, hd, q.dtype)
     blocks = _blocks(q, bkv * g, len(order))
     with torch.cuda.device(q.device):
         rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dq(
-            *head, dq.data_ptr(), bkv, g, s, hd, int(window), bq, bk, blocks,
+            *head, dq.data_ptr(), bkv, g, s, w, int(window), bq, bk, blocks,
             build.DTYPE_CODES[q.dtype], hd ** -0.5, stream(q))
     build.check(rc, "swa_flash_bwd_dq")
     _count("swa_flash_bwd_dq", hd)
-    return dq
+    return _trim(dq, hd)
 
 
 def swa_flash_bwd_dkdv(q, k, v, lse, delta, do, *, window: int = 0):
     """(dk, dv) (BKV, S, hd) f32, summed over each KV head's query group
     (the dkdv kernel alone)."""
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return dk, dv
+        return (torch.empty(k.shape, dtype=torch.float32, device=q.device),
+                torch.empty(k.shape, dtype=torch.float32, device=q.device))
     bkv, g, s, hd = q.shape
-    head = _bwd_args(q, k, v, lse, delta, do)
+    keep, head, w = _bwd_args(q, k, v, lse, delta, do)
+    dk = torch.empty((bkv, s, w), dtype=torch.float32, device=q.device)
+    dv = torch.empty((bkv, s, w), dtype=torch.float32, device=q.device)
     bkey, bqs, order = dkdv_geometry(s, hd, q.dtype)
     blocks = _blocks(q, bkv, len(order))
     with torch.cuda.device(q.device):
         rc = build.load()["swa_flash_bwd"].swa_flash_bwd_dkdv(
-            *head, dk.data_ptr(), dv.data_ptr(), bkv, g, s, hd, int(window),
+            *head, dk.data_ptr(), dv.data_ptr(), bkv, g, s, w, int(window),
             bkey, bqs, blocks, build.DTYPE_CODES[q.dtype], hd ** -0.5,
             stream(q))
     build.check(rc, "swa_flash_bwd_dkdv")
     _count("swa_flash_bwd_dkdv", hd)
-    return dk, dv
+    return _trim(dk, hd), _trim(dv, hd)

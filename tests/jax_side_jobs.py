@@ -4,7 +4,9 @@ own on one CPU (``tests/jax_one_cpu.py``).
 This module imports JAX and the JAX package but not torch nor the port, so
 a child starts in half the time the test modules take to import.
 ``tests/test_torch_moe_wire_parity.py`` runs :func:`moe_wire_capture` and
-:func:`wire_routes`, ``tests/test_torch_launch_parity.py``
+:func:`wire_routes`, ``tests/test_torch_swa_attention_parity.py``
+:func:`head_dim_model`, ``tests/test_torch_decode_split.py``
+:func:`decode_cases`, ``tests/test_torch_launch_parity.py``
 :func:`hlo_flops`, ``tests/test_torch_tp_align_parity.py``
 :func:`tp_aligned_steps` and ``tests/test_torch_dist_families_parity.py``
 :func:`shardmap_steps` and :func:`shard_wire_raw`; the tests pass in
@@ -15,6 +17,7 @@ values, and get numpy back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 
 import jax
@@ -217,6 +220,60 @@ def shard_wire_raw(family: str, cfg_kw: dict, wire: str, batch: dict,
         out.append({k: v for k, v in wired.items() if v})
     return out
 
+
+
+def head_dim_model(cfg_kw: dict, batch: dict, toks, s: int, damp: float,
+                   lr: float, mom: float) -> dict:
+    """An ad-hoc reduced llama3_2_1b (``cfg_kw`` over ``reduced()``, built
+    here and never registered) from :func:`_family`'s params: the forward
+    logits on ``batch``; a prefill of ``toks[:, :s]`` on the dense f32
+    cache and teacher-forced decode steps over the rest of ``toks`` (the
+    prefill's logits, then each step's); and one capture step
+    (``make_train_step``, every flag set). Returns {"params", "state",
+    "logits", "served", "stepped": (params, state), "loss"}, numpy."""
+    from repro.serve import ServeConfig
+    jm, jp = _family("llama3_2_1b", cfg_kw)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    logits, _ = jax.jit(jm.forward)(jp, jb)
+    serve = ServeConfig(backend="ref", kv_cache="dense", kv_dtype="f32")
+    lg, cache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])},
+                           max_len=toks.shape[1], serve=serve)
+    step = jax.jit(functools.partial(jm.decode_step, serve=serve))
+    served = [lg]
+    for i in range(s, toks.shape[1]):
+        lg, cache = step(jp, cache, jnp.asarray(toks[:, i]))
+        served.append(lg[:, None])
+    jopt = SPNGD(jm.loss, jm.site_infos(), jm.fstats, jm.site_counts,
+                 NGDConfig(damping=damp, backend="ref"))
+    js = jax.jit(jopt.init)(jp)
+    flags = {k: jnp.asarray(True) for k in jopt.stat_names()}
+    p1, s1, m = jax.jit(make_train_step(jm, jopt))(jp, js, jb, flags, damp,
+                                                   lr, mom)
+    return {"params": _np(jp), "state": _np(js),
+            "logits": np.asarray(logits),
+            "served": np.asarray(jnp.concatenate(served, axis=1)),
+            "stepped": (_np(p1), _np(s1)), "loss": float(m["loss"])}
+
+
+def _operand(x):
+    """A cache operand from the test: (numpy, dtype name) -> jax array."""
+    if x is None:
+        return None
+    arr, name = x
+    if name.startswith("float8"):
+        return jnp.asarray(arr).view(getattr(jnp, name))
+    return jnp.asarray(arr).astype(getattr(jnp, name))
+
+
+def decode_cases(jobs: list) -> list:
+    """``repro``'s interpret-mode ``ops.swa_decode`` on each job's (q, k, v,
+    pos, window, k_scale, v_scale): the outputs, numpy."""
+    from repro.kernels import ops
+    return [np.array(ops.swa_decode(jnp.asarray(q), _operand(k), _operand(v),
+                                    jnp.asarray(pos), window=window,
+                                    k_scale=_operand(ks), v_scale=_operand(vs),
+                                    interpret=True))
+            for q, k, v, pos, window, ks, vs in jobs]
 
 
 def run_jobs(calls: list) -> list:

@@ -16,22 +16,29 @@ its arithmetic are checked through two mirrors:
   against ``repro``'s ``swa_flash_decode`` in interpret mode and the
   port's ``ref.swa_decode_ref`` at ``chip_smoke.py``'s ``DEC_TOL``. Cases:
   pos 0, pos on both sides of every split boundary, pos C - 1, splits with
-  nothing visible, a ring unwrapped and wrapped, G 1 and 16, hd 64 and
-  128, one tile a split and several.
+  nothing visible, a ring unwrapped and wrapped, G 1 to 71 (past 16 the
+  query rows go in chunks of ``DECODE_CHUNK`` against each staged tile,
+  ``decode_chunks``, each chunk's state kept between tiles), hd 64, 128,
+  192 and the widths on another instance's tiles (80, 96, 100, 256), one
+  tile a split and several. ``repro``'s side of the emulation cases runs in
+  a one-CPU child (``tests/jax_side_jobs.py decode_cases``), started when
+  the module's tests start: XLA's pools stall in a loaded test worker.
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from hypothesis_compat import given, settings, st
-from repro.kernels import ops as jops
 from repro_torch.kernels import ref, swa_attention
 from repro_torch.quant import quant
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import jax_one_cpu  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -44,9 +51,20 @@ NEG_INF, MASKED = -1e30, -5e29           # csrc/common.cuh REPRO_NEG_INF, REPRO_
 H100_SMS = 132
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the emulations' many small products: the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @settings(deadline=None)
 @given(n=st.integers(1, 600), c=st.integers(1, 70000),
-       hd=st.sampled_from([64, 128]), sms=st.integers(1, 200))
+       hd=st.sampled_from([64, 128, 80, 96, 100, 256]),
+       sms=st.integers(1, 200))
 def test_splits_cover_the_cache(n, c, hd, sms):
     splits, per = swa_attention.decode_splits(n, c, hd, sms)
     tile = swa_attention.decode_tile(hd)
@@ -73,6 +91,31 @@ def test_splits_cover_the_cache_at_hd_192(n, c, sms):
     want = -(-swa_attention.DECODE_BLOCKS_PER_SM * sms // n)
     assert splits >= min(tiles, want, swa_attention.DECODE_MAX_SPLITS) // 2
     assert splits <= max(1, min(tiles, want))
+
+
+@pytest.mark.parametrize("g", [1, 15, 16, 17, 48, 71, 200])
+def test_decode_chunks_cover_every_row_once(g):
+    """A block's G query rows in chunks of DECODE_CHUNK, in order: every
+    row in exactly one chunk, only the last one short; one chunk up to 16
+    (whose accumulators stay in registers)."""
+    chunks = swa_attention.decode_chunks(g)
+    rows = [r for g0, n in chunks for r in range(g0, g0 + n)]
+    assert rows == list(range(g))
+    assert all(n == swa_attention.DECODE_CHUNK for _, n in chunks[:-1])
+    assert 1 <= chunks[-1][1] <= swa_attention.DECODE_CHUNK
+    assert (len(chunks) == 1) == (g <= 16)
+
+
+@pytest.mark.parametrize("hd,inst", [(1, 64), (64, 64), (80, 128),
+                                     (96, 128), (100, 128), (128, 128),
+                                     (136, 192), (200, 256), (256, 256)])
+def test_decode_tiles_are_the_instances(hd, inst):
+    """Rows of hd run on the smallest instance that holds them, in its
+    tiles of 4096 // instance slots; above 256 the decode raises."""
+    assert swa_attention.head_dim_instance(hd) == inst
+    assert swa_attention.decode_tile(hd) == 4096 // inst
+    with pytest.raises(ValueError, match="head dim 264"):
+        swa_attention.decode_tile(264)
 
 
 def test_splits_at_nemotron_shapes():
@@ -126,15 +169,20 @@ def _emulate(q, k, v, pos, window=0, k_scale=None, v_scale=None,
                 idx = torch.from_numpy(np.minimum(slots, c - 1))
                 kt = torch.where(vis[:, None], kf[row, idx], 0.0)
                 vt = torch.where(vis[:, None], vf[row, idx], 0.0)
-                sc = torch.where(vis[None, :], qs[row] @ kt.T,
-                                 torch.tensor(NEG_INF))
-                m_new = torch.maximum(m, sc.max(-1).values)
-                pv = torch.where(sc > MASKED, torch.exp(sc - m_new[:, None]),
-                                 torch.tensor(0.0))
-                corr = torch.exp(m - m_new)
-                d = d * corr + pv.sum(-1)
-                acc = acc * corr[:, None] + pv @ vt
-                m = m_new
+                # the staged tile serves each chunk of query rows in turn,
+                # each chunk's (m, d, acc) kept from the tile before
+                for g0, gn in swa_attention.decode_chunks(g):
+                    r = slice(g0, g0 + gn)
+                    sc = torch.where(vis[None, :], qs[row, r] @ kt.T,
+                                     torch.tensor(NEG_INF))
+                    m_new = torch.maximum(m[r], sc.max(-1).values)
+                    pv = torch.where(sc > MASKED,
+                                     torch.exp(sc - m_new[:, None]),
+                                     torch.tensor(0.0))
+                    corr = torch.exp(m[r] - m_new)
+                    d[r] = d[r] * corr + pv.sum(-1)
+                    acc[r] = acc[r] * corr[:, None] + pv @ vt
+                    m[r] = m_new
             parts.append((m, d, acc))
         if live == 1:
             m, d, acc = parts[0]
@@ -177,19 +225,33 @@ def _cache(rng, n, c, hd, kind):
     return kp, vp, ks, vs
 
 
-def _jax(t):
+def _np(t):
+    """A cache operand for repro's side: (numpy array, its dtype's name),
+    bf16 upcast to f32 and fp8 as its bytes (the child rebuilds both)."""
     if t is None:
         return None
     if t.dtype == torch.bfloat16:
-        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        return t.float().numpy(), "bfloat16"
     if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        dt = {torch.float8_e4m3fn: jnp.float8_e4m3fn,
-              torch.float8_e5m2: jnp.float8_e5m2}[t.dtype]
-        return jnp.asarray(t.view(torch.uint8).numpy()).view(dt)
-    return jnp.asarray(t.numpy())
+        return t.view(torch.uint8).numpy(), {
+            torch.float8_e4m3fn: "float8_e4m3fn",
+            torch.float8_e5m2: "float8_e5m2"}[t.dtype]
+    return t.numpy(), "float32"
 
 
-@pytest.mark.parametrize("g,hd,c,window,kind,sms", [
+def _case_inputs(g, hd, c, window, kind, sms):
+    """The case's (n, q, k, v, pos, k_scale, v_scale), from its seed."""
+    rng = np.random.RandomState(g * 131 + hd + c + sms)
+    n = 36
+    splits, per = swa_attention.decode_splits(n, c, hd, sms)
+    assert splits > 1
+    pos = _boundary_positions(c, per, window, rng, n)
+    q = torch.from_numpy(rng.randn(n, g, hd).astype(np.float32))
+    k, v, ks, vs = _cache(rng, n, c, hd, kind)
+    return n, q, k, v, pos, ks, vs
+
+
+_CASES = [
     (4, 64, 256, 0, "f32", H100_SMS),        # one tile a split
     (1, 64, 256, 256, "e4m3", H100_SMS),     # ring, G 1
     (16, 128, 128, 128, "e5m2", H100_SMS),   # ring, G 16, hd 128
@@ -199,26 +261,55 @@ def _jax(t):
     (12, 192, 420, 0, "bf16", H100_SMS),     # hd 192, G 12, 21-slot tiles
     (12, 192, 256, 256, "e4m3", 40),         # ring, hd 192, a ragged tile,
                                              # several tiles a split
-])
+    (48, 128, 256, 0, "f32", H100_SMS),      # starcoder's G 48: 3 chunks
+    (71, 64, 256, 256, "e4m3", 40),          # falcon's G 71: 5 chunks, ring,
+                                             # several tiles a split
+    (71, 128, 128, 0, "bf16", H100_SMS),
+    (48, 64, 512, 512, "bf16", 30),
+    (8, 80, 256, 0, "e4m3", H100_SMS),       # hd 80 on the 128 instance
+    (8, 96, 256, 0, "bf16", 40),
+    (4, 100, 256, 0, "f32", H100_SMS),       # hd 100: element loads
+    (17, 256, 256, 256, "e4m3", H100_SMS),   # hd 256, 16-slot tiles
+]
+_children: dict = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _repro_decodes():
+    """repro's interpret-mode swa_flash_decode on every case's inputs, in
+    one child started before the module's tests."""
+    jobs = []
+    for g, hd, c, window, kind, sms in _CASES:
+        _, q, k, v, pos, ks, vs = _case_inputs(g, hd, c, window, kind, sms)
+        jobs.append((q.numpy(), _np(k), _np(v), pos.numpy(), window, _np(ks),
+                     _np(vs)))
+    _children["decode"] = jax_one_cpu.start("jax_side_jobs", "decode_cases",
+                                            jobs)
+    yield
+    for child in _children.values():
+        child.close()
+
+
+_results: dict = {}
+
+
+def _repro(i):
+    if "decode" not in _results:
+        _results["decode"] = _children["decode"].result()
+    return torch.from_numpy(_results["decode"][i])
+
+
+@pytest.mark.parametrize("g,hd,c,window,kind,sms", _CASES)
 def test_split_emulation_matches_repro_and_plain(g, hd, c, window, kind,
                                                  sms):
-    rng = np.random.RandomState(g * 131 + hd + c + sms)
-    n = 36
+    n, q, k, v, pos, ks, vs = _case_inputs(g, hd, c, window, kind, sms)
     splits, per = swa_attention.decode_splits(n, c, hd, sms)
-    assert splits > 1
-    pos = _boundary_positions(c, per, window, rng, n)
-    q = torch.from_numpy(rng.randn(n, g, hd).astype(np.float32))
-    k, v, ks, vs = _cache(rng, n, c, hd, kind)
     got = _emulate(q, k, v, pos, window, ks, vs, sms)
     want = ref.swa_decode_ref(q, k, v, pos, window=window, k_scale=ks,
                               v_scale=vs)
     torch.testing.assert_close(got, want, **DEC_TOL)
-    jout = jops.swa_decode(jnp.asarray(q.numpy()), _jax(k), _jax(v),
-                           jnp.asarray(pos.numpy()), window=window,
-                           k_scale=_jax(ks), v_scale=_jax(vs),
-                           interpret=True)
-    torch.testing.assert_close(got, torch.from_numpy(np.array(jout)),
-                               **DEC_TOL)
+    jout = _repro(_CASES.index((g, hd, c, window, kind, sms)))
+    torch.testing.assert_close(got, jout, **DEC_TOL)
     # the splits past pos are dead: e.g. pos 0 has one live split, which
     # writes its output itself
     lives = [max(1, -(-min(c, int(p) + 1) // per)) for p in pos]

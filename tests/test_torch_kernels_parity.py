@@ -243,7 +243,8 @@ def test_kernel_sources_and_build_flags():
     """Every kernel is built from sources in the package for sm_90a, with a
     plain C interface (no PyTorch headers) and no library kernels: the
     (BH, S, hd) attention forward, the two attention kernels of the serving
-    path, the factor-sum, block-preconditioning and attention-backward
+    path (the decode's general instances, any G and hd, a library of their
+    own), the factor-sum, block-preconditioning and attention-backward
     kernels of the training path, the three Newton-Schulz kernels of Stage 4 and the fp8 rows and
     wire-capture kernels, each entry point of ``build.SIGNATURES`` defined
     in its source."""
@@ -251,6 +252,7 @@ def test_kernel_sources_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert set(build.SIGNATURES) == {"swa_flash", "swa_flash_fwd",
                                      "swa_flash_decode",
+                                     "swa_flash_decode_wide",
                                      "swa_flash_bwd", "kfac_factor",
                                      "kfac_precond", "newton_schulz",
                                      "quant_pack"}

@@ -627,3 +627,38 @@ def test_syrk_partition_matches_jax_factor_sum(n, d, max_dim, sms):
     assert _rel(got, want) <= TOL
     np.testing.assert_array_equal(got, np.swapaxes(got, -1, -2))
     assert (most > 1) == (sms == 132)
+
+
+@pytest.mark.parametrize("inner,items", [
+    (3, 66000),     # f32 factor_syrk below F32_SPLIT_ROWS: the tile pairs
+                    # of b 100 (2 tiles), then the (matrix, block)
+    (1, 66000),     # the narrow route at one chunk: (16384, 66000), b 1
+    (4, 70000),     # the reduce: 32-entry runs of a (b, b) block, b 11
+    (2, 66000),     # factor_syrk_wire's pack: 8-row groups, b 16
+    (2, 65536),     # ns_inverse_blocks: a cluster of 2 per factor block
+    (16, 4200),     # f32 swa_flash: 16 query tiles per head, BH 4200
+])
+def test_folded_grids_cover_every_item_once(inner, items):
+    """Past grid y's 65,535 the launches fold their (matrix, block) items
+    into grid x (kernels/common.py fold_grid, the kernels' own ``blockIdx.x
+    % inner`` and ``/ inner``): every (position, item) is one block, an
+    item's blocks neighbour each other and the items go in order, as grid
+    y took them; past grid x's 2^31 - 1 the fold refuses."""
+    from repro_torch.kernels.common import GRID_X_MAX, fold_grid
+    grid = np.asarray(fold_grid(inner, items))
+    assert len(grid) == inner * items > 65535
+    seen = np.zeros((items, inner), np.int32)
+    np.add.at(seen, (grid[:, 1], grid[:, 0]), 1)
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(grid[:, 1], np.repeat(np.arange(items),
+                                                        inner))
+    with pytest.raises(ValueError, match="grid x"):
+        fold_grid(inner, GRID_X_MAX // inner + 1)
+
+
+def test_f32_split_past_65535_blocks():
+    """The narrow route at 66,000 blocks of one column (chip_smoke's case)
+    asks one chunk, whose partials the reduce sums block by block."""
+    asked, rows, chunks = kern.syrk_f32_split(16384, 1, 66000, 132)
+    assert kern.syrk_f32_route(16384, 1) == "narrow"
+    assert (asked, chunks) == (1, 1) and rows >= 16384

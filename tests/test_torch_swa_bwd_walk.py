@@ -13,7 +13,9 @@ and their arithmetic are checked through two mirrors:
   (query, key) pair of every query head is visited exactly once, no stage
   outside the band is visited, the stages that skip the mask need none and
   the skipped ones hold no visible pair, and the persistent blocks take
-  every item exactly once (``walk_blocks``, ``block_items``);
+  every item exactly once (``walk_blocks``, ``block_items``); other head
+  dims walk as their instance (80, 96, 100 as 128; 256 with 64-key dk/dv
+  items, as 192, and dq stages of 32 keys);
 * an emulation of both kernels' bf16 arithmetic at their tile sizes (bf16
   products summed in f32, the scale on the f32 score, ``exp2`` with log2e,
   P and dS each split as ``hi`` = the value cut to its top 16 bits and
@@ -54,6 +56,16 @@ def _consumer_keys(bkey):
     return range(bkey // HALF)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the emulations' many small products: the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _visible(rows, keys, window):
     """(len(rows), len(keys)) mask: key j visible to query i iff
     i - window < j <= i (window 0: causal)."""
@@ -82,9 +94,23 @@ def test_dkdv_walk_visits_every_visible_pair_once(s, window_of, hd):
     127 and 130 put the band's edges on 64-row boundaries: a consumer's
     first key one short of a stage's last query's window, a band's last
     query and a consumer's last visible key at a tile's first row."""
-    window = window_of(s)
+    _dkdv_visits(s, window_of(s), hd)
+
+
+@pytest.mark.parametrize("hd", [80, 96, 100, 256])
+@pytest.mark.parametrize("s,window", [(517, 0), (1000, 130), (1024, 127)])
+def test_dkdv_walk_visits_every_visible_pair_once_at_other_widths(s, window,
+                                                                   hd):
+    """hd 80, 96 and 100 walk as 128 (two consumers of 64 keys), 256 as
+    192 (one 64-key item whose consumers split dV and dK)."""
+    _dkdv_visits(s, window, hd)
+
+
+def _dkdv_visits(s, window, hd):
+    """Every visible pair of the bf16 dk/dv walk at (S, window, hd) once."""
     bkey, bqs, order = swa_attention.dkdv_geometry(s, hd, torch.bfloat16)
-    assert (bkey, bqs) == ({64: 128, 128: 128, 192: 64}[hd], 64)
+    inst = swa_attention.head_dim_instance(hd)
+    assert (bkey, bqs) == ({64: 128, 128: 128, 192: 64, 256: 64}[inst], 64)
     assert order == tuple(range(-(-s // bkey)))
     visits = np.zeros((s, s), np.int16)
     work = []
@@ -126,6 +152,9 @@ def test_dkdv_walk_visits_every_visible_pair_once(s, window_of, hd):
     (517, 64, 0, 4),
     (50, 64, 0, 1),         # fewer items than SMs
     (4096, 192, 0, 8),      # nemotron_4_340b's attention, batch 1
+    (4096, 256, 0, 16),     # gemma-7b's, batch 1
+    (4096, 256, 0, 1),      # gemma-2b's (one KV head): fewer items than SMs
+    (4096, 80, 0, 32),      # phi-2's
 ])
 def test_dkdv_persistent_blocks_take_every_item_once(s, hd, window,
                                                      kv_heads):
@@ -179,6 +208,25 @@ def test_bwd_geometry_of_each_body_at_hd_192(s):
                                                                 blocks)
     assert swa_attention.dkdv_geometry(s, 192, torch.float32) == (16, 16,
                                                                   blocks)
+
+
+@pytest.mark.parametrize("s", [50, 517, 4096])
+def test_bwd_geometry_of_each_body_at_hd_256(s):
+    """hd 256: bf16 dq the forward walk's items in 32-key stages (Q and dO
+    of 128 rows take 128 KB), dk/dv 64-key items; f32 8 threads a row, 16
+    query rows (dq) or keys (dk/dv) a block, and 16-row tiles. hd 80, 96
+    and 100 take the 128 instance's geometry, in both bodies."""
+    bq, _, order = swa_attention.walk_geometry(s, 256, torch.bfloat16)
+    assert swa_attention.dq_geometry(s, 256, torch.bfloat16) == (bq, 32,
+                                                                 order)
+    assert swa_attention.dkdv_geometry(s, 256, torch.bfloat16) == (
+        64, 64, tuple(range(-(-s // 64))))
+    blocks = tuple(range(-(-s // 16)))
+    for geo in (swa_attention.dq_geometry, swa_attention.dkdv_geometry):
+        assert geo(s, 256, torch.float32) == (16, 16, blocks)
+        for hd in (80, 96, 100):
+            for dt in (torch.bfloat16, torch.float32):
+                assert geo(s, hd, dt) == geo(s, 128, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +358,12 @@ def _rel(got, want):
 
 _CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128, 192)
           for w in (0, 7, 50)]
+# widths on another instance's tiles (zero columns add nothing to an f32
+# sum, so the emulation runs at the true hd)
+_OTHER_WIDTHS = [(40, 96, 7), (40, 100, 50), (40, 256, 0)]
 
 
-@pytest.mark.parametrize("s,hd,window", _CASES)
+@pytest.mark.parametrize("s,hd,window", _CASES + _OTHER_WIDTHS)
 def test_bwd_arithmetic_matches_swa_attention_bwd(s, hd, window):
     """BKV 2, G 2: the emulated dq, dk and dv within BWD_REL_TOL of
     repro's ops.swa_attention_bwd (interpret mode, bq = bk = 8) and of the

@@ -9,7 +9,9 @@ and its arithmetic are checked through two mirrors:
   (query, key) pair is visited exactly once, no key tile outside the band
   is visited, the tiles that skip the mask need none, the query tiles
   launch longest first, and the persistent blocks take every work item
-  exactly once (``walk_blocks``, ``block_items``);
+  exactly once (``walk_blocks``, ``block_items``); every head dim from 1
+  to 256 walks as the instance that holds it (``head_dim_instance``), at
+  80, 96, 100 and 256 too;
 * an emulation of the kernel's bf16 arithmetic, tile by tile at its tile
   sizes (bf16 products summed in f32, the online softmax in f32 with the
   scale applied to the f32 score, P split as ``P_hi`` = P cut to its top
@@ -46,6 +48,16 @@ NEG_INF, MASKED = -1e30, -5e29           # csrc/common.cuh REPRO_NEG_INF, REPRO_
 LOG2E = 1.4426950408889634               # csrc/swa_flash_wgmma.cuh LOG2E
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the emulations' many small products: the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _visible(rows, keys, window):
     """(len(rows), len(keys)) mask: key j visible to query i iff
     i - window < j <= i (window 0: causal)."""
@@ -66,9 +78,22 @@ def _visible(rows, keys, window):
                          ids=["causal", "w1", "w7", "w256", "w_past_s"])
 @pytest.mark.parametrize("s", [50, 517, 1000, 1024, 4096])
 def test_walk_visits_every_visible_pair_once(s, window_of, hd):
-    window = window_of(s)
+    _walk_visits(s, window_of(s), hd)
+
+
+@pytest.mark.parametrize("hd", [80, 96, 100, 256])
+@pytest.mark.parametrize("s,window", [(517, 0), (1000, 7), (1024, 256)])
+def test_walk_visits_every_visible_pair_once_at_other_widths(s, window, hd):
+    """Widths on another instance's tiles: hd 80, 96 and 100 walk as 128,
+    256 at its own instance (64-key tiles)."""
+    _walk_visits(s, window, hd)
+
+
+def _walk_visits(s, window, hd):
+    """Every visible pair of the bf16 walk at (S, window, hd) once."""
     bq, bk, order = swa_attention.walk_geometry(s, hd, torch.bfloat16)
-    assert (bq, bk) == (128, {64: 128, 128: 64, 192: 64}[hd])
+    inst = swa_attention.head_dim_instance(hd)
+    assert (bq, bk) == (128, {64: 128, 128: 64, 192: 64, 256: 64}[inst])
     qtiles = -(-s // bq)
     assert sorted(order) == list(range(qtiles))
     visits = np.zeros((s, s), np.int16)
@@ -104,6 +129,9 @@ def test_walk_visits_every_visible_pair_once(s, window_of, hd):
     (1000, 128, 7, 3),
     (50, 64, 0, 1),         # fewer items than SMs
     (4096, 192, 0, 96),     # nemotron_4_340b's attention, batch 1
+    (4096, 256, 0, 16),     # gemma-7b's attention, batch 1
+    (4096, 96, 0, 32),      # phi-3-mini's
+    (4096, 80, 0, 32),      # phi-2's
 ])
 def test_persistent_blocks_take_every_item_once(s, hd, window, heads):
     """Item i is query tile order[i // heads], head i % heads; block b of
@@ -143,6 +171,28 @@ def test_walk_geometry_of_the_cuda_core_body_at_hd_192():
         32, 16, tuple(range(32)))
     assert swa_attention.walk_geometry(1000, 192, torch.bfloat16) == (
         128, 64, (7, 6, 5, 4, 3, 2, 1, 0))
+
+
+def test_every_head_dim_walks_as_its_instance():
+    """hd 1 to 256 take the smallest instance of 64, 128, 192 and 256 that
+    holds them, and walk exactly as it does in both bodies; bf16 rows of hd
+    % 8 != 0 launch on a copy padded to the next multiple of 8; hd 264 and
+    0 raise."""
+    for hd in range(1, 257):
+        inst = swa_attention.head_dim_instance(hd)
+        assert inst == next(i for i in (64, 128, 192, 256) if hd <= i)
+        for dt in (torch.bfloat16, torch.float32):
+            assert swa_attention.walk_geometry(1000, hd, dt) == \
+                swa_attention.walk_geometry(1000, inst, dt)
+        stored = swa_attention.stored_head_dim(hd, torch.bfloat16)
+        assert stored % 8 == 0 and hd <= stored < hd + 8
+        assert swa_attention.head_dim_instance(stored) == inst
+        assert swa_attention.stored_head_dim(hd, torch.float32) == hd
+    assert swa_attention.walk_geometry(1000, 256, torch.float32) == (
+        32, 16, tuple(range(32)))
+    for bad in (0, 264):
+        with pytest.raises(ValueError, match=f"head dim {bad} not in"):
+            swa_attention.walk_geometry(1000, bad, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +286,12 @@ def _flash_refs(q, k, v, window):
 
 _CASES = [(s, hd, w) for s in (40, 160) for hd in (64, 128, 192)
           for w in (0, 7, 50)]
+# widths on another instance's tiles (the kernel's zero columns add
+# nothing to an f32 sum, so the emulation runs at the true hd)
+_OTHER_WIDTHS = [(40, 80, 7), (40, 96, 0), (40, 100, 50), (40, 256, 7)]
 
 
-@pytest.mark.parametrize("s,hd,window", _CASES)
+@pytest.mark.parametrize("s,hd,window", _CASES + _OTHER_WIDTHS)
 def test_walk_arithmetic_matches_swa_flash_fwd(s, hd, window):
     """BKV 2, G 2: the emulated bf16 output within SWA_BF16_TOL (one bf16
     rounding of the f32 attention) and lse within LSE_TOL of repro's
@@ -252,7 +305,7 @@ def test_walk_arithmetic_matches_swa_flash_fwd(s, hd, window):
                                    msg=lambda m: f"{label}: {m}")
 
 
-@pytest.mark.parametrize("s,hd,window", _CASES)
+@pytest.mark.parametrize("s,hd,window", _CASES + _OTHER_WIDTHS)
 def test_walk_arithmetic_matches_swa_flash(s, hd, window):
     """BH 4, KV already expanded (G 1): the emulated bf16 output within
     SWA_BF16_TOL of repro's swa_flash and the port's plain version."""
